@@ -18,3 +18,10 @@ except ImportError:
     from _hyp import install_shim
 
     install_shim()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without a "
+                   "CUDA device (run on the card: python -m pytest -m cuda "
+                   "tests/test_torch_*.py)")
