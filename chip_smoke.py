@@ -3,51 +3,113 @@
 
     python3 chip_smoke.py
 
-Builds every kernel of the serve path from the sources in the checkout,
-holds each against its plain PyTorch version on the card, drives the
-port's serve engine at the full width of ``llama3.2-3b`` (random bf16
-weights from a seed), and times each kernel beside its bound, its plain
-version and a library call.  Raises at the first failed check, so any
-failure exits non-zero; with no CUDA device, or outside a checkout of the
-repository, it exits non-zero before printing any result.
+Builds every kernel of the serve and training paths from the sources in
+the checkout, holds each against its plain PyTorch version on the card,
+drives the port's serve engine and its trainer at the full width of
+``llama3.2-3b`` (random weights from a seed), and times each kernel beside
+its bound, its plain version and a library call.  Raises at the first
+failed check, so any failure exits non-zero; with no CUDA device, or
+outside a checkout of the repository, it exits non-zero before printing
+any result.
 
 Phases:
   1. the card (nvidia-smi name and power limit) and versions; TF32 off
   2. build the kernels (one nvcc per source, started together)
   3. moa_reduce against moa_reduce_plain, torch.equal, at the kernel-test
      shapes and dtypes and at the serve path's own shapes
-  4. reduced-config parity: the engine on CUDA against the engine on CPU,
-     same weights: greedy tokens equal, decode logits within 1e-3
-  5. full width: llama3.2-3b, 28 layers, bf16, 8 greedy requests of 128 to
-     1024 prompt tokens and 32 new tokens on 4 slots; every request
-     retires with 32 tokens, no logit is NaN, and the kernel ran exactly
-     2 * layers times per dispatch
-  6. kernel timings at the path shapes (CUDA events, median of 50)
-  7. the kernels line, then the card line, then the result line
+  4. flash attention: the forward kernel against flash_attention_plain
+     (2e-5 fp32; bf16 2e-2 and relative norm error 1e-2) and the dq and
+     dk/dv kernels against flash_attention_plain_bwd and against autograd
+     through the plain forward (fp32 rtol 1e-4 atol 1e-5; bf16 relative
+     norm error 1e-2), causal and not, at the kernel-test shapes and the
+     training path's
+  5. serve, reduced-config parity: the engine on CUDA against the engine
+     on CPU, same weights: greedy tokens equal, decode logits within 1e-3
+  6. serve, full width: llama3.2-3b, 28 layers, bf16, 8 greedy requests
+     of 128 to 1024 prompt tokens and 32 new tokens on 4 slots; every
+     request retires with 32 tokens, no logit is NaN, and moa_reduce ran
+     exactly 2 * layers times per dispatch
+  7. moa_reduce timings at the serve path shapes (CUDA events, median of 50)
+  8. train, reduced-config parity: 3 AdamW steps of the reduced fp32
+     config from one state on the CPU (chunked attention) and on CUDA (the
+     kernels): losses within 1e-4, kernels launched layers * steps times
+  9. train, full width: llama3.2-3b, fp32 masters, bf16 compute, remat,
+     batch 2 x seq 2048: loss and gradient norm through the kernels
+     against the chunked attention on one state and batch (loss within
+     2e-3, norm within 0.1%), then 1 warm-up and 3 timed AdamW steps (peak
+     lr 3e-4, 100-step warm-up): finite losses and grad norms, the first
+     loss within 1.0 of ln(vocab), the forward kernel launched 2 * layers
+     * steps times (remat runs each layer's forward again in the backward)
+     and each backward kernel layers * steps times
+ 10. flash attention timings at the training path shape (median of 20)
+     beside the bound, the plain version and PyTorch's
+     scaled_dot_product_attention
+ 11. the kernels line, then the card line, then the result line
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM memory rate (NVIDIA data sheet) for the bytes bound
-HBM_BYTES_PER_S = 3.35e12
+# noqa: E402 below: these need the path
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.data.pipeline import HostDataConfig, host_batch  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moa_reduce as moa  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
+from repro_torch.models.common import init_params  # noqa: E402
+from repro_torch.models.lm import train_loss  # noqa: E402
+from repro_torch.models.registry import get_api  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, global_norm  # noqa: E402
+from repro_torch.optim.grad_accum import value_and_grad  # noqa: E402
+from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
+from repro_torch.serve import EngineConfig, ServeEngine  # noqa: E402
+from repro_torch.train.loop import LoopConfig, TrainLoop  # noqa: E402
+from repro_torch.train.state import (build_train_step,  # noqa: E402
+                                     init_train_state, split_layers)
+from repro_torch.tree import leaves, map_tree  # noqa: E402
 
-#: kernels of the serve path: name -> (CUDA source, TPU kernel it replaces)
+#: H100 SXM memory rate and dense bf16 tensor-core rate (NVIDIA data
+#: sheet) for the bounds
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+
+#: kernel sources: name -> (CUDA source, TPU kernel it replaces)
 KERNELS = {
     "moa_reduce": ("src/repro_torch/kernels/csrc/moa_reduce.cu",
                    "src/repro/kernels/moa_reduce.py:93"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:97"),
 }
+
+#: the training path's attention shape: llama3.2-3b at batch 2 x seq 2048
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
+#: the schedule the timed steps sit at the start of: peak lr 3e-4 after a
+#: 100-step linear warm-up, cosine over 1000 steps
+TRAIN_WARMUP, TRAIN_TOTAL = 100, 1000
+FLASH_CHECK_SHAPES = [(2, 256, 4, 2, 64, torch.float32),
+                      (1, 128, 8, 8, 128, torch.float32),
+                      (2, 256, 6, 2, 80, torch.bfloat16),
+                      (1, 512, 4, 1, 128, torch.float32),
+                      (1, 256, 2, 2, 64, torch.float32),
+                      (2, 37, 6, 2, 16, torch.float32),
+                      (2, TRAIN_SEQ, 24, 8, 128, torch.bfloat16)]
 
 
 def check(cond: bool, what: str) -> None:
@@ -63,12 +125,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def phase_build(build_mod) -> None:
+def phase_build() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(KERNELS)) as ex:
-        logs = dict(zip(KERNELS, ex.map(build_mod.build, KERNELS)))
+        logs = dict(zip(KERNELS, ex.map(_build.build, KERNELS)))
     for name in KERNELS:
-        build_mod.load(name)
+        _build.load(name)
         for line in logs[name].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
@@ -87,7 +149,7 @@ def path_shapes(cfg, ecfg):
             ("prefill_l", n, c * h), ("prefill_o", n, c * h * hd)]
 
 
-def phase_kernel_check(moa, ops, shapes) -> float:
+def phase_kernel_check(shapes) -> float:
     """moa_reduce (through ops, as the path calls it) against the plain
     version on the same CUDA inputs, bit for bit.  Returns the max |diff|."""
     dev = torch.device("cuda")
@@ -131,8 +193,7 @@ def make_prompts(lens, vocab, seed):
     return [rng.integers(0, vocab, n).tolist() for n in lens]
 
 
-def phase_reduced_parity(moa, get_config, init_params, get_api,
-                         ServeEngine, EngineConfig) -> None:
+def phase_reduced_parity() -> None:
     cfg = get_config("llama3.2-3b").reduced(dtype=torch.float32,
                                             n_kv_heads=2)
     gen = torch.Generator().manual_seed(0)
@@ -143,7 +204,8 @@ def phase_reduced_parity(moa, get_config, init_params, get_api,
     prompts = make_prompts((5, 19, 33, 12), cfg.vocab, seed=0)
     runs = {}
     for dev in ("cpu", "cuda"):
-        params = cpu_params if dev == "cpu" else _to(cpu_params, dev)
+        params = (cpu_params if dev == "cpu"
+                  else map_tree(lambda t: t.to(dev), cpu_params))
         eng = ServeEngine(cfg, params, config=ecfg, device=dev)
         eng.trace_logits = True
         before = moa.LAUNCHES
@@ -164,14 +226,7 @@ def phase_reduced_parity(moa, get_config, init_params, get_api,
           f"{diff:.3e} (tol 1e-3), moa_reduce launches {launched}")
 
 
-def _to(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
-
-
-def phase_full_width(moa, get_config, init_params, get_api, ServeEngine,
-                     EngineConfig):
+def phase_full_width():
     """Returns the moa_reduce launches of the measured run."""
     cfg = get_config("llama3.2-3b")
     dev = torch.device("cuda")
@@ -179,7 +234,7 @@ def phase_full_width(moa, get_config, init_params, get_api, ServeEngine,
     t0 = time.perf_counter()
     params = init_params(get_api(cfg).param_specs(cfg), gen, dev, cfg.dtype)
     torch.cuda.synchronize()
-    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
     print(f"[full] llama3.2-3b params: {nbytes / 1e9:.3f} GB {cfg.dtype}, "
           f"initialized in {time.perf_counter() - t0:.2f} s")
     ecfg = EngineConfig(max_slots=4, max_seq=2048, prefill_chunk=256)
@@ -230,14 +285,6 @@ def phase_full_width(moa, get_config, init_params, get_api, ServeEngine,
     return launches
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def device_ms(fn, reps: int = 50) -> float:
     """Median device time of ``fn()`` over ``reps`` runs, by CUDA events.
     A sleep kernel queued ahead keeps the card busy while the host enqueues
@@ -257,7 +304,7 @@ def device_ms(fn, reps: int = 50) -> float:
     return float(np.median(times))
 
 
-def phase_timing(moa, shapes):
+def phase_timing(shapes):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = []
@@ -278,17 +325,295 @@ def phase_timing(moa, shapes):
     return rows
 
 
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() /
+                 b.float().norm().clamp_min(1e-30))
+
+
+def phase_flash_check():
+    """The forward, dq and dk/dv kernels against the plain versions on the
+    same CUDA inputs.  Returns, per kernel, the max |diff| over the fp32
+    cases and at the training path shape (bf16, causal)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    errs = {k: {"fp32": 0.0, "path": 0.0} for k in ("fwd", "bwd_dq",
+                                                     "bwd_dkv")}
+    n = 0
+    for b, s, hq, hkv, hd, dt in FLASH_CHECK_SHAPES:
+        for causal in (True, False):
+            what = f"(B,S,Hq,Hkv,hd)={(b, s, hq, hkv, hd)} {dt} causal={causal}"
+            q, do = (torch.randn((b, s, hq, hd), generator=gen, device=dev)
+                     .to(dt) for _ in range(2))
+            k, v = (torch.randn((b, s, hkv, hd), generator=gen, device=dev)
+                    .to(dt) for _ in range(2))
+            o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal)
+            dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do,
+                                                       causal)
+            dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, do,
+                                                     causal)
+            torch.cuda.synchronize()
+            po, plse = fa.flash_attention_plain(q, k, v, causal)
+            tol = 2e-5 if dt == torch.float32 else 2e-2
+            check(torch.allclose(o.float(), po.float(), rtol=tol, atol=tol),
+                  f"flash forward != plain at {what}")
+            check(dt == torch.float32 or _rel(o, po) <= 1e-2,
+                  f"flash forward relative norm error {_rel(o, po)} > 1e-2 "
+                  f"at {what}")
+            check(torch.allclose(lse, plse, rtol=1e-5, atol=1e-5),
+                  f"flash lse != plain at {what}")
+            plain = fa.flash_attention_plain_bwd(q, k, v, o, lse, do, causal)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            auto = torch.autograd.grad(
+                fa.flash_attention_plain(*leaves, causal)[0], leaves, do)
+            for name, got, want, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                            plain, auto):
+                for w, wname in ((want, "plain_bwd"), (ref, "autograd")):
+                    ok = (torch.allclose(got, w, rtol=1e-4, atol=1e-5)
+                          if dt == torch.float32 else _rel(got, w) <= 1e-2)
+                    check(ok, f"flash {name} != {wname} at {what}")
+            found = {"fwd": (o.float() - po.float()).abs().max(),
+                     "bwd_dq": (dq.float() - plain[0].float()).abs().max(),
+                     "bwd_dkv": max((dk.float() - plain[1].float()).abs()
+                                    .max(), (dv.float() - plain[2].float())
+                                    .abs().max())}
+            key = "fp32" if dt == torch.float32 else None
+            if (b, s, hq) == (TRAIN_BATCH, TRAIN_SEQ, 24) and causal:
+                key = "path"
+            for name, e in found.items():
+                if key:
+                    errs[name][key] = max(errs[name][key], float(e))
+            n += 1
+            del q, k, v, do, o, lse, dq, dk, dv, plain, auto, leaves
+    print(f"[check] flash attention forward, dq and dk/dv kernels == plain "
+          f"versions and autograd on {n} shape/dtype/causal cases; max "
+          f"|diff| fp32 fwd {errs['fwd']['fp32']:.3e} dq "
+          f"{errs['bwd_dq']['fp32']:.3e} dkv {errs['bwd_dkv']['fp32']:.3e}; "
+          f"at the path shape (bf16) fwd {errs['fwd']['path']:.3e} dq "
+          f"{errs['bwd_dq']['path']:.3e} dkv {errs['bwd_dkv']['path']:.3e}")
+    return errs
+
+
+def _zero_flash_counts() -> None:
+    fa.LAUNCHES_FWD = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = 0
+
+
+def _flash_counts():
+    return {"fwd": fa.LAUNCHES_FWD, "bwd_dq": fa.LAUNCHES_BWD_DQ,
+            "bwd_dkv": fa.LAUNCHES_BWD_DKV}
+
+
+def _expected_counts(cfg, steps):
+    fwd = cfg.n_layers * steps * (2 if cfg.remat else 1)
+    return {"fwd": fwd, "bwd_dq": cfg.n_layers * steps,
+            "bwd_dkv": cfg.n_layers * steps}
+
+
+def phase_train_parity():
+    """Three AdamW steps of the reduced config from one state, on the CPU
+    (chunked attention) and on CUDA (the flash kernels)."""
+    cfg = get_config("llama3.2-3b").reduced(dtype=torch.float32,
+                                            n_kv_heads=2)
+    shape = ShapeConfig("parity", seq_len=64, global_batch=4,
+                              kind="train")
+    state = init_train_state(cfg, torch.Generator().manual_seed(0))
+    states = {"cuda": map_tree(lambda t: t.to("cuda"), state), "cpu": state}
+    losses, counts = {}, None
+    for dev in ("cpu", "cuda"):
+        step_fn = build_train_step(
+            cfg, AdamWConfig(lr=1e-3),
+            lr_schedule=warmup_cosine(1e-3, 1, 3))
+        loop = TrainLoop(cfg, shape, LoopConfig(
+            total_steps=3, log_every=1, seed=5), step_fn, states[dev])
+        _zero_flash_counts()
+        loop.run()
+        if dev == "cuda":
+            counts = _flash_counts()
+        losses[dev] = [m["loss"] for m in loop.metrics_log]
+    diff = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+    check(len(losses["cuda"]) == 3 and diff <= 1e-4,
+          f"reduced train: CUDA losses {losses['cuda']} differ from CPU "
+          f"{losses['cpu']} by {diff} (> 1e-4)")
+    want = _expected_counts(cfg, 3)
+    check(counts == want, f"reduced train: flash launches {counts}, "
+                          f"expected {want}")
+    print(f"[parity] reduced llama3.2-3b train (fp32, kv_heads=2, batch 4 x "
+          f"seq 64): losses CPU {['%.6f' % x for x in losses['cpu']]} CUDA "
+          f"{['%.6f' % x for x in losses['cuda']]}, max |diff| {diff:.3e} "
+          f"(tol 1e-4); flash launches {counts}")
+
+
+def phase_train_full():
+    """llama3.2-3b at full width: 1 untimed warm-up step, then the timed
+    steps through TrainLoop with the launch counts read around them."""
+    cfg = get_config("llama3.2-3b")
+    check(cfg.remat and cfg.dtype == torch.bfloat16,
+          "full-width train config must be bf16 with remat")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    state = init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    print(f"[train] llama3.2-3b train state: {n_params / 1e9:.3f} B fp32 "
+          f"params + fp32 m, v, initialized in "
+          f"{time.perf_counter() - t0:.2f} s")
+    shape = ShapeConfig("train", seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, kind="train")
+    data = HostDataConfig(0, 1, 0)
+    # the same loss and gradient through the kernels and, for comparison
+    # only, with attention.chunked_attention (the JAX package's path off
+    # the TPU) in place of the kernels, same state and batch; bf16 rounds
+    # at other places in the two
+    batch0 = {k: torch.as_tensor(v).to(dev) for k, v in
+              host_batch(cfg, shape, data, 0).items()}
+    vg = value_and_grad(lambda p, b: train_loss(p, b, cfg))
+    got = {}
+    for flash in (True, False):
+        _zero_flash_counts()
+        if flash:
+            loss, grads = vg(split_layers(state["params"]), batch0)
+        else:
+            with mock.patch.object(
+                    ops, "flash_attention", lambda q, k, v, causal:
+                    attention.chunked_attention(q, k, v, cfg)):
+                loss, grads = vg(split_layers(state["params"]), batch0)
+        got[flash] = (float(loss), float(global_norm(grads)),
+                      _flash_counts()["fwd"])
+        del grads
+    check(got[True][2] > 0 and got[False][2] == 0,
+          f"full train: flash forward launches {got[True][2]} through the "
+          f"kernels, {got[False][2]} through the chunked attention")
+    dl = abs(got[True][0] - got[False][0])
+    dn = abs(got[True][1] - got[False][1]) / got[False][1]
+    check(dl <= 2e-3 and dn <= 1e-3,
+          f"full train: kernel path (loss, grad norm) {got[True][:2]} vs "
+          f"chunked path {got[False][:2]}")
+    print(f"[train] kernel path vs chunked path, same state and batch: loss "
+          f"{got[True][0]:.5f} vs {got[False][0]:.5f} (|diff| {dl:.3e}, tol "
+          f"2e-3), grad norm {got[True][1]:.4f} vs {got[False][1]:.4f} "
+          f"(rel {dn:.3e}, tol 1e-3)")
+    total = 1 + TRAIN_STEPS
+    step_fn = build_train_step(
+        cfg, AdamWConfig(lr=3e-4, grad_clip=1.0),
+        lr_schedule=warmup_cosine(3e-4, TRAIN_WARMUP, TRAIN_TOTAL))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, warm = step_fn(state, host_batch(cfg, shape, data, 0))
+    first_loss = float(warm["loss"])
+    print(f"[train] warm-up step: loss {first_loss:.4f} grad_norm "
+          f"{float(warm['grad_norm']):.4f} in "
+          f"{time.perf_counter() - t0:.2f} s (untimed)")
+    loop = TrainLoop(cfg, shape, LoopConfig(
+        total_steps=total, log_every=1, seed=0), step_fn, state,
+        data_cfg=data)
+    torch.cuda.synchronize()
+    _zero_flash_counts()
+    t0 = time.perf_counter()
+    loop.run(start_step=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log = loop.metrics_log
+    losses = [first_loss] + [m["loss"] for m in log]
+    norms = [float(warm["grad_norm"])] + [m["grad_norm"] for m in log]
+    check(len(log) == TRAIN_STEPS, f"full train: {len(log)} timed steps")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"full train: a loss or grad norm is not finite: {losses} {norms}")
+    ln_v = math.log(cfg.vocab)
+    check(abs(first_loss - ln_v) <= 1.0,
+          f"full train: first loss {first_loss} not within 1.0 of "
+          f"ln({cfg.vocab}) = {ln_v:.4f}")
+    want = _expected_counts(cfg, TRAIN_STEPS)
+    check(counts == want, f"full train: flash launches {counts}, expected "
+                          f"{want} (fwd 2 * layers * steps under remat)")
+    ms = [m["time_s"] * 1e3 for m in log]
+    toks = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    for m in log:
+        print(f"[train] step {m['step']}: loss {m['loss']:.4f} grad_norm "
+              f"{m['grad_norm']:.4f} lr {m['lr']:.3e} "
+              f"{m['time_s'] * 1e3:.1f} ms")
+    print(f"[train] llama3.2-3b, 28 layers, fp32 masters / bf16 compute, "
+          f"remat, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: {TRAIN_STEPS} "
+          f"timed steps, {toks} tokens in {wall:.3f} s = "
+          f"{toks / wall:.1f} train tok/s; ms per step {['%.1f' % x for x in ms]}"
+          f" (median {float(np.median(ms)):.1f}); first loss "
+          f"{first_loss:.4f} vs ln(vocab) {ln_v:.4f}; flash launches "
+          f"{counts}; max_memory_allocated {peak / 1e9:.3f} GB")
+    return counts
+
+
+def phase_flash_timing():
+    """Device times at the training path shape (bf16, causal)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, s, hq, hkv, hd = TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128
+    dt = torch.bfloat16
+    q, do = (torch.randn((b, s, hq, hd), generator=gen, device=dev).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(dt)
+            for _ in range(2))
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, True)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, True)
+    reps = 20
+    ms = {
+        "fwd": device_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, True),
+                         reps),
+        "bwd_dq": device_ms(lambda: fa.flash_attention_bwd_dq_cuda(
+            q, k, v, o, lse, do, True), reps),
+        "bwd_dkv": device_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+            q, k, v, lse, delta, do, True), reps),
+    }
+    plain_fwd = device_ms(lambda: fa.flash_attention_plain(q, k, v, True),
+                          reps)
+    plain_bwd = device_ms(lambda: fa.flash_attention_plain_bwd(
+        q, k, v, o, lse, do, True), reps)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+    with torch.no_grad():
+        lib_fwd = device_ms(sdpa, reps)
+        lib_err = float((sdpa().transpose(1, 2).float() - o.float())
+                        .abs().max())
+    lib_fwdbwd = device_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                       dot), reps)
+    out = sdpa()
+    lib_bwd = device_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), reps)
+    rows = {}
+    for part, plain_ms, lib_ms in (("fwd", plain_fwd, lib_fwd),
+                                   ("bwd_dq", plain_bwd, lib_bwd),
+                                   ("bwd_dkv", plain_bwd, lib_bwd),
+                                   ("bwd", plain_bwd, lib_bwd)):
+        flops = fa.bound_flops(b, s, hq, hd, True, part)
+        nbytes = fa.bound_bytes(b, s, hq, hkv, hd, dt, part)
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        kernel = (ms["bwd_dq"] + ms["bwd_dkv"]) if part == "bwd" else ms[part]
+        rows[part] = {"ms": kernel, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                      "flops": flops, "bytes": nbytes}
+        print(f"[time] flash {part} (B,S,Hq,Hkv,hd)={(b, s, hq, hkv, hd)} "
+              f"bf16 causal: kernel_ms {kernel:.4f} bound_ms "
+              f"{rows[part]['bound_ms']:.4f} ({flops:.4e} flop / 989 "
+              f"TFLOP/s; {nbytes} B / 3.35 TB/s) plain_ms {plain_ms:.4f} "
+              f"library_ms {lib_ms:.4f} kernel/bound "
+              f"{kernel / rows[part]['bound_ms']:.1f}")
+    print(f"[time] scaled_dot_product_attention (is_causal, enable_gqa) at "
+          f"the same shape: fwd {lib_fwd:.4f} ms, fwd+bwd {lib_fwdbwd:.4f} "
+          f"ms, bwd {lib_bwd:.4f} ms; kernel fwd+bwd "
+          f"{ms['fwd'] + ms['bwd_dq'] + ms['bwd_dkv']:.4f} ms; max |o - "
+          f"sdpa| {lib_err:.3e}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels import moa_reduce as moa
-    from repro_torch.models.common import init_params
-    from repro_torch.models.registry import get_api
-    from repro_torch.serve import EngineConfig, ServeEngine
-
     card = card_line()
     print(f"[card] {card}")
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -297,27 +622,61 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build(_build)
+    phase_build()
     full_cfg = get_config("llama3.2-3b")
     full_ecfg = EngineConfig(max_slots=4, max_seq=2048,
                              prefill_chunk=256).resolve()
     shapes = path_shapes(full_cfg, full_ecfg)
-    err = phase_kernel_check(moa, ops, shapes)
-    phase_reduced_parity(moa, get_config, init_params, get_api, ServeEngine,
-                         EngineConfig)
-    launches = phase_full_width(moa, get_config, init_params,
-                                         get_api, ServeEngine, EngineConfig)
-    rows = phase_timing(moa, shapes)
+    err = phase_kernel_check(shapes)
+    flash_err = phase_flash_check()
+    phase_reduced_parity()
+    launches = phase_full_width()
+    rows = phase_timing(shapes)
+    gc.collect()
+    torch.cuda.empty_cache()       # the serve weights and KV pool go
+    phase_train_parity()
+    flash_launches = phase_train_full()
+    gc.collect()
+    torch.cuda.empty_cache()       # the train state goes
+    flash_rows = phase_flash_timing()
 
     main_row = next(r for r in rows if r["label"] == "prefill_o")
     source, replaces = KERNELS["moa_reduce"]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "moa_reduce", "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches, "max_abs_err": err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
         "library_ms": main_row["library_ms"], "shape": main_row["shape"],
-        "checked": "torch.equal vs moa_reduce_plain", "shapes": rows}]}))
+        "checked": "torch.equal vs moa_reduce_plain", "shapes": rows}]
+    source, replaces = KERNELS["flash_attention"]
+    plain = {"fwd": "flash_attention_plain",
+             "bwd_dq": "flash_attention_plain_bwd (dq, dk, dv together)",
+             "bwd_dkv": "flash_attention_plain_bwd (dq, dk, dv together)"}
+    library = {"fwd": "scaled_dot_product_attention forward",
+               "bwd_dq": "scaled_dot_product_attention backward (dq, dk, "
+                         "dv together)",
+               "bwd_dkv": "scaled_dot_product_attention backward (dq, dk, "
+                          "dv together)"}
+    bound = {"fwd": "QK^T, PV",
+             "bwd_dq": "dO V^T, dS K: 2 of the backward's 5 matmuls",
+             "bwd_dkv": "QK^T, P^T dO, dS^T Q: 3 of the backward's 5 "
+                        "matmuls"}
+    for part in ("fwd", "bwd_dq", "bwd_dkv"):
+        r = flash_rows[part]
+        kernels.append({
+            "name": f"flash_attention_{part}", "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": flash_launches[part],
+            "max_abs_err": flash_err[part]["path"],
+            "max_abs_err_fp32": flash_err[part]["fp32"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": [TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128], "dtype": "bf16",
+            "plain": plain[part], "library": library[part],
+            "bound": bound[part]})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Architecture config schema, with a torch dtype.
+"""Architecture and shape config schemas, with a torch dtype.
 
 Field for field the same as ``repro/configs/base.py:ModelConfig`` except
 that ``dtype`` holds a ``torch.dtype`` (the JAX config holds a ``jnp`` one);
@@ -13,7 +13,7 @@ import dataclasses
 
 import torch
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "ShapeConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,3 +122,13 @@ class ModelConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One step's input shape (``repro/configs/base.py:ShapeConfig``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode

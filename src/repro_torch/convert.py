@@ -1,4 +1,4 @@
-"""Parameters from the JAX package, as numpy arrays, into the port's dict.
+"""Parameters and train states from the JAX package, as numpy arrays.
 
 ``params_from_numpy(jax.tree.map(np.asarray, params), device, dtype)``
 turns a JAX parameter tree into the port's plain dict of tensors with the
@@ -7,6 +7,10 @@ leaves are stored in ``dtype`` once, where the JAX package keeps fp32
 params and casts them to the compute dtype at every use
 (``repro/models/attention.py:_project_qkv``, ``repro/models/moe.py:dense_ffn``):
 the values the math sees are the same.  Integer leaves keep their dtype.
+
+``train_state_from_numpy`` carries a whole JAX train state (``params``,
+``m``, ``v``, ``step`` from ``repro.train.state.init_train_state`` or a
+step of it) across with fp32 masters and moments and an int32 step.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ from typing import Any, Union
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "train_state_from_numpy"]
 
 
 def params_from_numpy(tree: Any, device: Union[str, torch.device],
@@ -30,3 +34,18 @@ def params_from_numpy(tree: Any, device: Union[str, torch.device],
         return torch.from_numpy(arr.astype(np.float32)).to(device=device,
                                                             dtype=dtype)
     return torch.from_numpy(arr.copy()).to(device)
+
+
+def train_state_from_numpy(tree: Any, device: Union[str, torch.device]
+                           ) -> Any:
+    """JAX train state ``{"params", "m", "v", "step"}`` (numpy leaves) ->
+    the port's train state on ``device``: fp32 params, ``m`` and ``v``, a
+    0-d int32 step."""
+    missing = {"params", "m", "v", "step"} - set(tree)
+    if missing:
+        raise ValueError(f"not a train state: missing {sorted(missing)}")
+    out = {k: params_from_numpy(tree[k], device, torch.float32)
+           for k in ("params", "m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])),
+                               dtype=torch.int32, device=device)
+    return out

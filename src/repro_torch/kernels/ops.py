@@ -10,9 +10,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moa_reduce as _moa
 
-__all__ = ["moa_reduce"]
+__all__ = ["moa_reduce", "flash_attention"]
 
 
 def moa_reduce(x: torch.Tensor, acc_dtype: torch.dtype = torch.float32,
@@ -30,3 +31,22 @@ def moa_reduce(x: torch.Tensor, acc_dtype: torch.dtype = torch.float32,
     n = x.shape[0]
     out = _moa.moa_reduce_cuda(x.reshape(n, -1).contiguous(), acc_dtype)
     return out.reshape(x.shape[1:]).to(out_dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: Optional[float] = None
+                    ) -> torch.Tensor:
+    """Streaming-softmax causal GQA attention, differentiable.
+
+    q: (B, S, Hq, hd); k/v: (B, S, Hkv, hd); returns (B, S, Hq, hd) in
+    q.dtype.  CUDA tensors run the forward kernel and, under autograd, the
+    backward kernels (:class:`~repro_torch.kernels.flash_attention.FlashAttention`);
+    CPU tensors run the plain versions through the same autograd shape."""
+    if scale is None:
+        scale = _fa.default_scale(q.shape[-1])
+    if q.device.type == "cpu":
+        return _fa.FlashAttentionPlain.apply(q, k, v, causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, got "
+                         f"{q.device}")
+    return _fa.FlashAttention.apply(q, k, v, causal, scale)

@@ -1,1 +1,1 @@
-"""Model layer of the port: the dense GQA decoder's decode path."""
+"""Model layer of the port: the dense GQA decoder's decode and training paths."""

@@ -1,21 +1,30 @@
-"""GQA decode attention over paged KV: split-K with the radix-4 page combine.
+"""GQA attention: the full-sequence training path and paged split-K decode.
 
-The counterpart of the decode half of ``repro/models/attention.py`` that
-the serve engine runs: project + rope the ``C`` new tokens, write them into
-the gathered page view, attend with split-K over pages, and combine the
-per-page partial accumulators through :func:`repro_torch.kernels.ops.moa_reduce`
-— the hand-written Hopper kernel on CUDA tensors, its plain radix-4 tree
-on CPU tensors.  Layouts match the JAX functions: queries ``(B, C, H, hd)``,
-pools ``(num_pages, page, Hkv, hd)``.
+The counterpart of ``repro/models/attention.py`` for the paths the port
+runs.
 
-Not in this slice: the training path (``gqa_train``, which brings the flash
-attention kernel), the dense-cache decode variants, speculative row masks
-(``nvalid``) and tree verification, quantized pools and tensor-parallel
-head padding (``ROADMAP.md``, queue 1).
+* Training (:func:`gqa_train`): on CUDA tensors the streaming-softmax
+  flash attention kernels (:func:`repro_torch.kernels.ops.flash_attention`,
+  forward and backward); on CPU tensors the query-chunked softmax of
+  :func:`chunked_attention`, exactly the path the JAX package takes off the
+  TPU.
+* Decode (:func:`gqa_decode_pages`): project + rope the ``C`` new tokens,
+  write them into the gathered page view, attend with split-K over pages,
+  and combine the per-page partial accumulators through
+  :func:`repro_torch.kernels.ops.moa_reduce` — the hand-written Hopper
+  kernel on CUDA tensors, its plain radix-4 tree on CPU tensors.
+
+Layouts match the JAX functions: activations ``(B, S, H, hd)``, pools
+``(num_pages, page, Hkv, hd)``.  Weights are cast to the activations'
+dtype at use, as in the JAX package (fp32 masters, bf16 compute).
+
+Not in these slices: the dense-cache decode variants, speculative row
+masks (``nvalid``) and tree verification, quantized pools and
+tensor-parallel head padding (``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,8 +33,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import paging
 from repro_torch.models.common import ParamSpec, apply_rope, rope_angles
 
-__all__ = ["gqa_param_specs", "gqa_decode_pages", "decode_positions",
-           "batched_cache_write", "causal_valid", "NEG_INF"]
+__all__ = ["gqa_param_specs", "gqa_train", "chunked_attention",
+           "gqa_decode_pages", "decode_positions", "batched_cache_write",
+           "causal_valid", "NEG_INF"]
 
 #: Mask value of the scores; finite, so a masked key enters the split-K sum
 #: as ``exp(NEG_INF - m) * v == 0 * v`` (pools must hold finite values).
@@ -98,13 +108,14 @@ def _project_qkv(x: torch.Tensor, p: dict, cfg: ModelConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
     hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    dt = x.dtype
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
     if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
     return (q.reshape(b, s, hq, hd), k.reshape(b, s, hkv, hd),
             v.reshape(b, s, hkv, hd))
 
@@ -115,6 +126,67 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     if n_rep == 1:
         return k
     return torch.repeat_interleave(k, n_rep, dim=2)
+
+
+def _sqrt_hd(hd: int, dtype: torch.dtype) -> float:
+    """sqrt(hd) in fp32, rounded to the compute dtype, as the JAX code
+    divides the scores by it."""
+    return torch.tensor(float(hd)).sqrt().to(dtype).item()
+
+
+def _chunk_attend(q_chunk: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_offset: int, causal: bool) -> torch.Tensor:
+    """Attend one query chunk against the full K/V. Shapes:
+    q_chunk (B, C, H, hd); k/v (B, S, H, hd) -> (B, C, H, hd)."""
+    scores = torch.einsum("bchd,bshd->bhcs", q_chunk, k) / _sqrt_hd(
+        q_chunk.shape[-1], q_chunk.dtype)
+    scores = scores.float()
+    if causal:
+        s, c = k.shape[1], q_chunk.shape[1]
+        q_pos = q_offset + torch.arange(c, device=k.device)[:, None]
+        k_pos = torch.arange(s, device=k.device)[None, :]
+        scores = torch.where((k_pos <= q_pos)[None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q_chunk.dtype)
+    return torch.einsum("bhcs,bshd->bchd", probs, v)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """Softmax attention chunked over queries, the JAX package's path off
+    the TPU.  q (B, S, Hq, hd), k/v (B, S, Hkv, hd) -> (B, S, Hq, hd)."""
+    # The JAX package pads the q heads to a multiple of the model-axis size
+    # (tp_head_pad) so tensor parallelism can shard them; on one card that
+    # size is 1 and the pad is 0, so the port has no padding.
+    s = q.shape[1]
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    chunk = min(cfg.attn_chunk, s)
+    if s % chunk:
+        chunk = s  # unchunked for odd smoke shapes, as in the JAX package
+    return torch.cat([_chunk_attend(q[:, i:i + chunk], k, v, i, cfg.causal)
+                      for i in range(0, s, chunk)], dim=1)
+
+
+def gqa_train(x: torch.Tensor, p: dict, cfg: ModelConfig,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention. x: (B, S, D) -> (B, S, D).
+
+    On a CUDA tensor the flash attention kernels, at every sequence length
+    (they mask a ragged last tile; the JAX gate's ``S % min(attn_chunk,
+    128)`` was the TPU tiling's); on the CPU :func:`chunked_attention`."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(x, p, cfg)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    sin, cos = rope_angles(positions, cfg.hd, cfg.rope_theta)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    if x.is_cuda:
+        out = kops.flash_attention(q, k, v, causal=cfg.causal)
+    else:
+        out = chunked_attention(q, k, v, cfg)
+    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
 
 
 def _decode_qkv_new(x: torch.Tensor, p: dict, cfg: ModelConfig,
@@ -146,9 +218,7 @@ def _splitk_attend(q: torch.Tensor, k_view: torch.Tensor,
     n_rep = hq // cfg.n_kv_heads
     k = _repeat_kv(k_view.to(q.dtype), n_rep)
     v = _repeat_kv(v_view.to(q.dtype), n_rep)
-    # sqrt(hd) in fp32, rounded to the compute dtype, as the JAX code does
-    scale = torch.tensor(float(cfg.hd)).sqrt().to(q.dtype).item()
-    scores = torch.einsum("bchd,bshd->bhcs", q, k) / scale
+    scores = torch.einsum("bchd,bshd->bhcs", q, k) / _sqrt_hd(cfg.hd, q.dtype)
     scores = torch.where(valid, scores.float(), NEG_INF)
 
     m = torch.amax(scores, dim=-1, keepdim=True)             # (b,h,C,1)

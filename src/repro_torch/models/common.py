@@ -1,10 +1,11 @@
 """Model substrate: parameter specs and the shared layer math.
 
-The counterpart of ``repro/models/common.py`` for the slice the port
-serves: :class:`ParamSpec` declarations, :func:`init_params` from a
-``torch.Generator``, and ``rms_norm`` / ``rope_angles`` / ``apply_rope``
-with the JAX package's dtype order and its interleaved (even, odd) RoPE
-pairs.  Sharding rules have no counterpart yet (one card).
+The counterpart of ``repro/models/common.py`` for the slices the port
+runs: :class:`ParamSpec` declarations, :func:`init_params` from a
+``torch.Generator``, ``rms_norm`` / ``rope_angles`` / ``apply_rope`` with
+the JAX package's dtype order and its interleaved (even, odd) RoPE pairs,
+and ``cross_entropy_loss``.  Sharding rules have no counterpart yet (one
+card).
 """
 from __future__ import annotations
 
@@ -14,8 +15,10 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-__all__ = ["ParamSpec", "init_params", "map_specs", "rms_norm",
-           "rope_angles", "apply_rope"]
+from repro_torch.tree import map_tree
+
+__all__ = ["ParamSpec", "init_params", "rms_norm", "rope_angles",
+           "apply_rope", "cross_entropy_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,13 +35,6 @@ class ParamSpec:
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} and axes {self.axes} "
                              f"differ in rank")
-
-
-def map_specs(fn, specs: Any) -> Any:
-    """Apply ``fn`` to every :class:`ParamSpec` of a nested dict."""
-    if isinstance(specs, ParamSpec):
-        return fn(specs)
-    return {k: map_specs(fn, v) for k, v in specs.items()}
 
 
 def _init_leaf(spec: ParamSpec, generator: torch.Generator,
@@ -71,7 +67,7 @@ def init_params(specs: Any, generator: torch.Generator,
     in its spec's dtype.  The JAX package draws from ``jax.random``, so the
     two packages' weights differ for one seed; parity tests convert the JAX
     weights with :func:`repro_torch.convert.params_from_numpy`."""
-    return map_specs(
+    return map_tree(
         lambda s: _init_leaf(s, generator, device, dtype or s.dtype), specs)
 
 
@@ -113,3 +109,16 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
     r1 = x1 * cos - x2 * sin
     r2 = x2 * cos + x1 * sin
     return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL; logits (..., V) fp32-promoted, labels (...) int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

@@ -1,14 +1,16 @@
-"""Decoder LM, decode side: parameter layout, paged decode and chunked prefill.
+"""Decoder LM: parameter layout, the training forward and loss, paged decode.
 
-The counterpart of ``repro/models/lm.py`` for the dense GQA decoder the
-serve engine runs.  Parameters are a plain dict of tensors in the JAX
-tree's layout, with ``blocks`` stacked on a leading layers axis; the block
-stack runs as a Python loop over layers (``lax.scan`` in JAX).  The state
+The counterpart of ``repro/models/lm.py`` for the dense GQA decoder.
+Parameters are a plain dict of tensors in the JAX tree's layout, with
+``blocks`` stacked on a leading layers axis (or, as the train step passes
+them, a list of per-layer dicts of views: see
+:func:`repro_torch.train.state.split_layers`); the block stack runs as a
+Python loop over layers (``lax.scan`` in JAX).  For decode, the state
 leaves are physical page pools ``(layers, num_pages, page_size, Hkv, hd)``
 (see :func:`repro_torch.serve.cache.paged_state_specs`), updated in place.
 
-Not in this slice: training and the full forward, dense (unpaged) decode
-caches, MLA, MoE, speculative and tree verification, draft heads
+Not in these slices: dense (unpaged) decode caches, MLA, MoE, the vision
+and audio frontend stubs, speculative and tree verification, draft heads
 (``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
@@ -16,18 +18,21 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, moe
-from repro_torch.models.common import ParamSpec, map_specs, rms_norm
+from repro_torch.models.common import ParamSpec, cross_entropy_loss, rms_norm
+from repro_torch.tree import index_tree, map_tree
 
-__all__ = ["param_specs", "block_specs", "stack_specs", "decode_state_specs",
+__all__ = ["param_specs", "block_specs", "stack_specs", "forward",
+           "train_loss", "embed_inputs", "decode_state_specs",
            "decode_step", "prefill_chunk"]
 
 
 def stack_specs(per_layer: Any, n: int) -> Any:
     """Add a leading (n, ...) 'layers' axis to every spec in a tree."""
-    return map_specs(
+    return map_tree(
         lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes,
                             dtype=s.dtype, init=s.init, scale=s.scale),
         per_layer)
@@ -72,6 +77,66 @@ def decode_state_specs(cfg: ModelConfig, batch: int, max_seq: int
     }
 
 
+def _layer(blocks: Any, i: int) -> dict:
+    """Layer ``i``'s params from the stacked dict or the per-layer list."""
+    return blocks[i] if isinstance(blocks, list) else index_tree(blocks, i)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _block_train(x: torch.Tensor, bp: dict, cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
+    x = x + attention.gqa_train(h, bp["attn"], cfg)
+    h = rms_norm(x, bp["ffn_norm"], cfg.norm_eps)
+    return x + moe.dense_ffn(h, bp["ffn"], cfg)
+
+
+def embed_inputs(params: dict, batch: Dict[str, torch.Tensor],
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Token embedding (B, S) -> (B, S, D) in the compute dtype."""
+    if cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the {cfg.frontend} frontend arrives with "
+            f"ROADMAP.md queue 1 item 12")
+    return params["embed"][batch["tokens"].long()].to(cfg.dtype)
+
+
+def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V) in the compute dtype, aux_loss).
+
+    With ``cfg.remat`` and grad enabled, each layer runs under
+    ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint`` with
+    ``nothing_saveable``): only its input is kept, and the backward runs
+    the layer's forward again."""
+    x = embed_inputs(params, batch, cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        bp = _layer(params["blocks"], i)
+        if remat:
+            x = checkpoint(_block_train, x, bp, cfg, use_reentrant=False)
+        else:
+            x = _block_train(x, bp, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = x @ params["lm_head"].to(x.dtype)
+    # dense FFNs have no router loss (MoE arrives with queue 1 item 11)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def train_loss(params: dict, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token NLL of ``batch["labels"]`` (+ the aux loss)."""
+    logits, aux = forward(params, batch, cfg)
+    return cross_entropy_loss(logits, batch["labels"],
+                              batch.get("loss_mask")) + aux
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
 def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
                    batch: Dict[str, torch.Tensor], cfg: ModelConfig
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -87,9 +152,7 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
     blocks = params["blocks"]
     x = params["embed"][batch["tokens"]]
     for i in range(cfg.n_layers):
-        bp = {k: (v[i] if isinstance(v, torch.Tensor)
-                  else {kk: vv[i] for kk, vv in v.items()})
-              for k, v in blocks.items()}
+        bp = _layer(blocks, i)
         h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
         h, _, _ = attention.gqa_decode_pages(
             h, bp["attn"], cfg, state["k"][i], state["v"][i], cur, pages)

@@ -23,5 +23,7 @@ def dense_ffn_specs(cfg: ModelConfig) -> dict:
 
 
 def dense_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
-    """``(silu(x @ w1) * (x @ w3)) @ w2``."""
-    return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+    """``(silu(x @ w1) * (x @ w3)) @ w2``, weights cast to ``x.dtype`` at
+    use (fp32 masters, bf16 compute; a no-op when they already match)."""
+    dt = x.dtype
+    return (F.silu(x @ p["w1"].to(dt)) * (x @ p["w3"].to(dt))) @ p["w2"].to(dt)

@@ -1,9 +1,9 @@
 """Model API dispatch (counterpart of ``repro/models/registry.py``).
 
-This slice serves the dense GQA decoder: ``family`` dense or vlm (the
-vision stub only feeds training), ``attn_kind == "gqa"``, no experts.
-Every other family raises ``NotImplementedError`` naming the ROADMAP.md
-item that brings it.
+The port serves and trains the dense GQA decoder: ``family`` dense or vlm
+(the vision stub only feeds training, and raises there until its ROADMAP
+item), ``attn_kind == "gqa"``, no experts.  Every other family raises
+``NotImplementedError`` naming the ROADMAP.md item that brings it.
 """
 from __future__ import annotations
 
@@ -18,9 +18,13 @@ __all__ = ["ModelAPI", "get_api"]
 
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
-    """Entry points of one family's decode path."""
+    """Entry points of one family's training and decode paths."""
 
     param_specs: Callable[[ModelConfig], Any]
+    #: scalar loss of (params, batch {tokens, labels[, loss_mask]}, cfg)
+    train_loss: Callable[..., Any]
+    #: (params, batch, cfg) -> (logits (B, S, V), aux_loss)
+    forward: Callable[..., Any]
     decode_state_specs: Callable[..., Any]
     #: one token per slot: batch {tokens (B, 1), index (B,), pages}
     decode_step: Callable[..., Any]
@@ -30,8 +34,8 @@ class ModelAPI:
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:
-    """The decode API for ``cfg``; raises for families the port does not
-    serve yet."""
+    """The API for ``cfg``; raises for families the port does not run
+    yet."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.arch_id} is encoder-only: it has no decode "
                          f"path")
@@ -50,5 +54,8 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
         raise NotImplementedError(
             f"{cfg.arch_id}: attn_kind={cfg.attn_kind!r} is not served by "
             f"the port")
-    return ModelAPI(lm.param_specs, lm.decode_state_specs, lm.decode_step,
-                    lm.prefill_chunk)
+    return ModelAPI(param_specs=lm.param_specs, train_loss=lm.train_loss,
+                    forward=lm.forward,
+                    decode_state_specs=lm.decode_state_specs,
+                    decode_step=lm.decode_step,
+                    prefill_chunk=lm.prefill_chunk)

@@ -17,30 +17,25 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.common import ParamSpec, map_specs
+from repro_torch.models.common import ParamSpec
+from repro_torch.tree import leaves, map_tree
 
 __all__ = ["state_zeros", "state_bytes", "paged_state_specs", "zero_page",
            "PagePool"]
-
-
-def _leaves(specs: Any) -> List[ParamSpec]:
-    if isinstance(specs, ParamSpec):
-        return [specs]
-    return [leaf for v in specs.values() for leaf in _leaves(v)]
 
 
 def state_zeros(specs: Any, device: torch.device) -> Any:
     """Zero decode state straight from the ``specs`` tree.  Zeros, never
     ``torch.empty``: masked positions still reach the split-K sum as
     ``0 * v``, so every pool byte must be a finite value."""
-    return map_specs(
+    return map_tree(
         lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device), specs)
 
 
 def state_bytes(specs: Any) -> int:
     """Total decode-state footprint in bytes of the ``specs`` tree."""
     total = 0
-    for s in _leaves(specs):
+    for s in leaves(specs):
         n = 1
         for d in s.shape:
             n *= d

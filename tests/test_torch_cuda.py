@@ -6,8 +6,17 @@ This file imports no JAX, so it runs where only PyTorch is installed."""
 import pytest
 import torch
 
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.registry import get_config
+from repro_torch.data.pipeline import HostDataConfig, host_batch
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moa_reduce as moa
 from repro_torch.kernels import ops
+from repro_torch.models import attention
+from repro_torch.models.common import init_params
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.state import build_train_step, init_train_state
+from repro_torch.tree import map_tree
 
 DTYPES = {"float32": (torch.float32, torch.float32),
           "bfloat16": (torch.bfloat16, torch.float32),
@@ -81,3 +90,179 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
                                         dtype=torch.float16))
     with pytest.raises(ValueError, match="contiguous"):
         moa.moa_reduce_cuda(torch.zeros(4, 8, device=cuda_device)[:, ::2])
+
+
+# ---------------------------------------------------------------- flash attention
+# (b, s, hq, hkv, hd): the shapes of tests/test_kernels.py:124-153, a ragged
+# length, the reduced model's head dim, and the training path's shape
+FLASH_SHAPES = [(2, 256, 4, 2, 64), (1, 128, 8, 8, 128), (2, 256, 6, 2, 80),
+                (1, 512, 4, 1, 128), (1, 256, 2, 2, 64), (2, 37, 6, 2, 16),
+                (1, 100, 4, 2, 16)]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(b, s, hq, hkv, hd, dtype, device, grad=False):
+    gen = torch.Generator(device=device).manual_seed(b * 1000 + s + hd)
+    shapes = [(b, s, hq, hd), (b, s, hkv, hd), (b, s, hkv, hd),
+              (b, s, hq, hd)]
+    out = [torch.randn(sh, generator=gen, device=device).to(dtype)
+           for sh in shapes]
+    if grad:
+        for t in out[:3]:
+            t.requires_grad_(True)
+    return out
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() /
+                 b.float().norm().clamp_min(1e-30))
+
+
+def test_flash_wrappers_refuse_cpu_tensors():
+    q, k, v, do = _flash_inputs(1, 8, 2, 1, 16, torch.float32, "cpu")
+    o, lse = fa.flash_attention_plain(q, k, v)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_fwd_cuda(q, k, v)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_bwd_dkv_cuda(q, k, v, lse, lse, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_kernel_matches_plain(cuda_device, shape, dtype,
+                                            causal):
+    q, k, v, _ = _flash_inputs(*shape, dtype, cuda_device)
+    before = fa.LAUNCHES_FWD
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_FWD == before + 1
+    po, plse = fa.flash_attention_plain(q, k, v, causal)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), po.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_kernels_match_plain(cuda_device, shape, dtype,
+                                            causal):
+    """dq, dk, dv against flash_attention_plain_bwd on the same (q, k, v,
+    o, lse, do), and against autograd through flash_attention_plain.
+    fp32: rtol 1e-4, atol 1e-5; bf16: relative norm error <= 1e-2."""
+    q, k, v, do = _flash_inputs(*shape, dtype, cuda_device, grad=True)
+    with torch.no_grad():
+        o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal)
+    before = (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q.detach(), k.detach(),
+                                               v.detach(), o, lse, do,
+                                               causal)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q.detach(), k.detach(),
+                                             v.detach(), lse, delta, do,
+                                             causal)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == \
+        (before[0] + 1, before[1] + 1)
+    plain = fa.flash_attention_plain_bwd(q.detach(), k.detach(), v.detach(),
+                                         o, lse, do, causal)
+    auto = torch.autograd.grad(fa.flash_attention_plain(q, k, v, causal)[0],
+                               (q, k, v), do)
+    for got, want, ref in zip((dq, dk, dv), plain, auto):
+        assert got.dtype == dtype
+        for w in (want, ref):
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, w, rtol=1e-4, atol=1e-5)
+            else:
+                assert _rel(got, w) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_what_they_do_not_take(cuda_device):
+    q, k, v, do = _flash_inputs(1, 64, 4, 2, 64, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        fa.flash_attention_fwd_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="one dtype"):
+        fa.flash_attention_fwd_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_fwd_cuda(q[..., :48].contiguous(),
+                                    k[..., :48].contiguous(),
+                                    v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        fa.flash_attention_fwd_cuda(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_fwd_cuda(q.transpose(1, 2), k, v)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse[:, :, :8], do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 48])
+def test_ops_flash_attention_launches_the_kernels(cuda_device, hd):
+    """ops.flash_attention on CUDA tensors: one forward launch, and one
+    launch of each backward kernel under autograd; head dim 48 is padded
+    to 64 inside and agrees with the plain version."""
+    q, k, v, do = _flash_inputs(2, 96, 6, 2, hd, torch.float32, cuda_device,
+                                grad=True)
+    before = (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+    out = ops.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == \
+        tuple(x + 1 for x in before)
+    assert out.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, True)[0]
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    for g, w in zip(grads, torch.autograd.grad(want, (q, k, v), do)):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_gqa_train_on_cuda_goes_through_the_kernel(cuda_device):
+    cfg = get_config("llama3.2-3b").reduced(dtype=torch.float32,
+                                            n_kv_heads=2)
+    p = init_params(attention.gqa_param_specs(cfg),
+                    torch.Generator().manual_seed(0), torch.device("cpu"),
+                    torch.float32)
+    x = torch.randn(2, 32, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    want = attention.gqa_train(x, p, cfg)
+    pc = {k: t.to(cuda_device) for k, t in p.items()}
+    before = fa.LAUNCHES_FWD
+    got = attention.gqa_train(x.to(cuda_device), pc, cfg)
+    assert fa.LAUNCHES_FWD == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [64, 100])
+def test_train_step_on_cuda_goes_through_the_kernels(cuda_device, seq):
+    """A train step on the card runs every layer's attention through the
+    kernels at any sequence length (100 is no multiple of a tile or of the
+    config's attn_chunk) and gives the CPU step's loss."""
+    cfg = get_config("llama3.2-3b").reduced(dtype=torch.float32,
+                                            n_kv_heads=2)
+    state = init_train_state(cfg, torch.Generator().manual_seed(0))
+    batch = host_batch(cfg, ShapeConfig("t", seq_len=seq, global_batch=2,
+                                        kind="train"),
+                       HostDataConfig(0, 1, 0), 0)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        st = map_tree(lambda t: t.to(dev, copy=True), state)
+        step = build_train_step(cfg, AdamWConfig(lr=1e-3))
+        before = (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+        _, metrics = step(st, batch)
+        losses[dev] = float(metrics["loss"])
+        launched = tuple(a - b for a, b in zip(
+            (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV),
+            before))
+    fwd = cfg.n_layers * (2 if cfg.remat else 1)
+    assert launched == (fwd, cfg.n_layers, cfg.n_layers)
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4

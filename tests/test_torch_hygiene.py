@@ -13,6 +13,7 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import moa_reduce as moa
 from repro_torch.kernels import ops
+from repro_torch.launch import train as train_cli
 from repro_torch.models.common import init_params
 from repro_torch.models.registry import get_api
 from repro_torch.serve import ServeEngine
@@ -34,8 +35,17 @@ def _imported_roots(path):
 
 
 def test_port_files_found():
-    names = {p.name for p in PORT_FILES}
-    assert {"engine.py", "moa_reduce.py", "chip_smoke.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/serve/engine.py",
+            "src/repro_torch/kernels/moa_reduce.py",
+            "src/repro_torch/kernels/flash_attention.py",
+            "src/repro_torch/train/state.py",
+            "src/repro_torch/train/loop.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/optim/adamw.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/ft/failures.py",
+            "chip_smoke.py"} <= rel
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -45,8 +55,8 @@ def test_no_jax_or_repro_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def test_engine_import_loads_no_jax():
-    code = ("import sys, repro_torch.serve.engine, repro_torch.launch.serve\n"
+def _imports_no_jax(modules):
+    code = (f"import sys, {modules}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -54,6 +64,14 @@ def test_engine_import_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_engine_import_loads_no_jax():
+    _imports_no_jax("repro_torch.serve.engine, repro_torch.launch.serve")
+
+
+def test_train_import_loads_no_jax():
+    _imports_no_jax("repro_torch.launch.train, repro_torch.train.loop")
 
 
 def test_engine_defaults_to_the_card():
@@ -75,3 +93,12 @@ def test_cpu_tensor_takes_plain_path_without_launch():
     got = ops.moa_reduce(x)
     assert moa.LAUNCHES == before
     assert torch.equal(got, moa.moa_reduce_plain(x))
+
+
+def test_train_cli_defaults_to_the_card():
+    argv = ["--reduced", "--steps", "1", "--seq", "16", "--batch", "2"]
+    if torch.cuda.is_available():
+        assert train_cli.main(argv) == 0
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_cli.main(argv)
