@@ -44,7 +44,20 @@ Phases:
  10. flash attention timings at the training path shape (median of 20)
      beside the bound, the plain version and PyTorch's
      scaled_dot_product_attention
- 11. the kernels line, then the card line, then the result line
+ 11. bitplane_add and quant_matmul against bitplane_add_plain and
+     quant_matmul_plain, torch.equal, at the kernel-test shapes (Fig 12
+     lanes, the all -128 K = 8192 case, a binding 18-bit plan) and at the
+     adder path's shapes; the width guard raises before any launch
+ 12. the adder path, taken from llama3.2-3b's training step (4096 tokens):
+     bitplane_add over one activation tensor (B = 4096 x d_model lanes) as
+     the 16 x 16, 4 x 16 and 64 x 20 adders, quant_matmul at the gate/up,
+     down and q/o projections and all -128 at K = d_ff; core.moa's
+     reconfigured_add (Fig 15) and serial_add on the 16 x 16 lanes as
+     plain device code; every result exact, each kernel launched once
+     per call
+ 13. adder timings at the path shapes beside the bound, the plain version
+     and a library call (torch.sum, torch._int_mm)
+ 14. the kernels line, then the card line, then the result line
 """
 from __future__ import annotations
 
@@ -68,10 +81,14 @@ sys.path.insert(0, str(ROOT / "src"))
 # noqa: E402 below: these need the path
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.core import lut, planner, reconfig  # noqa: E402
+from repro_torch.core import moa as core_moa  # noqa: E402
 from repro_torch.data.pipeline import HostDataConfig, host_batch  # noqa: E402
-from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import bitplane_add as bpa  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moa_reduce as moa  # noqa: E402
+from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.common import init_params  # noqa: E402
 from repro_torch.models.lm import train_loss  # noqa: E402
@@ -85,10 +102,14 @@ from repro_torch.train.state import (build_train_step,  # noqa: E402
                                      init_train_state, split_layers)
 from repro_torch.tree import leaves, map_tree  # noqa: E402
 
-#: H100 SXM memory rate and dense bf16 tensor-core rate (NVIDIA data
-#: sheet) for the bounds
+#: H100 SXM memory rate and dense bf16 and int8 tensor-core rates (NVIDIA
+#: data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
+#: INT32 operations of the CUDA cores: 132 SMs x 64 INT32 lanes x 1.98 GHz,
+#: the clock of the data sheet's 67 TFLOP/s fp32 (132 x 128 x 2 x 1.98 GHz)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 #: kernel sources: name -> (CUDA source, TPU kernel it replaces)
 KERNELS = {
@@ -96,6 +117,10 @@ KERNELS = {
                    "src/repro/kernels/moa_reduce.py:93"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:97"),
+    "bitplane_add": ("src/repro_torch/kernels/csrc/bitplane_add.cu",
+                     "src/repro/kernels/bitplane_add.py:78"),
+    "quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
+                     "src/repro/kernels/quant_matmul.py:61"),
 }
 
 #: the training path's attention shape: llama3.2-3b at batch 2 x seq 2048
@@ -610,6 +635,230 @@ def phase_flash_timing():
     return rows
 
 
+def adder_shapes(cfg):
+    """The adder path's shapes, from one training step of ``cfg`` at batch
+    TRAIN_BATCH x seq TRAIN_SEQ: bitplane_add (label, N, M, B) over one
+    activation tensor, quant_matmul (label, M, K, N) at the projections."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    lanes = tokens * cfg.d_model
+    bitplane = [("16x16", 16, 16, lanes), ("4x16", 4, 16, lanes),
+                ("64x20", 64, 20, lanes)]
+    matmul = [("gate_up", tokens, cfg.d_model, cfg.d_ff),
+              ("down", tokens, cfg.d_ff, cfg.d_model),
+              ("q_o", tokens, cfg.d_model, cfg.n_heads * cfg.hd)]
+    return bitplane, matmul
+
+
+def _lanes(n, m_bits, b, gen):
+    return torch.randint(0, 2 ** m_bits, (n, b), generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+
+def _int8(shape, gen):
+    return torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int8)
+
+
+def phase_adder_check(bitplane, matmul):
+    """Both kernels against their plain versions on the same CUDA inputs,
+    torch.equal.  Returns the max |diff| of each (0 when all are equal)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    err = {"bitplane_add": 0, "quant_matmul": 0}
+    cases = [(4, 4, 64), (4, 16, 256), (16, 16, 128), (3, 8, 33),
+             (64, 20, 512)] + [(n, m, b) for _, n, m, b in bitplane]
+    fig12 = torch.tensor([[0xA], [0xF], [0x1], [0x2]], dtype=torch.int32,
+                         device="cuda").repeat(1, 256)
+    for n, m_bits, b in cases + [(4, 4, None)]:
+        x = fig12 if b is None else _lanes(n, m_bits, b, gen)
+        got = bpa.bitplane_add_cuda(x, m_bits)
+        want = bpa.bitplane_add_plain(x, m_bits)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"bitplane_add != bitplane_add_plain at N={n} M={m_bits} B={b}")
+        err["bitplane_add"] = max(err["bitplane_add"],
+                                  int((got - want).abs().max()))
+        del x, got, want
+    check(bool((bpa.bitplane_add_cuda(fig12, 4) == 0x1C).all()),
+          "bitplane_add: Fig 12 lanes do not give 0x1C")
+    before = bpa.LAUNCHES
+    try:
+        bpa.bitplane_add_cuda(torch.zeros((8, 4), dtype=torch.int32,
+                                          device="cuda"), 30)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised and bpa.LAUNCHES == before,
+          "bitplane_add: the width guard did not raise before a launch")
+    mm_cases = [(8, 128, 128, 32), (32, 384, 256, 32), (130, 257, 65, 32),
+                (256, 1024, 512, 32), (130, 257, 65, 18)]
+    mm_cases += [(m, k, n, 32) for _, m, k, n in matmul]
+    for m, k, n, acc_bits in mm_cases + [(4, 8192, 4, None)]:
+        if acc_bits is None:               # the reference's worst case
+            x = torch.full((m, k), -128, dtype=torch.int8, device="cuda")
+            w = torch.full((k, n), -128, dtype=torch.int8, device="cuda")
+            acc_bits = 32
+        else:
+            x, w = _int8((m, k), gen), _int8((k, n), gen)
+        got = qmm.quant_matmul_cuda(x, w, acc_bits)
+        want = qmm.quant_matmul_plain(x, w, acc_bits)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"quant_matmul != quant_matmul_plain at {(m, k, n)} acc_bits "
+              f"{acc_bits}")
+        err["quant_matmul"] = max(err["quant_matmul"],
+                                  int((got.long() - want.long()).abs().max()))
+        if k == 8192 and m == 4:
+            check(bool((got == k * 128 * 128).all()),
+                  "quant_matmul: all -128 at K = 8192 is not 8192 * 2^14")
+        del x, w, got, want
+    print(f"[check] bitplane_add == bitplane_add_plain (torch.equal) on "
+          f"{len(cases) + 1} shapes incl. Fig 12 and the path's; width guard "
+          f"raises before a launch; quant_matmul == quant_matmul_plain on "
+          f"{len(mm_cases) + 1} shapes incl. all -128 at K = 8192 and the "
+          f"path's; max |diff| {err}")
+    return err
+
+
+def phase_adder_path(cfg, bitplane, matmul):
+    """The library's multi-operand integer adders on the card at the
+    path's shapes, with the launch counts read around the run."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    bpa.LAUNCHES = qmm.LAUNCHES = 0
+    # Fig 3 == Fig 4 on the card: the netlist over all 16 codes is the LUT
+    codes = torch.arange(16, dtype=torch.int32, device="cuda")
+    bits = (codes[:, None] >> torch.arange(4, dtype=torch.int32,
+                                           device="cuda")) & 1
+    check(torch.equal(lut.lut4_netlist(bits), lut.lut4_lookup(codes)),
+          "core.lut: the Fig-4 netlist differs from the Fig-3 table")
+    for label, n, m_bits, b in bitplane:
+        rplan = reconfig.plan_reconfig(n, m_bits)
+        x = _lanes(n, m_bits, b, gen)
+        want = x.sum(0, dtype=torch.int32)
+        got = ops.bitplane_add(x, m_bits)
+        check(torch.equal(got, want),
+              f"bitplane_add {label}: not the int32 sum")
+        line = (f"[adder] bitplane_add {label} (N={n}, M={m_bits}, B={b}): "
+                f"exact; plan_reconfig: {len(rplan.levels)} levels, "
+                f"{rplan.total_modules} modules, {rplan.result_bits} result "
+                f"bits, serial {rplan.serial_clocks} clocks vs "
+                f"{rplan.latency_stages} stages")
+        if (n, m_bits) == (16, 16):     # Fig 15 on the same lanes
+            lanes = x.t().contiguous()              # core.moa's (B, N)
+            del x
+            carry_max = 0
+            for i, chunk in enumerate(lanes.split(1 << 21)):
+                res, st = core_moa.reconfigured_add(chunk, m_bits,
+                                                    return_structure=True)
+                ser, clocks = core_moa.serial_add(chunk, m_bits)
+                part = want[i << 21:(i << 21) + chunk.shape[0]]
+                check(torch.equal(res, part) and torch.equal(ser, part),
+                      "core.moa reconfigured_add / serial_add: not the sum")
+                carry_max = max(carry_max, int(st["carry_total"].max()))
+                del res, st, ser
+            check(carry_max <= n - 1 and clocks == m_bits + 1,
+                  f"core.moa: carry {carry_max} > N - 1 or clocks {clocks}")
+            # Lemma 3: serial units of one Fig-4 LUT each against the
+            # reconfigured adder's gate area, in the lanes' massively
+            # parallel setting
+            serial = planner.UnitSpec(area=lut.LUT_AREA_GATES,
+                                      clocks_per_op=rplan.serial_clocks)
+            parallel = planner.UnitSpec(area=rplan.gate_cost.area_gates,
+                                        clocks_per_op=rplan.latency_stages)
+            wins = planner.serial_beats_parallel(serial, parallel)
+            line += (f"; core.moa reconfigured_add and serial_add equal it "
+                     f"(max carry {carry_max} <= {n - 1}, {clocks} clocks); "
+                     f"Lemma 3, serial LUT units ({lut.LUT_AREA_GATES} gates, "
+                     f"{rplan.serial_clocks} clocks) beat the reconfigured "
+                     f"adder ({rplan.gate_cost.area_gates:.0f} gates, "
+                     f"{rplan.latency_stages} stages) in equal area: {wins}")
+            del lanes
+        print(line)
+        del got, want
+    for label, m, k, n in matmul + [("down_all_-128", matmul[1][1],
+                                     matmul[1][2], matmul[1][3])]:
+        if label.endswith("-128"):
+            x = torch.full((m, k), -128, dtype=torch.int8, device="cuda")
+            w = torch.full((k, n), -128, dtype=torch.int8, device="cuda")
+        else:
+            x, w = _int8((m, k), gen), _int8((k, n), gen)
+        plan = qmm.k_plan(k)
+        got = ops.quant_matmul(x, w)
+        want = ref.quant_matmul_ref(x, w)
+        check(torch.equal(got, want), f"quant_matmul {label}: not exact")
+        if label.endswith("-128"):
+            check(bool((got == k * 128 * 128).all()),
+                  f"quant_matmul {label}: not {k} * 2^14 everywhere")
+        print(f"[adder] quant_matmul {label} ({m}, {k}) @ ({k}, {n}): exact "
+              f"(float64 oracle); plan block {plan.block}, "
+              f"{plan.num_blocks} block(s), max_block {plan.max_block}")
+        del x, w, got, want
+    counts = {"bitplane_add": bpa.LAUNCHES, "quant_matmul": qmm.LAUNCHES}
+    want = {"bitplane_add": len(bitplane), "quant_matmul": len(matmul) + 1}
+    check(counts == want, f"adder path: launches {counts}, expected {want}")
+    print(f"[adder] launches on the adder path: {counts}")
+    return counts
+
+
+def phase_adder_timing(bitplane, matmul):
+    """Device times at the path shapes beside the bound, the plain version
+    and the library call."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = {"bitplane_add": [], "quant_matmul": []}
+    for label, n, m_bits, b in bitplane:
+        x = _lanes(n, m_bits, b, gen)
+        kernel = device_ms(lambda: bpa.bitplane_add_cuda(x, m_bits), 20)
+        plain = device_ms(lambda: bpa.bitplane_add_plain(x, m_bits), 3)
+        library = device_ms(lambda: torch.sum(x, 0, dtype=torch.int32), 20)
+        nbytes = bpa.bound_bytes(n, b)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (n - 1) * b / INT32_OPS_PER_S * 1e3
+        per_lane = bpa.netlist_ops_per_lane(n, m_bits)
+        alu = per_lane * b / INT32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        rows["bitplane_add"].append({
+            "label": label, "shape": [n, m_bits, b], "ms": kernel,
+            "plain_ms": plain, "library_ms": library, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "netlist_int_ops_per_lane": per_lane,
+            "netlist_alu_ms": alu})
+        print(f"[time] bitplane_add {label} N={n} M={m_bits} B={b}: kernel_ms "
+              f"{kernel:.4f} bound_ms {bound:.4f} ({nbytes} B / 3.35 TB/s; "
+              f"{n - 1} adds per lane {t_ops:.4f} ms) library_ms "
+              f"{library:.4f} (torch.sum) plain_ms {plain:.4f} kernel/bound "
+              f"{kernel / bound:.2f}; netlist {per_lane} int ops per lane = "
+              f"{alu:.4f} ms at 16.7 Tops/s INT32")
+        del x
+    for label, m, k, n in matmul:
+        x, w = _int8((m, k), gen), _int8((k, n), gen)
+        kernel = device_ms(lambda: qmm.quant_matmul_cuda(x, w), 20)
+        plain = device_ms(lambda: qmm.quant_matmul_plain(x, w), 5)
+        library = device_ms(lambda: torch._int_mm(x, w), 20)
+        # the same call on a column-major copy of w, for reference only
+        wc = w.t().contiguous().t()
+        library_col = device_ms(lambda: torch._int_mm(x, wc), 20)
+        check(torch.equal(torch._int_mm(x, wc), qmm.quant_matmul_cuda(x, w)),
+              f"torch._int_mm differs from the kernel at {label}")
+        ops_ = qmm.bound_ops(m, k, n)
+        nbytes = qmm.bound_bytes(m, k, n)
+        t_ops = ops_ / INT8_OPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        rows["quant_matmul"].append({
+            "label": label, "shape": [m, k, n], "ms": kernel,
+            "plain_ms": plain, "library_ms": library, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops_, "bytes": nbytes,
+            "library_ms_w_column_major": library_col})
+        print(f"[time] quant_matmul {label} ({m}, {k}) @ ({k}, {n}): "
+              f"kernel_ms {kernel:.4f} (w transpose included) bound_ms "
+              f"{bound:.4f} ({ops_:.4e} int8 ops / 1979 TOP/s; {nbytes} B / "
+              f"3.35 TB/s = {t_bytes:.4f} ms) library_ms {library:.4f} "
+              f"(torch._int_mm; {library_col:.4f} with w column-major) "
+              f"plain_ms {plain:.4f} kernel/bound {kernel / bound:.2f}")
+        del x, w, wc
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -639,6 +888,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()       # the train state goes
     flash_rows = phase_flash_timing()
+    bitplane, matmul = adder_shapes(full_cfg)
+    adder_err = phase_adder_check(bitplane, matmul)
+    adder_launches = phase_adder_path(full_cfg, bitplane, matmul)
+    adder_rows = phase_adder_timing(bitplane, matmul)
 
     main_row = next(r for r in rows if r["label"] == "prefill_o")
     source, replaces = KERNELS["moa_reduce"]
@@ -676,6 +929,19 @@ def main() -> int:
             "shape": [TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128], "dtype": "bf16",
             "plain": plain[part], "library": library[part],
             "bound": bound[part]})
+    checked = {"bitplane_add": "torch.equal vs bitplane_add_plain",
+               "quant_matmul": "torch.equal vs quant_matmul_plain"}
+    for name in ("bitplane_add", "quant_matmul"):
+        source, replaces = KERNELS[name]
+        r = adder_rows[name][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": adder_launches[name],
+            "max_abs_err": adder_err[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"], "checked": checked[name],
+            "shapes": adder_rows[name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

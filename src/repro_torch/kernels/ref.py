@@ -1,7 +1,8 @@
 """Plain PyTorch oracles of the kernels (counterpart of ``repro/kernels/ref.py``).
 
-``moa_reduce_ref`` and ``flash_attention_ref`` so far: the other two
-oracles arrive with their kernels (``ROADMAP.md``, queue 2)."""
+One oracle for each of the four kernels.  ``quant_matmul_ref`` multiplies
+in float64, which is exact for int8 operands (|sum| <= K * 2^14 < 2^53)
+and, unlike an integer matmul, exists on CUDA as well as on the CPU."""
 from __future__ import annotations
 
 import math
@@ -9,7 +10,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["moa_reduce_ref", "flash_attention_ref"]
+__all__ = ["moa_reduce_ref", "bitplane_add_ref", "quant_matmul_ref",
+           "flash_attention_ref"]
 
 
 def moa_reduce_ref(x: torch.Tensor, acc_dtype: torch.dtype = torch.float32,
@@ -17,6 +19,18 @@ def moa_reduce_ref(x: torch.Tensor, acc_dtype: torch.dtype = torch.float32,
     """Sum of stacked operands over axis 0, accumulated in ``acc_dtype``."""
     out_dtype = out_dtype or x.dtype
     return torch.sum(x.to(acc_dtype), dim=0).to(out_dtype)
+
+
+def bitplane_add_ref(x: torch.Tensor, m_bits: int) -> torch.Tensor:
+    """Exact integer column sums over axis 0, in int32 — width checked by
+    the caller (the kernel wrapper's carry-width guard)."""
+    del m_bits  # widths are validated by the kernel wrapper
+    return torch.sum(x.to(torch.int32), dim=0, dtype=torch.int32)
+
+
+def quant_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact integer matmul ``x @ w`` of int8 operands, as int32."""
+    return (x.to(torch.float64) @ w.to(torch.float64)).to(torch.int32)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -9,9 +9,11 @@ import torch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import HostDataConfig, host_batch
+from repro_torch.kernels import bitplane_add as bpa
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moa_reduce as moa
 from repro_torch.kernels import ops
+from repro_torch.kernels import quant_matmul as qmm
 from repro_torch.models import attention
 from repro_torch.models.common import init_params
 from repro_torch.optim.adamw import AdamWConfig
@@ -266,3 +268,132 @@ def test_train_step_on_cuda_goes_through_the_kernels(cuda_device, seq):
     fwd = cfg.n_layers * (2 if cfg.remat else 1)
     assert launched == (fwd, cfg.n_layers, cfg.n_layers)
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
+
+
+# ------------------------------------------------------------ bitplane_add
+# (N, M, B): the shapes of tests/test_kernels.py:60-82 and the Fig-15
+# 16 x 16 adder over one llama3.2-3b activation tensor (4096 tokens x d_model)
+_LLAMA = get_config("llama3.2-3b")
+_TOKENS = 2 * 2048
+BITPLANE_SHAPES = [(4, 4, 64), (4, 16, 256), (16, 16, 128), (3, 8, 33),
+                   (64, 20, 512), (1, 31, 100),
+                   (16, 16, _TOKENS * _LLAMA.d_model)]
+
+
+def _lanes(n, m_bits, b, device, low=0):
+    gen = torch.Generator(device=device).manual_seed(n * 31 + m_bits)
+    return torch.randint(low, 2 ** m_bits, (n, b), generator=gen,
+                         device=device, dtype=torch.int32)
+
+
+def test_bitplane_wrapper_refuses_cpu_tensor():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bpa.bitplane_add_cuda(torch.zeros(4, 8, dtype=torch.int32), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m_bits,b", BITPLANE_SHAPES, ids=str)
+def test_bitplane_kernel_equals_plain(cuda_device, n, m_bits, b):
+    x = _lanes(n, m_bits, b, cuda_device)
+    before = bpa.LAUNCHES
+    got = bpa.bitplane_add_cuda(x, m_bits)
+    torch.cuda.synchronize()
+    assert bpa.LAUNCHES == before + 1
+    assert torch.equal(got, bpa.bitplane_add_plain(x, m_bits))
+    assert torch.equal(got, x.sum(0, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+def test_bitplane_kernel_reads_only_the_low_bits(cuda_device):
+    """Operands wider than M (negative ones too): kernel and plain version
+    both add only the low M bits."""
+    x = _lanes(7, 31, 4096, cuda_device, low=-2 ** 31)
+    got = bpa.bitplane_add_cuda(x, 12)
+    assert torch.equal(got, bpa.bitplane_add_plain(x, 12))
+    assert torch.equal(got, (x & 0xFFF).sum(0, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+def test_bitplane_width_guard_raises_before_launch(cuda_device):
+    before = bpa.LAUNCHES
+    with pytest.raises(ValueError, match="int32 capacity"):
+        ops.bitplane_add(torch.zeros(8, 4, dtype=torch.int32,
+                                     device=cuda_device), 30)
+    assert bpa.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_ops_bitplane_add_launches_the_kernel(cuda_device):
+    x = torch.tensor([[0xA], [0xF], [0x1], [0x2]], dtype=torch.int32,
+                     device=cuda_device).repeat(1, 256)
+    before = bpa.LAUNCHES
+    got = ops.bitplane_add(x, 4)
+    assert bpa.LAUNCHES == before + 1
+    assert bool((got == 0x1C).all())
+
+
+# ------------------------------------------------------------ quant_matmul
+# (M, K, N): the shapes of tests/test_kernels.py:86-116, unaligned K, and
+# the q/o projection of one llama3.2-3b training step's tokens
+QMM_SHAPES = [(8, 128, 128), (32, 384, 256), (130, 257, 65),
+              (256, 1024, 512), (17, 40, 9), (_TOKENS, _LLAMA.d_model,
+                                             _LLAMA.n_heads * _LLAMA.hd)]
+
+
+def _int8(shape, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-128, 128, shape, generator=gen, device=device,
+                         dtype=torch.int8)
+
+
+def test_quant_matmul_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        qmm.quant_matmul_cuda(torch.zeros(4, 8, dtype=torch.int8),
+                              torch.zeros(8, 4, dtype=torch.int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", QMM_SHAPES, ids=str)
+@pytest.mark.parametrize("acc_bits", [32, 18])
+def test_quant_matmul_kernel_equals_plain(cuda_device, m, k, n, acc_bits):
+    """acc_bits 18 makes the plan binding: blocks of 8 products."""
+    if acc_bits == 18 and m * n * k > 2 ** 27:
+        k = 520                     # keep the 8-wide blocks' plain loop short
+    x, w = _int8((m, k), m + k, cuda_device), _int8((k, n), k + n,
+                                                    cuda_device)
+    before = qmm.LAUNCHES
+    got = qmm.quant_matmul_cuda(x, w, acc_bits)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES == before + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, qmm.quant_matmul_plain(x, w, acc_bits))
+
+
+@pytest.mark.cuda
+def test_quant_matmul_worst_case_is_exact(cuda_device):
+    """All -128 at K = 8192: every sum is exactly 8192 * 2^14."""
+    k = 8192
+    x = torch.full((4, k), -128, dtype=torch.int8, device=cuda_device)
+    w = torch.full((k, 4), -128, dtype=torch.int8, device=cuda_device)
+    got = ops.quant_matmul(x, w)
+    assert bool((got == k * 128 * 128).all())
+
+
+@pytest.mark.cuda
+def test_quant_matmul_kernel_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros(4, 8, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="int8"):
+        qmm.quant_matmul_cuda(x.int(), x.t().contiguous().int())
+    with pytest.raises(ValueError, match=r"\(M, K\)"):
+        qmm.quant_matmul_cuda(x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        qmm.quant_matmul_cuda(x, x.t())
+
+
+@pytest.mark.cuda
+def test_ops_quant_matmul_launches_the_kernel(cuda_device):
+    x, w = _int8((64, 96), 1, cuda_device), _int8((96, 48), 2, cuda_device)
+    before = qmm.LAUNCHES
+    got = ops.quant_matmul(x, w)
+    assert qmm.LAUNCHES == before + 1
+    assert torch.equal(got, qmm.quant_matmul_plain(x, w))

@@ -45,6 +45,9 @@ def test_port_files_found():
             "src/repro_torch/optim/adamw.py",
             "src/repro_torch/data/pipeline.py",
             "src/repro_torch/ft/failures.py",
+            "src/repro_torch/kernels/bitplane_add.py",
+            "src/repro_torch/kernels/quant_matmul.py",
+            "src/repro_torch/core/moa.py",
             "chip_smoke.py"} <= rel
 
 
@@ -72,6 +75,10 @@ def test_engine_import_loads_no_jax():
 
 def test_train_import_loads_no_jax():
     _imports_no_jax("repro_torch.launch.train, repro_torch.train.loop")
+
+
+def test_adder_import_loads_no_jax():
+    _imports_no_jax("repro_torch.kernels.ops, repro_torch.core.moa")
 
 
 def test_engine_defaults_to_the_card():
