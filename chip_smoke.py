@@ -14,15 +14,17 @@ any result.
 
 Phases:
   1. the card (nvidia-smi name and power limit) and versions; TF32 off
-  2. build the kernels (one nvcc per source, started together)
+  2. build the kernels (one nvcc per source, started together; each
+     source's build time)
   3. moa_reduce against moa_reduce_plain, torch.equal, at the kernel-test
      shapes and dtypes and at the serve path's own shapes
   4. flash attention: the forward kernel against flash_attention_plain
      (2e-5 fp32; bf16 2e-2 and relative norm error 1e-2) and the dq and
      dk/dv kernels against flash_attention_plain_bwd and against autograd
      through the plain forward (fp32 rtol 1e-4 atol 1e-5; bf16 relative
-     norm error 1e-2), causal and not, at the kernel-test shapes and the
-     training path's
+     norm error 1e-2), causal and not, at the kernel-test shapes, bf16
+     shapes with a ragged S, and the training path's; two backward calls
+     at the path shape give torch.equal dq, delta, dk and dv
   5. serve, reduced-config parity: the engine on CUDA against the engine
      on CPU, same weights: greedy tokens equal, decode logits within 1e-3
   6. serve, full width: llama3.2-3b, 28 layers, bf16, 8 greedy requests
@@ -43,7 +45,7 @@ Phases:
      and each backward kernel layers * steps times
  10. flash attention timings at the training path shape (median of 20)
      beside the bound, the plain version and PyTorch's
-     scaled_dot_product_attention
+     scaled_dot_product_attention; the backward's share of the bf16 peak
  11. bitplane_add and quant_matmul against bitplane_add_plain and
      quant_matmul_plain, torch.equal, at the kernel-test shapes (Fig 12
      lanes, the all -128 K = 8192 case, a binding 18-bit plan) and at the
@@ -134,6 +136,9 @@ FLASH_CHECK_SHAPES = [(2, 256, 4, 2, 64, torch.float32),
                       (1, 512, 4, 1, 128, torch.float32),
                       (1, 256, 2, 2, 64, torch.float32),
                       (2, 37, 6, 2, 16, torch.float32),
+                      (2, 100, 6, 2, 128, torch.bfloat16),
+                      (1, 200, 4, 1, 64, torch.bfloat16),
+                      (2, 37, 4, 4, 80, torch.bfloat16),
                       (2, TRAIN_SEQ, 24, 8, 128, torch.bfloat16)]
 
 
@@ -150,15 +155,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _timed_build(name):
+    t0 = time.perf_counter()
+    log = _build.build(name)
+    return log, time.perf_counter() - t0
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(KERNELS)) as ex:
-        logs = dict(zip(KERNELS, ex.map(_build.build, KERNELS)))
-    for name in KERNELS:
+        done = dict(zip(KERNELS, ex.map(_timed_build, KERNELS)))
+    for name, (log, secs) in done.items():
         _build.load(name)
-        for line in logs[name].splitlines():
+        for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+        print(f"[build] {name}.cu: {secs:.2f} s"
+              f"{'' if log else ' (already built)'}")
     print(f"[build] {len(KERNELS)} kernel(s) built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -363,7 +376,7 @@ def phase_flash_check():
     gen = torch.Generator(device=dev).manual_seed(4)
     errs = {k: {"fp32": 0.0, "path": 0.0} for k in ("fwd", "bwd_dq",
                                                      "bwd_dkv")}
-    n = 0
+    n = repeats = 0
     for b, s, hq, hkv, hd, dt in FLASH_CHECK_SHAPES:
         for causal in (True, False):
             what = f"(B,S,Hq,Hkv,hd)={(b, s, hq, hkv, hd)} {dt} causal={causal}"
@@ -396,6 +409,17 @@ def phase_flash_check():
                     ok = (torch.allclose(got, w, rtol=1e-4, atol=1e-5)
                           if dt == torch.float32 else _rel(got, w) <= 1e-2)
                     check(ok, f"flash {name} != {wname} at {what}")
+            if (b, s, hq, dt) == (TRAIN_BATCH, TRAIN_SEQ, 24,
+                                  torch.bfloat16):
+                dq2, delta2 = fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse,
+                                                             do, causal)
+                dk2, dv2 = fa.flash_attention_bwd_dkv_cuda(q, k, v, lse,
+                                                           delta2, do, causal)
+                check(all(torch.equal(x, y) for x, y in zip(
+                    (dq, delta, dk, dv), (dq2, delta2, dk2, dv2))),
+                    f"flash backward: two calls differ at {what}")
+                repeats += 1
+                del dq2, delta2, dk2, dv2
             found = {"fwd": (o.float() - po.float()).abs().max(),
                      "bwd_dq": (dq.float() - plain[0].float()).abs().max(),
                      "bwd_dkv": max((dk.float() - plain[1].float()).abs()
@@ -414,7 +438,10 @@ def phase_flash_check():
           f"|diff| fp32 fwd {errs['fwd']['fp32']:.3e} dq "
           f"{errs['bwd_dq']['fp32']:.3e} dkv {errs['bwd_dkv']['fp32']:.3e}; "
           f"at the path shape (bf16) fwd {errs['fwd']['path']:.3e} dq "
-          f"{errs['bwd_dq']['path']:.3e} dkv {errs['bwd_dkv']['path']:.3e}")
+          f"{errs['bwd_dq']['path']:.3e} dkv {errs['bwd_dkv']['path']:.3e}; "
+          f"two backward calls torch.equal at the path shape ({repeats} "
+          f"cases)")
+    check(repeats == 2, "flash backward: the path shape was not repeated")
     return errs
 
 
@@ -627,6 +654,18 @@ def phase_flash_timing():
               f"TFLOP/s; {nbytes} B / 3.35 TB/s) plain_ms {plain_ms:.4f} "
               f"library_ms {lib_ms:.4f} kernel/bound "
               f"{kernel / rows[part]['bound_ms']:.1f}")
+    bwd_ms = ms["bwd_dq"] + ms["bwd_dkv"]
+    built = fa.bound_flops(b, s, hq, hd, True, "bwd") * 7 // 5
+    rows["bwd"]["bf16_peak_share"] = rows["bwd"]["flops"] / (
+        bwd_ms * 1e-3) / BF16_FLOP_PER_S
+    print(f"[time] flash backward (dq + dk/dv): {bwd_ms:.4f} ms; the "
+          f"function's 5 matmuls at {rows['bwd']['flops'] / bwd_ms / 1e9:.1f}"
+          f" TFLOP/s = {rows['bwd']['bf16_peak_share']:.3f} of the 989 "
+          f"TFLOP/s bf16 peak; the 7 matmuls the kernels do (S and dP "
+          f"recomputed) at {built / bwd_ms / 1e9:.1f} TFLOP/s = "
+          f"{built / (bwd_ms * 1e-3) / BF16_FLOP_PER_S:.3f}; SDPA backward "
+          f"{rows['bwd']['flops'] / lib_bwd / 1e9:.1f} TFLOP/s = "
+          f"{rows['bwd']['flops'] / (lib_bwd * 1e-3) / BF16_FLOP_PER_S:.3f}")
     print(f"[time] scaled_dot_product_attention (is_causal, enable_gqa) at "
           f"the same shape: fwd {lib_fwd:.4f} ms, fwd+bwd {lib_fwdbwd:.4f} "
           f"ms, bwd {lib_bwd:.4f} ms; kernel fwd+bwd "

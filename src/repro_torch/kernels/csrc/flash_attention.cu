@@ -1,35 +1,29 @@
 // Causal / non-causal GQA flash attention for Hopper (sm_90a): the forward
 // pass and a FlashAttention-2 style backward pass in two kernels.
 //
-// Replaces the TPU kernel repro/kernels/flash_attention.py:
+// Replaces the TPU kernel src/repro/kernels/flash_attention.py:97,
 // flash_attention_pallas (body flash_attention_kernel).  It computes what
 // that kernel computes -- softmax(q k^T * scale) v per q head, k/v shared by
 // the rep = Hq / Hkv q heads of a group, fp32 inside, masked scores set to
 // the finite -1e30 of the reference, the output divided by max(l, 1e-30)
 // -- and it also writes the row log-sum-exp lse = m + log(max(l, 1e-30)) in
 // fp32, which the backward needs.  The reference has no backward kernel
-// (flash_attention_pallas has no VJP), so the backward here follows
-// FlashAttention-2:
+// (flash_attention_pallas has no VJP, so the backward has no TPU
+// counterpart); the backward here follows FlashAttention-2:
 //   delta = rowsum(dO * O);  P = exp(S * scale - lse);
 //   dV = P^T dO;  dP = dO V^T;  dS = P * (dP - delta);
 //   dQ = dS K * scale;  dK = dS^T Q * scale.
 //
 // Layout, as at the public function: q, o, do, dq are (B, S, Hq, HD) and
 // k, v, dk, dv are (B, S, Hkv, HD), contiguous; lse and delta are
-// (B, Hq, S) fp32.  q rows are folded per KV group as in the TPU wrapper:
+// (B, Hq, S) fp32.  S need not divide any tile: ragged tiles are masked (or
+// zero-filled by TMA).  fp32 and bf16 inputs; sums and the softmax are
+// fp32.
+//
+// fp32, CUDA cores (fp32 FMAs, so fp32 results stay within 2e-5 of the
+// plain version); HD 16, 32, 64, 80 or 128 (the wrapper pads any other head
+// dim with zeros).  q rows are folded per KV group as in the TPU wrapper:
 // row r of group (b, hkv) is q head hkv * rep + r / S at position r % S.
-// HD is a template parameter (16, 32, 64, 80 or 128; the wrapper pads any
-// other head dim with zeros).  S need not divide any tile: ragged tiles
-// are masked.  fp32 and bf16 inputs; sums and the softmax are fp32.
-//
-// Design.  The TPU kernel carries (m, l, acc) across a sequential grid
-// axis over K blocks; here every block loops over its K/V tiles itself and
-// nothing carries between blocks.  Each of the three kernels exists twice:
-// fp32 inputs run on the CUDA cores (fp32 FMAs, so fp32 results stay
-// within 2e-5 of the plain version), bf16 inputs on the tensor cores
-// (mma.sync, below).  The grids are the same.
-//
-// fp32, CUDA cores:
 //  * Four consecutive lanes own one row: each holds HD / 4 of its dims as
 //    float4 chunks lane, lane + 4, lane + 8, ... so the four lanes read 64
 //    contiguous bytes of a shared-memory row (no bank conflicts, and the
@@ -45,25 +39,57 @@
 //  * fa_bwd_dkv: one block per (32 keys, group).  It loops over the q rows
 //    of all rep heads of the group (causal: from the tile holding its first
 //    key), staged 32 at a time, so the GQA sum into dK and dV stays in
-//    registers of one block.  No atomics anywhere: every output element has
-//    one writer, and results repeat bit for bit from run to run.
+//    registers of one block.
 //
-// bf16, tensor cores: the same blocks with 4 warps of 16 rows (keys in
-// fa_bwd_dkv); each product is a sequence of mma.sync.m16n8k16 with fp32
-// accumulators, probabilities and dS rounded to bf16 as the A operand of
-// the next product (FlashAttention-2's choice).  K/V (or Q/dO) tiles are
-// staged row-major and, where a product needs them as the k axis,
-// transposed.  fa_bwd_dkv keeps 64 keys of K and V plus a 32-row q tile of
-// Q and dO in both layouts: 71 KB of dynamic shared memory at HD 128, set
-// with cudaFuncSetAttribute.
+// bf16 forward, tensor cores (fa_fwd_mma): the fp32 forward's blocks with 4
+// warps of 16 rows, mma.sync.m16n8k16 with fp32 accumulators, P rounded to
+// bf16 as the A operand of P V (FlashAttention-2's choice); K staged
+// row-major and V transposed in shared memory.
 //
-// Bound on this card: operations.  Causal forward does 2 matmuls of
-// 2 * HD flops per visible (q, k) pair, the backward 5 (FlashAttention-2
-// recomputes S; these two kernels recompute S and dP once each, 7 in all).
-// mma.sync reaches only part of the 989 TFLOP/s bf16 peak (wgmma, TMA and
-// warp specialisation are later work); fp32 runs at the CUDA cores' 67
-// TFLOP/s at best.
+// bf16 backward, Hopper (fa_bwd_dq_wgmma, fa_bwd_dkv_wgmma; HD 64 or 128,
+// the wrapper zero-pads 16, 32 and 80, which changes neither the dots nor
+// delta):
+//  * Bound on this card: operations.  The function needs 5 matmuls of
+//    2 * HD flops per visible (q, k) pair; these two kernels do 7, since
+//    both recompute S and dP: the price of having no atomics.  Every
+//    output element has one writer, and results repeat bit for bit from
+//    run to run.  (FlashAttention-3 adds dQ from the dk/dv pass with
+//    atomics; this does not.)  Bytes are far below the operations at the
+//    training shapes, so the design is about keeping the tensor cores fed.
+//  * wgmma (m64nNk16, fp32 accumulators), the only way to the card's full
+//    tensor-core rate: every product reads its shared-memory operands
+//    through descriptors, K-major or MN-major (the descriptor's transpose
+//    bit), so nothing is ever transposed in shared memory.  P and dS go
+//    from the accumulator of one product to the register-A operand of the
+//    next (the accumulator's layout is the A layout), rounded to bf16.
+//  * TMA: 4-D tensor maps (HD, H, S, B) with the 128-byte swizzle wgmma
+//    reads, one 64 x 64 box per 64 columns; the tiles are per head (b,
+//    head, 64 positions), so every tile is one rectangular box and a
+//    ragged S reads zeros.  The maps are encoded on the host per call
+//    (cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint, so
+//    nothing links libcuda) and passed as __grid_constant__ parameters.
+//  * Warp specialisation: 384 threads, two consumer warpgroups of 64 rows
+//    (setmaxnreg 240) and a producer warpgroup (setmaxnreg 24) of which one
+//    thread or warp issues the loads, through a ring of BWD_STAGES stages
+//    with full and empty mbarriers: loads are in flight while the
+//    consumers multiply, and the two consumers' softmax and products
+//    overlap each other on the tensor cores.
+//  * fa_bwd_dq_wgmma: a block takes 128 q rows of one head; Q and dO are
+//    loaded once, delta = rowsum(dO O) is formed first (written for the
+//    dk/dv kernel), K and V tiles of 64 keys stream through the ring.  S =
+//    Q K^T and dP = dO V^T (m64n64), dS in registers, dQ += dS K (m64nHD, K
+//    MN-major).  Causal: each warpgroup stops at its diagonal tile.
+//  * fa_bwd_dkv_wgmma: a block takes 128 keys of one KV head, K and V
+//    resident; the 64-row Q and dO tiles of all rep q heads of the group
+//    stream through the ring with their lse and delta.  S^T = K Q^T and
+//    dP^T = V dO^T (m64n64), P^T and dS^T in registers, dV += P^T dO and
+//    dK += dS^T Q (m64nHD, dO and Q MN-major).  Causal: from the q tile
+//    that holds the block's first key.
+//  * The per-element mask runs only on tiles that cross the diagonal or
+//    the end of the sequence; the heaviest causal blocks launch first (the
+//    last q rows for dq, the first keys for dk/dv).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -368,12 +394,12 @@ fa_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the same three kernels on the tensor cores (mma.sync m16n8k16, fp32
-// accumulators), FlashAttention-2's register layout.  A warp owns 16 rows;
-// with g = lane / 4 and t = lane % 4 a thread holds, of a 16 x 8 fp32
-// accumulator tile, rows g and g + 8 at columns 2t and 2t + 1.  Score tiles
-// become the A operand of the next product in registers (rounded to bf16,
-// as FlashAttention-2 does); every B operand is read from shared memory as
+// bf16 forward: the fp32 forward's blocks on the tensor cores (mma.sync
+// m16n8k16, fp32 accumulators), FlashAttention-2's register layout.  A warp
+// owns 16 rows; with g = lane / 4 and t = lane % 4 a thread holds, of a
+// 16 x 8 fp32 accumulator tile, rows g and g + 8 at columns 2t and 2t + 1.
+// Score tiles become the A operand of P V in registers (rounded to bf16, as
+// FlashAttention-2 does); every B operand is read from shared memory as
 // bf16 pairs, with the layouts padded by 8 elements a row so that the 32
 // lanes of a fragment load hit 32 different banks.
 // ---------------------------------------------------------------------------
@@ -402,16 +428,6 @@ __device__ __forceinline__ float2 unpack2(uint32_t u) {
   __nv_bfloat162 v;
   *reinterpret_cast<uint32_t*>(&v) = u;
   return __bfloat1622float2(v);
-}
-
-// A fragment (16 x 16, row-major) of rows r0 .. r0 + 15 and columns c0 ..
-// c0 + 15 of a bf16 array with row stride ld.
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* base,
-                                       int ld, int r0, int c0, int g, int t) {
-  a[0] = ld2(base + (r0 + g) * ld + c0 + 2 * t);
-  a[1] = ld2(base + (r0 + g + 8) * ld + c0 + 2 * t);
-  a[2] = ld2(base + (r0 + g) * ld + c0 + 2 * t + 8);
-  a[3] = ld2(base + (r0 + g + 8) * ld + c0 + 2 * t + 8);
 }
 
 // B fragment (16 x 8) whose column n is row n0 + n of a bf16 array with row
@@ -583,238 +599,533 @@ fa_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int HD, int BK>
-__global__ void __launch_bounds__(128)
-fa_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ o,
-              const bf16* __restrict__ dout, const float* __restrict__ lse,
-              float* __restrict__ delta, bf16* __restrict__ dq, int S,
-              int Hq, int Hkv, float scale, int causal) {
-  constexpr int KS = HD / 16, NT = HD / 8, KT = BK / 8;
-  constexpr int LDK = HD + 8, LDT = BK + 8;
-  __shared__ __align__(16) bf16 Ks[BK * LDK];
-  __shared__ __align__(16) bf16 Vs[BK * LDK];
-  __shared__ __align__(16) bf16 Kt[HD * LDT];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  // this lane's rows of the block's 64: g and g + 8 of the warp's 16
-  const int row = blockIdx.x * 64 + warp * 16 + g;
-  const QRow r[2] = {QRow(row, HD, S, Hq, Hkv),
-                     QRow(row + 8, HD, S, Hq, Hkv)};
-  const int kend = keys_to_visit(blockIdx.x * 64, 64, S, Hq / Hkv, causal);
-  const int b = blockIdx.y / Hkv, hkv = blockIdx.y % Hkv;
-  const int64_t kvstride = (int64_t)Hkv * HD;
-  const bf16* kb = k + ((int64_t)b * S * Hkv + hkv) * HD;
-  const bf16* vb = v + ((int64_t)b * S * Hkv + hkv) * HD;
+// ---------------------------------------------------------------------------
+// bf16 backward on Hopper: TMA, mbarriers, wgmma and warp specialisation
+// (see the note at the top).  A block is 384 threads: warpgroups 0 and 1
+// consume (64 rows each), warpgroup 2 produces (one thread, or one warp,
+// issues the TMA loads; the rest exit).  Shared tiles are 64-row TMA boxes
+// of 64 bf16 columns (128 bytes a row, 128-byte swizzle), HD / 64 boxes
+// side by side for a 64 x HD tile; wgmma reads them through descriptors.
+// ---------------------------------------------------------------------------
 
-  uint32_t qa[KS][4], da[KS][4];
-  float dl[2] = {0.f, 0.f}, lr[2];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int h = i & 1, c = kk * 16 + 2 * t + (i >> 1) * 8;
-      qa[kk][i] = r[h].live ? ld2(q + r[h].off + c) : 0u;
-      da[kk][i] = r[h].live ? ld2(dout + r[h].off + c) : 0u;
-      // delta = rowsum(dO * O), O as stored
-      const float2 ov = unpack2(r[h].live ? ld2(o + r[h].off + c) : 0u);
-      const float2 dv = unpack2(da[kk][i]);
-      dl[h] = fmaf(ov.x, dv.x, fmaf(ov.y, dv.y, dl[h]));
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    dl[h] += __shfl_xor_sync(0xffffffffu, dl[h], 1);
-    dl[h] += __shfl_xor_sync(0xffffffffu, dl[h], 2);
-    lr[h] = r[h].live ? lse[r[h].stat] : 0.f;
-    if (r[h].live && t == 0) delta[r[h].stat] = dl[h];
-  }
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+constexpr int BWD_THREADS = 384;    // consumer warpgroups 0, 1; producer 2
+constexpr int BWD_STAGES = 2;       // depth of the ring of streamed tiles
+constexpr int BOX = 64 * 64 * 2;    // one 64 x 64 bf16 box: 8 KB
+constexpr float LOG2E = 1.4426950408889634f;
 
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();
-    stage_rows<BK, HD, LDK>(Ks, kb, kvstride, k0, S);
-    stage_rows<BK, HD, LDK>(Vs, vb, kvstride, k0, S);
-    stage_cols<BK, HD, LDT>(Kt, kb, kvstride, k0, S);
-    __syncthreads();
-    float s[KT][4], dp[KT][4];
-#pragma unroll
-    for (int j = 0; j < KT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        uint32_t b0, b1;
-        frag_b(b0, b1, Ks, LDK, j * 8, kk * 16, g, t);
-        mma16816(s[j], qa[kk], b0, b1);
-        frag_b(b0, b1, Vs, LDK, j * 8, kk * 16, g, t);
-        mma16816(dp[j], da[kk], b0, b1);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2, key = k0 + j * 8 + 2 * t + (e & 1);
-        const bool vis = key < S && !(causal && key > r[h].pos);
-        const float p = vis ? expf(s[j][e] * scale - lr[h]) : 0.f;
-        s[j][e] = p * (dp[j][e] - dl[h]);   // dS
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t b0, b1;
-        frag_b(b0, b1, Kt, LDT, n * 8, kk * 16, g, t);
-        mma16816(acc[n], a, b0, b1);
-      }
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (!r[h].live) continue;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<uint32_t*>(dq + r[h].off + n * 8 + 2 * t) =
-          pack2(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
-    }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Arrive and expect `bytes` of TMA transfers in the barrier's phase.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of parity `parity` of `bar` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(addr), "r"(parity) : "memory");
   }
 }
 
-// Dynamic shared memory of fa_bwd_dkv_mma: K and V of the block's 64 keys,
-// a q tile of Q and dO row-major and transposed, its lse and delta.
-template <int HD, int BQ>
-constexpr int dkv_mma_smem() {
-  return (2 * 64 * (HD + 8) + 2 * BQ * (HD + 8) + 2 * HD * (BQ + 8)) * 2 +
-         2 * BQ * 4;
+// One 64 x 64 box of a 4-D (HD, H, S, B) tensor map, at column `col` of
+// head `head`, positions pos .. pos + 63 of batch row `b`, into shared
+// memory; its bytes complete on `bar`.  Positions past S read as zeros.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        int col, int head, int pos, int b,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(col), "r"(head), "r"(pos), "r"(b), "r"(smem_u32(bar))
+      : "memory");
 }
 
-template <int HD, int BQ>
-__global__ void __launch_bounds__(128)
-fa_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Hq,
-               int Hkv, float scale, int causal) {
-  constexpr int KS = HD / 16, NT = HD / 8, QT = BQ / 8;
-  constexpr int LDK = HD + 8, LDT = BQ + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Kb = reinterpret_cast<bf16*>(smem);
-  bf16* Vb = Kb + 64 * LDK;
-  bf16* Qs = Vb + 64 * LDK;
-  bf16* Ds = Qs + BQ * LDK;
-  bf16* Qt = Ds + BQ * LDK;
-  bf16* Dt = Qt + HD * LDT;
-  float* Ls = reinterpret_cast<float*>(Dt + HD * LDT);
-  float* Dl = Ls + BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
+// A 64 x HD tile: HD / 64 boxes side by side.
+template <int HD>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map, int head,
+                                         int pos, int b, uint64_t* bar) {
+#pragma unroll
+  for (int c = 0; c < HD / 64; ++c)
+    tma_box(dst + c * BOX, map, c * 64, head, pos, b, bar);
+}
+
+// wgmma shared-memory descriptor with the 128-byte swizzle: start address,
+// leading and stride byte offsets.
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// k16 step kk of a 64 x HD tile read K-major (k along the row: 32 bytes a
+// step inside a box, the next box every 4 steps; 8-row groups 1024 bytes
+// apart).
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  return sdesc(tile + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024);
+}
+
+// k16 step kk of a 64 x HD tile read MN-major (k down the rows, 16 rows a
+// step; N across the boxes, BOX bytes apart).
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return sdesc(tile + kk * 16 * 128, BOX, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous products.
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D (64 x 64, fp32) = A B (+ D when scale_d): A and B from shared memory,
+// both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) += A B: A (64 x 16 bf16) in registers, B from shared
+// memory MN-major (the descriptor's transpose bit).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A B: A (64 x 16 bf16) in registers, B from shared
+// memory MN-major (the descriptor's transpose bit).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (HD == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+// The A fragment of k16 step kk from a 64 x 64 accumulator: a wgmma
+// accumulator's layout is its register-A layout.
+__device__ __forceinline__ void frag_of(uint32_t (&a)[4], const float (&d)[32],
+                                        int kk) {
+  a[0] = pack2(d[8 * kk], d[8 * kk + 1]);
+  a[1] = pack2(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack2(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack2(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// This thread's two rows (16 * warp + g and + 8) of a 64 x HD accumulator,
+// times `mul`, to bf16 rows at row0 / row1 (null: past the end).
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* row0, bf16* row1,
+                                           const float (&d)[HD / 2],
+                                           float mul, int t) {
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    if (row0)
+      *reinterpret_cast<uint32_t*>(row0 + 8 * j + 2 * t) =
+          pack2(d[4 * j] * mul, d[4 * j + 1] * mul);
+    if (row1)
+      *reinterpret_cast<uint32_t*>(row1 + 8 * j + 2 * t) =
+          pack2(d[4 * j + 2] * mul, d[4 * j + 3] * mul);
+  }
+}
+
+// Dynamic shared memory of either kernel: four resident 64 x HD tiles and
+// two a ring stage, plus 1 KB to align the swizzled tiles to 1024 bytes.
+template <int HD>
+constexpr int bwd_smem() {
+  return (4 + 2 * BWD_STAGES) * (HD / 64) * BOX + 1024;
+}
+
+__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// dQ and delta.  Block: 128 q rows of one head (b, head) = blockIdx.x; the
+// last rows come first (blockIdx.y counts down), the heaviest under causal.
+template <int HD>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_do,
+                const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, float* __restrict__ delta,
+                bf16* __restrict__ dq, int S, int Hq, int Hkv, float scale,
+                int causal) {
+  constexpr int TILE = (HD / 64) * BOX;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, full[BWD_STAGES], empty[BWD_STAGES];
+  __shared__ float delta_s[128];
+  unsigned char* Qs = align1k(smem_raw);   // [warpgroup] q rows
+  unsigned char* Ds = Qs + 2 * TILE;       // [warpgroup] dO rows
+  unsigned char* ring = Ds + 2 * TILE;     // [stage] K tile, V tile
+  const int head = blockIdx.x % Hq, b = blockIdx.x / Hq;
+  const int hkv = head / (Hq / Hkv);
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * 128;
+  // key tiles of the block: causal, up to the one holding its last row
+  const int nkt = causal ? min(m0 + 127, S - 1) / 64 + 1 : (S + 63) / 64;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: Q and dO once, then K and V tiles through the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_arrive_tx(&bar_q, 4 * TILE);
+      for (int w = 0; w < 2; ++w) {
+        tma_tile<HD>(Qs + w * TILE, &tm_q, head, m0 + 64 * w, b, &bar_q);
+        tma_tile<HD>(Ds + w * TILE, &tm_do, head, m0 + 64 * w, b, &bar_q);
+      }
+      for (int j = 0; j < nkt; ++j) {
+        const int st = j % BWD_STAGES;
+        mbar_wait(&empty[st], ((j / BWD_STAGES) & 1) ^ 1);
+        mbar_arrive_tx(&full[st], 2 * TILE);
+        unsigned char* kv = ring + st * 2 * TILE;
+        tma_tile<HD>(kv, &tm_k, hkv, 64 * j, b, &full[st]);
+        tma_tile<HD>(kv + TILE, &tm_v, hkv, 64 * j, b, &full[st]);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = m0 + 64 * wg;               // the warpgroup's first row
+    const int64_t stat0 = ((int64_t)b * Hq + head) * S;
+    {  // delta = rowsum(dO * O), O as stored, two threads a row
+      const int row = tid / 2, pos = r0 + row;
+      float acc = 0.f;
+      if (pos < S) {
+        const int64_t off = (((int64_t)b * S + pos) * Hq + head) * HD +
+                            (tid % 2) * (HD / 2);
+#pragma unroll
+        for (int i = 0; i < HD / 16; ++i) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(o + off + 8 * i);
+          const uint4 dv = *reinterpret_cast<const uint4*>(dout + off + 8 * i);
+          const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w};
+          const uint32_t dw[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 x = unpack2(ow[e]), y = unpack2(dw[e]);
+            acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
+          }
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (tid % 2 == 0) {
+        delta_s[64 * wg + row] = acc;
+        if (pos < S) delta[stat0 + pos] = acc;
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+    int qpos[2];
+    float lr[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * warp + g + 8 * h;
+      qpos[h] = r0 + row;
+      lr[h] = qpos[h] < S ? lse[stat0 + qpos[h]] * LOG2E : 0.f;
+      dl[h] = delta_s[64 * wg + row];
+    }
+    const float sl2 = scale * LOG2E;
+    // causal: up to the key tile on the warpgroup's diagonal
+    const int jend = causal ? min(nkt, r0 / 64 + 1) : nkt;
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    const uint32_t qa = smem_u32(Qs + wg * TILE), da = smem_u32(Ds + wg * TILE);
+    mbar_wait(&bar_q, 0);
+    for (int j = 0; j < nkt; ++j) {
+      const int st = j % BWD_STAGES;
+      mbar_wait(&full[st], (j / BWD_STAGES) & 1);
+      if (j < jend) {
+        const uint32_t kb = smem_u32(ring + st * 2 * TILE), vb = kb + TILE;
+        float s[32], dp[32];
+        // S = Q K^T, dP = dO V^T
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss_n64(s, kmajor(qa, kk), kmajor(kb, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss_n64(dp, kmajor(da, kk), kmajor(vb, kk), kk > 0);
+        wg_commit();
+        wg_wait0();
+        keep(s);
+        keep(dp);
+        // dS = P (dP - delta), in place of S; the mask only where a tile
+        // crosses the diagonal or the end
+        const bool edge = (causal && j == jend - 1) || 64 * j + 64 > S;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i % 4) / 2;
+          const int kpos = 64 * j + 8 * (i / 4) + 2 * t + (i % 2);
+          float p = exp2f(s[i] * sl2 - lr[h]);
+          if (edge && (kpos >= S || (causal && kpos > qpos[h]))) p = 0.f;
+          s[i] = p * (dp[i] - dl[h]);
+        }
+        // dQ += dS K, K read MN-major
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t a[4];
+          frag_of(a, s, kk);
+          wgmma_rs<HD>(acc, a, mnmajor(kb, kk));
+        }
+        wg_commit();
+        wg_wait0();
+        keep(acc);
+      }
+      mbar_arrive(&empty[st]);
+    }
+    bf16* rows[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      rows[h] = qpos[h] < S
+          ? dq + (((int64_t)b * S + qpos[h]) * Hq + head) * HD : nullptr;
+    store_rows<HD>(rows[0], rows[1], acc, scale, t);
+  }
+}
+
+// dK and dV.  Block: 128 keys of one KV head (b, hkv) = blockIdx.x; the
+// first keys come first (blockIdx.y counts up), the heaviest under causal.
+// It loops over the q tiles of all rep q heads of the group, so the GQA
+// sum stays in its registers.
+template <int HD>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+fa_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_do,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, int S, int Hq, int Hkv, float scale,
+                 int causal) {
+  constexpr int TILE = (HD / 64) * BOX;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar_kv, full[BWD_STAGES], empty[BWD_STAGES];
+  __shared__ __align__(8) float ls[BWD_STAGES][64];   // lse * log2(e)
+  __shared__ __align__(8) float ds[BWD_STAGES][64];   // delta
+  unsigned char* Ks = align1k(smem_raw);   // [warpgroup] keys
+  unsigned char* Vs = Ks + 2 * TILE;
+  unsigned char* ring = Vs + 2 * TILE;     // [stage] Q tile, dO tile
+  const int hkv = blockIdx.x % Hkv, b = blockIdx.x / Hkv;
   const int rep = Hq / Hkv;
-  const int b = blockIdx.y / Hkv, hkv = blockIdx.y % Hkv;
-  const int k0 = blockIdx.x * 64;
-  const int kw = warp * 16;                 // the warp's keys within the block
-  const int64_t kvstride = (int64_t)Hkv * HD;
-  const bf16* kb = k + ((int64_t)b * S * Hkv + hkv) * HD;
-  const bf16* vb = v + ((int64_t)b * S * Hkv + hkv) * HD;
-  stage_rows<64, HD, LDK>(Kb, kb, kvstride, k0, S);
-  stage_rows<64, HD, LDK>(Vb, vb, kvstride, k0, S);
-  int key[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) key[h] = k0 + kw + g + 8 * h;
-
-  float dka[NT][4], dva[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  const int64_t qstride = (int64_t)Hq * HD;
-  for (int gi = 0; gi < rep; ++gi) {
-    const int head = hkv * rep + gi;
-    const bf16* qb = q + ((int64_t)b * S * Hq + head) * HD;
-    const bf16* db = dout + ((int64_t)b * S * Hq + head) * HD;
-    const int64_t sb = ((int64_t)b * Hq + head) * S;
-    // causal: q rows before this block's first key see none of its keys
-    for (int q0 = causal ? (k0 / BQ) * BQ : 0; q0 < S; q0 += BQ) {
-      __syncthreads();
-      stage_rows<BQ, HD, LDK>(Qs, qb, qstride, q0, S);
-      stage_rows<BQ, HD, LDK>(Ds, db, qstride, q0, S);
-      stage_cols<BQ, HD, LDT>(Qt, qb, qstride, q0, S);
-      stage_cols<BQ, HD, LDT>(Dt, db, qstride, q0, S);
-      if (threadIdx.x < BQ) {
-        const bool in = q0 + (int)threadIdx.x < S;
-        Ls[threadIdx.x] = in ? lse[sb + q0 + threadIdx.x] : 0.f;
-        Dl[threadIdx.x] = in ? delta[sb + q0 + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-      // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x BQ q rows
-      float s[QT][4], dp[QT][4];
-#pragma unroll
-      for (int j = 0; j < QT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t ka[4], va[4];
-        frag_a(ka, Kb, LDK, kw, kk * 16, g, t);
-        frag_a(va, Vb, LDK, kw, kk * 16, g, t);
-#pragma unroll
-        for (int j = 0; j < QT; ++j) {
-          uint32_t b0, b1;
-          frag_b(b0, b1, Qs, LDK, j * 8, kk * 16, g, t);
-          mma16816(s[j], ka, b0, b1);
-          frag_b(b0, b1, Ds, LDK, j * 8, kk * 16, g, t);
-          mma16816(dp[j], va, b0, b1);
-        }
-      }
-      // P^T and dS^T, in place of S^T and dP^T
-#pragma unroll
-      for (int j = 0; j < QT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = j * 8 + 2 * t + (e & 1), qpos = q0 + qi;
-          const int kpos = key[e / 2];
-          const bool vis = qpos < S && kpos < S && !(causal && kpos > qpos);
-          const float p = vis ? expf(s[j][e] * scale - Ls[qi]) : 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - Dl[qi]);
-        }
-      }
-      // dV += P^T dO and dK += dS^T Q
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-        acc_to_a(sa, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          uint32_t b0, b1;
-          frag_b(b0, b1, Dt, LDT, n * 8, kk * 16, g, t);
-          mma16816(dva[n], pa, b0, b1);
-          frag_b(b0, b1, Qt, LDT, n * 8, kk * 16, g, t);
-          mma16816(dka[n], sa, b0, b1);
-        }
-      }
+  const int k0 = blockIdx.y * 128;
+  const int nqt = (S + 63) / 64;
+  // causal: q tiles before the block's first key see none of its keys
+  const int qt0 = causal ? 2 * blockIdx.y : 0;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_kv, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 256);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer warp: K and V once, then per q tile its Q and dO by TMA and
+    // its lse and delta by the 32 lanes, each lane arriving on the stage
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x < 256 + 32) {
+      const int lane = threadIdx.x - 256;
+      if (lane == 0) {
+        mbar_arrive_tx(&bar_kv, 4 * TILE);
+        for (int w = 0; w < 2; ++w) {
+          tma_tile<HD>(Ks + w * TILE, &tm_k, hkv, k0 + 64 * w, b, &bar_kv);
+          tma_tile<HD>(Vs + w * TILE, &tm_v, hkv, k0 + 64 * w, b, &bar_kv);
+        }
+      }
+      int it = 0;
+      for (int gi = 0; gi < rep; ++gi) {
+        const int head = hkv * rep + gi;
+        const int64_t stat0 = ((int64_t)b * Hq + head) * S;
+        for (int i = qt0; i < nqt; ++i, ++it) {
+          const int st = it % BWD_STAGES;
+          mbar_wait(&empty[st], ((it / BWD_STAGES) & 1) ^ 1);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (key[h] >= S) continue;
-    const int64_t off = (((int64_t)b * S + key[h]) * Hkv + hkv) * HD;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + n * 8 + 2 * t) =
-          pack2(dka[n][2 * h] * scale, dka[n][2 * h + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + n * 8 + 2 * t) =
-          pack2(dva[n][2 * h], dva[n][2 * h + 1]);
+          for (int e = 0; e < 2; ++e) {
+            const int c = 2 * lane + e, q = 64 * i + c;
+            ls[st][c] = q < S ? lse[stat0 + q] * LOG2E : 0.f;
+            ds[st][c] = q < S ? delta[stat0 + q] : 0.f;
+          }
+          if (lane == 0) {
+            mbar_arrive_tx(&full[st], 2 * TILE);
+            unsigned char* qd = ring + st * 2 * TILE;
+            tma_tile<HD>(qd, &tm_q, head, 64 * i, b, &full[st]);
+            tma_tile<HD>(qd + TILE, &tm_do, head, 64 * i, b, &full[st]);
+          } else {
+            mbar_arrive(&full[st]);
+          }
+        }
+      }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int kw = k0 + 64 * wg;               // the warpgroup's first key
+    const int key[2] = {kw + 16 * warp + g, kw + 16 * warp + g + 8};
+    const float sl2 = scale * LOG2E;
+    float dka[HD / 2], dva[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+    const uint32_t ka = smem_u32(Ks + wg * TILE), va = smem_u32(Vs + wg * TILE);
+    mbar_wait(&bar_kv, 0);
+    int it = 0;
+    for (int gi = 0; gi < rep; ++gi) {
+      for (int i = qt0; i < nqt; ++i, ++it) {
+        const int st = it % BWD_STAGES;
+        mbar_wait(&full[st], (it / BWD_STAGES) & 1);
+        // causal: the tile must hold a row at or past the first key
+        if (!causal || i >= kw / 64) {
+          const uint32_t qb = smem_u32(ring + st * 2 * TILE), db = qb + TILE;
+          float s[32], dp[32];
+          // S^T = K Q^T, dP^T = V dO^T
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk)
+            wgmma_ss_n64(s, kmajor(ka, kk), kmajor(qb, kk), kk > 0);
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk)
+            wgmma_ss_n64(dp, kmajor(va, kk), kmajor(db, kk), kk > 0);
+          wg_commit();
+          wg_wait0();
+          keep(s);
+          keep(dp);
+          // P^T and dS^T in place; the mask only on the diagonal tile and
+          // the last, ragged one
+          const bool edge = (causal && i == kw / 64) || 64 * i + 64 > S;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int c = 8 * jj + 2 * t;
+            const float2 l2 = *reinterpret_cast<const float2*>(&ls[st][c]);
+            const float2 d2 = *reinterpret_cast<const float2*>(&ds[st][c]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int idx = 4 * jj + e, qpos = 64 * i + c + (e & 1);
+              const float l = (e & 1) ? l2.y : l2.x;
+              const float d = (e & 1) ? d2.y : d2.x;
+              float p = exp2f(s[idx] * sl2 - l);
+              if (edge && (qpos >= S || (causal && key[e / 2] > qpos))) p = 0.f;
+              s[idx] = p;
+              dp[idx] = p * (dp[idx] - d);
+            }
+          }
+          // dV += P^T dO, dK += dS^T Q, dO and Q read MN-major
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            uint32_t pa[4], sa[4];
+            frag_of(pa, s, kk);
+            frag_of(sa, dp, kk);
+            wgmma_rs<HD>(dva, pa, mnmajor(db, kk));
+            wgmma_rs<HD>(dka, sa, mnmajor(qb, kk));
+          }
+          wg_commit();
+          wg_wait0();
+          keep(dka);
+          keep(dva);
+        }
+        mbar_arrive(&empty[st]);
+      }
+    }
+    bf16 *krow[2], *vrow[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t off = (((int64_t)b * S + key[h]) * Hkv + hkv) * HD;
+      krow[h] = key[h] < S ? dk + off : nullptr;
+      vrow[h] = key[h] < S ? dv + off : nullptr;
+    }
+    store_rows<HD>(krow[0], krow[1], dka, scale, t);
+    store_rows<HD>(vrow[0], vrow[1], dva, 1.f, t);
   }
 }
 
@@ -826,8 +1137,8 @@ fa_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 constexpr int FWD_BQ = 64, FWD_BK = 32;   // 256 threads, 32 KB smem at HD 128
 constexpr int DQ_BQ = 64, DQ_BK = 32;
 constexpr int DKV_BK = 32, DKV_BQ = 32;   // 128 threads
-// bf16 (tensor cores): 4 warps, 64 q rows or 64 keys a block
-constexpr int FWD_MMA_BK = 64, DQ_MMA_BK = 32, DKV_MMA_BQ = 32;
+// bf16 forward (tensor cores): 4 warps, 64 q rows a block
+constexpr int FWD_MMA_BK = 64;
 
 struct Args {
   const void *q, *k, *v, *o, *dout, *lse_in, *delta_in;
@@ -839,6 +1150,64 @@ struct Args {
 };
 
 unsigned blocks_for(int n, int per) { return (unsigned)((n + per - 1) / per); }
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D map (HD, H, S, B) of a contiguous bf16 (B, S, H, HD) tensor:
+// 64 x 64 boxes (64 columns of one head at 64 positions), 128-byte swizzle,
+// positions past S read as zeros.
+cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
+                     int hd) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)H * hd * 2,
+                                 (cuuint64_t)S * H * hd * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The maps of q, k, v and do, in that order.
+cudaError_t bwd_maps(CUtensorMap (&m)[4], const Args& a, int hd) {
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  const int heads[4] = {a.Hq, a.Hkv, a.Hkv, a.Hq};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = head_map(&m[i], ptrs[i], a.B, a.S, heads[i], hd);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
 
 template <typename T, int HD>
 cudaError_t run_fwd(const Args& a) {
@@ -860,12 +1229,23 @@ cudaError_t run_fwd(const Args& a) {
 template <typename T, int HD>
 cudaError_t run_dq(const Args& a) {
   if constexpr (std::is_same<T, bf16>::value) {
-    const dim3 grid(blocks_for(a.Hq / a.Hkv * a.S, 64), a.B * a.Hkv);
-    fa_bwd_dq_mma<HD, DQ_MMA_BK><<<grid, 128, 0, a.stream>>>(
-        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-        (const bf16*)a.o, (const bf16*)a.dout, (const float*)a.lse_in,
-        (float*)a.stat_out, (bf16*)a.out0, a.S, a.Hq, a.Hkv, a.scale,
-        a.causal);
+    if constexpr (HD != 64 && HD != 128) {
+      return cudaErrorInvalidValue;    // the wrapper pads to 64 or 128
+    } else {
+      CUtensorMap m[4];
+      cudaError_t err = bwd_maps(m, a, HD);
+      if (err != cudaSuccess) return err;
+      constexpr int smem = bwd_smem<HD>();
+      err = cudaFuncSetAttribute(fa_bwd_dq_wgmma<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid(a.B * a.Hq, blocks_for(a.S, 128));
+      fa_bwd_dq_wgmma<HD><<<grid, BWD_THREADS, smem, a.stream>>>(
+          m[0], m[1], m[2], m[3], (const bf16*)a.o, (const bf16*)a.dout,
+          (const float*)a.lse_in, (float*)a.stat_out, (bf16*)a.out0, a.S,
+          a.Hq, a.Hkv, a.scale, a.causal);
+    }
   } else {
     const dim3 grid(blocks_for(a.Hq / a.Hkv * a.S, DQ_BQ), a.B * a.Hkv);
     fa_bwd_dq<HD, DQ_BQ, DQ_BK><<<grid, DQ_BQ * TPR, 0, a.stream>>>(
@@ -880,17 +1260,23 @@ cudaError_t run_dq(const Args& a) {
 template <typename T, int HD>
 cudaError_t run_dkv(const Args& a) {
   if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int smem = dkv_mma_smem<HD, DKV_MMA_BQ>();   // > 48 KB at HD 128
-    const cudaError_t err = cudaFuncSetAttribute(
-        fa_bwd_dkv_mma<HD, DKV_MMA_BQ>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(blocks_for(a.S, 64), a.B * a.Hkv);
-    fa_bwd_dkv_mma<HD, DKV_MMA_BQ><<<grid, 128, smem, a.stream>>>(
-        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-        (const bf16*)a.dout, (const float*)a.lse_in,
-        (const float*)a.delta_in, (bf16*)a.out0, (bf16*)a.out1, a.S, a.Hq,
-        a.Hkv, a.scale, a.causal);
+    if constexpr (HD != 64 && HD != 128) {
+      return cudaErrorInvalidValue;    // the wrapper pads to 64 or 128
+    } else {
+      CUtensorMap m[4];
+      cudaError_t err = bwd_maps(m, a, HD);
+      if (err != cudaSuccess) return err;
+      constexpr int smem = bwd_smem<HD>();
+      err = cudaFuncSetAttribute(fa_bwd_dkv_wgmma<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid(a.B * a.Hkv, blocks_for(a.S, 128));
+      fa_bwd_dkv_wgmma<HD><<<grid, BWD_THREADS, smem, a.stream>>>(
+          m[0], m[1], m[2], m[3], (const float*)a.lse_in,
+          (const float*)a.delta_in, (bf16*)a.out0, (bf16*)a.out1, a.S, a.Hq,
+          a.Hkv, a.scale, a.causal);
+    }
   } else {
     const dim3 grid(blocks_for(a.S, DKV_BK), a.B * a.Hkv);
     fa_bwd_dkv<HD, DKV_BK, DKV_BQ><<<grid, DKV_BK * TPR, 0, a.stream>>>(
@@ -937,7 +1323,8 @@ int launch(Which w, int dtype, int hd, const Args& a) {
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16 (q, k, v, o, do and the gradients alike; lse
-// and delta are fp32).  hd: 16, 32, 64, 80 or 128.  Each returns
+// and delta are fp32).  hd: 16, 32, 64, 80 or 128 (the bf16 backward: 64
+// or 128).  Each returns
 // cudaGetLastError() after its launch (0 = launched).
 
 // o = attention(q, k, v); lse = m + log(max(l, 1e-30)).

@@ -6,9 +6,12 @@ design): the forward kernel streams K/V tiles through shared memory with
 the online ``(m, l, acc)`` softmax in fp32 registers and also writes the
 row log-sum-exp ``lse``; the backward is FlashAttention-2 style in two
 kernels, ``dq`` (which also writes ``delta = rowsum(dO * O)``) and then
-``dk, dv`` (one block per key tile sums the GQA group, no atomics).  bf16
-inputs run on the tensor cores (``mma.sync``), fp32 inputs on the CUDA
-cores.  The TPU kernel has no VJP; the gradient here is the port's own.
+``dk, dv`` (one block per key tile sums the GQA group, no atomics).  fp32
+inputs run on the CUDA cores; bf16 inputs on the tensor cores: the
+forward with ``mma.sync``, the backward with Hopper's ``wgmma``, TMA loads
+and warp specialisation (``sm_90a``; built for head dims 64 and 128, the
+backward wrappers zero-pad 16, 32 and 80).  The TPU kernel has no VJP; the
+gradient here is the port's own.
 
 Bound on the H100: operations.  Causal forward does two matmuls of
 ``2 * hd`` flops per visible (q, k) pair, the FlashAttention-2 backward
@@ -42,7 +45,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 __all__ = ["LAUNCHES_FWD", "LAUNCHES_BWD_DQ", "LAUNCHES_BWD_DKV",
-           "SUPPORTED_HD", "NEG_INF", "default_scale",
+           "SUPPORTED_HD", "BF16_BWD_HD", "NEG_INF", "default_scale",
            "flash_attention_plain", "flash_attention_plain_bwd",
            "flash_attention_fwd_cuda", "flash_attention_bwd_dq_cuda",
            "flash_attention_bwd_dkv_cuda", "FlashAttention",
@@ -57,6 +60,11 @@ LAUNCHES_BWD_DKV = 0
 #: other head dim with zeros up to the next one (as the TPU wrapper padded
 #: to 128 lanes).
 SUPPORTED_HD = (16, 32, 64, 80, 128)
+
+#: Head dims the bf16 backward kernels are built for; the backward wrappers
+#: zero-pad a bf16 head dim up to the next one (zeros change neither the
+#: dots nor ``delta``).
+BF16_BWD_HD = (64, 128)
 
 #: The reference's finite mask value (``repro/kernels/ref.py``).
 NEG_INF = -1e30
@@ -287,13 +295,15 @@ def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
     name = "flash_attention_bwd_dq"
     code = _check(name, q, k, v, o=o, do=do)
     _check_stat(name, "lse", lse, q)
-    scale = default_scale(q.shape[-1]) if scale is None else scale
+    hd = q.shape[-1]
+    scale = default_scale(hd) if scale is None else scale
+    q, k, v, o, do = _pad_bwd(q, k, v, o, do)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
     _launch(name, (q, k, v, o, do, lse, delta, dq), q, k, causal, scale,
             code)
     LAUNCHES_BWD_DQ += 1
-    return dq, delta
+    return _unpad(dq, hd), delta
 
 
 def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -309,24 +319,38 @@ def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
     code = _check(name, q, k, v, do=do)
     _check_stat(name, "lse", lse, q)
     _check_stat(name, "delta", delta, q)
-    scale = default_scale(q.shape[-1]) if scale is None else scale
+    hd = q.shape[-1]
+    scale = default_scale(hd) if scale is None else scale
+    q, k, v, do = _pad_bwd(q, k, v, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch(name, (q, k, v, do, lse, delta, dk, dv), q, k, causal, scale,
             code)
     LAUNCHES_BWD_DKV += 1
-    return dk, dv
+    return _unpad(dk, hd), _unpad(dv, hd)
 
 
-def _pad_hd(t: torch.Tensor) -> torch.Tensor:
-    """Zero-pad the head dim up to the next kernel size (a no-op at 16,
-    32, 64, 80 and 128; zeros add nothing to the dots)."""
+def _pad_hd(t: torch.Tensor, sizes=SUPPORTED_HD) -> torch.Tensor:
+    """Zero-pad the head dim up to the next of ``sizes`` (a no-op at a
+    size itself; zeros add nothing to the dots)."""
     hd = t.shape[-1]
-    to = next((h for h in SUPPORTED_HD if h >= hd), None)
+    to = next((h for h in sizes if h >= hd), None)
     if to is None:
         raise ValueError(f"flash attention takes head dims up to "
-                         f"{SUPPORTED_HD[-1]}, got {hd}")
+                         f"{sizes[-1]}, got {hd}")
     return t if to == hd else F.pad(t, (0, to - hd))
+
+
+def _pad_bwd(*ts: torch.Tensor):
+    """bf16 tensors padded to a head dim of :data:`BF16_BWD_HD`, what the
+    bf16 backward kernels take; fp32 tensors as they are."""
+    if ts[0].dtype != torch.bfloat16:
+        return ts
+    return tuple(_pad_hd(t, BF16_BWD_HD) for t in ts)
+
+
+def _unpad(t: torch.Tensor, hd: int) -> torch.Tensor:
+    return t if t.shape[-1] == hd else t[..., :hd].contiguous()
 
 
 class FlashAttention(torch.autograd.Function):

@@ -14,10 +14,11 @@ from __future__ import annotations
 
 import argparse
 import collections
+import os
 import re
 import shutil
 import subprocess
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.kernels import _build
 
@@ -53,19 +54,31 @@ def mix(insns: List[Tuple[int, str, int]]):
     return inner, rest
 
 
+def cuobjdump() -> Optional[str]:
+    """The toolkit's ``cuobjdump``, or None where there is none."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return tool if os.path.exists(tool) else None
+
+
+def kernel_mixes(name: str, match: str = ""):
+    """Mangled name -> :func:`mix` of each kernel of ``csrc/<name>.cu``
+    whose name contains ``match``; builds the source first."""
+    tool = cuobjdump()
+    if tool is None:
+        raise RuntimeError("cuobjdump not found (PATH or /usr/local/cuda/bin)")
+    _build.build(name)
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return {fn: mix(insns) for fn, insns in _functions(sass).items()
+            if match in fn}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("name", help="kernel source csrc/<name>.cu")
     ap.add_argument("--match", default="", help="substring of kernel names")
     args = ap.parse_args(argv)
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    _build.build(args.name)
-    sass = subprocess.run([tool, "-sass", str(_build.library_path(args.name))],
-                          capture_output=True, text=True, check=True).stdout
-    for fn, insns in _functions(sass).items():
-        if args.match not in fn:
-            continue
-        inner, rest = mix(insns)
+    for fn, (inner, rest) in kernel_mixes(args.name, args.match).items():
         fmt = lambda c: ", ".join(f"{op} {n}" for op, n in c.most_common())
         print(f"[sass] {fn}: loop {sum(inner.values())} instructions "
               f"({fmt(inner)}); outside loops {sum(rest.values())} "

@@ -14,6 +14,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moa_reduce as moa
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qmm
+from repro_torch.launch import sass_mix
 from repro_torch.models import attention
 from repro_torch.models.common import init_params
 from repro_torch.optim.adamw import AdamWConfig
@@ -149,10 +150,20 @@ def test_flash_forward_kernel_matches_plain(cuda_device, shape, dtype,
     torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
 
 
+# bf16 backward (the wgmma kernels): ragged S (37, 65, 100, 129, 200: no
+# multiple of a 64-row tile), rep 1, 3 and 4, head dims 64, 80 (padded to
+# 128) and 128
+BF16_BWD_SHAPES = [(2, 37, 4, 4, 64), (1, 100, 6, 2, 128),
+                   (2, 200, 8, 2, 80), (1, 200, 3, 1, 64),
+                   (2, 100, 4, 1, 80), (1, 37, 2, 2, 128),
+                   (1, 129, 8, 2, 128), (1, 65, 2, 1, 64)]
+BWD_CASES = ([(sh, dt) for sh in FLASH_SHAPES
+              for dt in (torch.float32, torch.bfloat16)] +
+             [(sh, torch.bfloat16) for sh in BF16_BWD_SHAPES])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=str)
+@pytest.mark.parametrize("shape,dtype", BWD_CASES, ids=str)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_backward_kernels_match_plain(cuda_device, shape, dtype,
                                             causal):
@@ -177,12 +188,44 @@ def test_flash_backward_kernels_match_plain(cuda_device, shape, dtype,
     auto = torch.autograd.grad(fa.flash_attention_plain(q, k, v, causal)[0],
                                (q, k, v), do)
     for got, want, ref in zip((dq, dk, dv), plain, auto):
-        assert got.dtype == dtype
+        assert got.dtype == dtype and got.shape == want.shape
         for w in (want, ref):
             if dtype == torch.float32:
                 torch.testing.assert_close(got, w, rtol=1e-4, atol=1e-5)
             else:
                 assert _rel(got, w) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_flash_backward_repeats_bit_for_bit(cuda_device):
+    """No atomics: two backward calls on the same inputs give equal dq,
+    dk and dv."""
+    q, k, v, do = _flash_inputs(2, 300, 8, 2, 128, torch.bfloat16,
+                                cuda_device)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, True)
+    runs = []
+    for _ in range(2):
+        dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, True)
+        runs.append((dq, delta) + fa.flash_attention_bwd_dkv_cuda(
+            q, k, v, lse, delta, do, True))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_backward_sass_uses_wgmma_and_tma(cuda_device):
+    """Both bf16 backward kernels issue HGMMA and UTMALDG inside their
+    loops and no HMMA (mma.sync) anywhere."""
+    if sass_mix.cuobjdump() is None:
+        pytest.skip("needs cuobjdump (CUDA toolkit)")
+    mixes = sass_mix.kernel_mixes("flash_attention", "bwd_")
+    for kernel in ("fa_bwd_dq_wgmma", "fa_bwd_dkv_wgmma"):
+        found = [m for fn, m in mixes.items() if kernel in fn]
+        assert len(found) == 2, f"{kernel}: {list(mixes)}"   # HD 64, 128
+        for inner, rest in found:
+            assert inner["HGMMA"] > 0 and inner["UTMALDG"] > 0, kernel
+            assert inner["HMMA"] == 0 and rest["HMMA"] == 0, kernel
 
 
 @pytest.mark.cuda

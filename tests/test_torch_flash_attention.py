@@ -166,3 +166,32 @@ def test_bound_counts():
     assert (tfa.bound_bytes(b, s, hq, hkv, hd, torch.bfloat16, "bwd_dq") +
             tfa.bound_bytes(b, s, hq, hkv, hd, torch.bfloat16, "bwd_dkv")) \
         == tfa.bound_bytes(b, s, hq, hkv, hd, torch.bfloat16, "bwd")
+
+
+@pytest.mark.parametrize("hd,to", [(16, 64), (32, 64), (64, 64), (80, 128),
+                                   (128, 128)])
+def test_bf16_backward_head_dim_padding(hd, to):
+    """The bf16 backward kernels are built for head dims 64 and 128, and
+    their wrappers zero-pad the others (fp32 is not padded).  The zeros
+    change neither the gradients (cut back to hd) nor delta: the plain
+    backward on the padded tensors, with the unpadded scale, gives the
+    unpadded gradients."""
+    arrs = _inputs(2, 40, 4, 2, hd, 3 + hd, n=4)
+    q, k, v, do = (torch.from_numpy(a) for a in arrs)
+    assert all(t is u for t, u in zip(tfa._pad_bwd(q, k), (q, k)))
+    padded = tfa._pad_bwd(*(t.bfloat16() for t in (q, k, v, do)))
+    assert all(t.shape[-1] == to and not t[..., hd:].any() for t in padded)
+    scale = tfa.default_scale(hd)
+    o, lse = tfa.flash_attention_plain(q, k, v, True, scale)
+    want = tfa.flash_attention_plain_bwd(q, k, v, o, lse, do, True, scale)
+    qp, kp, vp, op, dop = (tfa._pad_hd(t, tfa.BF16_BWD_HD)
+                           for t in (q, k, v, o, do))
+    got = tfa.flash_attention_plain_bwd(qp, kp, vp, op, lse, dop, True,
+                                        scale)
+    for g, w in zip(got, want):
+        assert not g[..., hd:].any()
+        np.testing.assert_allclose(g[..., :hd].numpy(), w.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose((dop * op).sum(-1).numpy(),
+                               (do * o).sum(-1).numpy(), rtol=1e-6,
+                               atol=1e-6)
