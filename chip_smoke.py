@@ -23,8 +23,9 @@ Phases:
      dk/dv kernels against flash_attention_plain_bwd and against autograd
      through the plain forward (fp32 rtol 1e-4 atol 1e-5; bf16 relative
      norm error 1e-2), causal and not, at the kernel-test shapes, bf16
-     shapes with a ragged S, and the training path's; two backward calls
-     at the path shape give torch.equal dq, delta, dk and dv
+     shapes with a ragged S, and the training path's; two forward calls
+     at the path shape give torch.equal o and lse, two backward calls
+     torch.equal dq, delta, dk and dv
   5. serve, reduced-config parity: the engine on CUDA against the engine
      on CPU, same weights: greedy tokens equal, decode logits within 1e-3
   6. serve, full width: llama3.2-3b, 28 layers, bf16, 8 greedy requests
@@ -45,7 +46,8 @@ Phases:
      and each backward kernel layers * steps times
  10. flash attention timings at the training path shape (median of 20)
      beside the bound, the plain version and PyTorch's
-     scaled_dot_product_attention; the backward's share of the bf16 peak
+     scaled_dot_product_attention; the forward's and the backward's
+     TFLOP/s and share of the bf16 peak beside SDPA's
  11. bitplane_add and quant_matmul against bitplane_add_plain and
      quant_matmul_plain, torch.equal, at the kernel-test shapes (Fig 12
      lanes, the all -128 K = 8192 case, a binding 18-bit plan) and at the
@@ -411,6 +413,9 @@ def phase_flash_check():
                     check(ok, f"flash {name} != {wname} at {what}")
             if (b, s, hq, dt) == (TRAIN_BATCH, TRAIN_SEQ, 24,
                                   torch.bfloat16):
+                o2, lse2 = fa.flash_attention_fwd_cuda(q, k, v, causal)
+                check(torch.equal(o, o2) and torch.equal(lse, lse2),
+                      f"flash forward: two calls differ at {what}")
                 dq2, delta2 = fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse,
                                                              do, causal)
                 dk2, dv2 = fa.flash_attention_bwd_dkv_cuda(q, k, v, lse,
@@ -419,7 +424,7 @@ def phase_flash_check():
                     (dq, delta, dk, dv), (dq2, delta2, dk2, dv2))),
                     f"flash backward: two calls differ at {what}")
                 repeats += 1
-                del dq2, delta2, dk2, dv2
+                del o2, lse2, dq2, delta2, dk2, dv2
             found = {"fwd": (o.float() - po.float()).abs().max(),
                      "bwd_dq": (dq.float() - plain[0].float()).abs().max(),
                      "bwd_dkv": max((dk.float() - plain[1].float()).abs()
@@ -439,9 +444,9 @@ def phase_flash_check():
           f"{errs['bwd_dq']['fp32']:.3e} dkv {errs['bwd_dkv']['fp32']:.3e}; "
           f"at the path shape (bf16) fwd {errs['fwd']['path']:.3e} dq "
           f"{errs['bwd_dq']['path']:.3e} dkv {errs['bwd_dkv']['path']:.3e}; "
-          f"two backward calls torch.equal at the path shape ({repeats} "
-          f"cases)")
-    check(repeats == 2, "flash backward: the path shape was not repeated")
+          f"two forward and two backward calls torch.equal at the path "
+          f"shape ({repeats} cases)")
+    check(repeats == 2, "flash: the path shape was not repeated")
     return errs
 
 
@@ -654,10 +659,19 @@ def phase_flash_timing():
               f"TFLOP/s; {nbytes} B / 3.35 TB/s) plain_ms {plain_ms:.4f} "
               f"library_ms {lib_ms:.4f} kernel/bound "
               f"{kernel / rows[part]['bound_ms']:.1f}")
+    for part, lib_ms in (("fwd", lib_fwd), ("bwd", lib_bwd)):
+        r = rows[part]
+        r["bf16_peak_share"] = r["flops"] / (r["ms"] * 1e-3) / BF16_FLOP_PER_S
+        r["library_bf16_peak_share"] = r["flops"] / (lib_ms * 1e-3) / \
+            BF16_FLOP_PER_S
+    print(f"[time] flash forward: {ms['fwd']:.4f} ms; its 2 matmuls at "
+          f"{rows['fwd']['flops'] / ms['fwd'] / 1e9:.1f} TFLOP/s = "
+          f"{rows['fwd']['bf16_peak_share']:.3f} of the 989 TFLOP/s bf16 "
+          f"peak; SDPA forward {lib_fwd:.4f} ms, "
+          f"{rows['fwd']['flops'] / lib_fwd / 1e9:.1f} TFLOP/s = "
+          f"{rows['fwd']['library_bf16_peak_share']:.3f}")
     bwd_ms = ms["bwd_dq"] + ms["bwd_dkv"]
     built = fa.bound_flops(b, s, hq, hd, True, "bwd") * 7 // 5
-    rows["bwd"]["bf16_peak_share"] = rows["bwd"]["flops"] / (
-        bwd_ms * 1e-3) / BF16_FLOP_PER_S
     print(f"[time] flash backward (dq + dk/dv): {bwd_ms:.4f} ms; the "
           f"function's 5 matmuls at {rows['bwd']['flops'] / bwd_ms / 1e9:.1f}"
           f" TFLOP/s = {rows['bwd']['bf16_peak_share']:.3f} of the 989 "
@@ -665,7 +679,7 @@ def phase_flash_timing():
           f"recomputed) at {built / bwd_ms / 1e9:.1f} TFLOP/s = "
           f"{built / (bwd_ms * 1e-3) / BF16_FLOP_PER_S:.3f}; SDPA backward "
           f"{rows['bwd']['flops'] / lib_bwd / 1e9:.1f} TFLOP/s = "
-          f"{rows['bwd']['flops'] / (lib_bwd * 1e-3) / BF16_FLOP_PER_S:.3f}")
+          f"{rows['bwd']['library_bf16_peak_share']:.3f}")
     print(f"[time] scaled_dot_product_attention (is_causal, enable_gqa) at "
           f"the same shape: fwd {lib_fwd:.4f} ms, fwd+bwd {lib_fwdbwd:.4f} "
           f"ms, bwd {lib_bwd:.4f} ms; kernel fwd+bwd "

@@ -41,39 +41,48 @@
 //    key), staged 32 at a time, so the GQA sum into dK and dV stays in
 //    registers of one block.
 //
-// bf16 forward, tensor cores (fa_fwd_mma): the fp32 forward's blocks with 4
-// warps of 16 rows, mma.sync.m16n8k16 with fp32 accumulators, P rounded to
-// bf16 as the A operand of P V (FlashAttention-2's choice); K staged
-// row-major and V transposed in shared memory.
-//
-// bf16 backward, Hopper (fa_bwd_dq_wgmma, fa_bwd_dkv_wgmma; HD 64 or 128,
-// the wrapper zero-pads 16, 32 and 80, which changes neither the dots nor
-// delta):
-//  * Bound on this card: operations.  The function needs 5 matmuls of
-//    2 * HD flops per visible (q, k) pair; these two kernels do 7, since
-//    both recompute S and dP: the price of having no atomics.  Every
-//    output element has one writer, and results repeat bit for bit from
-//    run to run.  (FlashAttention-3 adds dQ from the dk/dv pass with
-//    atomics; this does not.)  Bytes are far below the operations at the
-//    training shapes, so the design is about keeping the tensor cores fed.
+// bf16, Hopper (fa_fwd_wgmma, fa_bwd_dq_wgmma, fa_bwd_dkv_wgmma; HD 64 or
+// 128, the wrappers zero-pad 16, 32 and 80, which changes neither the
+// dots nor delta):
+//  * Bound on this card: operations.  The forward needs 2 matmuls of 2 *
+//    HD flops per visible (q, k) pair and does 2; the backward needs 5
+//    and its two kernels do 7, since both recompute S and dP: the price
+//    of having no atomics.  Every output element has one writer, and
+//    results repeat bit for bit from run to run.  (FlashAttention-3 adds
+//    dQ from the dk/dv pass with atomics; this does not.)  Bytes are far
+//    below the operations at the training shapes, so the design is about
+//    keeping the tensor cores fed.
 //  * wgmma (m64nNk16, fp32 accumulators), the only way to the card's full
 //    tensor-core rate: every product reads its shared-memory operands
 //    through descriptors, K-major or MN-major (the descriptor's transpose
 //    bit), so nothing is ever transposed in shared memory.  P and dS go
 //    from the accumulator of one product to the register-A operand of the
-//    next (the accumulator's layout is the A layout), rounded to bf16.
+//    next (the accumulator's layout is the A layout), rounded to bf16 as
+//    FlashAttention-2 and -3 round P.
 //  * TMA: 4-D tensor maps (HD, H, S, B) with the 128-byte swizzle wgmma
-//    reads, one 64 x 64 box per 64 columns; the tiles are per head (b,
-//    head, 64 positions), so every tile is one rectangular box and a
-//    ragged S reads zeros.  The maps are encoded on the host per call
+//    reads, one box of 64 or (the forward's K and V) 128 positions per 64
+//    columns; the tiles are per head (b, head, positions), so every tile
+//    is one rectangular box and a ragged S reads zeros.  The maps are encoded on the host per call
 //    (cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint, so
 //    nothing links libcuda) and passed as __grid_constant__ parameters.
 //  * Warp specialisation: 384 threads, two consumer warpgroups of 64 rows
 //    (setmaxnreg 240) and a producer warpgroup (setmaxnreg 24) of which one
-//    thread or warp issues the loads, through a ring of BWD_STAGES stages
+//    thread or warp issues the loads, through a ring of STAGES stages
 //    with full and empty mbarriers: loads are in flight while the
 //    consumers multiply, and the two consumers' softmax and products
 //    overlap each other on the tensor cores.
+//  * fa_fwd_wgmma: a block takes 128 q rows of one head; Q is loaded once,
+//    K and V tiles of FWD_KEYS = 128 keys stream through the ring (a tile
+//    of 64 keys left each warpgroup waiting more on its own softmax and
+//    barriers per product).  S = Q K^T (m64n128, both K-major), the online
+//    softmax in registers in the exp2 domain: each row's max over the raw
+//    scores, reduced over the four lanes of a quad, then one FFMA (scale
+//    * log2 e folded in) and one ex2.approx a score; O is rescaled by
+//    exp2(m_old - m_new) before each O += P V (m64nHD, V MN-major).  The
+//    epilogue scales each row by 1 / max(l, 1e-30) and writes lse = m ln 2
+//    + log(max(l, 1e-30)).  Causal: the block streams the key tiles up to
+//    the one that holds its last row, the diagonal tile of both
+//    warpgroups.
 //  * fa_bwd_dq_wgmma: a block takes 128 q rows of one head; Q and dO are
 //    loaded once, delta = rowsum(dO O) is formed first (written for the
 //    dk/dv kernel), K and V tiles of 64 keys stream through the ring.  S =
@@ -87,7 +96,7 @@
 //    that holds the block's first key.
 //  * The per-element mask runs only on tiles that cross the diagonal or
 //    the end of the sequence; the heaviest causal blocks launch first (the
-//    last q rows for dq, the first keys for dk/dv).
+//    last q rows for the forward and dq, the first keys for dk/dv).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -393,35 +402,11 @@ fa_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 forward: the fp32 forward's blocks on the tensor cores (mma.sync
-// m16n8k16, fp32 accumulators), FlashAttention-2's register layout.  A warp
-// owns 16 rows; with g = lane / 4 and t = lane % 4 a thread holds, of a
-// 16 x 8 fp32 accumulator tile, rows g and g + 8 at columns 2t and 2t + 1.
-// Score tiles become the A operand of P V in registers (rounded to bf16, as
-// FlashAttention-2 does); every B operand is read from shared memory as
-// bf16 pairs, with the layouts padded by 8 elements a row so that the 32
-// lanes of a fragment load hit 32 different banks.
-// ---------------------------------------------------------------------------
-
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld2(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ float2 unpack2(uint32_t u) {
@@ -430,188 +415,21 @@ __device__ __forceinline__ float2 unpack2(uint32_t u) {
   return __bfloat1622float2(v);
 }
 
-// B fragment (16 x 8) whose column n is row n0 + n of a bf16 array with row
-// stride ld, k running along that row from c0.
-__device__ __forceinline__ void frag_b(uint32_t& b0, uint32_t& b1,
-                                       const bf16* base, int ld, int n0,
-                                       int c0, int g, int t) {
-  b0 = ld2(base + (n0 + g) * ld + c0 + 2 * t);
-  b1 = ld2(base + (n0 + g) * ld + c0 + 2 * t + 8);
-}
-
-// Two accumulator tiles (16 x 8 each, adjacent in k) as one A fragment.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack2(lo[0], lo[1]);
-  a[1] = pack2(lo[2], lo[3]);
-  a[2] = pack2(hi[0], hi[1]);
-  a[3] = pack2(hi[2], hi[3]);
-}
-
-// dst[r * LD + :HD] = base[(first + r) * stride + :HD], zero for rows at or
-// past `limit`; 16-byte copies, all threads of the block.
-template <int ROWS, int HD, int LD>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* base,
-                                           int64_t stride, int first,
-                                           int limit) {
-  constexpr int C8 = HD / 8;
-  for (int idx = threadIdx.x; idx < ROWS * C8; idx += blockDim.x) {
-    const int r = idx / C8, c = idx % C8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (first + r < limit)
-      val = *reinterpret_cast<const uint4*>(base + (first + r) * stride + 8 * c);
-    *reinterpret_cast<uint4*>(dst + r * LD + 8 * c) = val;
-  }
-}
-
-// The transpose: dst[d * LD + r] = base[(first + r) * stride + d].
-template <int ROWS, int HD, int LD>
-__device__ __forceinline__ void stage_cols(bf16* dst, const bf16* base,
-                                           int64_t stride, int first,
-                                           int limit) {
-  constexpr int C8 = HD / 8;
-  for (int idx = threadIdx.x; idx < ROWS * C8; idx += blockDim.x) {
-    const int r = idx % ROWS, c = idx / ROWS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (first + r < limit)
-      val = *reinterpret_cast<const uint4*>(base + (first + r) * stride + 8 * c);
-    const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(8 * c + i) * LD + r] = e[i];
-  }
-}
-
-template <int HD, int BK>
-__global__ void __launch_bounds__(128)
-fa_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, bf16* __restrict__ o,
-           float* __restrict__ lse, int S, int Hq, int Hkv, float scale,
-           int causal) {
-  constexpr int KS = HD / 16, NT = HD / 8, KT = BK / 8;
-  constexpr int LDK = HD + 8, LDV = BK + 8;
-  __shared__ __align__(16) bf16 Ks[BK * LDK];
-  __shared__ __align__(16) bf16 Vt[HD * LDV];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  // this lane's rows of the block's 64: g and g + 8 of the warp's 16
-  const int row = blockIdx.x * 64 + warp * 16 + g;
-  const QRow r[2] = {QRow(row, HD, S, Hq, Hkv),
-                     QRow(row + 8, HD, S, Hq, Hkv)};
-  const int kend = keys_to_visit(blockIdx.x * 64, 64, S, Hq / Hkv, causal);
-  const int b = blockIdx.y / Hkv, hkv = blockIdx.y % Hkv;
-  const int64_t kvstride = (int64_t)Hkv * HD;
-  const bf16* kb = k + ((int64_t)b * S * Hkv + hkv) * HD;
-  const bf16* vb = v + ((int64_t)b * S * Hkv + hkv) * HD;
-
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = r[0].live ? ld2(q + r[0].off + c) : 0u;
-    qa[kk][1] = r[1].live ? ld2(q + r[1].off + c) : 0u;
-    qa[kk][2] = r[0].live ? ld2(q + r[0].off + c + 8) : 0u;
-    qa[kk][3] = r[1].live ? ld2(q + r[1].off + c + 8) : 0u;
-  }
-  float oacc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();
-    stage_rows<BK, HD, LDK>(Ks, kb, kvstride, k0, S);
-    stage_cols<BK, HD, LDV>(Vt, vb, kvstride, k0, S);
-    __syncthreads();
-    float s[KT][4];
-#pragma unroll
-    for (int j = 0; j < KT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        uint32_t b0, b1;
-        frag_b(b0, b1, Ks, LDK, j * 8, kk * 16, g, t);
-        mma16816(s[j], qa[kk], b0, b1);
-      }
-    }
-    float mt[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2, key = k0 + j * 8 + 2 * t + (e & 1);
-        float x = s[j][e] * scale;
-        if (causal && key > r[h].pos) x = NEG_INF;
-        if (key >= S) x = -INFINITY;   // past the end: no term at all
-        s[j][e] = x;
-        mt[h] = fmaxf(mt[h], x);
-      }
-    }
-    float corr[2], lsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
-      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
-      corr[h] = expf(m[h] - mt[h]);
-      m[h] = mt[h];
-    }
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - mt[e / 2]);
-        s[j][e] = p;
-        lsum[e / 2] += p;
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + lsum[h];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      oacc[n][0] *= corr[0]; oacc[n][1] *= corr[0];
-      oacc[n][2] *= corr[1]; oacc[n][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t b0, b1;
-        frag_b(b0, b1, Vt, LDV, n * 8, kk * 16, g, t);
-        mma16816(oacc[n], pa, b0, b1);
-      }
-    }
-  }
-  // l is a per-lane partial (each lane summed its own columns)
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const float lc = fmaxf(l[h], 1e-30f);
-    if (!r[h].live) continue;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<uint32_t*>(o + r[h].off + n * 8 + 2 * t) =
-          pack2(oacc[n][2 * h] / lc, oacc[n][2 * h + 1] / lc);
-    }
-    if (t == 0) lse[r[h].stat] = m[h] + logf(lc);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bf16 backward on Hopper: TMA, mbarriers, wgmma and warp specialisation
-// (see the note at the top).  A block is 384 threads: warpgroups 0 and 1
-// consume (64 rows each), warpgroup 2 produces (one thread, or one warp,
-// issues the TMA loads; the rest exit).  Shared tiles are 64-row TMA boxes
-// of 64 bf16 columns (128 bytes a row, 128-byte swizzle), HD / 64 boxes
-// side by side for a 64 x HD tile; wgmma reads them through descriptors.
+// bf16 on Hopper: TMA, mbarriers, wgmma and warp specialisation (see the
+// note at the top).  A block is 384 threads: warpgroups 0 and 1 consume
+// (64 rows each), warpgroup 2 produces (one thread, or one warp, issues
+// the TMA loads; the rest exit).  Shared tiles are 64-row TMA boxes of 64
+// bf16 columns (128 bytes a row, 128-byte swizzle), HD / 64 boxes side by
+// side for a 64 x HD tile; wgmma reads them through descriptors.
 // ---------------------------------------------------------------------------
 
-constexpr int BWD_THREADS = 384;    // consumer warpgroups 0, 1; producer 2
-constexpr int BWD_STAGES = 2;       // depth of the ring of streamed tiles
+constexpr int WS_THREADS = 384;     // consumer warpgroups 0, 1; producer 2
+constexpr int STAGES = 2;           // depth of the ring of streamed tiles
+constexpr int FWD_KEYS = 128;       // keys of the forward's K and V tiles
 constexpr int BOX = 64 * 64 * 2;    // one 64 x 64 bf16 box: 8 KB
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -645,9 +463,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// One 64 x 64 box of a 4-D (HD, H, S, B) tensor map, at column `col` of
-// head `head`, positions pos .. pos + 63 of batch row `b`, into shared
-// memory; its bytes complete on `bar`.  Positions past S read as zeros.
+// One box of a 4-D (HD, H, S, B) tensor map (64 columns by the map's rows),
+// at column `col` of head `head`, from position `pos` of batch row `b`,
+// into shared memory; its bytes complete on `bar`.  Positions past S read
+// as zeros.
 __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
                                         int col, int head, int pos, int b,
                                         uint64_t* bar) {
@@ -659,14 +478,14 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// A 64 x HD tile: HD / 64 boxes side by side.
-template <int HD>
+// A ROWS x HD tile: HD / 64 boxes of ROWS rows side by side.
+template <int HD, int ROWS = 64>
 __device__ __forceinline__ void tma_tile(unsigned char* dst,
                                          const CUtensorMap* map, int head,
                                          int pos, int b, uint64_t* bar) {
 #pragma unroll
   for (int c = 0; c < HD / 64; ++c)
-    tma_box(dst + c * BOX, map, c * 64, head, pos, b, bar);
+    tma_box(dst + c * ROWS * 128, map, c * 64, head, pos, b, bar);
 }
 
 // wgmma shared-memory descriptor with the 128-byte swizzle: start address,
@@ -677,17 +496,19 @@ __device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
          (uint64_t)(sbo >> 4) << 32 | (uint64_t)1 << 62;
 }
 
-// k16 step kk of a 64 x HD tile read K-major (k along the row: 32 bytes a
-// step inside a box, the next box every 4 steps; 8-row groups 1024 bytes
+// k16 step kk of a ROWS x HD tile read K-major (k along the row: 32 bytes
+// a step inside a box, the next box every 4 steps; 8-row groups 1024 bytes
 // apart).
+template <int ROWS = 64>
 __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
-  return sdesc(tile + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024);
+  return sdesc(tile + (kk / 4) * ROWS * 128 + (kk % 4) * 32, 16, 1024);
 }
 
-// k16 step kk of a 64 x HD tile read MN-major (k down the rows, 16 rows a
-// step; N across the boxes, BOX bytes apart).
+// k16 step kk of a ROWS x HD tile read MN-major (k down the rows, 16 rows a
+// step; N across the boxes, ROWS * 128 bytes apart).
+template <int ROWS = 64>
 __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  return sdesc(tile + kk * 16 * 128, BOX, 1024);
+  return sdesc(tile + kk * 16 * 128, ROWS * 128, 1024);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -700,6 +521,13 @@ __device__ __forceinline__ void wg_commit() {
 
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// 2^x, the hardware approximation (flushes results below 2^-126 to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Keeps the compiler from moving reads or writes of wgmma accumulators
@@ -725,6 +553,30 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128, fp32) = A B (+ D when scale_d): A and B from shared memory,
+// both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -779,9 +631,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2],
   else wgmma_rs_n128(d, a, db);
 }
 
-// The A fragment of k16 step kk from a 64 x 64 accumulator: a wgmma
+// The A fragment of k16 step kk from a 64 x N accumulator: a wgmma
 // accumulator's layout is its register-A layout.
-__device__ __forceinline__ void frag_of(uint32_t (&a)[4], const float (&d)[32],
+template <int N>
+__device__ __forceinline__ void frag_of(uint32_t (&a)[4], const float (&d)[N],
                                         int kk) {
   a[0] = pack2(d[8 * kk], d[8 * kk + 1]);
   a[1] = pack2(d[8 * kk + 2], d[8 * kk + 3]);
@@ -790,37 +643,189 @@ __device__ __forceinline__ void frag_of(uint32_t (&a)[4], const float (&d)[32],
 }
 
 // This thread's two rows (16 * warp + g and + 8) of a 64 x HD accumulator,
-// times `mul`, to bf16 rows at row0 / row1 (null: past the end).
+// times mul0 and mul1, to bf16 rows at row0 / row1 (null: past the end).
 template <int HD>
 __device__ __forceinline__ void store_rows(bf16* row0, bf16* row1,
                                            const float (&d)[HD / 2],
-                                           float mul, int t) {
+                                           float mul0, float mul1, int t) {
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
     if (row0)
       *reinterpret_cast<uint32_t*>(row0 + 8 * j + 2 * t) =
-          pack2(d[4 * j] * mul, d[4 * j + 1] * mul);
+          pack2(d[4 * j] * mul0, d[4 * j + 1] * mul0);
     if (row1)
       *reinterpret_cast<uint32_t*>(row1 + 8 * j + 2 * t) =
-          pack2(d[4 * j + 2] * mul, d[4 * j + 3] * mul);
+          pack2(d[4 * j + 2] * mul1, d[4 * j + 3] * mul1);
   }
 }
 
-// Dynamic shared memory of either kernel: four resident 64 x HD tiles and
-// two a ring stage, plus 1 KB to align the swizzled tiles to 1024 bytes.
+// Dynamic shared memory of either backward kernel: four resident 64 x HD
+// tiles and two a ring stage, plus 1 KB to align the swizzled tiles to
+// 1024 bytes.
 template <int HD>
 constexpr int bwd_smem() {
-  return (4 + 2 * BWD_STAGES) * (HD / 64) * BOX + 1024;
+  return (4 + 2 * STAGES) * (HD / 64) * BOX + 1024;
+}
+
+// The forward's: two 64-row Q tiles and a ring of K and V tiles of
+// FWD_KEYS keys, plus the 1 KB.
+template <int HD>
+constexpr int fwd_smem() {
+  return (HD / 64) * (2 * BOX + STAGES * 2 * FWD_KEYS * 128) + 1024;
 }
 
 __device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
   return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
 
+// The forward: o and lse.  Block: 128 q rows of one head (b, head) =
+// blockIdx.x; the last rows come first (blockIdx.y counts down), the
+// heaviest under causal.  Q is loaded once, K and V tiles of FWD_KEYS keys
+// stream through the ring; each consumer warpgroup runs the online
+// softmax of its 64 rows in registers, in the exp2 domain.
+template <int HD>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+fa_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             bf16* __restrict__ o, float* __restrict__ lse, int S, int Hq,
+             int Hkv, float scale, int causal) {
+  constexpr int BK = FWD_KEYS;
+  static_assert(BK == 128, "S = Q K^T is one m64n128 product a k16 step");
+  constexpr int QTILE = (HD / 64) * BOX;             // 64 q rows
+  constexpr int KTILE = (HD / 64) * BK * 128;        // BK keys
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, full[STAGES], empty[STAGES];
+  unsigned char* Qs = align1k(smem_raw);   // [warpgroup] q rows
+  unsigned char* ring = Qs + 2 * QTILE;    // [stage] K tile, V tile
+  const int head = blockIdx.x % Hq, b = blockIdx.x / Hq;
+  const int hkv = head / (Hq / Hkv);
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * 128;
+  // key tiles of the block: causal, up to the one holding its last row,
+  // the diagonal tile of both warpgroups
+  const int nkt = causal ? min(m0 + 127, S - 1) / BK + 1 : (S + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: Q once, then K and V tiles through the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_arrive_tx(&bar_q, 2 * QTILE);
+      for (int w = 0; w < 2; ++w)
+        tma_tile<HD>(Qs + w * QTILE, &tm_q, head, m0 + 64 * w, b, &bar_q);
+      for (int j = 0; j < nkt; ++j) {
+        const int st = j % STAGES;
+        mbar_wait(&empty[st], ((j / STAGES) & 1) ^ 1);
+        mbar_arrive_tx(&full[st], 2 * KTILE);
+        unsigned char* kv = ring + st * 2 * KTILE;
+        tma_tile<HD, BK>(kv, &tm_k, hkv, BK * j, b, &full[st]);
+        tma_tile<HD, BK>(kv + KTILE, &tm_v, hkv, BK * j, b, &full[st]);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = m0 + 64 * wg;               // the warpgroup's first row
+    const int qpos[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+    const float sl2 = scale * LOG2E;
+    // per row (g, g + 8): running max (log2 units) and this lane's part
+    // of the running sum; the quad's parts are added at the end
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    const uint32_t qa = smem_u32(Qs + wg * QTILE);
+    mbar_wait(&bar_q, 0);
+    for (int j = 0; j < nkt; ++j) {
+      const int st = j % STAGES;
+      mbar_wait(&full[st], (j / STAGES) & 1);
+      const uint32_t kb = smem_u32(ring + st * 2 * KTILE), vb = kb + KTILE;
+      float s[BK / 2];
+      // S = Q K^T
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n128(s, kmajor(qa, kk), kmajor<BK>(kb, kk), kk > 0);
+      wg_commit();
+      wg_wait0();
+      keep(s);
+      // the mask only where a tile crosses the diagonal or the end:
+      // the reference's finite -1e30 (before the scale), -inf past S
+      if ((causal && j == nkt - 1) || BK * j + BK > S) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int kpos = BK * j + 8 * (i / 4) + 2 * t + (i % 2);
+          if (causal && kpos > qpos[(i % 4) / 2]) s[i] = NEG_INF;
+          if (kpos >= S) s[i] = -INFINITY;
+        }
+      }
+      float mt[2] = {NEG_INF, NEG_INF}, corr[2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        mt[(i % 4) / 2] = fmaxf(mt[(i % 4) / 2], s[i]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+        mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+        mt[h] = fmaxf(m[h], mt[h] * sl2);    // scale > 0
+        corr[h] = ex2(m[h] - mt[h]);
+        m[h] = mt[h];
+        l[h] *= corr[h];
+      }
+      // P = exp2(S scale log2 e - m) in place of S: an FFMA and an EX2
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int h = (i % 4) / 2;
+        s[i] = ex2(fmaf(s[i], sl2, -m[h]));
+        l[h] += s[i];
+      }
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] *= corr[(i % 4) / 2];
+      // O += P V, P rounded to bf16, V read MN-major
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t a[4];
+        frag_of(a, s, kk);
+        wgmma_rs<HD>(acc, a, mnmajor<BK>(vb, kk));
+      }
+      wg_commit();
+      wg_wait0();
+      keep(acc);
+      mbar_arrive(&empty[st]);
+    }
+    const int64_t stat0 = ((int64_t)b * Hq + head) * S;
+    bf16* rows[2];
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const float lc = fmaxf(l[h], 1e-30f);
+      inv[h] = __frcp_rn(lc);
+      const bool live = qpos[h] < S;
+      rows[h] = live ? o + (((int64_t)b * S + qpos[h]) * Hq + head) * HD
+                     : nullptr;
+      if (live && t == 0) lse[stat0 + qpos[h]] = m[h] * LN2 + logf(lc);
+    }
+    store_rows<HD>(rows[0], rows[1], acc, inv[0], inv[1], t);
+  }
+}
+
 // dQ and delta.  Block: 128 q rows of one head (b, head) = blockIdx.x; the
 // last rows come first (blockIdx.y counts down), the heaviest under causal.
 template <int HD>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+__global__ void __launch_bounds__(WS_THREADS, 1)
 fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
@@ -831,7 +836,7 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 int causal) {
   constexpr int TILE = (HD / 64) * BOX;
   extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t bar_q, full[BWD_STAGES], empty[BWD_STAGES];
+  __shared__ __align__(8) uint64_t bar_q, full[STAGES], empty[STAGES];
   __shared__ float delta_s[128];
   unsigned char* Qs = align1k(smem_raw);   // [warpgroup] q rows
   unsigned char* Ds = Qs + 2 * TILE;       // [warpgroup] dO rows
@@ -844,7 +849,7 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
     mbar_init(&bar_q, 1);
-    for (int s = 0; s < BWD_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 256);
     }
@@ -862,8 +867,8 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
         tma_tile<HD>(Ds + w * TILE, &tm_do, head, m0 + 64 * w, b, &bar_q);
       }
       for (int j = 0; j < nkt; ++j) {
-        const int st = j % BWD_STAGES;
-        mbar_wait(&empty[st], ((j / BWD_STAGES) & 1) ^ 1);
+        const int st = j % STAGES;
+        mbar_wait(&empty[st], ((j / STAGES) & 1) ^ 1);
         mbar_arrive_tx(&full[st], 2 * TILE);
         unsigned char* kv = ring + st * 2 * TILE;
         tma_tile<HD>(kv, &tm_k, hkv, 64 * j, b, &full[st]);
@@ -920,8 +925,8 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t qa = smem_u32(Qs + wg * TILE), da = smem_u32(Ds + wg * TILE);
     mbar_wait(&bar_q, 0);
     for (int j = 0; j < nkt; ++j) {
-      const int st = j % BWD_STAGES;
-      mbar_wait(&full[st], (j / BWD_STAGES) & 1);
+      const int st = j % STAGES;
+      mbar_wait(&full[st], (j / STAGES) & 1);
       if (j < jend) {
         const uint32_t kb = smem_u32(ring + st * 2 * TILE), vb = kb + TILE;
         float s[32], dp[32];
@@ -967,7 +972,7 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     for (int h = 0; h < 2; ++h)
       rows[h] = qpos[h] < S
           ? dq + (((int64_t)b * S + qpos[h]) * Hq + head) * HD : nullptr;
-    store_rows<HD>(rows[0], rows[1], acc, scale, t);
+    store_rows<HD>(rows[0], rows[1], acc, scale, scale, t);
   }
 }
 
@@ -976,7 +981,7 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
 // It loops over the q tiles of all rep q heads of the group, so the GQA
 // sum stays in its registers.
 template <int HD>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+__global__ void __launch_bounds__(WS_THREADS, 1)
 fa_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
@@ -987,9 +992,9 @@ fa_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                  int causal) {
   constexpr int TILE = (HD / 64) * BOX;
   extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t bar_kv, full[BWD_STAGES], empty[BWD_STAGES];
-  __shared__ __align__(8) float ls[BWD_STAGES][64];   // lse * log2(e)
-  __shared__ __align__(8) float ds[BWD_STAGES][64];   // delta
+  __shared__ __align__(8) uint64_t bar_kv, full[STAGES], empty[STAGES];
+  __shared__ __align__(8) float ls[STAGES][64];   // lse * log2(e)
+  __shared__ __align__(8) float ds[STAGES][64];   // delta
   unsigned char* Ks = align1k(smem_raw);   // [warpgroup] keys
   unsigned char* Vs = Ks + 2 * TILE;
   unsigned char* ring = Vs + 2 * TILE;     // [stage] Q tile, dO tile
@@ -1002,7 +1007,7 @@ fa_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
     mbar_init(&bar_kv, 1);
-    for (int s = 0; s < BWD_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 32);
       mbar_init(&empty[s], 256);
     }
@@ -1028,8 +1033,8 @@ fa_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
         const int head = hkv * rep + gi;
         const int64_t stat0 = ((int64_t)b * Hq + head) * S;
         for (int i = qt0; i < nqt; ++i, ++it) {
-          const int st = it % BWD_STAGES;
-          mbar_wait(&empty[st], ((it / BWD_STAGES) & 1) ^ 1);
+          const int st = it % STAGES;
+          mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int c = 2 * lane + e, q = 64 * i + c;
@@ -1062,8 +1067,8 @@ fa_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     int it = 0;
     for (int gi = 0; gi < rep; ++gi) {
       for (int i = qt0; i < nqt; ++i, ++it) {
-        const int st = it % BWD_STAGES;
-        mbar_wait(&full[st], (it / BWD_STAGES) & 1);
+        const int st = it % STAGES;
+        mbar_wait(&full[st], (it / STAGES) & 1);
         // causal: the tile must hold a row at or past the first key
         if (!causal || i >= kw / 64) {
           const uint32_t qb = smem_u32(ring + st * 2 * TILE), db = qb + TILE;
@@ -1124,8 +1129,8 @@ fa_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
       krow[h] = key[h] < S ? dk + off : nullptr;
       vrow[h] = key[h] < S ? dv + off : nullptr;
     }
-    store_rows<HD>(krow[0], krow[1], dka, scale, t);
-    store_rows<HD>(vrow[0], vrow[1], dva, 1.f, t);
+    store_rows<HD>(krow[0], krow[1], dka, scale, scale, t);
+    store_rows<HD>(vrow[0], vrow[1], dva, 1.f, 1.f, t);
   }
 }
 
@@ -1137,8 +1142,6 @@ fa_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
 constexpr int FWD_BQ = 64, FWD_BK = 32;   // 256 threads, 32 KB smem at HD 128
 constexpr int DQ_BQ = 64, DQ_BK = 32;
 constexpr int DKV_BK = 32, DKV_BQ = 32;   // 128 threads
-// bf16 forward (tensor cores): 4 warps, 64 q rows a block
-constexpr int FWD_MMA_BK = 64;
 
 struct Args {
   const void *q, *k, *v, *o, *dout, *lse_in, *delta_in;
@@ -1178,17 +1181,17 @@ EncodeTiled encoder() {
 }
 
 // The 4-D map (HD, H, S, B) of a contiguous bf16 (B, S, H, HD) tensor:
-// 64 x 64 boxes (64 columns of one head at 64 positions), 128-byte swizzle,
+// boxes of 64 columns of one head at `rows` positions, 128-byte swizzle,
 // positions past S read as zeros.
 cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
-                     int hd) {
+                     int hd, int rows = 64) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)H * hd * 2,
                                  (cuuint64_t)S * H * hd * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
@@ -1212,10 +1215,26 @@ cudaError_t bwd_maps(CUtensorMap (&m)[4], const Args& a, int hd) {
 template <typename T, int HD>
 cudaError_t run_fwd(const Args& a) {
   if constexpr (std::is_same<T, bf16>::value) {
-    const dim3 grid(blocks_for(a.Hq / a.Hkv * a.S, 64), a.B * a.Hkv);
-    fa_fwd_mma<HD, FWD_MMA_BK><<<grid, 128, 0, a.stream>>>(
-        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (bf16*)a.out0,
-        (float*)a.stat_out, a.S, a.Hq, a.Hkv, a.scale, a.causal);
+    if constexpr (HD != 64 && HD != 128) {
+      return cudaErrorInvalidValue;    // the wrapper pads to 64 or 128
+    } else {
+      CUtensorMap m[3];
+      cudaError_t err = head_map(&m[0], a.q, a.B, a.S, a.Hq, HD);
+      if (err == cudaSuccess)
+        err = head_map(&m[1], a.k, a.B, a.S, a.Hkv, HD, FWD_KEYS);
+      if (err == cudaSuccess)
+        err = head_map(&m[2], a.v, a.B, a.S, a.Hkv, HD, FWD_KEYS);
+      if (err != cudaSuccess) return err;
+      constexpr int smem = fwd_smem<HD>();
+      err = cudaFuncSetAttribute(fa_fwd_wgmma<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid(a.B * a.Hq, blocks_for(a.S, 128));
+      fa_fwd_wgmma<HD><<<grid, WS_THREADS, smem, a.stream>>>(
+          m[0], m[1], m[2], (bf16*)a.out0, (float*)a.stat_out, a.S, a.Hq,
+          a.Hkv, a.scale, a.causal);
+    }
   } else {
     const dim3 grid(blocks_for(a.Hq / a.Hkv * a.S, FWD_BQ), a.B * a.Hkv);
     fa_fwd<HD, FWD_BQ, FWD_BK><<<grid, FWD_BQ * TPR, 0, a.stream>>>(
@@ -1241,7 +1260,7 @@ cudaError_t run_dq(const Args& a) {
                                  smem);
       if (err != cudaSuccess) return err;
       const dim3 grid(a.B * a.Hq, blocks_for(a.S, 128));
-      fa_bwd_dq_wgmma<HD><<<grid, BWD_THREADS, smem, a.stream>>>(
+      fa_bwd_dq_wgmma<HD><<<grid, WS_THREADS, smem, a.stream>>>(
           m[0], m[1], m[2], m[3], (const bf16*)a.o, (const bf16*)a.dout,
           (const float*)a.lse_in, (float*)a.stat_out, (bf16*)a.out0, a.S,
           a.Hq, a.Hkv, a.scale, a.causal);
@@ -1272,7 +1291,7 @@ cudaError_t run_dkv(const Args& a) {
                                  smem);
       if (err != cudaSuccess) return err;
       const dim3 grid(a.B * a.Hkv, blocks_for(a.S, 128));
-      fa_bwd_dkv_wgmma<HD><<<grid, BWD_THREADS, smem, a.stream>>>(
+      fa_bwd_dkv_wgmma<HD><<<grid, WS_THREADS, smem, a.stream>>>(
           m[0], m[1], m[2], m[3], (const float*)a.lse_in,
           (const float*)a.delta_in, (bf16*)a.out0, (bf16*)a.out1, a.S, a.Hq,
           a.Hkv, a.scale, a.causal);
@@ -1323,9 +1342,8 @@ int launch(Which w, int dtype, int hd, const Args& a) {
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16 (q, k, v, o, do and the gradients alike; lse
-// and delta are fp32).  hd: 16, 32, 64, 80 or 128 (the bf16 backward: 64
-// or 128).  Each returns
-// cudaGetLastError() after its launch (0 = launched).
+// and delta are fp32).  hd: 16, 32, 64, 80 or 128 (bf16: 64 or 128).
+// Each returns cudaGetLastError() after its launch (0 = launched).
 
 // o = attention(q, k, v); lse = m + log(max(l, 1e-30)).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,

@@ -7,11 +7,11 @@ the online ``(m, l, acc)`` softmax in fp32 registers and also writes the
 row log-sum-exp ``lse``; the backward is FlashAttention-2 style in two
 kernels, ``dq`` (which also writes ``delta = rowsum(dO * O)``) and then
 ``dk, dv`` (one block per key tile sums the GQA group, no atomics).  fp32
-inputs run on the CUDA cores; bf16 inputs on the tensor cores: the
-forward with ``mma.sync``, the backward with Hopper's ``wgmma``, TMA loads
-and warp specialisation (``sm_90a``; built for head dims 64 and 128, the
-backward wrappers zero-pad 16, 32 and 80).  The TPU kernel has no VJP; the
-gradient here is the port's own.
+inputs run on the CUDA cores; bf16 inputs on the tensor cores, forward
+and backward alike with Hopper's ``wgmma``, TMA loads through a ring of
+mbarriers and warp specialisation (``sm_90a``; built for head dims 64 and
+128, the wrappers zero-pad 16, 32 and 80 and cut the outputs back).  The
+TPU kernel has no VJP; the gradient here is the port's own.
 
 Bound on the H100: operations.  Causal forward does two matmuls of
 ``2 * hd`` flops per visible (q, k) pair, the FlashAttention-2 backward
@@ -45,7 +45,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 __all__ = ["LAUNCHES_FWD", "LAUNCHES_BWD_DQ", "LAUNCHES_BWD_DKV",
-           "SUPPORTED_HD", "BF16_BWD_HD", "NEG_INF", "default_scale",
+           "SUPPORTED_HD", "BF16_HD", "NEG_INF", "default_scale",
            "flash_attention_plain", "flash_attention_plain_bwd",
            "flash_attention_fwd_cuda", "flash_attention_bwd_dq_cuda",
            "flash_attention_bwd_dkv_cuda", "FlashAttention",
@@ -61,10 +61,10 @@ LAUNCHES_BWD_DKV = 0
 #: to 128 lanes).
 SUPPORTED_HD = (16, 32, 64, 80, 128)
 
-#: Head dims the bf16 backward kernels are built for; the backward wrappers
-#: zero-pad a bf16 head dim up to the next one (zeros change neither the
-#: dots nor ``delta``).
-BF16_BWD_HD = (64, 128)
+#: Head dims the bf16 kernels are built for; the wrappers zero-pad a bf16
+#: head dim up to the next one (zeros change neither the dots nor
+#: ``delta``) and cut the outputs back.
+BF16_HD = (64, 128)
 
 #: The reference's finite mask value (``repro/kernels/ref.py``).
 NEG_INF = -1e30
@@ -274,13 +274,15 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     global LAUNCHES_FWD
     name = "flash_attention_fwd"
     code = _check(name, q, k, v)
-    scale = default_scale(q.shape[-1]) if scale is None else scale
+    hd = q.shape[-1]
+    scale = default_scale(hd) if scale is None else scale
+    q, k, v = _pad_bf16(q, k, v)
     o = torch.empty_like(q)
     b, s, hq, _ = q.shape
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     _launch(name, (q, k, v, o, lse), q, k, causal, scale, code)
     LAUNCHES_FWD += 1
-    return o, lse
+    return _unpad(o, hd), lse
 
 
 def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -297,7 +299,7 @@ def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
     _check_stat(name, "lse", lse, q)
     hd = q.shape[-1]
     scale = default_scale(hd) if scale is None else scale
-    q, k, v, o, do = _pad_bwd(q, k, v, o, do)
+    q, k, v, o, do = _pad_bf16(q, k, v, o, do)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
     _launch(name, (q, k, v, o, do, lse, delta, dq), q, k, causal, scale,
@@ -321,7 +323,7 @@ def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
     _check_stat(name, "delta", delta, q)
     hd = q.shape[-1]
     scale = default_scale(hd) if scale is None else scale
-    q, k, v, do = _pad_bwd(q, k, v, do)
+    q, k, v, do = _pad_bf16(q, k, v, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch(name, (q, k, v, do, lse, delta, dk, dv), q, k, causal, scale,
@@ -341,12 +343,12 @@ def _pad_hd(t: torch.Tensor, sizes=SUPPORTED_HD) -> torch.Tensor:
     return t if to == hd else F.pad(t, (0, to - hd))
 
 
-def _pad_bwd(*ts: torch.Tensor):
-    """bf16 tensors padded to a head dim of :data:`BF16_BWD_HD`, what the
-    bf16 backward kernels take; fp32 tensors as they are."""
+def _pad_bf16(*ts: torch.Tensor):
+    """bf16 tensors padded to a head dim of :data:`BF16_HD`, what the bf16
+    kernels take; fp32 tensors as they are."""
     if ts[0].dtype != torch.bfloat16:
         return ts
-    return tuple(_pad_hd(t, BF16_BWD_HD) for t in ts)
+    return tuple(_pad_hd(t, BF16_HD) for t in ts)
 
 
 def _unpad(t: torch.Tensor, hd: int) -> torch.Tensor:
@@ -360,6 +362,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         hd = q.shape[-1]
+        # the scale of the head dim the caller gave, not of the padded one
+        scale = default_scale(hd) if scale is None else scale
         qp, kp, vp = (_pad_hd(t.contiguous()) for t in (q, k, v))
         o, lse = flash_attention_fwd_cuda(qp, kp, vp, causal, scale)
         ctx.save_for_backward(qp, kp, vp, o, lse)

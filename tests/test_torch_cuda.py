@@ -132,38 +132,51 @@ def test_flash_wrappers_refuse_cpu_tensors():
         fa.flash_attention_bwd_dkv_cuda(q, k, v, lse, lse, do)
 
 
+# bf16 (the wgmma kernels): ragged S (37, 65, 100, 129, 200: no multiple
+# of a 64-row tile), rep 1, 3 and 4, head dims 64, 80 (padded to 128) and
+# 128
+BF16_BWD_SHAPES = [(2, 37, 4, 4, 64), (1, 100, 6, 2, 128),
+                   (2, 200, 8, 2, 80), (1, 200, 3, 1, 64),
+                   (2, 100, 4, 1, 80), (1, 37, 2, 2, 128),
+                   (1, 129, 8, 2, 128), (1, 65, 2, 1, 64)]
+FLASH_CASES = ([(sh, dt) for sh in FLASH_SHAPES
+                for dt in (torch.float32, torch.bfloat16)] +
+               [(sh, torch.bfloat16) for sh in BF16_BWD_SHAPES])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=str)
+@pytest.mark.parametrize("shape,dtype", FLASH_CASES, ids=str)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_forward_kernel_matches_plain(cuda_device, shape, dtype,
                                             causal):
+    """o within 2e-5 (fp32) or 2e-2 (bf16) of flash_attention_plain, bf16
+    also within 1e-2 relative norm error; lse within 1e-5."""
     q, k, v, _ = _flash_inputs(*shape, dtype, cuda_device)
     before = fa.LAUNCHES_FWD
     o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal)
     torch.cuda.synchronize()
     assert fa.LAUNCHES_FWD == before + 1
+    assert o.dtype == dtype and o.shape == q.shape
     po, plse = fa.flash_attention_plain(q, k, v, causal)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(o.float(), po.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert _rel(o, po) <= 1e-2
     torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
 
 
-# bf16 backward (the wgmma kernels): ragged S (37, 65, 100, 129, 200: no
-# multiple of a 64-row tile), rep 1, 3 and 4, head dims 64, 80 (padded to
-# 128) and 128
-BF16_BWD_SHAPES = [(2, 37, 4, 4, 64), (1, 100, 6, 2, 128),
-                   (2, 200, 8, 2, 80), (1, 200, 3, 1, 64),
-                   (2, 100, 4, 1, 80), (1, 37, 2, 2, 128),
-                   (1, 129, 8, 2, 128), (1, 65, 2, 1, 64)]
-BWD_CASES = ([(sh, dt) for sh in FLASH_SHAPES
-              for dt in (torch.float32, torch.bfloat16)] +
-             [(sh, torch.bfloat16) for sh in BF16_BWD_SHAPES])
+@pytest.mark.cuda
+def test_flash_forward_repeats_bit_for_bit(cuda_device):
+    q, k, v, _ = _flash_inputs(2, 300, 8, 2, 128, torch.bfloat16,
+                               cuda_device)
+    runs = [fa.flash_attention_fwd_cuda(q, k, v, True) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype", BWD_CASES, ids=str)
+@pytest.mark.parametrize("shape,dtype", FLASH_CASES, ids=str)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_backward_kernels_match_plain(cuda_device, shape, dtype,
                                             causal):
@@ -214,18 +227,20 @@ def test_flash_backward_repeats_bit_for_bit(cuda_device):
 
 
 @pytest.mark.cuda
-def test_flash_backward_sass_uses_wgmma_and_tma(cuda_device):
-    """Both bf16 backward kernels issue HGMMA and UTMALDG inside their
-    loops and no HMMA (mma.sync) anywhere."""
+@pytest.mark.parametrize("kernel", ["fa_fwd_wgmma", "fa_bwd_dq_wgmma",
+                                    "fa_bwd_dkv_wgmma"])
+def test_flash_sass_uses_wgmma_and_tma(cuda_device, kernel):
+    """Each bf16 kernel, at HD 64 and 128, issues HGMMA and UTMALDG inside
+    its loops; no flash attention kernel issues HMMA (mma.sync)."""
     if sass_mix.cuobjdump() is None:
         pytest.skip("needs cuobjdump (CUDA toolkit)")
-    mixes = sass_mix.kernel_mixes("flash_attention", "bwd_")
-    for kernel in ("fa_bwd_dq_wgmma", "fa_bwd_dkv_wgmma"):
-        found = [m for fn, m in mixes.items() if kernel in fn]
-        assert len(found) == 2, f"{kernel}: {list(mixes)}"   # HD 64, 128
-        for inner, rest in found:
-            assert inner["HGMMA"] > 0 and inner["UTMALDG"] > 0, kernel
-            assert inner["HMMA"] == 0 and rest["HMMA"] == 0, kernel
+    mixes = sass_mix.kernel_mixes("flash_attention")
+    found = [m for fn, m in mixes.items() if kernel in fn]
+    assert len(found) == 2, f"{kernel}: {list(mixes)}"   # HD 64, 128
+    for inner, rest in found:
+        assert inner["HGMMA"] > 0 and inner["UTMALDG"] > 0, kernel
+    assert all(inner["HMMA"] == 0 and rest["HMMA"] == 0
+               for inner, rest in mixes.values())
 
 
 @pytest.mark.cuda
@@ -246,6 +261,29 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda_device):
     o, lse = fa.flash_attention_fwd_cuda(q, k, v)
     with pytest.raises(ValueError, match="lse"):
         fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse[:, :, :8], do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_default_scale_of_unpadded_head_dim(cuda_device,
+                                                            dtype):
+    """FlashAttention pads head dim 40 to 64; with scale None it must still
+    use 1 / sqrt(40), for o and the three gradients."""
+    q, k, v, do = _flash_inputs(2, 96, 6, 2, 40, dtype, cuda_device,
+                                grad=True)
+    out = fa.FlashAttention.apply(q, k, v, True, None)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, True, fa.default_scale(40))[0]
+    wgrads = torch.autograd.grad(want, (q, k, v), do)
+    assert out.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    for g, w in zip(grads, wgrads):
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        else:
+            assert _rel(g, w) <= 1e-2
 
 
 @pytest.mark.cuda

@@ -178,13 +178,13 @@ def test_bf16_backward_head_dim_padding(hd, to):
     unpadded gradients."""
     arrs = _inputs(2, 40, 4, 2, hd, 3 + hd, n=4)
     q, k, v, do = (torch.from_numpy(a) for a in arrs)
-    assert all(t is u for t, u in zip(tfa._pad_bwd(q, k), (q, k)))
-    padded = tfa._pad_bwd(*(t.bfloat16() for t in (q, k, v, do)))
+    assert all(t is u for t, u in zip(tfa._pad_bf16(q, k), (q, k)))
+    padded = tfa._pad_bf16(*(t.bfloat16() for t in (q, k, v, do)))
     assert all(t.shape[-1] == to and not t[..., hd:].any() for t in padded)
     scale = tfa.default_scale(hd)
     o, lse = tfa.flash_attention_plain(q, k, v, True, scale)
     want = tfa.flash_attention_plain_bwd(q, k, v, o, lse, do, True, scale)
-    qp, kp, vp, op, dop = (tfa._pad_hd(t, tfa.BF16_BWD_HD)
+    qp, kp, vp, op, dop = (tfa._pad_hd(t, tfa.BF16_HD)
                            for t in (q, k, v, o, do))
     got = tfa.flash_attention_plain_bwd(qp, kp, vp, op, lse, dop, True,
                                         scale)
@@ -195,3 +195,31 @@ def test_bf16_backward_head_dim_padding(hd, to):
     np.testing.assert_allclose((dop * op).sum(-1).numpy(),
                                (do * o).sum(-1).numpy(), rtol=1e-6,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("hd,to", [(16, 64), (32, 64), (64, 64), (80, 128),
+                                   (128, 128)])
+def test_bf16_forward_head_dim_padding(hd, to):
+    """The bf16 forward kernel is built for head dims 64 and 128, and its
+    wrapper zero-pads the others (fp32 is not padded), resolving the scale
+    from the unpadded head dim.  The plain forward on the padded tensors,
+    with the unpadded scale, gives the unpadded ``o`` (cut back) and the
+    same ``lse``; with the padded head dim's scale it would not."""
+    arrs = _inputs(2, 40, 4, 2, hd, 7 + hd)
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    assert all(t is u for t, u in zip(tfa._pad_bf16(q, k, v), (q, k, v)))
+    q, k, v = (t.bfloat16().float() for t in (q, k, v))
+    padded = tfa._pad_bf16(*(t.bfloat16() for t in (q, k, v)))
+    assert all(t.shape[-1] == to and not t[..., hd:].any() for t in padded)
+    qp, kp, vp = (t.float() for t in padded)
+    scale = tfa.default_scale(hd)
+    o, lse = tfa.flash_attention_plain(q, k, v, True, scale)
+    op, lsep = tfa.flash_attention_plain(qp, kp, vp, True, scale)
+    assert not op[..., hd:].any()
+    np.testing.assert_allclose(tfa._unpad(op, hd).numpy(), o.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(lsep.numpy(), lse.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    if to != hd:
+        _, wrong = tfa.flash_attention_plain(qp, kp, vp, True)
+        assert not np.allclose(wrong.numpy(), lse.numpy(), rtol=1e-3)
