@@ -16,8 +16,9 @@ Phases:
   1. the card (nvidia-smi name and power limit) and versions; TF32 off
   2. build the kernels (one nvcc per source, started together; each
      source's build time)
-  3. moa_reduce against moa_reduce_plain, torch.equal, at the kernel-test
-     shapes and dtypes and at the serve path's own shapes
+  3. moa_reduce against moa_reduce_plain, torch.equal with the signs of
+     zero, at the kernel-test shapes and dtypes (N = 2 to 300, so every
+     split of the tree across lanes) and at the serve path's own shapes
   4. flash attention: the forward kernel against flash_attention_plain
      (2e-5 fp32; bf16 2e-2 and relative norm error 1e-2) and the dq and
      dk/dv kernels against flash_attention_plain_bwd and against autograd
@@ -32,16 +33,18 @@ Phases:
      of 128 to 1024 prompt tokens and 32 new tokens on 4 slots; every
      request retires with 32 tokens, no logit is NaN, and moa_reduce ran
      exactly 2 * layers times per dispatch
-  7. moa_reduce timings at the serve path shapes (CUDA events, median of 50)
+  7. moa_reduce timings at the serve path shapes (CUDA events, median of
+     50) beside the bound, the plain version and torch.sum
   8. train, reduced-config parity: 3 AdamW steps of the reduced fp32
      config from one state on the CPU (chunked attention) and on CUDA (the
      kernels): losses within 1e-4, kernels launched layers * steps times
   9. train, full width: llama3.2-3b, fp32 masters, bf16 compute, remat,
      batch 2 x seq 2048: loss and gradient norm through the kernels
-     against the chunked attention on one state and batch (loss within
-     2e-3, norm within 0.1%), then 1 warm-up and 3 timed AdamW steps (peak
-     lr 3e-4, 100-step warm-up): finite losses and grad norms, the first
-     loss within 1.0 of ln(vocab), the forward kernel launched 2 * layers
+     against the chunked attention (use_flash_attn off: no flash launch)
+     on one state and batch (loss within 2e-3, norm within 0.1%), then 1
+     warm-up and 3 timed AdamW steps (peak lr 3e-4, 100-step warm-up):
+     finite losses and grad norms, the first loss within 1.0 of
+     ln(vocab), the forward kernel launched 2 * layers
      * steps times (remat runs each layer's forward again in the backward)
      and each backward kernel layers * steps times
  10. flash attention timings at the training path shape (median of 20)
@@ -50,8 +53,9 @@ Phases:
      TFLOP/s and share of the bf16 peak beside SDPA's
  11. bitplane_add and quant_matmul against bitplane_add_plain and
      quant_matmul_plain, torch.equal, at the kernel-test shapes (Fig 12
-     lanes, the all -128 K = 8192 case, a binding 18-bit plan) and at the
-     adder path's shapes; the width guard raises before any launch
+     lanes, ragged and unaligned lanes, N = 1 to 64, M = 1 to 31, the all
+     -128 K = 8192 case, a binding 18-bit plan) and at the adder path's
+     shapes; the width guard raises before any launch
  12. the adder path, taken from llama3.2-3b's training step (4096 tokens):
      bitplane_add over one activation tensor (B = 4096 x d_model lanes) as
      the 16 x 16, 4 x 16 and 64 x 20 adders, quant_matmul at the gate/up,
@@ -60,11 +64,13 @@ Phases:
      plain device code; every result exact, each kernel launched once
      per call
  13. adder timings at the path shapes beside the bound, the plain version
-     and a library call (torch.sum, torch._int_mm)
+     and a library call (torch.sum, torch._int_mm); bitplane_add's integer
+     operations per lane in its source
  14. the kernels line, then the card line, then the result line
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -73,7 +79,6 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from unittest import mock
 
 import numpy as np
 import torch
@@ -93,7 +98,6 @@ from repro_torch.kernels import bitplane_add as bpa  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moa_reduce as moa  # noqa: E402
 from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
-from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.common import init_params  # noqa: E402
 from repro_torch.models.lm import train_loss  # noqa: E402
 from repro_torch.models.registry import get_api  # noqa: E402
@@ -196,8 +200,12 @@ def phase_kernel_check(shapes) -> float:
     gen = torch.Generator(device=dev).manual_seed(0)
     err = 0.0
     cases = []
+    # N = 3, 4 (s = 0 split levels), 5 .. 64 (s = 1), 65 .. 300 (s = 2)
     for n, rows, cols in [(2, 8, 128), (4, 64, 128), (7, 33, 257),
-                          (16, 128, 384), (33, 16, 130), (24, 32, 256)]:
+                          (16, 128, 384), (33, 16, 130), (24, 32, 256),
+                          (3, 4, 129), (5, 8, 128), (17, 2, 130),
+                          (52, 4, 256), (64, 2, 512), (65, 4, 257),
+                          (244, 1, 96), (300, 2, 64)]:
         for dt in (torch.float32, torch.bfloat16, torch.int32):
             cases.append((n, (rows, cols), dt))
     cases += [(n, (m,), torch.float32) for _, n, m in shapes]
@@ -207,12 +215,15 @@ def phase_kernel_check(shapes) -> float:
                               device=dev, dtype=torch.int32)
             acc = torch.int32
         else:
-            x = torch.randn((n, *tail), generator=gen, device=dev).to(dt)
+            x = torch.randn((n, *tail), generator=gen, device=dev)
+            x[..., :8] = -0.0           # the plan's padding turns some +0
+            x = x.to(dt)
             acc = torch.float32
         got = ops.moa_reduce(x, acc, out_dtype=acc)
         want = moa.moa_reduce_plain(x, acc, acc)
         torch.cuda.synchronize()
-        check(torch.equal(got, want),
+        check(torch.equal(got, want) and
+              torch.equal(torch.signbit(got), torch.signbit(want)),
               f"moa_reduce != moa_reduce_plain at N={n} {tail} {dt}")
         err = max(err, float((got.double() - want.double()).abs().max()))
     # bf16 operands, fp32 accumulator: the small terms must survive
@@ -223,8 +234,9 @@ def phase_kernel_check(shapes) -> float:
     got = ops.moa_reduce(x, torch.float32, out_dtype=torch.float32)
     check(bool((got == 1024.0 + 0.25 * (n - 1)).all()),
           "bf16 operands lost small terms in the fp32 accumulator")
-    print(f"[check] moa_reduce == moa_reduce_plain (torch.equal) on "
-          f"{len(cases) + 1} shape/dtype cases, max |diff| {err}")
+    print(f"[check] moa_reduce == moa_reduce_plain (torch.equal, signs of "
+          f"zero too) on {len(cases) + 1} shape/dtype cases, max |diff| "
+          f"{err}")
     return err
 
 
@@ -361,7 +373,8 @@ def phase_timing(shapes):
         print(f"[time] moa_reduce {label} N={n} M={m} fp32: kernel_ms "
               f"{kernel:.5f} bound_ms {bound:.5f} ({nbytes} B / 3.35 TB/s) "
               f"library_ms {library:.5f} (torch.sum) plain_ms {plain:.5f} "
-              f"kernel/bound {kernel / bound:.2f}")
+              f"kernel/bound {kernel / bound:.2f} kernel/library "
+              f"{kernel / library:.3f}")
     return rows
 
 
@@ -518,22 +531,17 @@ def phase_train_full():
                               global_batch=TRAIN_BATCH, kind="train")
     data = HostDataConfig(0, 1, 0)
     # the same loss and gradient through the kernels and, for comparison
-    # only, with attention.chunked_attention (the JAX package's path off
-    # the TPU) in place of the kernels, same state and batch; bf16 rounds
-    # at other places in the two
+    # only, with use_flash_attn off, which takes attention.chunked_attention
+    # (the JAX package's path off the TPU), same state and batch; bf16
+    # rounds at other places in the two
     batch0 = {k: torch.as_tensor(v).to(dev) for k, v in
               host_batch(cfg, shape, data, 0).items()}
-    vg = value_and_grad(lambda p, b: train_loss(p, b, cfg))
     got = {}
     for flash in (True, False):
+        run_cfg = dataclasses.replace(cfg, use_flash_attn=flash)
+        vg = value_and_grad(lambda p, b: train_loss(p, b, run_cfg))
         _zero_flash_counts()
-        if flash:
-            loss, grads = vg(split_layers(state["params"]), batch0)
-        else:
-            with mock.patch.object(
-                    ops, "flash_attention", lambda q, k, v, causal:
-                    attention.chunked_attention(q, k, v, cfg)):
-                loss, grads = vg(split_layers(state["params"]), batch0)
+        loss, grads = vg(split_layers(state["params"]), batch0)
         got[flash] = (float(loss), float(global_norm(grads)),
                       _flash_counts()["fwd"])
         del grads
@@ -717,17 +725,33 @@ def phase_adder_check(bitplane, matmul):
     torch.equal.  Returns the max |diff| of each (0 when all are equal)."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     err = {"bitplane_add": 0, "quant_matmul": 0}
+    # the kernel-test shapes, then B % 4 != 0 (the 1-lane instance), N = 1,
+    # 2, 5, 17, 64, M = 1 and 31, K = 1 .. 7 counter words, and an offset
+    # view that is not 16-byte aligned (unaligned=True)
     cases = [(4, 4, 64), (4, 16, 256), (16, 16, 128), (3, 8, 33),
-             (64, 20, 512)] + [(n, m, b) for _, n, m, b in bitplane]
+             (64, 20, 512), (1, 31, 100), (2, 30, 1000), (5, 12, 4099),
+             (17, 8, 4096), (9, 1, 1026), (40, 24, 2048), (64, 1, 260),
+             (8, 16, 4096), (33, 16, 12345)]
+    cases = [c + (False,) for c in cases] + [(16, 16, 4096, True)]
+    cases += [(n, m, b, False) for _, n, m, b in bitplane]
     fig12 = torch.tensor([[0xA], [0xF], [0x1], [0x2]], dtype=torch.int32,
                          device="cuda").repeat(1, 256)
-    for n, m_bits, b in cases + [(4, 4, None)]:
-        x = fig12 if b is None else _lanes(n, m_bits, b, gen)
+    for n, m_bits, b, unaligned in cases + [(4, 4, None, False)]:
+        if b is None:
+            x = fig12
+        elif unaligned:
+            x = _lanes(n, m_bits, b + 1, gen).reshape(-1)[1:1 + n * b]
+            x = x.reshape(n, b)
+            check(x.data_ptr() % 16 != 0, "the unaligned case is aligned")
+        else:
+            x = _lanes(n, m_bits, b, gen)
         got = bpa.bitplane_add_cuda(x, m_bits)
         want = bpa.bitplane_add_plain(x, m_bits)
         torch.cuda.synchronize()
-        check(torch.equal(got, want),
-              f"bitplane_add != bitplane_add_plain at N={n} M={m_bits} B={b}")
+        check(torch.equal(got, want) and
+              torch.equal(got, x.sum(0, dtype=torch.int32)),
+              f"bitplane_add != bitplane_add_plain at N={n} M={m_bits} B={b}"
+              f"{' unaligned' if unaligned else ''}")
         err["bitplane_add"] = max(err["bitplane_add"],
                                   int((got - want).abs().max()))
         del x, got, want
@@ -765,7 +789,8 @@ def phase_adder_check(bitplane, matmul):
                   "quant_matmul: all -128 at K = 8192 is not 8192 * 2^14")
         del x, w, got, want
     print(f"[check] bitplane_add == bitplane_add_plain (torch.equal) on "
-          f"{len(cases) + 1} shapes incl. Fig 12 and the path's; width guard "
+          f"{len(cases) + 1} shapes incl. Fig 12, ragged and unaligned lanes "
+          f"and the path's; width guard "
           f"raises before a launch; quant_matmul == quant_matmul_plain on "
           f"{len(mm_cases) + 1} shapes incl. all -128 at K = 8192 and the "
           f"path's; max |diff| {err}")
@@ -865,21 +890,22 @@ def phase_adder_timing(bitplane, matmul):
         nbytes = bpa.bound_bytes(n, b)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = (n - 1) * b / INT32_OPS_PER_S * 1e3
-        per_lane = bpa.netlist_ops_per_lane(n, m_bits)
+        per_lane = bpa.netlist_ops_per_lane(n)
         alu = per_lane * b / INT32_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         rows["bitplane_add"].append({
             "label": label, "shape": [n, m_bits, b], "ms": kernel,
             "plain_ms": plain, "library_ms": library, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "netlist_int_ops_per_lane": per_lane,
-            "netlist_alu_ms": alu})
+            "bytes": nbytes})
         print(f"[time] bitplane_add {label} N={n} M={m_bits} B={b}: kernel_ms "
               f"{kernel:.4f} bound_ms {bound:.4f} ({nbytes} B / 3.35 TB/s; "
               f"{n - 1} adds per lane {t_ops:.4f} ms) library_ms "
               f"{library:.4f} (torch.sum) plain_ms {plain:.4f} kernel/bound "
-              f"{kernel / bound:.2f}; netlist {per_lane} int ops per lane = "
-              f"{alu:.4f} ms at 16.7 Tops/s INT32")
+              f"{kernel / bound:.2f} kernel/library {kernel / library:.3f}; "
+              f"the kernel's source: {per_lane} int ops per lane (bit-sliced "
+              f"counters, K = {max(1, n.bit_length())}), estimated, not "
+              f"measured, at {alu:.4f} ms at 16.7 Tops/s INT32")
         del x
     for label, m, k, n in matmul:
         x, w = _int8((m, k), gen), _int8((k, n), gen)
@@ -907,7 +933,8 @@ def phase_adder_timing(bitplane, matmul):
               f"{bound:.4f} ({ops_:.4e} int8 ops / 1979 TOP/s; {nbytes} B / "
               f"3.35 TB/s = {t_bytes:.4f} ms) library_ms {library:.4f} "
               f"(torch._int_mm; {library_col:.4f} with w column-major) "
-              f"plain_ms {plain:.4f} kernel/bound {kernel / bound:.2f}")
+              f"plain_ms {plain:.4f} kernel/bound {kernel / bound:.2f} "
+              f"kernel/library {kernel / library:.3f}")
         del x, w, wc
     return rows
 

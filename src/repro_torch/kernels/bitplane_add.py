@@ -2,19 +2,26 @@
 
 Replaces the TPU kernel ``repro/kernels/bitplane_add.py:bitplane_add_pallas``.
 The CUDA source is ``csrc/bitplane_add.cu`` (its header note gives the
-design): one thread per lane reads its N operands once, runs every group of
-four through the Fig-4 XOR/AND netlist column by column into M column
-counts held in registers, then runs the column loop of Algorithm 2 with
-the carry buffer in a register and drains the carry at the end.
+design): the column counts are bit-sliced.  One thread owns one lane (four
+when the layout allows 16-byte loads) and runs each group of four operands
+through the Fig-4 XOR/AND netlist on whole words, which counts the ones of
+every column at once as three words (bit i of each is a bit of column i's
+count), and adds them into K = bit length of N counter words by bit-sliced
+half and full adders.  Algorithm 2's column pass (emit the column bit,
+carry the rest, drain the carry) computes ``sum_i count_i 2^i``; with the
+counts bit-sliced that integer is ``sum_j (C_j & mask(M)) << j``, the same
+sum bit for bit, which the kernel forms directly.  Masking each counter
+word to M bits drops every bit of the operands at or above M.
 
 Bound on the H100: bytes.  A call reads ``N * B`` int32 operands and
 writes ``B`` int32 sums (:func:`bound_bytes`); the sum itself is ``N - 1``
-adds per lane.  The netlist spends far more integer operations than that
-(:func:`netlist_ops_per_lane`); ``chip_smoke.py`` prints both.
+adds per lane.  The kernel's source spends :func:`netlist_ops_per_lane`
+integer operations a lane (93 at N = 16); ``chip_smoke.py`` prints both.
 
-* :func:`bitplane_add_plain` — the plain PyTorch version: the same column
-  loop through the same gates (:func:`repro_torch.core.lut.popcount_tree`),
-  which the CPU path and the tests use.
+* :func:`bitplane_add_plain` — the plain PyTorch version: the column loop
+  of Algorithm 2 through the same gates
+  (:func:`repro_torch.core.lut.popcount_tree`), which the CPU path and the
+  tests use.
 * :func:`bitplane_add_cuda` — the kernel's wrapper; it adds one to
   :data:`LAUNCHES` each time it launches the kernel.
 """
@@ -69,14 +76,17 @@ def bound_bytes(n: int, b: int) -> int:
     return 4 * (n + 1) * b
 
 
-def netlist_ops_per_lane(n: int, m_bits: int) -> int:
+def netlist_ops_per_lane(n: int) -> int:
     """Integer operations per lane in the kernel's source, before the
-    compiler merges any: for each column and group of four, 8 to extract
-    the four bits, 11 gates, 4 to weight and add the 3-bit count, 1 to add
-    it to the column count; 5 per column for the carry step (add, emit
-    the bit: and, shift, or; shift the carry); 2 for the drain."""
+    compiler merges any, for ``n`` operands and K = bit length of ``n``
+    counter words: for each group of four, the 11 gates of Fig 4 and
+    2K - 1 adder gates (a sum and, below the top stage, a carry per
+    counter bit; a full adder's carry is one LOP3); then 3K - 2 for the
+    column pass (K masks, K - 1 shifts and adds).  Loads are not
+    counted."""
     groups = -(-n // 4)
-    return m_bits * (24 * groups + 5) + 2
+    k = max(1, n.bit_length())
+    return groups * (11 + 2 * k - 1) + 3 * k - 2
 
 
 def bitplane_add_cuda(x: torch.Tensor, m_bits: int) -> torch.Tensor:

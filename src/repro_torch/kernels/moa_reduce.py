@@ -2,15 +2,19 @@
 
 Replaces the TPU kernel ``repro/kernels/moa_reduce.py:moa_reduce_pallas``.
 The CUDA source is ``csrc/moa_reduce.cu`` (its header note gives the
-design): each thread owns one output column (four when the layout allows
-16-byte loads), streams its N operands and adds them in the order of the
-``make_reduction_plan(N)`` tree, so the kernel equals
-:func:`moa_reduce_plain` bit for bit in fp32 and int32.
+design): the ``make_reduction_plan(N)`` tree is the complete 4-ary tree over
+the operands padded with zeros, so its 4^s aligned subtrees just below the
+top s levels (:func:`split_levels`) go to 4^s adjacent lanes, which own the
+same output columns (four when the layout allows 16-byte loads).  Each lane
+reduces its subtree with its level-0 loads in flight together, and the top
+s levels combine through warp shuffles as ``(a + b) + (c + d)``, so the
+kernel equals :func:`moa_reduce_plain` bit for bit in fp32 and int32.
 
 Bound on the H100: bytes.  A call moves ``(N * in_bytes + out_bytes) * M``
 bytes, so its least time is that over 3.35 TB/s (:func:`bound_bytes`).  At
 the decode shapes of the serve path (N = 16 pages, M = 96 or 12288) that is
-far below the cost of a launch, so the kernel is launch-bound there.
+far below the cost of a launch, so the kernel is launch-bound there;
+fusing the combine into the split-K attention is the later fix.
 
 * :func:`radix4_tree_sum` / :func:`moa_reduce_plain` — the plain PyTorch
   version, which the CPU path and the tests use.
@@ -28,7 +32,7 @@ from repro_torch.dist import plan as dist_plan
 from repro_torch.kernels import _build
 
 __all__ = ["LAUNCHES", "MAX_OPERANDS", "radix4_tree_sum", "moa_reduce_plain",
-           "moa_reduce_cuda", "bound_bytes"]
+           "moa_reduce_cuda", "bound_bytes", "split_levels"]
 
 #: Number of times :func:`moa_reduce_cuda` has launched the kernel.
 LAUNCHES = 0
@@ -78,6 +82,14 @@ def bound_bytes(n: int, m: int, in_dtype: torch.dtype,
     return (n * in_b + out_b) * m
 
 
+def split_levels(n: int) -> int:
+    """s, the top tree levels the kernel combines across lanes for ``n``
+    operands: 0 for N <= 4, 1 for N <= 64, else 2.  Each of the 4^s lanes
+    of a column then reduces a subtree of at least one whole level-0
+    group (4^(L - s) >= 4 operand slots, L the plan's level count)."""
+    return 0 if n <= 4 else 1 if n <= 64 else 2
+
+
 def moa_reduce_cuda(x: torch.Tensor, acc_dtype: torch.dtype = torch.float32
                     ) -> torch.Tensor:
     """Launch the kernel on a contiguous ``(N, M)`` CUDA tensor; returns
@@ -105,11 +117,13 @@ def moa_reduce_cuda(x: torch.Tensor, acc_dtype: torch.dtype = torch.float32
     lib = _build.load("moa_reduce")
     fn = lib.moa_reduce_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), n, m, code, stream)
+        err = fn(x.data_ptr(), out.data_ptr(), n, m, code, split_levels(n),
+                 stream)
     if err:
         raise RuntimeError(f"moa_reduce kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -172,9 +172,10 @@ def gqa_train(x: torch.Tensor, p: dict, cfg: ModelConfig,
               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence attention. x: (B, S, D) -> (B, S, D).
 
-    On a CUDA tensor the flash attention kernels, at every sequence length
-    (they mask a ragged last tile; the JAX gate's ``S % min(attn_chunk,
-    128)`` was the TPU tiling's); on the CPU :func:`chunked_attention`."""
+    With ``cfg.use_flash_attn`` on a CUDA tensor, the flash attention
+    kernels, at every sequence length (they mask a ragged last tile; the
+    JAX gate's ``S % min(attn_chunk, 128)`` was the TPU tiling's); else
+    :func:`chunked_attention`."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg)
     if positions is None:
@@ -182,7 +183,7 @@ def gqa_train(x: torch.Tensor, p: dict, cfg: ModelConfig,
     sin, cos = rope_angles(positions, cfg.hd, cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
-    if x.is_cuda:
+    if cfg.use_flash_attn and x.is_cuda:
         out = kops.flash_attention(q, k, v, causal=cfg.causal)
     else:
         out = chunked_attention(q, k, v, cfg)
@@ -263,4 +264,4 @@ def gqa_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
                          page)
     paging.scatter_token_rows(pool_k, pages, k_new, pos)
     paging.scatter_token_rows(pool_v, pages, v_new, pos)
-    return out @ p["wo"], pool_k, pool_v
+    return out @ p["wo"].to(out.dtype), pool_k, pool_v

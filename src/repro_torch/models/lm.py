@@ -150,7 +150,7 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
     cur = batch["index"]
     pages = batch["pages"]
     blocks = params["blocks"]
-    x = params["embed"][batch["tokens"]]
+    x = params["embed"][batch["tokens"]].to(cfg.dtype)
     for i in range(cfg.n_layers):
         bp = _layer(blocks, i)
         h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
@@ -170,7 +170,7 @@ def decode_step(params: dict, state: Dict[str, torch.Tensor],
     float32, state)."""
     x, state = _decode_blocks(params, state, batch, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["lm_head"])[:, -1]
+    logits = (x @ params["lm_head"].to(x.dtype))[:, -1]
     return logits.float(), state
 
 
@@ -187,5 +187,5 @@ def prefill_chunk(params: dict, state: Dict[str, torch.Tensor],
     last = min(max(int(batch.get("nvalid", c)) - 1, 0), c - 1)
     x_last = rms_norm(x[:, last:last + 1], params["final_norm"],
                       cfg.norm_eps)
-    logits = (x_last @ params["lm_head"])[:, 0]
+    logits = (x_last @ params["lm_head"].to(x_last.dtype))[:, 0]
     return logits.float(), state

@@ -91,7 +91,8 @@ def test_cpu_tensor_takes_plain_path_without_launch():
 
 
 def test_netlist_op_count():
-    """4 groups x 24 + 5 per column, 16 columns, + 2 for the drain."""
-    assert bpa.netlist_ops_per_lane(16, 16) == 16 * (4 * 24 + 5) + 2
-    assert bpa.netlist_ops_per_lane(3, 8) == 8 * (24 + 5) + 2
+    """Per group of four, 11 gates and 2K - 1 adder gates; 3K - 2 for the
+    column pass: K = 5 counter words at N = 16, K = 2 at N = 3."""
+    assert bpa.netlist_ops_per_lane(16) == 4 * (11 + 9) + 13
+    assert bpa.netlist_ops_per_lane(3) == 1 * (11 + 3) + 4
     assert bpa.bound_bytes(16, 10) == 4 * 17 * 10

@@ -3,6 +3,8 @@
 Tests marked ``cuda`` skip without a CUDA device (a CUDA kernel has no CPU
 mode); on the card run ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 This file imports no JAX, so it runs where only PyTorch is installed."""
+import dataclasses
+
 import pytest
 import torch
 
@@ -48,9 +50,14 @@ def test_cuda_wrapper_refuses_cpu_tensor():
 
 
 @pytest.mark.cuda
+# N = 3, 4 (s = 0), 5, 17, 52, 63, 64 (s = 1), 65, 244, 257 (s = 2): ragged
+# top groups, lanes whose subtree holds only padding or one whole group
 @pytest.mark.parametrize("n,m", [(1, 64), (2, 1024), (5, 3), (7, 8227),
                                  (16, 96), (16, 12288), (16, 6144),
-                                 (33, 2080), (16, 786432), (300, 640)])
+                                 (33, 2080), (16, 786432), (300, 640),
+                                 (3, 516), (4, 1000), (5, 4096), (17, 260),
+                                 (52, 1024), (63, 333), (64, 2048),
+                                 (65, 1028), (244, 96), (257, 130)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_kernel_equals_plain_bit_for_bit(cuda_device, n, m, dtype):
     x, acc = _operands(n, m, dtype, cuda_device)
@@ -59,6 +66,26 @@ def test_kernel_equals_plain_bit_for_bit(cuda_device, n, m, dtype):
     torch.cuda.synchronize()
     assert moa.LAUNCHES == before + 1
     assert torch.equal(got, moa.moa_reduce_plain(x, acc, acc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4, 16, 20, 52, 64, 65, 244, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_keeps_the_sign_of_zero(cuda_device, n, dtype):
+    """-0.0 operands: the plan pads a lone -0.0 to (-0 + 0) + (0 + 0) =
+    +0 but keeps -0 where no padding reaches it; the kernel's bits,
+    sign bits included, are the plain version's."""
+    in_dt, acc = DTYPES[dtype]
+    x, _ = _operands(n, 1024, "float32", cuda_device)
+    x[:, :256] = -0.0
+    x[:n // 2, 256:512] = -0.0
+    x[:, 512:768] = torch.where(x[:, 512:768] < 0, -0.0, 0.0)
+    x = x.to(in_dt)
+    got = moa.moa_reduce_cuda(x, acc)
+    want = moa.moa_reduce_plain(x, acc, acc)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -351,14 +378,43 @@ def test_train_step_on_cuda_goes_through_the_kernels(cuda_device, seq):
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
 
 
+@pytest.mark.cuda
+def test_train_step_with_flash_off_takes_chunked_attention(cuda_device):
+    """use_flash_attn=False, as in the JAX package, selects
+    chunked_attention on the card too: a train step launches no flash
+    kernel and gives the CPU step's loss (chunked_attention on both)."""
+    cfg = dataclasses.replace(
+        get_config("llama3.2-3b").reduced(dtype=torch.float32, n_kv_heads=2),
+        use_flash_attn=False)
+    state = init_train_state(cfg, torch.Generator().manual_seed(0))
+    batch = host_batch(cfg, ShapeConfig("t", seq_len=64, global_batch=2,
+                                        kind="train"),
+                       HostDataConfig(0, 1, 0), 0)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        st = map_tree(lambda t: t.to(dev, copy=True), state)
+        step = build_train_step(cfg, AdamWConfig(lr=1e-3))
+        before = (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+        _, metrics = step(st, batch)
+        losses[dev] = float(metrics["loss"])
+        assert (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ,
+                fa.LAUNCHES_BWD_DKV) == before
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
+
+
 # ------------------------------------------------------------ bitplane_add
 # (N, M, B): the shapes of tests/test_kernels.py:60-82 and the Fig-15
 # 16 x 16 adder over one llama3.2-3b activation tensor (4096 tokens x d_model)
 _LLAMA = get_config("llama3.2-3b")
 _TOKENS = 2 * 2048
+# ... plus B % 4 != 0 (the 1-lane instance), N = 1, 2, 5, 17 and 64, M = 1
+# and 31, and K = bit length of N from 1 to 7 counter words
 BITPLANE_SHAPES = [(4, 4, 64), (4, 16, 256), (16, 16, 128), (3, 8, 33),
                    (64, 20, 512), (1, 31, 100),
-                   (16, 16, _TOKENS * _LLAMA.d_model)]
+                   (16, 16, _TOKENS * _LLAMA.d_model),
+                   (2, 30, 1000), (5, 12, 4099), (17, 8, 4096), (9, 1, 1026),
+                   (40, 24, 2048), (64, 1, 260), (8, 16, 4096),
+                   (1, 31, 4096), (33, 16, 12345)]
 
 
 def _lanes(n, m_bits, b, device, low=0):
@@ -381,6 +437,20 @@ def test_bitplane_kernel_equals_plain(cuda_device, n, m_bits, b):
     torch.cuda.synchronize()
     assert bpa.LAUNCHES == before + 1
     assert torch.equal(got, bpa.bitplane_add_plain(x, m_bits))
+    assert torch.equal(got, x.sum(0, dtype=torch.int32))
+    mask = (1 << m_bits) - 1
+    assert torch.equal(got, (x & mask).sum(0, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+def test_bitplane_kernel_unaligned_view(cuda_device):
+    """An offset view is not 16-byte aligned: the 1-lane instance runs
+    and is exact."""
+    base = _lanes(16, 16, 4097, cuda_device)
+    x = base.reshape(-1)[1:1 + 16 * 4096].reshape(16, 4096)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    got = bpa.bitplane_add_cuda(x, 16)
+    assert torch.equal(got, bpa.bitplane_add_plain(x, 16))
     assert torch.equal(got, x.sum(0, dtype=torch.int32))
 
 

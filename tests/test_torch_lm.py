@@ -16,6 +16,7 @@ from repro.models import lm as jlm
 from repro.models.common import init_params as jinit
 from repro_torch.configs.registry import get_config as tget
 from repro_torch.convert import params_from_numpy
+from repro_torch.models import attention
 from repro_torch.models import lm as tlm
 from repro_torch.models.common import init_params as tinit
 from repro_torch.models.registry import get_api
@@ -108,6 +109,113 @@ def test_prefill_then_decode_logits_match_jax():
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
         index = index + np.array([1, 1, 0, 1])
     _close_pools(tstate, jstate)
+
+
+def _serve_calls(tp, cfg, pools, rng_seed=1):
+    """A prefill chunk then a decode step over bf16 pools; returns every
+    call's logits, the final pools and the dtypes attention saw."""
+    rng = np.random.default_rng(rng_seed)
+    state = {k: torch.from_numpy(v.copy()).to(cfg.dtype)
+             for k, v in pools.items()}
+    table = np.array([[4, 7], [1, 3]], np.int64)
+    seen, logits = [], []
+    real = attention.gqa_decode_pages
+
+    def spy(x, *args):
+        seen.append(x.dtype)
+        return real(x, *args)
+
+    attention.gqa_decode_pages = spy
+    try:
+        chunk = rng.integers(0, cfg.vocab, (2, 16))
+        tl, state = tlm.prefill_chunk(
+            tp, state, {"tokens": torch.from_numpy(chunk),
+                        "index": torch.tensor(0), "nvalid": 13,
+                        "pages": torch.from_numpy(table)}, cfg)
+        logits.append(tl)
+        tok = rng.integers(0, cfg.vocab, (2, 1))
+        tl, state = tlm.decode_step(
+            tp, state, {"tokens": torch.from_numpy(tok),
+                        "index": torch.tensor([13, 9]),
+                        "pages": torch.from_numpy(table)}, cfg)
+        logits.append(tl)
+    finally:
+        attention.gqa_decode_pages = real
+    return logits, state, set(seen)
+
+
+def test_decode_casts_params_to_the_config_dtype():
+    """fp32 params (a trained state's masters) under a bf16 config serve
+    exactly as the same params cast to bf16, as the JAX package's casts
+    at every use make it: logits and pools torch.equal, attention in bf16."""
+    _, _, jp, _ = _models()                  # the JAX package's fp32 init
+    jp = jax.tree.map(np.asarray, jp)
+    tcfg = tget("llama3.2-3b").reduced(dtype=torch.bfloat16, n_kv_heads=2)
+    pools = _pools(tcfg, np.random.default_rng(0))
+    runs = [_serve_calls(params_from_numpy(jp, "cpu", dt), tcfg, pools)
+            for dt in (torch.float32, torch.bfloat16)]
+    (l32, s32, seen32), (l16, s16, seen16) = runs
+    assert seen32 == seen16 == {torch.bfloat16}
+    for a, b in zip(l32, l16):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+    for k in ("k", "v"):
+        assert s32[k].dtype == torch.bfloat16 and torch.equal(s32[k], s16[k])
+
+
+def _jax_serve_calls(jp, cfg, pools, rng_seed=1):
+    """The JAX package's prefill chunk and decode step on the calls
+    :func:`_serve_calls` makes."""
+    rng = np.random.default_rng(rng_seed)
+    state = {k: jnp.asarray(v, cfg.dtype) for k, v in pools.items()}
+    table = jnp.asarray([[4, 7], [1, 3]], jnp.int32)
+    chunk = rng.integers(0, cfg.vocab, (2, 16))
+    jl0, state = jlm.prefill_chunk(
+        jp, state, {"tokens": jnp.asarray(chunk, jnp.int32),
+                    "index": jnp.int32(0), "nvalid": jnp.int32(13),
+                    "pages": table}, cfg)
+    tok = rng.integers(0, cfg.vocab, (2, 1))
+    jl1, state = jlm.decode_step(
+        jp, state, {"tokens": jnp.asarray(tok, jnp.int32),
+                    "index": jnp.asarray([13, 9], jnp.int32),
+                    "pages": table}, cfg)
+    return [jl0, jl1], state
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def test_decode_with_fp32_params_under_bf16_matches_jax():
+    """fp32 params under a bf16 config against the JAX package's own
+    prefill_chunk / decode_step on the same params, config and pools.
+    The reference serves fp32 params exactly as their bf16 cast; the
+    layer-0 K/V rows both write (embedding cast to bf16, norm, projection,
+    rope) are equal bit for bit, which a missing or wrong embedding cast
+    breaks; logits and pools agree within a relative L2 error of 2e-2,
+    2.5 bf16 epsilons (2^-7), after two bf16 layers."""
+    _, _, jp, _ = _models()
+    jp = jax.tree.map(np.asarray, jp)
+    jcfg = jget("llama3.2-3b").reduced(dtype=jnp.bfloat16, n_kv_heads=2)
+    tcfg = tget("llama3.2-3b").reduced(dtype=torch.bfloat16, n_kv_heads=2)
+    pools = _pools(tcfg, np.random.default_rng(0))
+    jl, jstate = _jax_serve_calls(jax.tree.map(jnp.asarray, jp), jcfg, pools)
+    jl16, jstate16 = _jax_serve_calls(
+        jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), jp), jcfg, pools)
+    for a, b in zip(jl, jl16):
+        assert bool(jnp.array_equal(a, b))
+    for k in ("k", "v"):
+        assert bool(jnp.array_equal(jstate[k], jstate16[k]))
+    tl, tstate, _ = _serve_calls(params_from_numpy(jp, "cpu", torch.float32),
+                                 tcfg, pools)
+    for t, j in zip(tl, jl):
+        assert t.dtype == torch.float32 and j.dtype == jnp.float32
+        assert _rel_l2(t.numpy(), j) <= 2e-2
+    for k in ("k", "v"):
+        j = torch.from_numpy(np.asarray(jstate[k], np.float32))
+        assert tstate[k].dtype == torch.bfloat16 and jstate[k].dtype == jnp.bfloat16
+        assert torch.equal(tstate[k][0], j[0].to(torch.bfloat16))
+        assert _rel_l2(tstate[k].float().numpy(), j.numpy()) <= 2e-2
 
 
 @pytest.mark.parametrize("arch,item", [

@@ -20,6 +20,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.moa_reduce import moa_reduce_pallas
 from repro.kernels.moa_reduce import radix4_tree_sum as jtree
+from repro_torch.dist.plan import make_reduction_plan
 from repro_torch.kernels import moa_reduce as tmoa
 from repro_torch.kernels import ops, ref
 
@@ -121,3 +122,65 @@ def test_plain_is_the_radix4_tree_bit_for_bit():
                     for i in range(0, len(vals), 4)]
         got = tmoa.moa_reduce_plain(torch.from_numpy(x))
         np.testing.assert_array_equal(got.numpy(), vals[0])
+
+
+def test_split_levels_for_every_operand_count():
+    """The wrapper's split of the plan's tree across lanes, N = 1..300: no
+    split while one level-0 group holds every operand, one level up to
+    N = 64, two beyond, never more; every lane's subtree spans at least
+    one whole level-0 group of the plan, and a split never shrinks as N
+    grows."""
+    at = {1: 0, 2: 0, 4: 0, 5: 1, 16: 1, 17: 1, 64: 1, 65: 2, 256: 2,
+          257: 2, 300: 2}
+    prev = 0
+    for n in range(1, 301):
+        levels = len(make_reduction_plan(n).levels)
+        s = tmoa.split_levels(n)
+        assert s == at.get(n, s) and prev <= s <= 2, n
+        assert s == 0 or 4 ** (levels - s) >= 4, n
+        prev = s
+
+
+def _kernel_order(x):
+    """The CUDA kernel's order of adds, transcribed: lane j of the 4^s
+    lanes of a column reduces operands [j 4^D, (j + 1) 4^D) (D = L - s),
+    padding every level to a multiple of 4 with zeros, a lone element
+    too, for D levels (an empty subtree is +0); then each of s levels
+    adds the value of the lane at xor offset 1 and 2, then 4 and 8, as the
+    warp shuffles do.  Returns every lane's result."""
+    n = x.shape[0]
+    s = tmoa.split_levels(n)
+    depth = len(make_reduction_plan(n).levels) - s
+    zero = np.zeros(x.shape[1:], np.float32)
+    lanes = []
+    for j in range(4 ** s):
+        vals = list(x[j * 4 ** depth:(j + 1) * 4 ** depth])
+        if not vals:
+            lanes.append(zero)
+            continue
+        for _ in range(depth):
+            vals += [zero] * (-len(vals) % 4)
+            vals = [(vals[i] + vals[i + 1]) + (vals[i + 2] + vals[i + 3])
+                    for i in range(0, len(vals), 4)]
+        lanes.append(vals[0])
+    for offset in (1, 2, 4, 8)[:2 * s]:
+        lanes = [lanes[j] + lanes[j ^ offset] for j in range(len(lanes))]
+    return lanes
+
+
+def test_aligned_subtree_split_is_the_plan_bit_for_bit():
+    """The kernel's split of the tree across lanes adds in the plan's
+    order: for N = 1..300 every lane ends with radix4_tree_sum's bits in
+    fp32, sign of zero included (columns of -0.0, mixed zeros, and values
+    over 20 binades, where a change of order shows)."""
+    rng = np.random.default_rng(11)
+    for n in range(1, 301):
+        x = (rng.standard_normal((n, 6)) *
+             np.exp2(rng.integers(-10, 10, (n, 6)))).astype(np.float32)
+        x[:, 0] = -0.0
+        x[:, 1] = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+        x[:n // 2, 2] = -0.0
+        want = tmoa.radix4_tree_sum(torch.from_numpy(x)).numpy()
+        for got in _kernel_order(x):
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          want.view(np.uint32), err_msg=n)
