@@ -54,18 +54,27 @@ Phases:
  11. bitplane_add and quant_matmul against bitplane_add_plain and
      quant_matmul_plain, torch.equal, at the kernel-test shapes (Fig 12
      lanes, ragged and unaligned lanes, N = 1 to 64, M = 1 to 31, the all
-     -128 K = 8192 case, a binding 18-bit plan) and at the adder path's
-     shapes; the width guard raises before any launch
+     -128 K = 8192 case, a binding 18-bit plan), quant_matmul's ragged
+     tiles, the wrap of two plan blocks (x -128, w 127, K = 262144: 2^25
+     after wrapping) on both routes, K or N not a multiple of 16 and
+     unaligned bases, each through the kernels quant_matmul.route names
+     (wgmma, or the pre-pass and mma.sync; by counter), and at the adder
+     path's shapes; the width guard raises before any launch
  12. the adder path, taken from llama3.2-3b's training step (4096 tokens):
      bitplane_add over one activation tensor (B = 4096 x d_model lanes) as
      the 16 x 16, 4 x 16 and 64 x 20 adders, quant_matmul at the gate/up,
      down and q/o projections and all -128 at K = d_ff; core.moa's
      reconfigured_add (Fig 15) and serial_add on the 16 x 16 lanes as
      plain device code; every result exact, each kernel launched once
-     per call
+     per call, every quant_matmul call one launch of the wgmma kernel
+     (no pre-pass)
  13. adder timings at the path shapes beside the bound, the plain version
-     and a library call (torch.sum, torch._int_mm); bitplane_add's integer
-     operations per lane in its source
+     and a library call (torch.sum, torch._int_mm on the row-major w and
+     on a column-major w); bitplane_add's integer operations per lane in
+     its source; quant_matmul's time with every launch, its TOP/s and
+     share of the int8 peak, and the mma.sync route's parts (the parent's
+     design): the pre-pass, the mma.sync product and the parent's PyTorch
+     copy of w to K-major
  14. the kernels line, then the card line, then the result line
 """
 from __future__ import annotations
@@ -720,6 +729,12 @@ def _int8(shape, gen):
                          dtype=torch.int8)
 
 
+def _unaligned_int8(shape, gen):
+    """A contiguous int8 tensor whose base is 1 byte past 16-byte aligned."""
+    flat = _int8((shape[0] * shape[1] + 16,), gen)
+    return flat[1:1 + shape[0] * shape[1]].view(shape)
+
+
 def phase_adder_check(bitplane, matmul):
     """Both kernels against their plain versions on the same CUDA inputs,
     torch.equal.  Returns the max |diff| of each (0 when all are equal)."""
@@ -766,34 +781,68 @@ def phase_adder_check(bitplane, matmul):
         raised = True
     check(raised and bpa.LAUNCHES == before,
           "bitplane_add: the width guard did not raise before a launch")
+    # (M, K, N, acc_bits, operands): the kernel-test shapes, ragged tiles of
+    # the wgmma kernel, K or N not a multiple of 16 and unaligned bases (the
+    # mma.sync kernel), the path's shapes, and the all -128 and wrap cases
     mm_cases = [(8, 128, 128, 32), (32, 384, 256, 32), (130, 257, 65, 32),
-                (256, 1024, 512, 32), (130, 257, 65, 18)]
-    mm_cases += [(m, k, n, 32) for _, m, k, n in matmul]
-    for m, k, n, acc_bits in mm_cases + [(4, 8192, 4, None)]:
-        if acc_bits is None:               # the reference's worst case
+                (256, 1024, 512, 32), (130, 257, 65, 18), (130, 272, 208, 32),
+                (130, 272, 208, 18), (1, 16, 16, 32), (300, 4112, 272, 32),
+                (300, 4112, 272, 18), (17, 40, 9, 32), (130, 272, 200, 32),
+                (1, 16, 8, 32), (300, 4112, 264, 18)]
+    mm_cases = [c + ("random",) for c in mm_cases]
+    mm_cases += [(130, 256, 64, 32, "x_unaligned"),
+                 (130, 256, 64, 32, "w_unaligned")]
+    mm_cases += [(m, k, n, 32, "random") for _, m, k, n in matmul]
+    mm_cases += [(4, 8192, 4, 32, "all_-128"), (4, 262144, 16, 32, "wrap"),
+                 (4, 262144, 4, 32, "wrap")]
+    routes = {"wgmma": 0, "mma_sync": 0}
+    for m, k, n, acc_bits, kind in mm_cases:
+        if kind == "all_-128":             # the reference's worst case
             x = torch.full((m, k), -128, dtype=torch.int8, device="cuda")
             w = torch.full((k, n), -128, dtype=torch.int8, device="cuda")
-            acc_bits = 32
+        elif kind == "wrap":               # two plan blocks whose sum wraps
+            x = torch.full((m, k), -128, dtype=torch.int8, device="cuda")
+            w = torch.full((k, n), 127, dtype=torch.int8, device="cuda")
+        elif kind.endswith("unaligned"):   # a base 1 byte past alignment
+            x = (_unaligned_int8 if kind[0] == "x" else _int8)((m, k), gen)
+            w = (_unaligned_int8 if kind[0] == "w" else _int8)((k, n), gen)
         else:
             x, w = _int8((m, k), gen), _int8((k, n), gen)
+        which = qmm.route(k, n, x.data_ptr(), w.data_ptr())
+        before = (qmm.WGMMA_LAUNCHES, qmm.MMA_SYNC_LAUNCHES)
         got = qmm.quant_matmul_cuda(x, w, acc_bits)
         want = qmm.quant_matmul_plain(x, w, acc_bits)
         torch.cuda.synchronize()
+        took = (qmm.WGMMA_LAUNCHES - before[0],
+                qmm.MMA_SYNC_LAUNCHES - before[1])
+        check(took == ((1, 0) if which == "wgmma" else (0, 1)),
+              f"quant_matmul at {(m, k, n)} {kind}: route {which}, launches "
+              f"(wgmma, mma.sync) {took}")
+        check((which == "wgmma") == (k % 16 == 0 and n % 16 == 0
+                                      and not kind.endswith("unaligned")),
+              f"quant_matmul at {(m, k, n)} {kind}: route {which}")
+        routes[which] += 1
         check(torch.equal(got, want),
               f"quant_matmul != quant_matmul_plain at {(m, k, n)} acc_bits "
-              f"{acc_bits}")
+              f"{acc_bits} {kind}")
         err["quant_matmul"] = max(err["quant_matmul"],
                                   int((got.long() - want.long()).abs().max()))
-        if k == 8192 and m == 4:
+        if kind == "all_-128":
             check(bool((got == k * 128 * 128).all()),
                   "quant_matmul: all -128 at K = 8192 is not 8192 * 2^14")
+        if kind == "wrap":
+            check(bool((got == 33554432).all()),
+                  f"quant_matmul ({which}): x -128, w 127 at K = 262144 is "
+                  f"not 33554432 (the int32 wrap of two plan blocks)")
         del x, w, got, want
     print(f"[check] bitplane_add == bitplane_add_plain (torch.equal) on "
           f"{len(cases) + 1} shapes incl. Fig 12, ragged and unaligned lanes "
           f"and the path's; width guard "
           f"raises before a launch; quant_matmul == quant_matmul_plain on "
-          f"{len(mm_cases) + 1} shapes incl. all -128 at K = 8192 and the "
-          f"path's; max |diff| {err}")
+          f"{len(mm_cases)} shapes incl. ragged tiles, unaligned bases, all "
+          f"-128 at K = 8192, the two-block wrap at K = 262144 (33554432, "
+          f"both routes) and the path's, by route {routes}; max |diff| "
+          f"{err}")
     return err
 
 
@@ -802,6 +851,7 @@ def phase_adder_path(cfg, bitplane, matmul):
     path's shapes, with the launch counts read around the run."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     bpa.LAUNCHES = qmm.LAUNCHES = 0
+    qmm.WGMMA_LAUNCHES = qmm.MMA_SYNC_LAUNCHES = qmm.TRANSPOSE_LAUNCHES = 0
     # Fig 3 == Fig 4 on the card: the netlist over all 16 codes is the LUT
     codes = torch.arange(16, dtype=torch.int32, device="cuda")
     bits = (codes[:, None] >> torch.arange(4, dtype=torch.int32,
@@ -860,6 +910,8 @@ def phase_adder_path(cfg, bitplane, matmul):
         else:
             x, w = _int8((m, k), gen), _int8((k, n), gen)
         plan = qmm.k_plan(k)
+        which = qmm.route(k, n, x.data_ptr(), w.data_ptr())
+        check(which == "wgmma", f"quant_matmul {label}: route {which}")
         got = ops.quant_matmul(x, w)
         want = ref.quant_matmul_ref(x, w)
         check(torch.equal(got, want), f"quant_matmul {label}: not exact")
@@ -867,14 +919,35 @@ def phase_adder_path(cfg, bitplane, matmul):
             check(bool((got == k * 128 * 128).all()),
                   f"quant_matmul {label}: not {k} * 2^14 everywhere")
         print(f"[adder] quant_matmul {label} ({m}, {k}) @ ({k}, {n}): exact "
-              f"(float64 oracle); plan block {plan.block}, "
-              f"{plan.num_blocks} block(s), max_block {plan.max_block}")
+              f"(float64 oracle) through the {which} kernel; plan block "
+              f"{plan.block}, {plan.num_blocks} block(s), max_block "
+              f"{plan.max_block}")
         del x, w, got, want
-    counts = {"bitplane_add": bpa.LAUNCHES, "quant_matmul": qmm.LAUNCHES}
-    want = {"bitplane_add": len(bitplane), "quant_matmul": len(matmul) + 1}
+    counts = {"bitplane_add": bpa.LAUNCHES, "quant_matmul": qmm.LAUNCHES,
+              "quant_matmul_wgmma": qmm.WGMMA_LAUNCHES,
+              "quant_matmul_mma_sync": qmm.MMA_SYNC_LAUNCHES,
+              "quant_matmul_transpose": qmm.TRANSPOSE_LAUNCHES}
+    calls = len(matmul) + 1
+    want = {"bitplane_add": len(bitplane), "quant_matmul": calls,
+            "quant_matmul_wgmma": calls, "quant_matmul_mma_sync": 0,
+            "quant_matmul_transpose": 0}
     check(counts == want, f"adder path: launches {counts}, expected {want}")
     print(f"[adder] launches on the adder path: {counts}")
     return counts
+
+
+def qmm_old_parts(x, w):
+    """Device ms of the parts of the parent design of quant_matmul at one
+    shape, which the mma.sync route keeps: PyTorch's per-call copy of w to
+    K-major (the parent's), the qmm_transpose pre-pass that replaces it,
+    and the mma.sync product on the K-major w."""
+    k = x.shape[1]
+    copy = device_ms(lambda: w.t().contiguous(), 20)
+    prepass = device_ms(lambda: qmm.transpose_w_cuda(w), 20)
+    wt = qmm.transpose_w_cuda(w)
+    bk = min(qmm.k_plan(k).block, k)
+    sync = device_ms(lambda: qmm.mma_sync_cuda(x, wt, k, bk), 20)
+    return {"copy_ms": copy, "prepass_ms": prepass, "mma_sync_ms": sync}
 
 
 def phase_adder_timing(bitplane, matmul):
@@ -910,6 +983,7 @@ def phase_adder_timing(bitplane, matmul):
     for label, m, k, n in matmul:
         x, w = _int8((m, k), gen), _int8((k, n), gen)
         kernel = device_ms(lambda: qmm.quant_matmul_cuda(x, w), 20)
+        old = qmm_old_parts(x, w)
         plain = device_ms(lambda: qmm.quant_matmul_plain(x, w), 5)
         library = device_ms(lambda: torch._int_mm(x, w), 20)
         # the same call on a column-major copy of w, for reference only
@@ -922,19 +996,32 @@ def phase_adder_timing(bitplane, matmul):
         t_ops = ops_ / INT8_OPS_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound = max(t_ops, t_bytes)
+        tops = ops_ / kernel * 1e-9
         rows["quant_matmul"].append({
             "label": label, "shape": [m, k, n], "ms": kernel,
             "plain_ms": plain, "library_ms": library, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "ops": ops_, "bytes": nbytes,
-            "library_ms_w_column_major": library_col})
+            "library_ms_w_column_major": library_col, "tops": tops,
+            "int8_peak_share": tops * 1e12 / INT8_OPS_PER_S,
+            "parent_copy_ms": old["copy_ms"],
+            "mma_sync_route_prepass_ms": old["prepass_ms"],
+            "mma_sync_route_product_ms": old["mma_sync_ms"]})
         print(f"[time] quant_matmul {label} ({m}, {k}) @ ({k}, {n}): "
-              f"kernel_ms {kernel:.4f} (w transpose included) bound_ms "
-              f"{bound:.4f} ({ops_:.4e} int8 ops / 1979 TOP/s; {nbytes} B / "
-              f"3.35 TB/s = {t_bytes:.4f} ms) library_ms {library:.4f} "
-              f"(torch._int_mm; {library_col:.4f} with w column-major) "
-              f"plain_ms {plain:.4f} kernel/bound {kernel / bound:.2f} "
-              f"kernel/library {kernel / library:.3f}")
+              f"kernel_ms {kernel:.4f} (qmm_wgmma on the row-major w: every "
+              f"launch) bound_ms {bound:.4f} ({ops_:.4e} int8 ops / 1979 "
+              f"TOP/s; {nbytes} B / 3.35 TB/s = {t_bytes:.4f} ms) "
+              f"library_ms {library:.4f} (torch._int_mm, w row-major; "
+              f"{library_col:.4f} w column-major) plain_ms {plain:.4f} "
+              f"kernel/bound {kernel / bound:.2f} kernel/library "
+              f"{kernel / library:.3f} kernel/library_column_major "
+              f"{kernel / library_col:.3f}; {tops:.1f} TOP/s, "
+              f"{tops * 1e12 / INT8_OPS_PER_S:.3f} of the int8 peak")
+        print(f"[time] quant_matmul {label} mma.sync route (the parent's "
+              f"design): pre-pass qmm_transpose {old['prepass_ms']:.4f} ms "
+              f"(bound {2 * k * n / HBM_BYTES_PER_S * 1e3:.4f}, {2 * k * n} "
+              f"B) + mma.sync product {old['mma_sync_ms']:.4f} ms; the "
+              f"parent's PyTorch w.t().contiguous() {old['copy_ms']:.4f} ms")
         del x, w, wc
     return rows
 
@@ -1022,6 +1109,9 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "checked": checked[name],
             "shapes": adder_rows[name]})
+    kernels[-1]["launches_by_kernel"] = {
+        k: v for k, v in adder_launches.items()
+        if k.startswith("quant_matmul_")}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.sass_mix bitplane_add \
         --match 'bitplane_add_kernelILi16E'
+    PYTHONPATH=src python -m repro_torch.launch.sass_mix quant_matmul \
+        --match qmm_wgmma
+
+(``quant_matmul``'s kernels are ``qmm_wgmma``, ``qmm_mma_sync`` and the
+pre-pass ``qmm_transpose``; ``flash_attention``'s ``--match wgmma``.)
 
 Builds ``csrc/<name>.cu`` like the kernel wrappers do, disassembles it
 with ``cuobjdump -sass`` and prints, for each kernel whose mangled name

@@ -520,6 +520,130 @@ def test_quant_matmul_kernel_equals_plain(cuda_device, m, k, n, acc_bits):
     assert torch.equal(got, qmm.quant_matmul_plain(x, w, acc_bits))
 
 
+# (M, K, N) that the wgmma kernel takes: K and N multiples of 16.  Ragged
+# M, N and K that do not fill its 256 x 128 x 128 tiles, and the gate/up,
+# down and q/o projections of one llama3.2-3b training step
+QMM_WGMMA_SHAPES = [(130, 272, 208), (1, 16, 16), (300, 4112, 272),
+                    (17, 32, 16), (64, 96, 48),
+                    (_TOKENS, _LLAMA.d_model, _LLAMA.d_ff),
+                    (_TOKENS, _LLAMA.d_ff, _LLAMA.d_model),
+                    (_TOKENS, _LLAMA.d_model, _LLAMA.n_heads * _LLAMA.hd)]
+# (M, K, N, base 1 byte past alignment): K or N not a multiple of 16, or an
+# unaligned base, which the pre-pass and the mma.sync kernel take
+QMM_MMA_SYNC_CASES = [(130, 257, 65, None), (17, 40, 9, None),
+                      (130, 520, 64, None), (130, 272, 200, None),
+                      (1, 16, 8, None), (300, 4112, 264, None),
+                      (130, 256, 64, "x"), (130, 256, 64, "w")]
+
+
+def _unaligned_int8(shape, seed, device):
+    """A contiguous int8 tensor whose base is 1 byte past 16-byte aligned."""
+    flat = _int8((shape[0] * shape[1] + 16,), seed, device)
+    out = flat[1:1 + shape[0] * shape[1]].view(shape)
+    assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+    return out
+
+
+def _route_counts():
+    return (qmm.LAUNCHES, qmm.WGMMA_LAUNCHES, qmm.MMA_SYNC_LAUNCHES,
+            qmm.TRANSPOSE_LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", QMM_WGMMA_SHAPES, ids=str)
+@pytest.mark.parametrize("acc_bits", [32, 18])
+def test_quant_matmul_wgmma_route_equals_plain(cuda_device, m, k, n,
+                                               acc_bits):
+    """The wgmma kernel (one accumulator over K) gives the plain version's
+    bits, with the plan's 8-product blocks of acc_bits 18 too; one launch
+    a call, no pre-pass."""
+    x, w = _int8((m, k), m + k, cuda_device), _int8((k, n), k + n,
+                                                    cuda_device)
+    before = _route_counts()
+    got = qmm.quant_matmul_cuda(x, w, acc_bits)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_route_counts(), before)] == [1, 1, 0, 0]
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, qmm.quant_matmul_plain(x, w, acc_bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,unaligned", QMM_MMA_SYNC_CASES, ids=str)
+def test_quant_matmul_mma_sync_route(cuda_device, m, k, n, unaligned):
+    """K or N not a multiple of 16, or a base TMA cannot take, reaches the
+    pre-pass and the mma.sync kernel, and they give the plain version's
+    bits."""
+    x = (_unaligned_int8 if unaligned == "x" else _int8)(
+        (m, k), m + k, cuda_device)
+    w = (_unaligned_int8 if unaligned == "w" else _int8)(
+        (k, n), k + n, cuda_device)
+    assert qmm.route(k, n, x.data_ptr(), w.data_ptr()) == "mma_sync"
+    before = _route_counts()
+    got = qmm.quant_matmul_cuda(x, w)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_route_counts(), before)] == [1, 0, 1, 1]
+    assert torch.equal(got, qmm.quant_matmul_plain(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(300, 4112, 272), (4096, 3072, 8192),
+                                   (300, 4112, 264)], ids=str)
+def test_quant_matmul_repeats_bit_for_bit(cuda_device, m, k, n):
+    x, w = _int8((m, k), 3, cuda_device), _int8((k, n), 4, cuda_device)
+    runs = [qmm.quant_matmul_cuda(x, w) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 4])
+def test_quant_matmul_two_plan_blocks_wrap(cuda_device, n):
+    """x all -128, w all 127 at K = 262144: two plan blocks, partials of
+    -2,130,706,432 each, whose int32 sum wraps to 33,554,432.  At N = 16 the
+    wgmma kernel's single accumulator wraps the same way (no saturation);
+    at N = 4 the mma.sync kernel adds the two partials."""
+    k = 262144
+    assert qmm.k_plan(k).num_blocks == 2
+    x = torch.full((4, k), -128, dtype=torch.int8, device=cuda_device)
+    w = torch.full((k, n), 127, dtype=torch.int8, device=cuda_device)
+    before = qmm.WGMMA_LAUNCHES
+    got = qmm.quant_matmul_cuda(x, w)
+    torch.cuda.synchronize()
+    assert qmm.WGMMA_LAUNCHES == before + (n % 16 == 0)
+    assert torch.equal(got, qmm.quant_matmul_plain(x, w))
+    assert bool((got == 33554432).all())
+
+
+@pytest.mark.cuda
+def test_quant_matmul_transpose_prepass(cuda_device):
+    """The mma.sync route's pre-pass writes w K-major, rows padded to 16
+    bytes with zeros."""
+    for k, n in [(40, 9), (3072, 8192), (257, 65)]:
+        w = _int8((k, n), k, cuda_device)
+        wt = qmm.transpose_w_cuda(w)
+        torch.cuda.synchronize()
+        ldt = -(-k // 16) * 16
+        assert wt.shape == (n, ldt)
+        assert torch.equal(wt[:, :k], w.t())
+        assert not bool(wt[:, k:].any())
+
+
+@pytest.mark.cuda
+def test_quant_matmul_sass_uses_wgmma_and_tma(cuda_device):
+    """qmm_wgmma issues the warpgroup MMA and UTMALDG in its loops and no
+    IMMA (mma.sync); qmm_mma_sync is the one that issues IMMA."""
+    if sass_mix.cuobjdump() is None:
+        pytest.skip("needs cuobjdump (CUDA toolkit)")
+    mixes = sass_mix.kernel_mixes("quant_matmul", "qmm_wgmma")
+    assert len(mixes) == 1, list(mixes)
+    (inner, rest), = mixes.values()
+    assert sum(c for op, c in inner.items() if op.endswith("GMMA")) > 0
+    assert inner["UTMALDG"] > 0
+    assert inner["IMMA"] == 0 and rest["IMMA"] == 0
+    sync = sass_mix.kernel_mixes("quant_matmul", "qmm_mma_sync")
+    assert sync and all(inner["IMMA"] > 0 for inner, _ in sync.values())
+
+
 @pytest.mark.cuda
 def test_quant_matmul_worst_case_is_exact(cuda_device):
     """All -128 at K = 8192: every sum is exactly 8192 * 2^14."""

@@ -5,8 +5,9 @@ block-by-block version,
 :func:`~repro_torch.kernels.quant_matmul.quant_matmul_plain`) against
 ``quant_matmul_pallas(..., bm=64, bn=64, interpret=True)`` at the shapes
 of ``tests/test_kernels.py:86-116``, exactly, with a binding 18-bit plan,
-the all-(-128) K = 8192 worst case, and the K plan itself.  The CUDA
-kernel is held against the plain version on the card by
+the all-(-128) K = 8192 worst case, the wrap of two plan blocks, the K
+plan itself and the wrapper's choice of product kernel.  The CUDA kernels
+are held against the plain version on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import dataclasses
@@ -68,6 +69,41 @@ def test_worst_case_no_overflow():
     assert bool((got == k * 128 * 128).all())
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert qmm.k_plan(k).exact and qmm.k_plan(k).num_blocks == 1
+
+
+def test_two_plan_blocks_wrap_like_the_tpu_kernel():
+    """x all -128, w all 127 at K = 262144: two plan blocks, each partial
+    -2,130,706,432 fits int32, their sum wraps to 33,554,432.  The plain
+    version, the Pallas kernel and numpy's int64 product taken modulo 2^32
+    agree: the semantics on which the card kernel's single accumulator
+    rests."""
+    k = 262144
+    plan = qmm.k_plan(k)
+    assert (plan.block, plan.num_blocks) == (131072, 2)
+    assert -128 * 127 * plan.block == -2130706432 >= -2 ** 31
+    x = np.full((4, k), -128, np.int8)
+    w = np.full((k, 4), 127, np.int8)
+    wrapped = (x.astype(np.int64) @ w.astype(np.int64)) % 2 ** 32
+    want = np.where(wrapped >= 2 ** 31, wrapped - 2 ** 32, wrapped)
+    assert (want == 33554432).all()
+    got = ops.quant_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    pallas = quant_matmul_pallas(jnp.asarray(x), jnp.asarray(w),
+                                 interpret=True)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int32))
+    np.testing.assert_array_equal(np.asarray(pallas), want.astype(np.int32))
+
+
+@pytest.mark.parametrize("k,n,x_ptr,w_ptr,want", [
+    (3072, 8192, 0, 256, "wgmma"), (16, 16, 4096, 16, "wgmma"),
+    (262144, 16, 32, 48, "wgmma"), (257, 65, 0, 0, "mma_sync"),
+    (40, 9, 0, 0, "mma_sync"), (520, 3072, 0, 0, "mma_sync"),
+    (272, 200, 0, 0, "mma_sync"), (16, 8, 0, 0, "mma_sync"),
+    (3072, 8192, 1, 0, "mma_sync"), (3072, 8192, 0, 8, "mma_sync")])
+def test_route_by_shape_and_alignment(k, n, x_ptr, w_ptr, want):
+    """The wgmma kernel takes K and N multiples of 16 with 16-byte-aligned
+    bases (what TMA can describe); every other call takes the pre-pass and
+    the mma.sync kernel."""
+    assert qmm.route(k, n, x_ptr, w_ptr) == want
 
 
 @pytest.mark.parametrize("k", [1, 8, 127, 128, 257, 1024, 8192, 200000])
