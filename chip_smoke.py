@@ -28,11 +28,37 @@ Phases:
      at the path shape give torch.equal o and lse, two backward calls
      torch.equal dq, delta, dk and dv
   5. serve, reduced-config parity: the engine on CUDA against the engine
-     on CPU, same weights: greedy tokens equal, decode logits within 1e-3
+     on CPU, same weights: greedy tokens equal, decode logits within 1e-3;
+     then the traffic of phases A-C cut to the reduced fp32 config, CUDA
+     against CPU: tokens and every prefix, dedup, session, SLO, shed,
+     ladder and eviction counter equal, decode logits within 1e-3
   6. serve, full width: llama3.2-3b, 28 layers, bf16, 8 greedy requests
-     of 128 to 1024 prompt tokens and 32 new tokens on 4 slots; every
-     request retires with 32 tokens, no logit is NaN, and moa_reduce ran
-     exactly 2 * layers times per dispatch
+     of 128 to 1024 prompt tokens and 32 new tokens on 4 slots, prefix
+     cache off (what PRs 11-17 measured); every request retires with 32
+     tokens, no logit is NaN, and moa_reduce ran exactly 2 * layers times
+     per dispatch
+  A. shared prefix, full width on phase 6's weights: 8 requests of a
+     1024-token system prompt and a 64-448-token tail, served cold (prefix
+     cache off), warm (the default) and with page dedup (prefix cache
+     off): warm and dedup tokens equal cold; warm 7 hits over 7 * 1024
+     reused tokens, no page copied, pages shared by reference a multiple
+     of 8; dedup no trie hit, pages shared by content a multiple of 8, no
+     collision; the refcount invariant; prefill rates, admission and step
+     percentiles, the dedup hashing time per admission
+  B. sessions: 6 conversations x 3 turns on 4 slots (512-token first
+     turns, 64-192-token later ones, 32-token replies), with a 160-page
+     pool (no snapshot dropped, every returning turn reuses its history)
+     and a 40-page pool (snapshots dropped, every turn completes); the
+     refcount invariant after every step; end_session releases exactly the
+     snapshots' references; token agreement of the two runs reported
+  C. overload on a virtual clock priced at phase 6's chunk and step times:
+     4 no-SLO requests, one tight-SLO arrival while they hold every slot,
+     then an SLO'd burst (24 requests in all), with the degrade ladder off
+     and on: the ladder reaches small_chunks, sheds only pending requests
+     (no tokens, a reason), preempts at least once, every victim completes
+     and a re-admission reuses its resident prefix; requests whose prefill
+     pieces match across the two runs have equal tokens; both runs'
+     goodput is reported
   7. moa_reduce timings at the serve path shapes (CUDA events, median of
      50) beside the bound, the plain version and torch.sum
   8. train, reduced-config parity: 3 AdamW steps of the reduced fp32
@@ -285,10 +311,39 @@ def phase_reduced_parity() -> None:
     print(f"[parity] reduced llama3.2-3b (fp32, kv_heads=2): tokens equal "
           f"CPU vs CUDA over {len(prompts)} requests, max |logit diff| "
           f"{diff:.3e} (tol 1e-3), moa_reduce launches {launched}")
+    cpu_runs = reduced_serve_runs(cfg, cpu_params, "cpu")
+    gpu_runs = reduced_serve_runs(cfg, map_tree(lambda t: t.to("cuda"),
+                                                cpu_params), "cuda")
+    for name, (ceng, creqs) in cpu_runs.items():
+        geng, greqs = gpu_runs[name]
+        check(_tokens(creqs) == _tokens(greqs),
+              f"reduced {name}: CUDA greedy tokens differ from CPU")
+        cst, gst = ceng.stats_summary(), geng.stats_summary()
+        bad = [k for k in SERVE_COUNTERS
+               if k != "moa_reduce_launches" and cst[k] != gst[k]]
+        check(not bad, f"reduced {name}: counters differ CPU vs CUDA: "
+                       f"{[(k, cst[k], gst[k]) for k in bad]}")
+        diff = _logit_diff(ceng, geng)
+        check(diff <= 1e-3, f"reduced {name}: decode logits differ by "
+                            f"{diff} (> 1e-3)")
+        check(gst["moa_reduce_launches"] > 0,
+              f"reduced {name}: the CUDA engine did not launch moa_reduce")
+        print(f"[parity] reduced {name}: tokens and {len(SERVE_COUNTERS) - 1}"
+              f" counters equal CPU vs CUDA over {len(creqs)} requests "
+              f"(hits {gst['prefix_hits']}, shared {gst['pages_shared']}, "
+              f"cow {gst['pages_cow']}, dedup {gst['dedup_pages_shared']}, "
+              f"session hits {gst['session_hits']}, drops "
+              f"{gst['session_snapshot_drops']}, preemptions "
+              f"{gst['preemptions']}, shed {gst['shed_requests']}, ladder "
+              f"max {getattr(geng, 'max_level', 0)}); "
+              f"max |logit diff| {diff:.3e} (tol 1e-3)")
+    _free(*(e for e, _ in cpu_runs.values()),
+          *(e for e, _ in gpu_runs.values()))
 
 
 def phase_full_width():
-    """Returns the moa_reduce launches of the measured run."""
+    """Returns the moa_reduce launches of the measured run, the weights,
+    and the run's mean prefill-dispatch and decode-step times."""
     cfg = get_config("llama3.2-3b")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -298,7 +353,10 @@ def phase_full_width():
     nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
     print(f"[full] llama3.2-3b params: {nbytes / 1e9:.3f} GB {cfg.dtype}, "
           f"initialized in {time.perf_counter() - t0:.2f} s")
-    ecfg = EngineConfig(max_slots=4, max_seq=2048, prefill_chunk=256)
+    # the prefix cache off: what PRs 11-17 measured (its retired rows would
+    # stay resident, and nothing here shares a prefix)
+    ecfg = EngineConfig(max_slots=4, max_seq=2048, prefill_chunk=256,
+                        prefix_cache=False)
     eng = ServeEngine(cfg, params, config=ecfg)
     print(f"[full] engine: slots {ecfg.max_slots}, max_seq {ecfg.max_seq}, "
           f"prefill_chunk {ecfg.prefill_chunk}, page {eng.page_size}, pool "
@@ -343,7 +401,509 @@ def phase_full_width():
           f"({st['prefill_dispatches']} + {st['decode_steps']}); "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB")
+    chunk_s = st["prefill_s"] / st["prefill_dispatches"]
+    step_s = st["decode_s"] / st["decode_steps"]
+    _free(eng)
+    return launches, params, chunk_s, step_s
+
+
+def phase_shared_prefix(cfg, params):
+    """Phase A at full width: cold, warm and dedup engines, one at a
+    time.  Returns the launches of each run."""
+    tr = FULL_TRAFFIC
+    prompts = shared_prefix_prompts(tr, cfg.vocab, seed=20)
+    runs, launches = {}, {}
+    for name, knobs in (("cold", dict(prefix_cache=False)), ("warm", {}),
+                        ("dedup", dict(prefix_cache=False,
+                                       page_dedup=True))):
+        eng, reqs, launched = serve_shared_prefix(cfg, params, "cuda", tr,
+                                                  prompts, **knobs)
+        _check_launches(eng, launched, f"shared prefix {name}")
+        check(all(len(r.generated) == tr.new for r in reqs)
+              and all(np.isfinite(t).all() for t in eng.logit_trace),
+              f"shared prefix {name}: a request fell short or a logit is "
+              f"not finite")
+        st = eng.stats_summary()
+        runs[name] = (_tokens(reqs), st, eng.hash_s)
+        launches[name] = launched
+        print(f"[prefix] {name}: prefill {st['prefill_tokens']} tok in "
+              f"{st['prefill_dispatches']} dispatches, {st['prefill_s']:.4f} "
+              f"s = {st['prefill_tok_s']:.1f} tok/s (effective "
+              f"{st['effective_prefill_tok_s']:.1f}); decode "
+              f"{st['decode_steps']} steps, p50 "
+              f"{1e3 * st['decode_step_p50_s']:.3f} ms, p99 "
+              f"{1e3 * st['decode_step_p99_s']:.3f} ms; hits "
+              f"{st['prefix_hits']} / misses {st['prefix_misses']}, reused "
+              f"{st['prefix_reused_tokens']}, pages shared "
+              f"{st['pages_shared']}, cow {st['pages_cow']}, bytes copied "
+              f"{st['prefix_bytes_copied']}; hit admit p50 "
+              f"{1e3 * st['hit_admit_s_p50']:.3f} ms, cold admit p50 "
+              f"{1e3 * st['cold_admit_s_p50']:.3f} ms; dedup pages "
+              f"{st['dedup_pages_shared']} (hits {st['dedup_hits']}, "
+              f"collisions {st['dedup_hash_collisions']}); moa_reduce "
+              f"launches {launched}")
+        _free(eng)
+    (cold, _, _), (warm, wst, _), (dedup, dst, hash_s) = (
+        runs["cold"], runs["warm"], runs["dedup"])
+    check(warm == cold, "shared prefix: warm tokens differ from cold")
+    check(dedup == cold, "shared prefix: dedup tokens differ from cold")
+    n, k = tr.requests, tr.system
+    check(wst["prefix_hits"] == n - 1 and wst["prefix_misses"] == 1
+          and wst["prefix_reused_tokens"] == (n - 1) * k
+          and wst["pages_cow"] == 0 and wst["prefix_bytes_copied"] == 0,
+          f"shared prefix warm: hits {wst['prefix_hits']}, misses "
+          f"{wst['prefix_misses']}, reused {wst['prefix_reused_tokens']}, "
+          f"cow {wst['pages_cow']}, bytes {wst['prefix_bytes_copied']}")
+    per = k // tr.page
+    check(0 < wst["pages_shared"] <= (n - 1) * per
+          and wst["pages_shared"] % per == 0,
+          f"shared prefix warm: pages_shared {wst['pages_shared']}")
+    check(dst["prefix_hits"] == 0 and dst["dedup_hash_collisions"] == 0
+          and dst["dedup_pages_shared"] > 0
+          and dst["dedup_pages_shared"] % per == 0,
+          f"shared prefix dedup: hits {dst['prefix_hits']}, pages "
+          f"{dst['dedup_pages_shared']}, collisions "
+          f"{dst['dedup_hash_collisions']}")
+    per_admit = (hash_s["to_host"] + hash_s["blake2b"]) / dst["admissions"]
+    print(f"[prefix] warm and dedup tokens == cold over {n} requests; warm "
+          f"pages shared by reference {wst['pages_shared']} (<= "
+          f"{(n - 1) * per}), dedup pages shared by content "
+          f"{dst['dedup_pages_shared']}; prefill tok/s cold "
+          f"{runs['cold'][1]['prefill_tok_s']:.1f} warm "
+          f"{wst['prefill_tok_s']:.1f} (effective "
+          f"{wst['effective_prefill_tok_s']:.1f}); dedup hashing "
+          f"{hash_s['pages']} pages: to the host {hash_s['to_host']:.4f} s, "
+          f"blake2b {hash_s['blake2b']:.4f} s, together {1e3 * per_admit:.3f}"
+          f" ms per admission ({dst['admissions']} admissions)")
     return launches
+
+
+def phase_sessions(cfg, params):
+    """Phase B at full width, both pools.  Returns the launches of each
+    run."""
+    tr = FULL_TRAFFIC
+    turns = session_turns(tr, cfg.vocab, seed=21)
+    runs, launches = {}, {}
+    for pool in tr.pools:
+        eng, reqs, launched, released = serve_sessions(cfg, params, "cuda",
+                                                       tr, turns, pool)
+        _check_launches(eng, launched, f"sessions pool {pool}")
+        st = eng.stats_summary()
+        check(released, f"sessions pool {pool}: end_session did not release "
+                        f"exactly the snapshots' references")
+        check(st["session_turns"] == tr.convs * tr.turns
+              and all(len(r.generated) == tr.reply for r in reqs),
+              f"sessions pool {pool}: {st['session_turns']} turns, not all "
+              f"complete")
+        returning = tr.convs * (tr.turns - 1)
+        if pool == max(tr.pools):
+            check(st["session_snapshot_drops"] == 0
+                  and st["session_hits"] + st["prefix_hits"] == returning
+                  and st["session_hits"] > 0,
+                  f"sessions pool {pool}: drops "
+                  f"{st['session_snapshot_drops']}, session hits "
+                  f"{st['session_hits']} + prefix hits {st['prefix_hits']} "
+                  f"!= {returning}")
+        else:
+            check(st["session_snapshot_drops"] > 0,
+                  f"sessions pool {pool}: no snapshot dropped")
+        runs[pool] = _tokens(reqs)
+        launches[pool] = launched
+        print(f"[sessions] pool {pool}: {st['session_turns']} turns, session "
+              f"hits {st['session_hits']} ({st['session_reused_tokens']} "
+              f"tokens), prefix hits {st['prefix_hits']}, snapshot drops "
+              f"{st['session_snapshot_drops']}, pages shared "
+              f"{st['pages_shared']}, cow {st['pages_cow']}; prefill "
+              f"{st['prefill_tokens']} tok {st['prefill_s']:.4f} s, decode "
+              f"p50 {1e3 * st['decode_step_p50_s']:.3f} ms; refcounts held "
+              f"after every step; moa_reduce launches {launched}")
+        _free(eng)
+    big, small = (runs[p] for p in tr.pools)
+    same = sum(a == b for a, b in zip(big, small))
+    print(f"[sessions] token agreement pool {tr.pools[0]} vs "
+          f"{tr.pools[1]}: {same} of {len(big)} turns equal (a dropped "
+          f"snapshot re-prefills with another cut; reported, not asserted)")
+    return launches
+
+
+def phase_overload(cfg, params, chunk_s, step_s):
+    """Phase C at full width on phase 6's prices.  Returns the launches of
+    each run."""
+    tr = FULL_TRAFFIC
+    trace = overload_trace(tr, cfg.vocab, chunk_s, step_s, seed=22)
+    runs, launches = {}, {}
+    for degrade in (False, True):
+        eng, reqs, launched = serve_overload(cfg, params, "cuda", tr, trace,
+                                             chunk_s, step_s, degrade)
+        _check_launches(eng, launched, f"overload degrade={degrade}")
+        st = eng.stats_summary()
+        runs[degrade] = (reqs, st, eng.pieces_log, eng.victims,
+                         eng.max_level)
+        launches[degrade] = launched
+        print(f"[overload] degrade={degrade}: {len(trace)} arrivals over "
+              f"{eng.virtual_s:.3f} virtual s; SLO met {st['slo_met']} / "
+              f"missed {st['slo_missed']}, shed {st['shed_requests']}, "
+              f"goodput {st['goodput_tokens']} tokens, preemptions "
+              f"{st['preemptions']}, ladder transitions "
+              f"{st['degrade_transitions']} (highest level "
+              f"{runs[degrade][4]}), degraded steps {st['degrade_steps']}; "
+              f"prefill dispatches {st['prefill_dispatches']}, decode steps "
+              f"{st['decode_steps']}; moa_reduce launches {launched}")
+        _free(eng)
+    (off, ost, opieces, _, _), (on, nst, npieces, victims, top) = (
+        runs[False], runs[True])
+    check(ost["slo_missed"] > 0, "overload: the ladder-off engine met every "
+                                 "SLO, so the trace is no overload")
+    check(top >= 2, f"overload: the ladder reached level {top}, not "
+                    f"small_chunks")
+    shed = [r for r in on if r.shed_reason is not None]
+    check(len(shed) == nst["shed_requests"]
+          and all(not r.generated and r.slo_met is False for r in shed),
+          "overload: a shed request emitted tokens or lacks its reason")
+    check(nst["preemptions"] >= 1 and victims
+          and all(len(on[i].generated) == on[i].max_new for i in victims),
+          f"overload: preemptions {nst['preemptions']}, a victim did not "
+          f"complete")
+    same_cut = [i for i, r in enumerate(on) if r.shed_reason is None
+                and npieces.get(i) == opieces.get(i)]
+    check(all(on[i].generated == off[i].generated for i in same_cut),
+          "overload: a request with the ladder-off run's prefill pieces has "
+          "other tokens")
+    others = [i for i, r in enumerate(on) if r.shed_reason is None
+              and i not in same_cut]
+    agree = sum(on[i].generated == off[i].generated for i in others)
+    # every re-admission of a preempted request: where its first piece
+    # starts (0 is a full re-prefill, more is a prefix reuse)
+    starts = [p[0][0] for i in sorted(set(victims)) for p in npieces[i][1:]]
+    reused = sum(1 for a in starts if a > 0)
+    check(reused >= 1, f"overload: no preempted request re-admitted through "
+                       f"its resident prefix (first pieces at {starts})")
+    print(f"[overload] ladder reached level {top}; shed {len(shed)} pending "
+          f"requests, each with no tokens and a reason; {len(victims)} "
+          f"preemptions of requests {sorted(set(victims))}, each completed; "
+          f"{len(starts)} re-admissions, {reused} reusing a prefix "
+          f"(first piece at {starts}); goodput with the ladder "
+          f"{nst['goodput_tokens']} tokens, without {ost['goodput_tokens']} "
+          f"(reported: with speculative decode not ported, the ladder's "
+          f"spec_off level saves nothing and small_chunks only adds "
+          f"dispatches); {len(same_cut)} served requests with the ladder-off "
+          f"run's pieces have its tokens; {agree} of the {len(others)} "
+          f"others agree")
+    return launches
+
+
+@dataclasses.dataclass(frozen=True)
+class Traffic:
+    """The serve traffic of phases A-C at one scale: the engine geometry,
+    A's shared-prefix requests, B's conversations and C's burst."""
+
+    slots: int
+    max_seq: int
+    chunk: int
+    page: int
+    system: int                   # A: system prompt (a multiple of both
+    tail: tuple                   #    chunk and page), tail length range,
+    new: int                      #    new tokens a request,
+    requests: int                 #    requests
+    first: int                    # B: first-turn tokens, later-turn range,
+    turn: tuple                   #    reply tokens, conversations, turns,
+    reply: int                    #    the two pool sizes
+    convs: int
+    turns: int
+    pools: tuple
+    burst: int                    # C: requests, prompt and budget ranges
+    prompt: tuple
+    gen: tuple
+
+    def engine(self, **knobs) -> EngineConfig:
+        return EngineConfig(max_slots=self.slots, max_seq=self.max_seq,
+                            prefill_chunk=self.chunk, page_size=self.page,
+                            **knobs)
+
+
+FULL_TRAFFIC = Traffic(4, 2048, 256, 128, 1024, (64, 448), 32, 8,
+                       512, (64, 192), 32, 6, 3, (160, 40),
+                       24, (128, 1024), (16, 64))
+REDUCED_TRAFFIC = Traffic(4, 128, 16, 16, 64, (4, 28), 4, 8,
+                          32, (4, 12), 4, 6, 3, (60, 14),
+                          24, (8, 64), (2, 8))
+
+#: counters the reduced CUDA run must share with the CPU run
+SERVE_COUNTERS = (
+    "prefill_tokens", "decode_tokens", "decode_steps", "prefill_dispatches",
+    "admissions", "evictions", "preemptions", "oom_deferred",
+    "prefix_hits", "prefix_misses", "prefix_reused_tokens",
+    "prefix_evictions", "prefix_bytes_copied", "pages_shared", "pages_cow",
+    "trie_evictions", "dedup_hits", "dedup_pages_shared",
+    "dedup_hash_collisions", "dedup_indexed_pages", "session_turns",
+    "session_hits", "session_reused_tokens", "session_snapshot_drops",
+    "sessions_live", "slo_met", "slo_missed", "shed_requests",
+    "goodput_tokens", "degrade_steps", "degrade_level",
+    "degrade_transitions", "pages_in_use", "moa_reduce_launches")
+
+
+def _free(*engines) -> None:
+    for eng in engines:
+        eng.state = None
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def refcount_check(eng, what: str) -> None:
+    """Every page's refcount equals its occurrences across table rows and
+    session snapshots; scratch is pinned; the free list and the used pages
+    partition the pool; no dedup entry sits on a freed page."""
+    pool = eng.pool
+    counts = np.bincount(eng.table[eng.table != 0].ravel(),
+                         minlength=pool.num_pages)
+    counts += np.bincount(np.asarray(eng.sessions.snapshot_pages(),
+                                     np.int64), minlength=pool.num_pages)
+    free = set(pool._free)
+    check(int(pool.refcount[0]) == 1 and counts[0] == 0
+          and (pool.refcount[1:] == counts[1:]).all()
+          and len(free) == pool.free_count
+          and free == set(np.flatnonzero(counts == 0)) - {0}
+          and all(pool.refcount[p] > 0 for p in (eng.dedup.pages()
+                                                  if eng.dedup else ())),
+          f"{what}: the refcount invariant does not hold")
+
+
+def _counted_run(eng, drive) -> int:
+    """moa_reduce launches of ``drive()``: the count is zeroed just before
+    and read just after."""
+    moa.LAUNCHES = 0
+    drive()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    return moa.LAUNCHES
+
+
+def _check_launches(eng, launches: int, what: str) -> None:
+    st = eng.stats
+    want = 2 * eng.cfg.n_layers * (st["prefill_dispatches"]
+                                   + st["decode_steps"])
+    if eng.device.type == "cuda":
+        check(launches == want == st["moa_reduce_launches"],
+              f"{what}: moa_reduce launched {launches} times, expected "
+              f"2 * {eng.cfg.n_layers} * ({st['prefill_dispatches']} + "
+              f"{st['decode_steps']}) = {want}")
+
+
+def shared_prefix_prompts(tr: Traffic, vocab: int, seed: int):
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, tr.system).tolist()
+    return [system + rng.integers(0, vocab, int(n)).tolist()
+            for n in rng.integers(tr.tail[0], tr.tail[1] + 1, tr.requests)]
+
+
+def serve_shared_prefix(cfg, params, dev, tr: Traffic, prompts, **knobs):
+    """One engine serving A's requests; returns (engine, requests,
+    moa_reduce launches).  With ``page_dedup`` the digest step is timed."""
+    eng = ServeEngine(cfg, params, config=tr.engine(**knobs), device=dev)
+    eng.trace_logits = True
+    # with page_dedup: seconds moving pages to the host and hashing them,
+    # and the pages hashed
+    eng.hash_s = {"to_host": 0.0, "blake2b": 0.0, "pages": 0}
+    if eng.dedup is not None:
+        def timed(fn, key):
+            def run(x):
+                t0 = time.perf_counter()
+                out = fn(x)
+                eng.hash_s[key] += time.perf_counter() - t0
+                eng.hash_s["pages"] += key == "blake2b"
+                return out
+            return run
+
+        eng._page_bytes_of = timed(eng._page_bytes_of, "to_host")
+        eng._digest_fn = timed(eng._digest_fn, "blake2b")
+    reqs = [eng.submit(p, tr.new) for p in prompts]
+    launches = _counted_run(eng, eng.run)
+    refcount_check(eng, f"shared prefix {knobs}")
+    return eng, reqs, launches
+
+
+def session_turns(tr: Traffic, vocab: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [[rng.integers(0, vocab, tr.first if k == 0 else int(
+        rng.integers(tr.turn[0], tr.turn[1] + 1))).tolist()
+        for k in range(tr.turns)] for _ in range(tr.convs)]
+
+
+def serve_sessions(cfg, params, dev, tr: Traffic, turns, pool_pages):
+    """Every conversation's turns in rounds on ``tr.slots`` slots (more
+    conversations than slots: slots turn over between turns), the
+    refcount invariant after every step, then end_session on all.  Returns
+    (engine, requests in submission order, launches, released) where
+    ``released`` says end_session released exactly the snapshots'
+    references."""
+    eng = ServeEngine(cfg, params, config=tr.engine(pool_pages=pool_pages),
+                      device=dev)
+    eng.trace_logits = True
+    reqs = []
+
+    def drive():
+        for k in range(tr.turns):
+            for c in range(tr.convs):
+                reqs.append(eng.submit_turn(c, turns[c][k], tr.reply))
+            while eng.scheduler.has_work:
+                eng.step()
+                refcount_check(eng, f"sessions pool {pool_pages}")
+
+    launches = _counted_run(eng, drive)
+    before = eng.pool.refcount.copy()
+    snap = np.bincount(np.asarray(eng.sessions.snapshot_pages(), np.int64),
+                       minlength=eng.pool.num_pages)
+    ended = sum(eng.end_session(c) for c in range(tr.convs))
+    released = (ended == tr.convs and not len(eng.sessions)
+                and ((before - eng.pool.refcount) == snap).all())
+    refcount_check(eng, f"sessions pool {pool_pages} after end_session")
+    return eng, reqs, launches, released
+
+
+@dataclasses.dataclass
+class Arrival:
+    t: float
+    prompt: list
+    max_new: int
+    slo_ms: float = None
+
+
+def overload_trace(tr: Traffic, vocab: int, chunk_s: float, step_s: float,
+                   seed: int):
+    """C's arrivals, in virtual seconds: ``tr.slots`` no-SLO requests at
+    t = 0 that fill every slot, one tight-SLO request while they decode
+    (its deadline is met if it is admitted at once, missed if it waits for
+    a slot to free), then a burst of SLO'd requests arriving at four times
+    the rate the engine serves them."""
+    rng = np.random.default_rng(seed)
+
+    def service(p, n):
+        return -(-p // tr.chunk) * chunk_s + n * step_s
+
+    def toks(n):
+        return rng.integers(0, vocab, int(n)).tolist()
+
+    bg_prompt, bg_new = 2 * tr.prompt[0], tr.gen[1]
+    out = [Arrival(0.0, toks(bg_prompt), bg_new) for _ in range(tr.slots)]
+    t_urgent = tr.slots * service(bg_prompt, 0) + 3 * step_s
+    left = bg_new - 4
+    out.append(Arrival(t_urgent, toks(tr.prompt[0]), tr.gen[0], 1e3 * (
+        service(tr.prompt[0], tr.gen[0]) + 0.5 * left * step_s)))
+    t = t_urgent
+    for _ in range(tr.burst - tr.slots - 1):
+        p = int(rng.integers(tr.prompt[0], tr.prompt[1] + 1))
+        n = int(rng.integers(tr.gen[0], tr.gen[1] + 1))
+        t += float(rng.exponential(service(p, n) / tr.slots / 4))
+        out.append(Arrival(t, toks(p), n, 3e3 * service(p, n)))
+    return out
+
+
+def replay(eng, trace, chunk_s: float, step_s: float):
+    """Serve ``trace`` open-loop on a virtual clock: the scheduler reads
+    the loop's time, the cost model gets the fixed prices before every
+    step, and time advances by them per prefill dispatch and decode step.
+    Logs each request's prefill pieces (``eng.pieces_log``, by trace
+    index) and each preemption's victim (``eng.victims``).  Returns the
+    requests in trace order."""
+    vt = [0.0]
+    sched = eng.scheduler
+    sched.clock = lambda: vt[0]
+    eng.pieces_log, eng.victims, eng.max_level = {}, [], 0
+    index, current = {}, [None]
+    admit, pieces, preempt = eng._admit, eng._pieces, sched.maybe_preempt
+
+    def logged_admit(slot, req):
+        current[0] = index[req.rid]
+        return admit(slot, req)
+
+    def logged_pieces(ctx, start=0, chunk=None):
+        out = pieces(ctx, start, chunk)
+        eng.pieces_log.setdefault(current[0], []).append(
+            [(a, n) for a, n, _ in out])
+        return out
+
+    def logged_preempt(now=None):
+        victim = preempt(now)
+        if victim is not None:
+            eng.victims.append(index[sched.active[victim].rid])
+        return victim
+
+    eng._admit, eng._pieces, sched.maybe_preempt = (
+        logged_admit, logged_pieces, logged_preempt)
+    order = sorted(range(len(trace)), key=lambda i: trace[i].t)
+    reqs, nxt = [None] * len(trace), 0
+    while nxt < len(order) or sched.has_work:
+        while nxt < len(order) and trace[order[nxt]].t <= vt[0]:
+            a = trace[order[nxt]]
+            reqs[order[nxt]] = eng.submit(a.prompt, a.max_new,
+                                          slo_ms=a.slo_ms)
+            index[reqs[order[nxt]].rid] = order[nxt]
+            nxt += 1
+        if not sched.has_work:
+            vt[0] = trace[order[nxt]].t
+            continue
+        sched.update_cost_model(chunk_s=chunk_s, step_s=step_s,
+                                tokens_per_step=1.0)
+        before = (eng.stats["prefill_dispatches"], eng.stats["decode_steps"])
+        eng.step()
+        vt[0] += ((eng.stats["prefill_dispatches"] - before[0]) * chunk_s
+                  + (eng.stats["decode_steps"] - before[1]) * step_s)
+        if eng.ladder is not None:
+            eng.max_level = max(eng.max_level, eng.ladder.level)
+    eng.virtual_s = vt[0]
+    return reqs
+
+
+def serve_overload(cfg, params, dev, tr: Traffic, trace, chunk_s, step_s,
+                   degrade: bool):
+    eng = ServeEngine(cfg, params, config=tr.engine(degrade=degrade),
+                      device=dev)
+    eng.trace_logits = True
+    reqs = []
+    launches = _counted_run(eng, lambda: reqs.extend(
+        replay(eng, trace, chunk_s, step_s)))
+    refcount_check(eng, f"overload degrade={degrade}")
+    return eng, reqs, launches
+
+
+def _tokens(reqs):
+    return [r.generated for r in reqs]
+
+
+def _logit_diff(a, b) -> float:
+    check(len(a.logit_trace) == len(b.logit_trace),
+          "decode logit traces differ in length")
+    return max((float(np.abs(x - y).max())
+                for x, y in zip(a.logit_trace, b.logit_trace)), default=0.0)
+
+
+def reduced_serve_runs(cfg, params, dev):
+    """Phases A-C's traffic cut to the reduced config, on ``dev``: the
+    engines' tokens, counters and logit traces by run name."""
+    tr = REDUCED_TRAFFIC
+    runs = {}
+    prompts = shared_prefix_prompts(tr, cfg.vocab, seed=10)
+    for name, knobs in (("A cold", dict(prefix_cache=False)),
+                        ("A warm", {}),
+                        ("A dedup", dict(prefix_cache=False,
+                                         page_dedup=True))):
+        eng, reqs, _ = serve_shared_prefix(cfg, params, dev, tr, prompts,
+                                           **knobs)
+        runs[name] = (eng, reqs)
+    turns = session_turns(tr, cfg.vocab, seed=11)
+    for pool in tr.pools:
+        eng, reqs, _, released = serve_sessions(cfg, params, dev, tr, turns,
+                                                pool)
+        check(released, f"reduced sessions pool {pool}: end_session did not "
+                        f"release exactly the snapshots' references")
+        runs[f"B pool {pool}"] = (eng, reqs)
+    trace = overload_trace(tr, cfg.vocab, 0.010, 0.020, seed=12)
+    for degrade in (False, True):
+        eng, reqs, _ = serve_overload(cfg, params, dev, tr, trace, 0.010,
+                                      0.020, degrade)
+        runs[f"C degrade={degrade}"] = (eng, reqs)
+    return runs
 
 
 def device_ms(fn, reps: int = 50) -> float:
@@ -1041,12 +1601,17 @@ def main() -> int:
     phase_build()
     full_cfg = get_config("llama3.2-3b")
     full_ecfg = EngineConfig(max_slots=4, max_seq=2048,
-                             prefill_chunk=256).resolve()
+                             prefill_chunk=256).resolve(full_cfg)
     shapes = path_shapes(full_cfg, full_ecfg)
     err = phase_kernel_check(shapes)
     flash_err = phase_flash_check()
     phase_reduced_parity()
-    launches = phase_full_width()
+    launches, serve_params, chunk_s, step_s = phase_full_width()
+    serve_launches = {"A": phase_shared_prefix(full_cfg, serve_params),
+                      "B": phase_sessions(full_cfg, serve_params),
+                      "C": phase_overload(full_cfg, serve_params, chunk_s,
+                                          step_s)}
+    del serve_params
     rows = phase_timing(shapes)
     gc.collect()
     torch.cuda.empty_cache()       # the serve weights and KV pool go
@@ -1068,7 +1633,10 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
         "library_ms": main_row["library_ms"], "shape": main_row["shape"],
-        "checked": "torch.equal vs moa_reduce_plain", "shapes": rows}]
+        "checked": "torch.equal vs moa_reduce_plain", "shapes": rows,
+        "launches_by_serve_phase": {
+            f"{ph} {run}": n for ph, d in serve_launches.items()
+            for run, n in d.items()}}]
     source, replaces = KERNELS["flash_attention"]
     plain = {"fwd": "flash_attention_plain",
              "bwd_dq": "flash_attention_plain_bwd (dq, dk, dv together)",

@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve
 
 Builds ``llama3.2-3b`` at full width (random bf16 weights from ``--seed``),
-engine knobs as in ``chip_smoke.py`` (4 slots, max_seq 2048, prefill chunk
-256, page 128), and traces two windows after a warm-up:
+engine knobs as in ``chip_smoke.py``'s phase 6 (4 slots, max_seq 2048,
+prefill chunk 256, page 128, prefix cache off), and traces two windows
+after a warm-up:
 
 * decode: ``--steps`` engine steps with all 4 slots live and nothing to
   admit (pure batched decode);
@@ -102,7 +103,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(get_api(cfg).param_specs(cfg), gen, dev, cfg.dtype)
     eng = ServeEngine(cfg, params, config=EngineConfig(
-        max_slots=4, max_seq=2048, prefill_chunk=256))
+        max_slots=4, max_seq=2048, prefill_chunk=256, prefix_cache=False))
     rng = np.random.default_rng(args.seed)
 
     def prompt(n):

@@ -1,7 +1,8 @@
-"""Serving CLI of the port: chunked prefill and continuous batching.
+"""Serving CLI of the port: chunked prefill, continuous batching, prefix
+cache, page dedup, SLO admission and the degrade ladder.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
-        --requests 8 --slots 4 --prompt-len 512 --gen 32
+        --requests 8 --slots 4 --prompt-len 512 --gen 32 --slo-ms 2000
 
 Requests flow through :class:`repro_torch.serve.ServeEngine` on the card
 (``--device cpu`` runs the plain PyTorch path instead; ``--reduced`` swaps
@@ -44,6 +45,27 @@ def main(argv=None) -> int:
                     help="max tokens per prefill dispatch")
     ap.add_argument("--page", type=int, default=None,
                     help="KV page size (default auto)")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false", default=True,
+                    help="disable prefix-cache reuse across requests")
+    ap.add_argument("--min-prefix", type=int, default=8,
+                    help="smallest resident-prefix match worth reusing")
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="physical page-pool size (default: one full row "
+                         "per slot)")
+    ap.add_argument("--trie-capacity", type=int, default=None,
+                    help="LRU bound on prefix-trie entries (default: "
+                         "unbounded)")
+    ap.add_argument("--page-dedup", action="store_true",
+                    help="content-hash full pages at admission and share "
+                         "byte-identical ones by reference")
+    ap.add_argument("--degrade", action="store_true",
+                    help="enable the overload degrade ladder (smaller "
+                         "prefill chunks -> shed hopeless pending requests, "
+                         "hysteretic recovery)")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="per-request completion-latency SLO in ms "
+                         "(enables deadline-aware admission)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card, cuda)")
@@ -64,9 +86,13 @@ def main(argv=None) -> int:
     max_seq = args.max_seq or max(16, -(-(max(lens) + args.gen) // 16) * 16)
     ecfg = EngineConfig(max_slots=args.slots, max_seq=max_seq,
                         prefill_chunk=args.prefill_chunk,
-                        page_size=args.page)
+                        page_size=args.page, prefix_cache=args.prefix_cache,
+                        min_prefix=args.min_prefix,
+                        pool_pages=args.pool_pages,
+                        trie_capacity=args.trie_capacity,
+                        page_dedup=args.page_dedup, degrade=args.degrade)
     eng = ServeEngine(cfg, params, config=ecfg, device=device)
-    reqs = [eng.submit(p, args.gen) for p in prompts]
+    reqs = [eng.submit(p, args.gen, slo_ms=args.slo_ms) for p in prompts]
     eng.run()
     st = eng.stats_summary()
     print(f"[engine] arch={cfg.arch_id} device={device} "
@@ -77,6 +103,15 @@ def main(argv=None) -> int:
           f"{st['decode_s']:.3f}s ({st['decode_tok_s']:.1f} tok/s, "
           f"{st['decode_steps']} steps)  moa_reduce launches "
           f"{st['moa_reduce_launches']}")
+    print(f"prefix cache: {st['prefix_hits']} hits / {st['prefix_misses']} "
+          f"misses ({st['prefix_reused_tokens']} tokens reused, "
+          f"{st['pages_shared']} pages shared by reference, "
+          f"{st['prefix_bytes_copied']} bytes copied); dedup "
+          f"{st['dedup_pages_shared']} pages shared")
+    if args.slo_ms is not None:
+        print(f"SLO {args.slo_ms:.0f}ms: {st['slo_met']} met / "
+              f"{st['slo_missed']} missed  (preemptions "
+              f"{st['preemptions']}, shed {st['shed_requests']})")
     print(f"first request: {prompts[0]} -> {reqs[0].generated}")
     return 0
 

@@ -1,18 +1,33 @@
-"""Paged decode state: the physical page pool and its host-side allocator.
+"""Paged decode state: the page pool, its allocator, and the reuse indices.
 
 The counterpart of the paged half of ``repro/serve/cache.py``.  Positional
 state leaves live in a physical page pool — :func:`paged_state_specs`
 rewrites each leaf's ``(batch, kv_seq)`` axis pair into ``(phys_page,
 page_seq)`` — and :class:`PagePool` hands out pages on the host, with
-reference counts.  The device half works in place on the state tensors
-(:func:`zero_page`).
+reference counts, so one physical page can sit in several page-table rows.
+The device half works in place on the state tensors: :func:`zero_page`
+scrubs scratch, :func:`copy_page` is the copy-on-write step of a
+prefix-cache hit, :func:`page_bytes` reads one page as raw bytes.
 
-Not in this slice: prefix trie, page dedup, copy-on-write page copies,
-quantized pools and sharded pools (``ROADMAP.md``, queue 1).
+Two host-side indices decide what an admission may share:
+
+* :class:`PrefixTrie` — a radix trie over the token sequence each slot's
+  pages hold; admission asks it for the longest resident prefix of a new
+  context (live or recently retired rows alike);
+* :class:`PageDedupIndex` — content digest -> physical page over full
+  pages, so a byte-identical page anywhere in a sequence is shared by
+  reference.
+
+Prefix reuse is only sound when every state leaf is positional
+(:func:`supports_prefix`): a KV row at position ``i`` depends only on
+tokens ``[0..i]``, so a shared page equals a recomputed one.
+
+Not in this slice: quantized pools and sharded pools (``ROADMAP.md``,
+queue 1).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,8 +35,9 @@ import torch
 from repro_torch.models.common import ParamSpec
 from repro_torch.tree import leaves, map_tree
 
-__all__ = ["state_zeros", "state_bytes", "paged_state_specs", "zero_page",
-           "PagePool"]
+__all__ = ["state_zeros", "state_bytes", "supports_prefix",
+           "paged_state_specs", "zero_page", "copy_page", "page_bytes",
+           "PagePool", "PrefixTrie", "PageDedupIndex"]
 
 
 def state_zeros(specs: Any, device: torch.device) -> Any:
@@ -41,6 +57,15 @@ def state_bytes(specs: Any) -> int:
             n *= d
         total += n * torch.empty((), dtype=s.dtype).element_size()
     return total
+
+
+def supports_prefix(specs: Any) -> bool:
+    """True when every leaf of ``specs`` is positional (has a ``kv_seq``
+    axis), i.e. a shared page prefix equals a recomputed one.  Attention
+    families qualify; SSM and hybrid state summarizes the whole sequence
+    and does not."""
+    lv = leaves(specs)
+    return bool(lv) and all("kv_seq" in s.axes for s in lv)
 
 
 def paged_state_specs(specs: Dict[str, ParamSpec], page_size: int,
@@ -78,16 +103,49 @@ def zero_page(state: Dict[str, torch.Tensor],
         t.select(ax, page).zero_()
 
 
+def copy_page(state: Dict[str, torch.Tensor],
+              pspecs: Dict[str, ParamSpec], src: int, dst: int) -> None:
+    """Copy ONE physical page ``src`` over page ``dst`` in every leaf of
+    the pooled ``state``, in place.  The copy-on-write step of a
+    prefix-cache hit: only the partial boundary page is copied (full pages
+    are shared by reference), so a hit moves O(page) bytes, not
+    O(prefix)."""
+    for name, t in state.items():
+        ax = pspecs[name].axes.index("phys_page")
+        t.select(ax, dst).copy_(t.select(ax, src))
+
+
+def page_bytes(state: Dict[str, torch.Tensor],
+               pspecs: Dict[str, ParamSpec], page: int) -> List[torch.Tensor]:
+    """The raw bytes of ONE physical page, one flat ``uint8`` tensor per
+    leaf in sorted leaf order, on the pool's device.  The page axis sits
+    behind the layer axis, so the selected page is a strided view: it is
+    made contiguous before its bytes are reinterpreted (numpy has no
+    bfloat16, so a float view cannot go to the host as is).  Comparing
+    these tensors is byte identity — unlike a float compare, which calls
+    +0 and -0 equal and NaN unequal to itself."""
+    out = []
+    for name in sorted(state):
+        ax = pspecs[name].axes.index("phys_page")
+        out.append(state[name].select(ax, page).contiguous()
+                   .view(torch.uint8).reshape(-1))
+    return out
+
+
 class PagePool:
     """Host-side physical-page allocator with reference counts.
 
     Physical page 0 is reserved as the **scratch page**: it is never
     allocated, unallocated page-table entries point at it, and idle decode
     lanes aim their whole table row at it.  Pages ``1 .. num_pages-1`` are
-    allocatable.  A page returns to the free list when its count reaches
-    zero; :meth:`deref_many` raises instead of letting a count go negative.
-    (The JAX pool's prefix-sharing ``ref`` and its shard blocks arrive with
-    those features.)"""
+    allocatable.
+
+    Refcounts count the references to a page — page-table rows and
+    session snapshots: an owning writer holds one, each prefix or dedup
+    sharer adds one.  A page returns to the free list only when its count
+    reaches zero, which is how a shared page outlives the slot that first
+    wrote it; :meth:`deref` raises instead of letting a count go negative.
+    (The JAX pool's shard blocks arrive with mesh serving.)"""
 
     def __init__(self, num_pages: int):
         """Create a pool of ``num_pages`` physical pages, page 0 scratch."""
@@ -98,6 +156,8 @@ class PagePool:
         self.refcount = np.zeros(num_pages, np.int32)
         self.refcount[0] = 1                   # scratch: pinned forever
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        self.allocs = 0
+        self.oom_events = 0
 
     @property
     def free_count(self) -> int:
@@ -109,24 +169,73 @@ class PagePool:
         """Number of non-scratch pages currently allocated."""
         return self.num_pages - 1 - self.free_count
 
+    def alloc(self) -> int:
+        """Take one free page (refcount 1).  Returns its index, or ``-1``
+        when the pool is exhausted (counted in ``oom_events``; the caller
+        reclaims or defers)."""
+        if not self._free:
+            self.oom_events += 1
+            return -1
+        p = self._free.pop()
+        self.refcount[p] = 1
+        self.allocs += 1
+        return p
+
     def alloc_many(self, n: int) -> Optional[np.ndarray]:
         """Take ``n`` free pages at once (each refcount 1), all-or-nothing:
-        an ``(n,)`` int32 array, or ``None`` (nothing allocated) when fewer
-        than ``n`` are free."""
+        an ``(n,)`` int32 array, or ``None`` (nothing allocated, one OOM
+        event counted) when fewer than ``n`` are free."""
         if n > len(self._free):
+            self.oom_events += 1
             return None
         if n == 0:
             return np.empty(0, np.int32)
         pages = np.asarray(self._free[len(self._free) - n:][::-1], np.int32)
         del self._free[len(self._free) - n:]
         self.refcount[pages] = 1
+        self.allocs += n
         return pages
 
+    def ref(self, page: int) -> None:
+        """Add one reference to an allocated ``page`` (prefix sharing)."""
+        if page <= 0 or page >= self.num_pages or self.refcount[page] <= 0:
+            raise ValueError(f"ref of unallocated/scratch page {page}")
+        self.refcount[page] += 1
+
+    def ref_many(self, pages: np.ndarray) -> None:
+        """Add one reference to each of ``pages`` (a whole shared-prefix
+        span at once; duplicates count once per occurrence).  Validates
+        before mutating."""
+        pages = np.asarray(pages, np.int64)
+        if pages.size == 0:
+            return
+        if (pages <= 0).any() or (pages >= self.num_pages).any() or \
+                (self.refcount[pages] <= 0).any():
+            bad = [int(p) for p in pages
+                   if p <= 0 or p >= self.num_pages or self.refcount[p] <= 0]
+            raise ValueError(f"ref of unallocated/scratch page(s) {bad}")
+        np.add.at(self.refcount, pages, 1)
+
+    def deref(self, page: int) -> bool:
+        """Drop one reference to ``page``; frees it at zero.  Returns True
+        when the page was freed.  Raises on scratch, an out-of-range page,
+        or a page whose count is already zero (underflow)."""
+        if page <= 0 or page >= self.num_pages:
+            raise ValueError(f"deref of scratch/out-of-range page {page}")
+        if self.refcount[page] <= 0:
+            raise ValueError(f"refcount underflow on page {page}")
+        self.refcount[page] -= 1
+        if self.refcount[page] == 0:
+            self._free.append(int(page))
+            return True
+        return False
+
     def deref_many(self, pages: np.ndarray) -> int:
-        """Drop one reference from each of ``pages``; frees those that
-        reach zero and returns how many.  Validates before mutating: a
-        scratch or out-of-range page, or an underflow, raises with every
-        count untouched."""
+        """Drop one reference from each of ``pages`` (a whole row at once;
+        duplicates count as several derefs); frees those that reach zero
+        and returns how many.  Validates before mutating: a scratch or
+        out-of-range page, or an underflow, raises with every count
+        untouched."""
         pages = np.asarray(pages, np.int64)
         if pages.size == 0:
             return 0
@@ -142,3 +251,227 @@ class PagePool:
         freed = np.flatnonzero((drops > 0) & (self.refcount == 0))
         self._free.extend(int(p) for p in freed)
         return int(freed.size)
+
+
+class _TrieNode:
+    """One trie position: a child edge per token, plus the slots whose
+    resident token sequence passes through this node."""
+
+    __slots__ = ("children", "slots")
+
+    def __init__(self):
+        self.children: Dict[int, "_TrieNode"] = {}
+        self.slots: set = set()
+
+
+class PrefixTrie:
+    """Radix trie mapping token prefixes to the slot rows that hold them.
+
+    The engine keeps it in step with the pages: :meth:`insert` after a
+    prefill writes a slot's context, :meth:`extend` after each decode step
+    writes the fed token, :meth:`remove` when a slot's pages are about to
+    be overwritten or released.  An entry outlives its *request*: a retired
+    row stays matchable until its slot is reused or reclaimed.
+
+    With ``capacity`` set, inserting beyond it evicts the least-recently-
+    used entries (recency is touched by inserts, extends and successful
+    matches), counted in :attr:`evictions`."""
+
+    def __init__(self, capacity: Optional[int] = None):
+        """An empty trie; ``capacity`` bounds the indexed slots (``None``
+        = unbounded)."""
+        if capacity is not None and capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self._root = _TrieNode()
+        self._slot_tokens: Dict[int, List[int]] = {}
+        self.capacity = capacity
+        self.evictions = 0
+        self._clock = 0
+        self._last_used: Dict[int, int] = {}
+
+    def _touch(self, slot: int) -> None:
+        self._clock += 1
+        self._last_used[slot] = self._clock
+
+    def lru_slots(self) -> List[int]:
+        """Indexed slots, least-recently-used first (the order the
+        capacity bound and the engine's pressure reclaim evict in)."""
+        return sorted(self._slot_tokens, key=lambda s: self._last_used[s])
+
+    def __len__(self) -> int:
+        """Number of slots with a resident (matchable) entry."""
+        return len(self._slot_tokens)
+
+    def tokens(self, slot: int) -> Optional[List[int]]:
+        """The token sequence indexed for ``slot`` (or None)."""
+        toks = self._slot_tokens.get(slot)
+        return None if toks is None else list(toks)
+
+    def length(self, slot: int) -> Optional[int]:
+        """Number of tokens indexed for ``slot`` (or None if no entry)."""
+        toks = self._slot_tokens.get(slot)
+        return None if toks is None else len(toks)
+
+    def insert(self, slot: int, tokens: Sequence[int]) -> List[int]:
+        """Index ``tokens`` as the content of ``slot``'s pages (replacing
+        any previous entry for it).  Returns the slots evicted to honour
+        ``capacity``, LRU first and never ``slot`` itself; the caller
+        releases their pages."""
+        self.remove(slot)
+        node = self._root
+        for t in tokens:
+            node = node.children.setdefault(int(t), _TrieNode())
+            node.slots.add(slot)
+        self._slot_tokens[slot] = [int(t) for t in tokens]
+        self._touch(slot)
+        evicted: List[int] = []
+        if self.capacity is not None:
+            while len(self._slot_tokens) > self.capacity:
+                victim = next(s for s in self.lru_slots() if s != slot)
+                self.remove(victim)
+                self.evictions += 1
+                evicted.append(victim)
+        return evicted
+
+    def extend(self, slot: int, token: int) -> None:
+        """Append one ``token`` to ``slot``'s entry (decode wrote one more
+        position).  No-op if the slot has no entry."""
+        toks = self._slot_tokens.get(slot)
+        if toks is None:
+            return
+        node = self._root
+        for t in toks:
+            node = node.children[t]
+        node = node.children.setdefault(int(token), _TrieNode())
+        node.slots.add(slot)
+        toks.append(int(token))
+        self._touch(slot)
+
+    def remove(self, slot: int) -> bool:
+        """Drop ``slot``'s entry, pruning nodes that index no slot any
+        more.  Returns True if an entry was removed."""
+        toks = self._slot_tokens.pop(slot, None)
+        if toks is None:
+            return False
+        self._last_used.pop(slot, None)
+        node, path = self._root, []
+        for t in toks:
+            path.append((node, t))
+            node = node.children[t]
+            node.slots.discard(slot)
+        for parent, t in reversed(path):
+            child = parent.children[t]
+            if not child.slots and not child.children:
+                del parent.children[t]
+        return True
+
+    def longest_match(self, tokens: Sequence[int], touch: bool = True,
+                      allowed: Optional[Callable[[int], bool]] = None
+                      ) -> Tuple[int, int]:
+        """Longest resident prefix of ``tokens`` as ``(length, slot)``: the
+        deepest walk along ``tokens`` and a slot holding that whole prefix
+        (the smallest on ties); ``(0, -1)`` when nothing matches.  A match
+        refreshes the slot's recency unless ``touch`` is False (cost-model
+        probes must not promote entries).  ``allowed`` restricts the
+        candidate slots; the walk stops at the deepest node that still has
+        an allowed slot."""
+        node, depth, slot = self._root, 0, -1
+        for t in tokens:
+            nxt = node.children.get(int(t))
+            if nxt is None:
+                break
+            cand = (nxt.slots if allowed is None
+                    else {s for s in nxt.slots if allowed(s)})
+            if not cand:
+                break
+            node, depth = nxt, depth + 1
+            slot = min(cand)
+        if touch and slot >= 0:
+            self._touch(slot)
+        return depth, slot
+
+
+class PageDedupIndex:
+    """Content-addressed index over *full* physical pages.
+
+    The trie sees only token prefixes: a shared span that starts past
+    position 0 is invisible to it.  The engine hashes the bytes of every
+    full page an admission wrote and registers ``digest -> page`` here; a
+    later page with the same digest is a *candidate* twin, shared by
+    reference only after a byte compare confirms it (a collision is
+    counted and degrades to a miss).
+
+    The index holds no references: the engine un-indexes a page
+    (:meth:`discard`) whenever it is freed or about to be rewritten, so
+    every indexed page has a positive refcount.  With ``capacity`` set it
+    drops least-recently-used entries (never page references)."""
+
+    def __init__(self, capacity: Optional[int] = None):
+        """An empty index; ``capacity`` bounds the indexed pages (``None``
+        = unbounded)."""
+        if capacity is not None and capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self._by_digest: Dict[bytes, List[int]] = {}
+        self._by_page: Dict[int, bytes] = {}
+        self.capacity = capacity
+        self.evictions = 0
+        self._clock = 0
+        self._last_used: Dict[int, int] = {}
+
+    def __len__(self) -> int:
+        """Number of physical pages indexed."""
+        return len(self._by_page)
+
+    def pages(self) -> List[int]:
+        """Every indexed physical page (for invariant checks)."""
+        return list(self._by_page)
+
+    def digest_of(self, page: int) -> Optional[bytes]:
+        """The digest ``page`` is indexed under (or None)."""
+        return self._by_page.get(page)
+
+    def _touch(self, page: int) -> None:
+        self._clock += 1
+        self._last_used[page] = self._clock
+
+    def insert(self, page: int, digest: bytes) -> None:
+        """Index ``page`` under ``digest`` (replacing its previous digest);
+        honours ``capacity`` LRU-first, counted in :attr:`evictions`."""
+        self.discard(page)
+        self._by_digest.setdefault(digest, []).append(int(page))
+        self._by_page[int(page)] = digest
+        self._touch(int(page))
+        if self.capacity is not None:
+            while len(self._by_page) > self.capacity:
+                victim = min((p for p in self._by_page if p != page),
+                             key=lambda p: self._last_used[p], default=None)
+                if victim is None:
+                    break
+                self.discard(victim)
+                self.evictions += 1
+
+    def candidates(self, digest: bytes) -> List[int]:
+        """Pages indexed under ``digest`` (possible twins; the caller
+        byte-compares before sharing).  Refreshes their recency."""
+        pages = list(self._by_digest.get(digest, ()))
+        for p in pages:
+            self._touch(p)
+        return pages
+
+    def discard(self, page: int) -> bool:
+        """Drop ``page`` from the index (freed, or about to change).
+        Returns True if an entry was removed."""
+        digest = self._by_page.pop(int(page), None)
+        if digest is None:
+            return False
+        self._last_used.pop(int(page), None)
+        plist = self._by_digest[digest]
+        plist.remove(int(page))
+        if not plist:
+            del self._by_digest[digest]
+        return True
+
+    def discard_many(self, pages) -> int:
+        """:meth:`discard` each of ``pages``; returns how many entries were
+        removed."""
+        return sum(self.discard(int(p)) for p in np.asarray(pages).ravel())

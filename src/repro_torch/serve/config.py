@@ -1,10 +1,12 @@
 """Typed serve-engine configuration (counterpart of ``repro/serve/config.py``).
 
-The port's :class:`EngineConfig` holds only the knobs this slice
-implements; the JAX config's other knobs (prefix cache, speculative decode,
-quantized KV, page dedup, degrade ladder, mesh shards) arrive with their
-features (``ROADMAP.md``, queue 1).  The engine always runs the paged
-allocator, so ``page_size`` must resolve to a page.
+The port's :class:`EngineConfig` holds the knobs of the features the port
+serves — batching, paging, the prefix cache, page dedup and the degrade
+ladder — with the JAX config's defaults and validation messages; the JAX
+config's other knobs (speculative decode, quantized KV, contiguous slots,
+mesh shards) arrive with their features (``ROADMAP.md``, queue 1).  The
+engine always runs the paged allocator, so ``page_size`` must resolve to a
+page.
 """
 from __future__ import annotations
 
@@ -34,16 +36,32 @@ class EngineConfig:
         powers of two up to it).
       page_size: KV page of the split-K combine and the allocator
         (``None`` = :func:`auto_page_size`; must divide ``max_seq``).
+      prefix_cache: enable prefix reuse (auto-off for non-positional
+        state).
+      min_prefix: smallest resident-prefix match worth reusing.
       pool_pages: allocatable pages in the physical pool (``None`` = one
         full row per slot; smaller overcommits and defers admissions when
         the pool runs dry).
+      trie_capacity: LRU bound on prefix-trie entries (``None`` =
+        unbounded).
+      page_dedup: content-hash full pages at admission and share
+        byte-identical ones by reference, wherever they sit in either
+        sequence.
+      degrade: enable the overload degrade ladder: under measured SLO
+        pressure step down to smaller prefill chunks, then shed hopeless
+        pending requests, recovering with hysteresis.
     """
 
     max_slots: int = 4
     max_seq: int = 128
     prefill_chunk: int = 32
     page_size: Optional[int] = None
+    prefix_cache: bool = True
+    min_prefix: int = 8
     pool_pages: Optional[int] = None
+    trie_capacity: Optional[int] = None
+    page_dedup: bool = False
+    degrade: bool = False
 
     def validate(self) -> "EngineConfig":
         """Check the model-independent constraints; returns ``self``."""
@@ -57,6 +75,9 @@ class EngineConfig:
         if self.pool_pages is not None and self.pool_pages < 1:
             raise ValueError(
                 f"pool_pages must be >= 1, got {self.pool_pages}")
+        if self.trie_capacity is not None and self.trie_capacity < 1:
+            raise ValueError(
+                f"trie_capacity must be >= 1, got {self.trie_capacity}")
         if self.page_size is not None and self.page_size < 1:
             raise ValueError(
                 f"page_size must be >= 1 (the port serves paged KV only; "
@@ -68,10 +89,15 @@ class EngineConfig:
                 f"max_seq={self.max_seq}")
         return self
 
-    def resolve(self) -> "EngineConfig":
-        """Validate, then fill the auto knobs: the page size and the pool
-        size.  Raises when no page size fits ``max_seq``."""
+    def resolve(self, model_cfg) -> "EngineConfig":
+        """Validate, then resolve the auto knobs against ``model_cfg``: the
+        page size, the pool size, and ``prefix_cache``, which is off for a
+        family whose decode state is not positional.  Raises when no page
+        size fits ``max_seq``.  Imports the model registry lazily, so
+        building and validating a config stays pure host-side Python."""
         self.validate()
+        from repro_torch.models.registry import get_api
+        from repro_torch.serve import cache
         page_size = self.page_size
         if page_size is None:
             page_size = auto_page_size(self.max_seq)
@@ -83,5 +109,10 @@ class EngineConfig:
         pool_pages = self.pool_pages
         if pool_pages is None:
             pool_pages = self.max_slots * (self.max_seq // page_size)
+        specs = get_api(model_cfg).decode_state_specs(
+            model_cfg, self.max_slots, self.max_seq)
+        prefix_cache = bool(self.prefix_cache
+                            and cache.supports_prefix(specs))
         return dataclasses.replace(self, page_size=page_size,
-                                   pool_pages=pool_pages)
+                                   pool_pages=pool_pages,
+                                   prefix_cache=prefix_cache)

@@ -1,32 +1,53 @@
 """Chunked-prefill, continuous-batching serve engine over a paged KV pool.
 
-The counterpart of ``repro/serve/engine.py`` for the slice the port serves:
+The counterpart of ``repro/serve/engine.py`` for the single-device paged
+engine with greedy sampling:
 
-* **Chunked prefill** — an admission ingests its prompt in pieces of at
+* **Chunked prefill** — an admission ingests its context in pieces of at
   most ``prefill_chunk`` tokens, each padded to a power-of-two shape bucket
   (the JAX engine's pieces exactly: chunk shape changes float results, so
   parity needs the same cut).
-* **Continuous batching** — a FIFO :class:`~repro_torch.serve.scheduler.Scheduler`
-  admits requests into a fixed-width decode batch; every decode step
-  advances all live slots at their own positions, and a finished slot is
-  refilled by the next admission while the rest keep decoding.
+* **Continuous batching** — the
+  :class:`~repro_torch.serve.scheduler.Scheduler` admits requests into a
+  fixed-width decode batch; every decode step advances all live slots at
+  their own positions, and a finished slot is refilled by the next
+  admission while the rest keep decoding.
 * **Paged KV** — every slot maps its positions to physical pages of one
-  pool through a page table; pages are allocated as writes reach them and
-  freed at retirement.  Idle lanes point their whole row at scratch page
-  0, which is re-zeroed after every admission.
-* **Split-K page combine** — decode attention combines its pages through
-  :func:`repro_torch.kernels.ops.moa_reduce`: on the card that is the
-  hand-written Hopper kernel, twice per layer per dispatch.
+  refcounted pool through a page table; pages are allocated as writes reach
+  them.  Idle lanes point their whole row at scratch page 0, which is
+  re-zeroed after every admission.  Pool exhaustion reclaims retired rows
+  and session snapshots least-recently-used first, then defers the
+  admission (never drops it).
+* **Prefix cache** — a :class:`~repro_torch.serve.cache.PrefixTrie` indexes
+  the tokens each row's pages hold, retired rows included; an admission
+  whose context extends a resident prefix shares its full pages by
+  reference, copies at most the partial boundary page (copy-on-write), and
+  prefills only the rest.
+* **Page dedup** (``page_dedup``) — full pages an admission wrote are
+  hashed; a byte-identical resident page, wherever it sits, replaces the
+  fresh copy by reference.
+* **Sessions** — :meth:`ServeEngine.submit_turn` carries a conversation's
+  history; a retiring turn snapshots its page row, so the next turn
+  re-admits the history as shared pages after its slot has turned over.
+* **SLO admission and overload** — earliest-deadline-first admission under
+  an engine-fed cost model, preemption that rescues an at-risk request,
+  and (``degrade``) the :class:`~repro_torch.serve.scheduler.DegradeLadder`:
+  smaller prefill chunks, then shedding of hopeless pending requests.
+* **Split-K page combine** — decode and prefill attention combine their
+  pages through :func:`repro_torch.kernels.ops.moa_reduce`: on the card
+  that is the hand-written Hopper kernel, twice per layer per dispatch.
 
 Dispatch is eager PyTorch (the JAX engine compiles ahead of time); the
-state tensors are updated in place.  Greedy sampling only.  Prefix cache,
-sessions, speculative decode, quantized KV, SLO admission, preemption and
-mesh sharding are still to port (``ROADMAP.md``, queue 1).
+state tensors are updated in place.  Speculative decode, quantized KV,
+stochastic sampling, contiguous slots and mesh sharding are still to port
+(``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
+import hashlib
 import time
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,9 +59,16 @@ from repro_torch.models.registry import get_api
 from repro_torch.serve import cache
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.sampling import SamplingParams, greedy_tokens
-from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.serve.scheduler import DegradeLadder, Request, Scheduler
+from repro_torch.serve.sessions import SessionStore
 
 __all__ = ["ServeEngine"]
+
+#: EWMA weight for the scheduler cost model's newest timing sample.
+_COST_EWMA = 0.5
+
+#: Sliding-window length for the latency samples behind the percentiles.
+_LATENCY_WINDOW = 4096
 
 
 def _buckets(chunk: int, lo: int = 8) -> Tuple[int, ...]:
@@ -70,7 +98,7 @@ class ServeEngine:
                  config: Optional[EngineConfig] = None,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
-        ecfg = (config or EngineConfig()).resolve()
+        ecfg = (config or EngineConfig()).resolve(cfg)
         self.config = ecfg
         self.api = get_api(cfg)
         self.cfg = cfg
@@ -79,8 +107,9 @@ class ServeEngine:
         self.max_seq = ecfg.max_seq
         self.prefill_chunk = ecfg.prefill_chunk
         self.page_size = ecfg.page_size
+        self.min_prefix = ecfg.min_prefix
         self.chunk_buckets = _buckets(ecfg.prefill_chunk)
-        self.scheduler = Scheduler(ecfg.max_slots, ecfg.max_seq)
+        self.scheduler = Scheduler.from_config(ecfg)
         self.max_pages = ecfg.max_seq // ecfg.page_size
         # one more physical page than allocatable: page 0 is scratch
         self.pool = cache.PagePool(ecfg.pool_pages + 1)
@@ -88,40 +117,137 @@ class ServeEngine:
         self.pspecs = cache.paged_state_specs(specs, ecfg.page_size,
                                               ecfg.pool_pages + 1)
         self.state = cache.state_zeros(self.pspecs, self.device)
+        #: bytes of one physical page across every leaf
+        self.page_bytes = cache.state_bytes(self.pspecs) // (
+            ecfg.pool_pages + 1)
         # per-slot page tables; 0 = the scratch page (unallocated)
         self.table = np.zeros((ecfg.max_slots, self.max_pages), np.int64)
+        # resolve() already gated prefix_cache on supports_prefix
+        self.prefix = (cache.PrefixTrie(capacity=ecfg.trie_capacity)
+                       if ecfg.prefix_cache else None)
+        if self.prefix is not None:
+            # the cost model prices a resident prefix at ~0 (a probe: it
+            # must not refresh the trie's recency)
+            self.scheduler.reuse_probe = self._probe_reuse
+        #: content digest -> resident physical pages (page_dedup)
+        self.dedup = cache.PageDedupIndex() if ecfg.page_dedup else None
+        #: page-content hash, injectable so tests can force collisions (a
+        #: digest match is only a candidate, confirmed byte for byte)
+        self._digest_fn = (
+            lambda b: hashlib.blake2b(b, digest_size=16).digest())
+        #: conversation id -> accumulated history + retired page refs
+        self.sessions = SessionStore()
+        #: overload degrade ladder (None = every knob always as configured)
+        self.ladder = DegradeLadder() if ecfg.degrade else None
+        # eviction tie-breaks consult how many pages a victim's release
+        # would actually free
+        self.scheduler.freed_probe = self._freed_pages
         #: when True, every decode dispatch appends its live-lane fp32
         #: logits (a numpy array) to ``logit_trace``
         self.trace_logits = False
         self.logit_trace: List[np.ndarray] = []
+        self._chunk_ewma: Optional[float] = None
+        self._step_ewma: Optional[float] = None
         self.reset_stats()
+
+    def _probe_reuse(self, ctx) -> int:
+        """Cost-model probe: resident-prefix length of ``ctx`` if it were
+        admitted now (0 below the ``min_prefix`` reuse threshold)."""
+        n = self.prefix.longest_match(ctx, touch=False)[0]
+        n = min(n, max(0, len(ctx) - 1))
+        return n if n >= self.min_prefix else 0
 
     # ------------------------------------------------------------ stats
     def reset_stats(self) -> None:
-        """Zero the engine counters and timers."""
+        """Zero the engine counters and timers (the scheduler's SLO tallies
+        and the cost model describe the live workload and stay)."""
         self.stats: Dict[str, float] = {
             "prefill_s": 0.0, "decode_s": 0.0,
             "prefill_tokens": 0, "decode_tokens": 0,
-            "decode_steps": 0, "admissions": 0, "prefill_dispatches": 0,
-            "oom_deferred": 0, "moa_reduce_launches": 0,
+            "decode_steps": 0, "decode_lane_steps": 0, "occupancy_sum": 0.0,
+            "admissions": 0, "evictions": 0, "preemptions": 0,
+            "prefix_hits": 0, "prefix_misses": 0,
+            "prefix_reused_tokens": 0, "prefix_evictions": 0,
+            "prefix_bytes_copied": 0, "pages_shared": 0, "pages_cow": 0,
+            "oom_deferred": 0, "hit_admit_s": 0.0, "cold_admit_s": 0.0,
+            # page-content dedup: admissions that shared >= 1 page by
+            # content, pages shared so, digest matches the bytes refuted
+            "dedup_hits": 0, "dedup_pages_shared": 0,
+            "dedup_hash_collisions": 0,
+            # sessions: turns submitted, admissions served from a session
+            # snapshot, the tokens those reused, snapshots reclaimed
+            "session_turns": 0, "session_hits": 0,
+            "session_reused_tokens": 0, "session_snapshot_drops": 0,
+            "degrade_steps": 0, "prefill_dispatches": 0,
+            "moa_reduce_launches": 0,
         }
+        self._step_times: Deque[float] = deque(maxlen=_LATENCY_WINDOW)
+        self._admit_times: Dict[str, Deque[float]] = {
+            "hit": deque(maxlen=_LATENCY_WINDOW),
+            "cold": deque(maxlen=_LATENCY_WINDOW)}
 
     def stats_summary(self) -> Dict[str, float]:
-        """The counters plus prefill and decode tok/s (token counts over
-        the seconds spent in those dispatches, each ending in a
-        device-to-host read of the sampled tokens)."""
+        """The counters plus derived values: prefill and decode tok/s
+        (token counts over the seconds of those dispatches, each ending in
+        a device-to-host read of the sampled tokens), mean occupancy,
+        prefix hit rate, *effective* prefill tok/s (reused tokens count as
+        served), hit and cold admission means and medians, decode-step
+        percentiles, pool usage, trie evictions, SLO and goodput tallies,
+        the ladder's level and the dedup and session figures."""
         s = dict(self.stats)
         s["prefill_tok_s"] = s["prefill_tokens"] / max(s["prefill_s"], 1e-9)
         s["decode_tok_s"] = s["decode_tokens"] / max(s["decode_s"], 1e-9)
+        s["mean_occupancy"] = (s["occupancy_sum"] / s["decode_steps"]
+                               if s["decode_steps"] else 0.0)
+        lookups = s["prefix_hits"] + s["prefix_misses"]
+        s["prefix_hit_rate"] = s["prefix_hits"] / lookups if lookups else 0.0
+        s["effective_prefill_tok_s"] = (
+            (s["prefill_tokens"] + s["prefix_reused_tokens"])
+            / max(s["prefill_s"], 1e-9))
+        s["hit_admit_s_mean"] = (s["hit_admit_s"] / s["prefix_hits"]
+                                 if s["prefix_hits"] else 0.0)
+        s["cold_admit_s_mean"] = (s["cold_admit_s"] / s["prefix_misses"]
+                                  if s["prefix_misses"] else 0.0)
+        s["hit_admit_s_p50"] = (float(np.median(self._admit_times["hit"]))
+                                if self._admit_times["hit"] else 0.0)
+        s["cold_admit_s_p50"] = (float(np.median(self._admit_times["cold"]))
+                                 if self._admit_times["cold"] else 0.0)
+        s["decode_step_p50_s"] = (float(np.percentile(self._step_times, 50))
+                                  if self._step_times else 0.0)
+        s["decode_step_p99_s"] = (float(np.percentile(self._step_times, 99))
+                                  if self._step_times else 0.0)
+        s["tokens_per_step"] = (s["decode_tokens"] / s["decode_lane_steps"]
+                                if s["decode_lane_steps"] else 0.0)
+        s["trie_evictions"] = (self.prefix.evictions
+                               if self.prefix is not None else 0)
         s["pages_in_use"] = self.pool.used_count
         s["pool_pages"] = self.pool.num_pages - 1
         s["pool_bytes"] = cache.state_bytes(self.pspecs)
+        s["slo_met"] = self.scheduler.slo_met_count
+        s["slo_missed"] = self.scheduler.slo_missed_count
+        s["shed_requests"] = self.scheduler.shed_count
+        s["goodput_tokens"] = self.scheduler.goodput_tokens
+        s["goodput_tok_s"] = self.scheduler.goodput_tokens / max(
+            s["prefill_s"] + s["decode_s"], 1e-9)
+        s["degrade_level"] = (self.ladder.level
+                              if self.ladder is not None else 0)
+        s["degrade_transitions"] = (self.ladder.transitions
+                                    if self.ladder is not None else 0)
+        s["dedup_hit_rate"] = (s["dedup_hits"] / s["admissions"]
+                               if s["admissions"] else 0.0)
+        s["dedup_pages_per_hit"] = (s["dedup_pages_shared"]
+                                    / s["dedup_hits"]
+                                    if s["dedup_hits"] else 0.0)
+        s["dedup_indexed_pages"] = (len(self.dedup)
+                                    if self.dedup is not None else 0)
+        s["sessions_live"] = len(self.sessions)
         return s
 
     # ----------------------------------------------------------- submit
     def submit(self, prompt: Sequence[int], max_new: int,
                eos_id: Optional[int] = None,
-               sampling: Optional[SamplingParams] = None) -> Request:
+               sampling: Optional[SamplingParams] = None,
+               slo_ms: Optional[float] = None) -> Request:
         """Queue one generation request.
 
         Args:
@@ -130,27 +256,157 @@ class ServeEngine:
           eos_id: optional stop token.
           sampling: per-request :class:`SamplingParams` (``None`` = greedy;
             only greedy exists in the port so far).
+          slo_ms: optional completion-latency SLO in milliseconds.
 
         Returns:
           The live :class:`Request` handle (its ``generated`` list fills in
           as the engine runs)."""
         return self.scheduler.submit(
             Request(prompt=list(prompt), max_new=max_new, eos_id=eos_id,
-                    sampling=sampling))
+                    sampling=sampling, slo_ms=slo_ms))
+
+    # --------------------------------------------------------- sessions
+    def submit_turn(self, conv_id, tokens: Sequence[int], max_new: int,
+                    eos_id: Optional[int] = None,
+                    sampling: Optional[SamplingParams] = None,
+                    slo_ms: Optional[float] = None) -> Request:
+        """Queue one turn of conversation ``conv_id``: the prompt is the
+        conversation's history (every earlier turn's prompt and reply) plus
+        the new ``tokens``.  A returning conversation re-admits its history
+        as shared pages from the session's snapshot — full pages by
+        reference, one boundary page copy-on-write — even after every slot
+        has turned over; the reply joins the history when the turn retires.
+        The other arguments and the return value are :meth:`submit`'s."""
+        sess = self.sessions.ensure(conv_id)
+        req = self.submit(list(sess.history) + list(tokens), max_new,
+                          eos_id=eos_id, sampling=sampling, slo_ms=slo_ms)
+        req._conv_id = conv_id
+        self.stats["session_turns"] += 1
+        return req
+
+    def end_session(self, conv_id) -> bool:
+        """Drop conversation ``conv_id``: release its snapshot's page
+        references (if any) and forget its history.  Returns True if the
+        session existed."""
+        existed = conv_id in self.sessions
+        row = self.sessions.pop(conv_id)
+        if row is not None:
+            self._deref_row_pages(row[row != 0])
+        return existed
+
+    def _session_retire(self, req: Request, slot: int) -> None:
+        """A session turn just retired out of ``slot``: fold its reply into
+        the history and snapshot the slot's page row — one pool reference
+        per page — so the history stays resident for the next turn.
+        Replaces (and releases) any previous snapshot."""
+        conv = getattr(req, "_conv_id", None)
+        if conv is None:
+            return
+        sess = self.sessions.ensure(conv)
+        sess.history = req.context
+        sess.turns += 1
+        old = self.sessions.take_snapshot(sess)
+        if old is not None:
+            self._deref_row_pages(old[old != 0])
+        # the turn's last sampled token is never written: req.pos
+        # positions are materialized
+        covered = req.pos
+        npages = -(-covered // self.page_size)
+        row = self.table[slot, :npages].copy()
+        if covered > 0 and int((row != 0).sum()) == npages:
+            self.pool.ref_many(row)
+            sess.row = row
+            sess.covered = covered
+
+    def evict(self, slot: int) -> Request:
+        """Preempt the live request in ``slot`` back to the pending queue
+        (its re-admission re-prefills, or prefix-reuses, its context).  The
+        slot's pages are released at once when nothing can reuse them."""
+        self.stats["evictions"] += 1
+        req = self.scheduler.evict(slot)
+        if not self._row_reusable(slot):
+            self._release_row(slot)
+        return req
+
+    def _row_reusable(self, slot: int) -> bool:
+        """True while a trie entry still indexes ``slot``'s pages.  Without
+        one the row would be invisible to reclaim (which scans trie
+        entries), so its pages would strand until the slot is reused."""
+        return self.prefix is not None and \
+            self.prefix.length(slot) is not None
 
     # ----------------------------------------------- page-table management
-    def _release_row(self, slot: int) -> None:
-        """Drop ``slot``'s page-table row, dereferencing every mapped page."""
+    def _deref_row_pages(self, pages: np.ndarray) -> int:
+        """Deref ``pages`` and un-index from the dedup index every page that
+        freed (an indexed page must stay resident); returns pages freed."""
+        pages = np.asarray(pages)
+        freed = self.pool.deref_many(pages)
+        if freed and self.dedup is not None:
+            for p in np.unique(pages):
+                if self.pool.refcount[p] == 0:
+                    self.dedup.discard(int(p))
+        return freed
+
+    def _freed_pages(self, slot: int) -> int:
+        """How many pages releasing ``slot``'s row would free now: a page
+        another row, a session snapshot or a dedup sharer still holds
+        frees nothing."""
         row = self.table[slot]
-        self.pool.deref_many(row[row != 0])
+        pages = row[row != 0]
+        if not pages.size:
+            return 0
+        uniq, counts = np.unique(pages, return_counts=True)
+        return int((self.pool.refcount[uniq] == counts).sum())
+
+    def _release_row(self, slot: int) -> None:
+        """Drop ``slot``'s page-table row: deref every mapped page (a page
+        shared with another row survives) and drop its trie entry."""
+        if self.prefix is not None:
+            self.prefix.remove(slot)
+        row = self.table[slot]
+        self._deref_row_pages(row[row != 0])
         self.table[slot] = 0
+
+    def _release_trie_evicted(self, slots) -> None:
+        """Release the rows of capacity-evicted trie ``slots`` that are not
+        live (their pages were kept only for reuse)."""
+        for s in slots:
+            if s not in self.scheduler.active:
+                self._release_row(s)
+
+    def _reclaim_pages(self, needed: int) -> None:
+        """Free pages under pool pressure until ``needed`` are free (or
+        nothing reclaimable remains): first retired trie entries,
+        least-recently-used first, with entries whose release frees no
+        page (every page still shared) last; then session snapshots,
+        least-recently-used first (the next turn re-prefills).  Live slots
+        are never touched."""
+        if self.prefix is not None:
+            victims = [s for s in self.prefix.lru_slots()
+                       if s not in self.scheduler.active]
+            victims.sort(key=lambda s: self._freed_pages(s) == 0)
+            for s in victims:
+                if self.pool.free_count >= needed:
+                    return
+                self._release_row(s)
+                self.prefix.evictions += 1
+        for sess in self.sessions.lru_snapshots():
+            if self.pool.free_count >= needed:
+                return
+            row = self.sessions.take_snapshot(sess)
+            self._deref_row_pages(row[row != 0])
+            self.sessions.drops += 1
+            self.stats["session_snapshot_drops"] += 1
 
     def _ensure_pages(self, slot: int, start: int, end: int) -> bool:
         """Allocate physical pages covering positions ``[start, end)`` of
-        ``slot``'s row, all or nothing; False when the pool is exhausted."""
+        ``slot``'s row, all or nothing, reclaiming under pressure; False
+        when the pool is still exhausted."""
         first = start // self.page_size
         last = min(-(-end // self.page_size), self.max_pages)
         need = first + np.flatnonzero(self.table[slot, first:last] == 0)
+        if need.size > self.pool.free_count:
+            self._reclaim_pages(int(need.size))
         if need.size:
             pages = self.pool.alloc_many(int(need.size))
             if pages is None:
@@ -158,46 +414,237 @@ class ServeEngine:
             self.table[slot, need] = pages
         return True
 
+    def _alloc_one(self) -> int:
+        """One fresh page, reclaiming first when the pool is empty; -1 when
+        nothing can be freed."""
+        if self.pool.free_count < 1:
+            self._reclaim_pages(1)
+        return self.pool.alloc()
+
+    def _bind_pages(self, slot: int, src_row: Optional[np.ndarray],
+                    reuse: int, end: int, *, in_place: bool = False
+                    ) -> Tuple[bool, Optional[Tuple[int, int]]]:
+        """Build ``slot``'s row for an admission that reuses the first
+        ``reuse`` tokens held in ``src_row`` (another slot's row or a
+        session snapshot), with writable pages through position ``end``:
+        full prefix pages are shared by reference, the partial boundary
+        page gets a fresh page to copy into, the prefill span is allocated.
+
+        ``in_place`` marks a re-admission into the slot whose own row holds
+        the prefix (``src_row`` is ignored).  Prefill is about to overwrite
+        every position >= ``reuse``, and a page there with refcount > 1 is
+        shared, so it is detached first: the partial boundary page by
+        copy-on-write, wholly rewritten pages by a fresh page.
+
+        Returns ``(ok, cow)``: ``cow`` is the ``(src, dst)`` boundary copy
+        the caller must make before the first prefill piece (or None);
+        ``ok`` is False when the pool is exhausted (the row is released and
+        the admission should be deferred)."""
+        ps = self.page_size
+        cow = None
+        nfull = 0
+        if reuse and not in_place:
+            self._release_row(slot)
+            nfull = reuse // ps
+            shared = np.asarray(src_row[:nfull])
+            self.pool.ref_many(shared)
+            self.table[slot, :nfull] = shared
+            if reuse % ps:
+                # the source page id is taken BEFORE any reclaim can free
+                # src's row; its bytes stay intact until the copy (the
+                # first device write of this admission) has read them
+                src_b = int(src_row[nfull])
+                p = self._alloc_one()
+                if p < 0:
+                    self._release_row(slot)
+                    return False, None
+                self.table[slot, nfull] = p
+                cow = (src_b, p)
+        elif not reuse:
+            self._release_row(slot)
+        else:
+            row = self.table[slot]
+            first = reuse // ps
+            for j in range(first, self.max_pages):
+                p = int(row[j])
+                if p == 0:
+                    continue
+                if self.pool.refcount[p] > 1:
+                    fresh = self._alloc_one()
+                    if fresh < 0:
+                        self._release_row(slot)
+                        return False, None
+                    if j == first and reuse % ps:
+                        # positions [j * ps, reuse) must survive the swap
+                        cow = (p, fresh)
+                    row[j] = fresh
+                    self._deref_row_pages(np.asarray([p]))
+                elif self.dedup is not None:
+                    # a kept page about to be rewritten: its index entry
+                    # must go now
+                    self.dedup.discard(p)
+        if not self._ensure_pages(slot, reuse, end):
+            self._release_row(slot)
+            return False, None
+        self.stats["pages_shared"] += nfull
+        return True, cow
+
     def _scrub_scratch(self) -> None:
         """Re-zero scratch page 0: an admission's bucket-padding and idle
         lanes' writes land there, and a masked lane reads it as ``0 * v``,
         which a NaN or inf would poison."""
         cache.zero_page(self.state, self.pspecs, 0)
 
+    # ---------------------------------------------------- content dedup
+    def _page_bytes_of(self, page: int) -> bytes:
+        """The raw bytes of ONE physical page across every leaf, on the
+        host (only the page leaves the device) — the unit of content
+        identity the digest is taken over."""
+        return b"".join(v.cpu().numpy().tobytes() for v in
+                        cache.page_bytes(self.state, self.pspecs, page))
+
+    def _same_bytes(self, a: int, b: int) -> bool:
+        """Byte identity of physical pages ``a`` and ``b``, compared on the
+        pool's device through integer views."""
+        return all(torch.equal(x, y) for x, y in zip(
+            cache.page_bytes(self.state, self.pspecs, a),
+            cache.page_bytes(self.state, self.pspecs, b)))
+
+    def _dedup_slot(self, slot: int, length: int) -> None:
+        """Content-dedup the full pages below ``length`` that this row
+        owns alone (decode can never write them).  A digest match is only
+        a candidate: the share happens after a byte compare confirms it (a
+        collision is counted and degrades to a miss).  On a match the fresh
+        page is dropped for a reference to the resident twin; otherwise it
+        is indexed for later admissions."""
+        row = self.table[slot]
+        shared_any = False
+        for j in range(length // self.page_size):
+            p = int(row[j])
+            if p == 0 or self.pool.refcount[p] != 1:
+                continue               # already shared: nothing to save
+            digest = self._digest_fn(self._page_bytes_of(p))
+            match = None
+            for c in self.dedup.candidates(digest):
+                if c == p:
+                    continue
+                if self._same_bytes(c, p):
+                    match = c
+                    break
+                self.stats["dedup_hash_collisions"] += 1
+            if match is None:
+                self.dedup.insert(p, digest)
+            else:
+                self.pool.ref(match)
+                row[j] = match
+                self._deref_row_pages(np.asarray([p]))   # frees the copy
+                self.stats["dedup_pages_shared"] += 1
+                shared_any = True
+        if shared_any:
+            self.stats["dedup_hits"] += 1
+
     # ------------------------------------------------------------ admit
-    def _pieces(self, ctx: Sequence[int]) -> List[Tuple[int, int, int]]:
-        """The prefill pieces of ``ctx`` as ``(start, nvalid, bucket)``:
-        at most ``prefill_chunk`` tokens each, padded to the smallest shape
+    def _effective_chunk(self) -> int:
+        """The prefill chunk cap for admissions planned now: the smallest
+        shape bucket while the degrade ladder holds ``SMALL_CHUNKS`` or
+        above, else ``prefill_chunk``."""
+        if self.ladder is not None and \
+                self.ladder.level >= DegradeLadder.SMALL_CHUNKS:
+            return self.chunk_buckets[0]
+        return self.prefill_chunk
+
+    def _feed_cost_model(self, chunk_s: Optional[float] = None,
+                         step_s: Optional[float] = None) -> None:
+        """EWMA the newest measured prefill-chunk and decode-step times
+        into the scheduler's cost model (a sequential decode step emits
+        one token a slot, the scheduler's default rate)."""
+        if chunk_s is not None:
+            self._chunk_ewma = (chunk_s if self._chunk_ewma is None else
+                                (1 - _COST_EWMA) * self._chunk_ewma
+                                + _COST_EWMA * chunk_s)
+        if step_s is not None:
+            self._step_ewma = (step_s if self._step_ewma is None else
+                               (1 - _COST_EWMA) * self._step_ewma
+                               + _COST_EWMA * step_s)
+        self.scheduler.update_cost_model(self._chunk_ewma, self._step_ewma)
+
+    def _pieces(self, ctx: Sequence[int], start: int = 0,
+                chunk: Optional[int] = None) -> List[Tuple[int, int, int]]:
+        """The prefill pieces of ``ctx`` from position ``start`` as
+        ``(start, nvalid, bucket)``: at most ``chunk`` (default
+        ``prefill_chunk``) tokens each, padded to the smallest shape
         bucket, the tail bucket shrunk to the cache room (a padded block
         past ``max_seq`` would clamp onto earlier positions)."""
+        chunk = chunk or self.prefill_chunk
         pieces = []
-        pos = 0
+        pos = start
         while pos < len(ctx):
-            n = min(self.prefill_chunk, len(ctx) - pos)
+            n = min(chunk, len(ctx) - pos)
             cb = next(b for b in self.chunk_buckets if b >= n)
             pieces.append((pos, n, min(cb, self.max_seq - pos)))
             pos += n
         return pieces
 
     def _admit(self, slot: int, req: Request) -> List[Request]:
-        """Admit ``req`` into ``slot``: allocate its pages through the
-        padded prefill end, run the prefill pieces, sample the first token.
-        An admission that finds the pool exhausted is deferred to the head
-        of the queue, never dropped."""
+        """Admit ``req`` into ``slot``: prefix-cache lookup, then page
+        sharing and the boundary copy-on-write, then chunked prefill of the
+        rest of the context; samples the first token.  An admission that
+        finds the pool exhausted even after reclaim is deferred to the
+        head of the queue, never dropped."""
         ctx = req.context
-        pieces = self._pieces(ctx)
+        # ---- prefix-cache lookup, clamped to keep >= 1 token to prefill
+        # (its logits sample the first token)
+        reuse, src, removed = 0, -1, False
+        if self.prefix is not None:
+            match_len, match_slot = self.prefix.longest_match(ctx)
+            match_len = min(match_len, len(ctx) - 1)
+            if match_len >= self.min_prefix:
+                reuse, src = match_len, match_slot
+            # the slot's pages are about to be overwritten: its entry must
+            # stop matching now
+            removed = self.prefix.remove(slot)
+        # ---- a returning conversation's snapshot, when it covers more
+        sess_row = None
+        conv = getattr(req, "_conv_id", None)
+        if conv is not None:
+            sess = self.sessions.get(conv)
+            if sess is not None and sess.row is not None:
+                s_reuse = min(sess.covered, len(ctx) - 1)
+                if s_reuse >= self.min_prefix and s_reuse > reuse:
+                    reuse, src = s_reuse, -1
+                    sess_row = sess.row
+        # ---- the pieces from the reuse point (the ladder caps the chunk)
+        pieces = self._pieces(ctx, reuse, self._effective_chunk())
         prefill_end = max(start + cb for start, _, cb in pieces)
-        self._release_row(slot)
-        if not self._ensure_pages(slot, 0, prefill_end):
-            self._release_row(slot)
+        in_place = bool(reuse) and sess_row is None and src == slot
+        row_src = sess_row if sess_row is not None else (
+            self.table[src] if reuse and not in_place else None)
+        ok, cow = self._bind_pages(slot, row_src, reuse, prefill_end,
+                                   in_place=in_place)
+        if not ok:
+            if removed and src != slot:        # the entry is gone even on
+                self.stats["prefix_evictions"] += 1   # deferral
             self.stats["oom_deferred"] += 1
-            self.scheduler.evict(slot)
+            self.scheduler.evict(slot)         # head of queue: deferred
             if not self.scheduler.active and not self.pool.used_count:
                 raise RuntimeError(
                     f"page pool ({self.pool.num_pages - 1} pages of "
                     f"{self.page_size} tokens) cannot hold a single request "
                     f"of {len(ctx)} context tokens")
             return []
+        # ---- committed: account the lookup (session reuse is tallied on
+        # its own; the trie counters mean "the trie found or missed it")
+        if sess_row is not None:
+            self.stats["session_hits"] += 1
+            self.stats["session_reused_tokens"] += reuse
+        if self.prefix is not None:
+            if reuse and sess_row is None:
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_reused_tokens"] += reuse
+            elif not reuse:
+                self.stats["prefix_misses"] += 1
+            if removed and src != slot:
+                self.stats["prefix_evictions"] += 1
         # every piece's inputs go to the device before the timer starts
         dev = self.device
         row = torch.as_tensor(self.table[slot][None], device=dev)
@@ -210,6 +657,11 @@ class ServeEngine:
                             "nvalid": nvalid, "pages": row})
         launches0 = _moa.LAUNCHES
         t0 = time.perf_counter()
+        if cow is not None:
+            # copy-on-write: ONE boundary page, before any prefill write
+            cache.copy_page(self.state, self.pspecs, *cow)
+            self.stats["prefix_bytes_copied"] += self.page_bytes
+            self.stats["pages_cow"] += 1
         for batch in batches:
             logits, self.state = self.api.prefill_chunk(
                 self.params, self.state, batch, self.cfg)
@@ -217,13 +669,27 @@ class ServeEngine:
         dt = time.perf_counter() - t0
         self.stats["moa_reduce_launches"] += _moa.LAUNCHES - launches0
         self.stats["prefill_s"] += dt
-        self.stats["prefill_tokens"] += len(ctx)
+        self.stats["prefill_tokens"] += len(ctx) - reuse
         self.stats["prefill_dispatches"] += len(pieces)
         self.stats["admissions"] += 1
+        if self.prefix is not None:
+            self.stats["hit_admit_s" if reuse else "cold_admit_s"] += dt
+            self._admit_times["hit" if reuse else "cold"].append(dt)
         self._scrub_scratch()
+        if not reuse:
+            # only a cold admission prices a whole prefill chunk
+            self._feed_cost_model(chunk_s=dt / max(1, len(pieces)))
         self.scheduler.on_prefill(req, first)
+        if self.prefix is not None:
+            # the pages now hold exactly ctx (the first sampled token is
+            # written by the next decode step)
+            self._release_trie_evicted(self.prefix.insert(slot, ctx))
+        if self.dedup is not None:
+            self._dedup_slot(slot, len(ctx))
         if req.slot is None:                   # retired on its first token
-            self._release_row(slot)
+            self._session_retire(req, slot)
+            if not self._row_reusable(slot):
+                self._release_row(slot)
             return [req]
         return []
 
@@ -232,10 +698,11 @@ class ServeEngine:
         """One batched decode step over every live slot (idle lanes run
         with token 0 at position 0 on an all-scratch row; their outputs are
         discarded)."""
+        # each live slot's write page; a slot that cannot get one even
+        # after reclaim is evicted back to the queue (deferred, not dropped)
         for slot, req in list(self.scheduler.active.items()):
             if not self._ensure_pages(slot, req.pos, req.pos + 1):
-                self.scheduler.evict(slot)
-                self._release_row(slot)
+                self.evict(slot)
                 self.stats["oom_deferred"] += 1
         if not self.scheduler.active:
             return []
@@ -252,6 +719,7 @@ class ServeEngine:
         batch = {"tokens": torch.as_tensor(tokens, device=dev),
                  "index": torch.as_tensor(positions, device=dev),
                  "pages": torch.as_tensor(disp, device=dev)}
+        occ = self.scheduler.occupancy
         launches0 = _moa.LAUNCHES
         t0 = time.perf_counter()
         logits, self.state = self.api.decode_step(self.params, self.state,
@@ -264,17 +732,45 @@ class ServeEngine:
         self.stats["decode_s"] += dt
         self.stats["decode_tokens"] += len(live)
         self.stats["decode_steps"] += 1
+        self.stats["decode_lane_steps"] += len(live)
+        self.stats["occupancy_sum"] += occ
+        self._step_times.append(dt)
+        self._feed_cost_model(step_s=dt)
+        if self.prefix is not None:
+            # this step wrote each live slot's fed token into its pages
+            for slot in live:
+                self.prefix.extend(slot, int(tokens[slot, 0]))
+        reqs = {s: self.scheduler.active[s] for s in live}
         done = self.scheduler.on_decode({s: int(nxt[s]) for s in live})
         for slot in live:
             if slot not in self.scheduler.active:
-                self._release_row(slot)
+                # a retiring session turn snapshots its row before any
+                # release can free it; a row nothing can reuse goes now
+                self._session_retire(reqs[slot], slot)
+                if not self._row_reusable(slot):
+                    self._release_row(slot)
         return done
 
     def step(self) -> List[Request]:
-        """One engine iteration: refill free slots (chunked prefill per
-        admission), then one batched decode step shared by all live slots.
-        Returns the requests that finished during this iteration."""
+        """One engine iteration: the degrade ladder's observation (when
+        ``degrade`` is on; at ``SHED`` hopeless pending requests are
+        retired with a reason), the preemption check, admissions into free
+        slots (chunked prefill each), then one batched decode step shared
+        by all live slots.  Returns the requests that finished during this
+        iteration, shed ones included."""
         finished: List[Request] = []
+        if self.ladder is not None:
+            # the ladder keeps the JAX engine's level numbers; SPEC_OFF has
+            # no effect until speculative decode is ported
+            level = self.ladder.observe(self.scheduler.slo_pressure())
+            if level:
+                self.stats["degrade_steps"] += 1
+            if level >= DegradeLadder.SHED:
+                finished += self.scheduler.shed_hopeless()
+        victim = self.scheduler.maybe_preempt()
+        if victim is not None:
+            self.evict(victim)
+            self.stats["preemptions"] += 1
         for slot, req in self.scheduler.admissions():
             finished += self._admit(slot, req)
         if self.scheduler.active:

@@ -18,8 +18,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qmm
 from repro_torch.launch import sass_mix
 from repro_torch.models import attention
-from repro_torch.models.common import init_params
+from repro_torch.models.common import ParamSpec, init_params
+from repro_torch.models.registry import get_api
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.serve import EngineConfig, ServeEngine, cache
 from repro_torch.train.state import build_train_step, init_train_state
 from repro_torch.tree import map_tree
 
@@ -672,3 +674,118 @@ def test_ops_quant_matmul_launches_the_kernel(cuda_device):
     got = ops.quant_matmul(x, w)
     assert qmm.LAUNCHES == before + 1
     assert torch.equal(got, qmm.quant_matmul_plain(x, w))
+
+
+# ------------------------------------------------- serve: shared KV pages
+def _bf16_pool(device):
+    specs = {name: ParamSpec((28, 2, 256, 8, 128),
+                             ("layers", "batch", "kv_seq", None, None),
+                             dtype=torch.bfloat16) for name in ("k", "v")}
+    pspecs = cache.paged_state_specs(specs, 128, 6)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = {k: torch.randn(s.shape, generator=gen, device=device)
+             .to(s.dtype) for k, s in pspecs.items()}
+    return pspecs, state
+
+
+@pytest.mark.cuda
+def test_copy_page_and_page_bytes_on_a_bf16_device_pool(cuda_device):
+    """copy_page moves one page of every leaf (the page axis sits behind
+    the layer axis: a strided view) and touches nothing else; page_bytes
+    reads it as uint8 on the card, tells -0.0 from +0.0, and goes to the
+    host as bytes (numpy has no bfloat16)."""
+    pspecs, state = _bf16_pool(cuda_device)
+    before = {k: v.clone() for k, v in state.items()}
+    cache.copy_page(state, pspecs, 2, 5)
+    for k in state:
+        assert torch.equal(state[k][:, 5], before[k][:, 2])
+        assert torch.equal(state[k][:, :5], before[k][:, :5])
+    views = cache.page_bytes(state, pspecs, 5)
+    assert all(v.device.type == "cuda" and v.dtype == torch.uint8
+               and v.numel() == 28 * 128 * 8 * 128 * 2 for v in views)
+    assert all(torch.equal(a, b) for a, b in
+               zip(views, cache.page_bytes(state, pspecs, 2)))
+    host = b"".join(v.cpu().numpy().tobytes() for v in views)
+    assert len(host) == 2 * 28 * 128 * 8 * 128 * 2     # 14.7 MB a page
+    state["k"][:, 1] = 0.0
+    state["k"][:, 3] = -0.0
+    assert torch.equal(state["k"][:, 1], state["k"][:, 3])
+    assert not torch.equal(cache.page_bytes(state, pspecs, 1)[0],
+                           cache.page_bytes(state, pspecs, 3)[0])
+
+
+def _serve_engine(device, **knobs):
+    cfg = get_config("llama3.2-3b").reduced(dtype=torch.bfloat16,
+                                            n_kv_heads=2)
+    params = init_params(get_api(cfg).param_specs(cfg),
+                         torch.Generator().manual_seed(0),
+                         torch.device("cpu"), torch.float32)
+    params = map_tree(lambda t: t.to(device, torch.bfloat16), params)
+    eng = ServeEngine(cfg, params, config=EngineConfig(
+        max_slots=2, max_seq=64, prefill_chunk=16, page_size=16, **knobs),
+        device=device)
+    return cfg, eng
+
+
+@pytest.mark.cuda
+def test_copy_on_write_isolation_on_the_card(cuda_device):
+    """A sharer of a live request's 12-token prefix writes into its own
+    copy of the boundary page: the source page's 12 shared positions keep
+    their bytes, the copy starts from them, and both requests give a cold
+    engine's tokens."""
+    cfg, eng = _serve_engine(cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    system = torch.randint(0, cfg.vocab, (12,), generator=gen).tolist()
+    tail = torch.randint(0, cfg.vocab, (4,), generator=gen).tolist()
+    r1 = eng.submit(system, 20)
+    eng.step()
+    eng.step()
+    src = int(eng.table[0, 0])
+    shared = {k: v[:, src, :12].clone() for k, v in eng.state.items()}
+    r2 = eng.submit(system + tail, 6)
+    eng.step()
+    dst = int(eng.table[1, 0])
+    assert eng.stats["pages_cow"] == 1 and dst not in (0, src)
+    assert int(eng.pool.refcount[src]) == 1 == int(eng.pool.refcount[dst])
+    for k, v in eng.state.items():
+        assert torch.equal(v[:, src, :12].view(torch.int16),
+                           shared[k].view(torch.int16))
+        assert torch.equal(v[:, dst, :12].view(torch.int16),
+                           shared[k].view(torch.int16))
+        assert not torch.equal(v[:, dst, 12:16], v[:, src, 12:16])
+    eng.run()
+    assert len(r2.generated) == 6
+    # r2 prefilled from position 12, a cold engine from 0: another cut, so
+    # only the source is compared token for token
+    _, cold = _serve_engine(cuda_device, prefix_cache=False)
+    c1 = cold.submit(system, 20)
+    cold.run()
+    assert r1.generated == c1.generated
+
+
+@pytest.mark.cuda
+def test_warm_tokens_equal_cold_on_a_reduced_bf16_config(cuda_device):
+    """Shared 32-token prefix (two pages, two whole prefill chunks): the
+    warm engine shares the pages by reference, copies none and gives the
+    cold engine's tokens exactly, launching moa_reduce on every
+    dispatch."""
+    gen = torch.Generator().manual_seed(2)
+    cfg, warm = _serve_engine(cuda_device)
+    system = torch.randint(0, cfg.vocab, (32,), generator=gen).tolist()
+    prompts = [system + torch.randint(0, cfg.vocab, (n,),
+                                      generator=gen).tolist()
+               for n in (5, 9, 3, 12)]
+    _, cold = _serve_engine(cuda_device, prefix_cache=False)
+    out = {}
+    for name, eng in (("cold", cold), ("warm", warm)):
+        before = moa.LAUNCHES
+        reqs = [eng.submit(p, 8) for p in prompts]
+        eng.run()
+        st = eng.stats
+        assert moa.LAUNCHES - before == 2 * cfg.n_layers * (
+            st["prefill_dispatches"] + st["decode_steps"])
+        out[name] = [r.generated for r in reqs]
+    assert out["warm"] == out["cold"]
+    st = warm.stats_summary()
+    assert st["prefix_hits"] == 3 and st["pages_cow"] == 0
+    assert st["pages_shared"] > 0 and st["prefix_bytes_copied"] == 0

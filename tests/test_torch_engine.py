@@ -55,8 +55,8 @@ def served():
     jeng.run()
 
     teng = ServeEngine(tcfg, tp, config=EngineConfig(
-        max_slots=2, max_seq=64, prefill_chunk=16, page_size=16),
-        device="cpu")
+        max_slots=2, max_seq=64, prefill_chunk=16, page_size=16,
+        prefix_cache=False), device="cpu")
     teng.trace_logits = True
     treqs = [teng.submit(p, MAX_NEW) for p in prompts]
     teng.run()
@@ -137,7 +137,8 @@ def test_engine_matches_jax_on_edge_configs(knobs, lens, new):
                                             paged_kv=True, **knobs))
     jreqs = [jeng.submit(p, m) for p, m in zip(prompts, new)]
     jeng.run()
-    teng = ServeEngine(tcfg, tp, config=EngineConfig(**knobs), device="cpu")
+    teng = ServeEngine(tcfg, tp, config=EngineConfig(prefix_cache=False,
+                                                     **knobs), device="cpu")
     treqs = [teng.submit(p, m) for p, m in zip(prompts, new)]
     teng.run()
     assert [r.generated for r in treqs] == [r.generated for r in jreqs]
@@ -156,7 +157,7 @@ def test_pool_exhaustion_defers_admission():
                          torch.device("cpu"), torch.float32)
     eng = ServeEngine(tcfg, params, config=EngineConfig(
         max_slots=2, max_seq=64, prefill_chunk=16, page_size=16,
-        pool_pages=3), device="cpu")
+        pool_pages=3, prefix_cache=False), device="cpu")
     reqs = [eng.submit(list(range(1, 34)), 4) for _ in range(2)]
     eng.run()
     assert all(len(r.generated) == 4 for r in reqs)

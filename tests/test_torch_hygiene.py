@@ -48,6 +48,8 @@ def test_port_files_found():
             "src/repro_torch/kernels/bitplane_add.py",
             "src/repro_torch/kernels/quant_matmul.py",
             "src/repro_torch/core/moa.py",
+            "src/repro_torch/serve/sessions.py",
+            "src/repro_torch/serve/scheduler.py",
             "chip_smoke.py"} <= rel
 
 
