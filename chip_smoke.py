@@ -31,7 +31,12 @@ Phases:
      on CPU, same weights: greedy tokens equal, decode logits within 1e-3;
      then the traffic of phases A-C cut to the reduced fp32 config, CUDA
      against CPU: tokens and every prefix, dedup, session, SLO, shed,
-     ladder and eviction counter equal, decode logits within 1e-3
+     ladder and eviction counter equal, decode logits within 1e-3; then
+     the sequential engine and chain (spec_k 4), tree, auto and random
+     draft-head speculative engines on repeated passages, CUDA against
+     CPU: tokens and every counter (the spec_* ones too) equal; whether
+     each CUDA spec run's tokens equal the CUDA sequential run's is
+     printed
   6. serve, full width: llama3.2-3b, 28 layers, bf16, 8 greedy requests
      of 128 to 1024 prompt tokens and 32 new tokens on 4 slots, prefix
      cache off (what PRs 11-17 measured); every request retires with 32
@@ -59,8 +64,23 @@ Phases:
      and a re-admission reuses its resident prefix; requests whose prefill
      pieces match across the two runs have equal tokens; both runs'
      goodput is reported
-  7. moa_reduce timings at the serve path shapes (CUDA events, median of
-     50) beside the bound, the plain version and torch.sum
+  D. speculative serve, full width on phase 6's weights and geometry: 8
+     greedy requests of 128-1024 prompt tokens (a seeded 64-token passage
+     per request, repeated with 2 tokens edited in each copy) x 64 new
+     tokens, served sequentially, then chain (spec_k 4), tree and auto
+     (12 nodes, branch 3) and draft heads (4 heads of width 64, fitted on
+     the card by fit_draft_heads on the sequential histories' last 256
+     tokens, 100 Adam steps); every request completes, no logit is NaN,
+     the refcount invariant after every step, moa_reduce launched 2 *
+     layers * (prefill dispatches + decode steps); each run's decode tok/s,
+     step p50 and p99, tokens per step, accept and draft-hit rates, pages
+     rolled back, shape picks and requests equal to the sequential run's
+     tokens
+  C (spec). phase C's trace again with spec_k 4, ladder off and on, the
+     virtual step priced at D's chain step p50: goodput and SLOs printed
+  7. moa_reduce timings at the serve path shapes, the verify shapes of a
+     chain (C = 5) and a tree (C = 17) among them (CUDA events, median of
+     50), beside the bound, the plain version and torch.sum
   8. train, reduced-config parity: 3 AdamW steps of the reduced fp32
      config from one state on the CPU (chunked attention) and on CUDA (the
      kernels): losses within 1e-4, kernels launched layers * steps times
@@ -101,7 +121,8 @@ Phases:
      share of the int8 peak, and the mma.sync route's parts (the parent's
      design): the pre-pass, the mma.sync product and the parent's PyTorch
      copy of w to K-major
- 14. the kernels line, then the card line, then the result line
+ 14. the kernels line, then the card line, then the result line; each
+     phase's wall time is printed as it ends ("[wall]")
 """
 from __future__ import annotations
 
@@ -134,12 +155,14 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moa_reduce as moa  # noqa: E402
 from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
 from repro_torch.models.common import init_params  # noqa: E402
-from repro_torch.models.lm import train_loss  # noqa: E402
+from repro_torch.models.lm import (fit_draft_heads,  # noqa: E402
+                                   hidden_states, train_loss)
 from repro_torch.models.registry import get_api  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, global_norm  # noqa: E402
 from repro_torch.optim.grad_accum import value_and_grad  # noqa: E402
 from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
 from repro_torch.serve import EngineConfig, ServeEngine  # noqa: E402
+from repro_torch.serve.engine import tree_width  # noqa: E402
 from repro_torch.train.loop import LoopConfig, TrainLoop  # noqa: E402
 from repro_torch.train.state import (build_train_step,  # noqa: E402
                                      init_train_state, split_layers)
@@ -217,15 +240,29 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.2f} s")
 
 
+def verify_rows(ecfg) -> dict:
+    """Rows a slot feeds a verify dispatch at ``ecfg``'s speculative
+    knobs: ``spec_k + 1`` for a chain, and the width of an auto-mode tree
+    dispatch (``engine.tree_width``)."""
+    return {"chain": ecfg.spec_k + 1,
+            "tree": tree_width(ecfg.spec_k, ecfg.spec_tree_nodes,
+                               ecfg.spec_branch, "auto")}
+
+
 def path_shapes(cfg, ecfg):
     """(label, N, M) of the two moa_reduce calls per layer per dispatch:
-    decode over all slots (C = 1) and a full prefill piece (B = 1), for a
-    resolved engine config."""
+    decode over all slots (C = 1), a full prefill piece (B = 1), and the
+    verify dispatches over all slots (C = ``verify_rows``), for a resolved
+    engine config with the speculative knobs set."""
     n = ecfg.max_seq // ecfg.page_size
     h, hd = cfg.n_heads, cfg.hd
     b, c = ecfg.max_slots, ecfg.prefill_chunk
-    return [("decode_l", n, b * h), ("decode_o", n, b * h * hd),
-            ("prefill_l", n, c * h), ("prefill_o", n, c * h * hd)]
+    out = [("decode_l", n, b * h), ("decode_o", n, b * h * hd),
+           ("prefill_l", n, c * h), ("prefill_o", n, c * h * hd)]
+    for name, rows in verify_rows(ecfg).items():
+        out += [(f"verify_{name}_l", n, b * h * rows),
+                (f"verify_{name}_o", n, b * h * rows * hd)]
+    return out
 
 
 def phase_kernel_check(shapes) -> float:
@@ -337,6 +374,34 @@ def phase_reduced_parity() -> None:
               f"{gst['preemptions']}, shed {gst['shed_requests']}, ladder "
               f"max {getattr(geng, 'max_level', 0)}); "
               f"max |logit diff| {diff:.3e} (tol 1e-3)")
+    _free(*(e for e, _ in cpu_runs.values()),
+          *(e for e, _ in gpu_runs.values()))
+    cpu_runs = reduced_spec_runs(cfg, cpu_params, "cpu")
+    gpu_runs = reduced_spec_runs(cfg, map_tree(lambda t: t.to("cuda"),
+                                               cpu_params), "cuda")
+    seq = _tokens(gpu_runs["sequential"][1])
+    for name, (ceng, creqs) in cpu_runs.items():
+        geng, greqs = gpu_runs[name]
+        check(_tokens(creqs) == _tokens(greqs),
+              f"reduced spec {name}: CUDA greedy tokens differ from CPU")
+        cst, gst = ceng.stats_summary(), geng.stats_summary()
+        bad = [k for k in SERVE_COUNTERS + SPEC_COUNTERS
+               if k != "moa_reduce_launches" and cst[k] != gst[k]]
+        check(not bad, f"reduced spec {name}: counters differ CPU vs CUDA: "
+                       f"{[(k, cst[k], gst[k]) for k in bad]}")
+        check(gst["moa_reduce_launches"] == 2 * cfg.n_layers * (
+            gst["prefill_dispatches"] + gst["decode_steps"]),
+              f"reduced spec {name}: moa_reduce launches "
+              f"{gst['moa_reduce_launches']}")
+        print(f"[parity] reduced spec {name}: tokens and "
+              f"{len(SERVE_COUNTERS) - 1 + len(SPEC_COUNTERS)} counters "
+              f"equal CPU vs CUDA over {len(creqs)} requests (decode steps "
+              f"{gst['decode_steps']}, drafted {gst['spec_drafted']}, "
+              f"accepted {gst['spec_accepted']}, rolled back "
+              f"{gst['spec_pages_rolled_back']}, tree steps "
+              f"{gst['spec_tree_steps']}, shapes chain/tree "
+              f"{gst['spec_shape_chain']}/{gst['spec_shape_tree']}); CUDA "
+              f"tokens == CUDA sequential: {_tokens(greqs) == seq}")
     _free(*(e for e, _ in cpu_runs.values()),
           *(e for e, _ in gpu_runs.values()))
 
@@ -592,6 +657,194 @@ def phase_overload(cfg, params, chunk_s, step_s):
     return launches
 
 
+#: phase D: prompt lengths (as phase 6's), new tokens, and the draft-head
+#: fit (4 heads of width 64 on the last FIT_WINDOW tokens of each
+#: sequential history, FIT_STEPS full-batch Adam steps)
+SPEC_LENS = (1024, 128, 768, 256, 896, 384, 640, 512)
+SPEC_NEW, FIT_WINDOW, FIT_STEPS = 64, 256, 100
+
+
+def serve_spec(cfg, params, knobs, prompts, what):
+    """One full-width engine (phase 6's geometry) with ``knobs`` serving
+    ``prompts``: a warm-up request first (untimed), then the traffic,
+    stepped with the refcount invariant after every step and every
+    logit's finiteness held on the card.  Returns (engine, requests,
+    moa_reduce launches)."""
+    eng = ServeEngine(cfg, params, config=EngineConfig(
+        max_slots=4, max_seq=2048, prefill_chunk=256, prefix_cache=False,
+        **knobs))
+    eng.submit(spec_prompts((192,), cfg.vocab, seed=3)[0], 16)
+    eng.run()
+    eng.reset_stats()
+    finite = [torch.ones((), dtype=torch.bool, device=eng.device)]
+    api = eng.api
+
+    def held(fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            finite[0] &= torch.isfinite(out[0]).all()
+            return out
+        return call
+
+    eng.api = dataclasses.replace(
+        api, decode_step=held(api.decode_step),
+        verify_chunk=held(api.verify_chunk),
+        verify_tree=held(api.verify_tree))
+    reqs = [eng.submit(p, SPEC_NEW) for p in prompts]
+
+    def drive():
+        while eng.scheduler.has_work:
+            eng.step()
+            refcount_check(eng, what)
+
+    launches = _counted_run(eng, drive)
+    _check_launches(eng, launches, what)
+    check(all(r.slot is None and len(r.generated) == SPEC_NEW
+              for r in reqs), f"{what}: a request did not retire with "
+                              f"{SPEC_NEW} tokens")
+    check(bool(finite[0]), f"{what}: a decode or verify logit is not "
+                           f"finite")
+    check(eng.pool.used_count == 0, f"{what}: pages left allocated")
+    return eng, reqs, launches
+
+
+def phase_spec_serve(cfg, params):
+    """Phase D at full width on phase 6's weights: the sequential engine,
+    then chain, tree, auto and draft-head speculative engines on one
+    traffic of repeated passages.  Returns (per-run summary rows, the
+    launches of each run, the chain run's step p50 in seconds)."""
+    prompts = spec_prompts(SPEC_LENS, cfg.vocab, seed=23)
+    rows, launches, seq = {}, {}, None
+    for name in ["sequential"] + list(SPEC_RUNS):
+        knobs = SPEC_RUNS.get(name, {})
+        p = params
+        if name == "heads":
+            _sync()
+            t0 = time.perf_counter()
+            streams = [r.context[-FIT_WINDOW:] for r in seq_reqs]
+            fitted = fit_draft_heads(cfg, params, streams, n_heads=4,
+                                     head_dim=64, steps=FIT_STEPS, seed=0)
+            _sync()
+            fit_s = time.perf_counter() - t0
+            p = dict(params, draft_heads=fitted)
+            print(f"[spec] draft heads: 4 x {cfg.d_model} -> 64 -> "
+                  f"{cfg.d_model}, fitted on the card on {len(streams)} "
+                  f"sequential histories (last {FIT_WINDOW} tokens each), "
+                  f"{FIT_STEPS} full-batch Adam steps in {fit_s:.2f} s")
+        eng, reqs, launched = serve_spec(cfg, p, knobs, prompts,
+                                         f"spec {name}")
+        st = eng.stats_summary()
+        if name == "sequential":
+            seq, seq_reqs = _tokens(reqs), reqs
+        elif name in ("tree", "auto"):
+            check(eng._tree_width() == verify_rows(eng.config)["tree"],
+                  f"spec {name}: tree width {eng._tree_width()}")
+        same = sum(a == b for a, b in zip(_tokens(reqs), seq))
+        where = divergence(cfg, params, prompts, seq, _tokens(reqs))
+        rows[name] = {
+            "decode_tok_s": st["decode_tok_s"],
+            "step_p50_ms": 1e3 * st["decode_step_p50_s"],
+            "step_p99_ms": 1e3 * st["decode_step_p99_s"],
+            "tokens_per_step": st["tokens_per_step"],
+            "decode_steps": st["decode_steps"],
+            "accept_rate": st["spec_accept_rate"],
+            "draft_hit_rate": st["spec_draft_hit_rate"],
+            "rolled_back": st["spec_pages_rolled_back"],
+            "shapes": [st["spec_shape_chain"], st["spec_shape_tree"]],
+            "equal_to_sequential": same, "launches": launched,
+            "divergence": where}
+        launches[name] = launched
+        print(f"[spec] {name}: decode {st['decode_tokens']} tok in "
+              f"{st['decode_steps']} steps, {st['decode_s']:.4f} s = "
+              f"{st['decode_tok_s']:.1f} tok/s; step p50 "
+              f"{1e3 * st['decode_step_p50_s']:.3f} ms, p99 "
+              f"{1e3 * st['decode_step_p99_s']:.3f} ms; "
+              f"{st['tokens_per_step']:.3f} tokens/step; accept rate "
+              f"{st['spec_accept_rate']:.4f}, draft hit rate "
+              f"{st['spec_draft_hit_rate']:.4f}; drafted "
+              f"{st['spec_drafted']}, accepted {st['spec_accepted']}; "
+              f"pages rolled back {st['spec_pages_rolled_back']}; shape "
+              f"picks chain {st['spec_shape_chain']} / tree "
+              f"{st['spec_shape_tree']}; prefill {st['prefill_dispatches']}"
+              f" dispatches; requests with the sequential tokens {same} of "
+              f"{len(reqs)}; moa_reduce launches {launched}")
+        if where:
+            print(f"[spec] {name}: first token unlike the sequential run's, "
+                  f"(request, index, logit gap, bf16 ulp): "
+                  f"{[(w['request'], w['index'], round(w['gap'], 4), w['ulp']) for w in where]}")
+        _free(eng)
+    return rows, launches, rows["chain"]["step_p50_ms"] / 1e3
+
+
+def divergence(cfg, params, prompts, seq, toks):
+    """Where each request's tokens first leave the sequential run's: the
+    index, and in one teacher-forced pass over the sequential context
+    before it (``lm.hidden_states``, bf16 logits as the engine takes them)
+    the logit of the sequential token less that of the other token, beside
+    one bf16 ulp at that logit.  A gap within an ulp or two is a near tie
+    that another accumulation order (C = 5 or 17 rows against 1) may
+    flip."""
+    out = []
+    head = params["lm_head"]
+    for r, (p, a, b) in enumerate(zip(prompts, seq, toks)):
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        ctx = torch.tensor([p + a[:i]], device=head.device)
+        with torch.no_grad():
+            x = hidden_states(params, cfg, ctx)[0, -1]
+            logits = (x.to(head.dtype) @ head).float()
+        top = float(logits[a[i]])
+        out.append({"request": r, "index": i,
+                    "gap": top - float(logits[b[i]]),
+                    "ulp": 2.0 ** (math.floor(math.log2(abs(top))) - 7)
+                    if top else 0.0})
+    return out
+
+
+def phase_overload_spec(cfg, params, chunk_s, trace_step_s, step_s):
+    """Phase C's trace (built on phase 6's prices, ``chunk_s`` and
+    ``trace_step_s``) once more with ``spec_k=4``, ladder off and on, on a
+    virtual clock priced at phase 6's chunk time and phase D's chain step
+    p50 (``step_s``).  Goodput and SLOs are printed, not asserted.
+    Returns the launches and the summary of each run."""
+    tr = FULL_TRAFFIC
+    trace = overload_trace(tr, cfg.vocab, chunk_s, trace_step_s, seed=22)
+    launches, out = {}, {}
+    for degrade in (False, True):
+        eng, reqs, launched = serve_overload(cfg, params, "cuda", tr, trace,
+                                             chunk_s, step_s, degrade,
+                                             spec_k=4)
+        _check_launches(eng, launched, f"overload spec degrade={degrade}")
+        st = eng.stats_summary()
+        check(all(len(r.generated) == r.max_new for r in reqs
+                  if r.shed_reason is None),
+              f"overload spec degrade={degrade}: a request fell short")
+        launches[degrade] = launched
+        out[degrade] = {k: st[k] for k in (
+            "slo_met", "slo_missed", "shed_requests", "goodput_tokens",
+            "preemptions", "degrade_transitions", "decode_steps",
+            "prefill_dispatches", "spec_steps", "tokens_per_step")}
+        out[degrade]["max_level"] = eng.max_level
+        out[degrade]["virtual_s"] = eng.virtual_s
+        print(f"[overload spec] degrade={degrade}: {len(trace)} arrivals "
+              f"over {eng.virtual_s:.3f} virtual s (step {1e3 * step_s:.3f}"
+              f" ms, chunk {1e3 * chunk_s:.3f} ms); SLO met "
+              f"{st['slo_met']} / missed {st['slo_missed']}, shed "
+              f"{st['shed_requests']}, goodput {st['goodput_tokens']} "
+              f"tokens, preemptions {st['preemptions']}, ladder "
+              f"transitions {st['degrade_transitions']} (highest level "
+              f"{eng.max_level}); decode steps {st['decode_steps']} "
+              f"(speculative {st['spec_steps']}, "
+              f"{st['tokens_per_step']:.3f} tokens/step); moa_reduce "
+              f"launches {launched}")
+        _free(eng)
+    print(f"[overload spec] goodput with the ladder "
+          f"{out[True]['goodput_tokens']} tokens, without "
+          f"{out[False]['goodput_tokens']} (reported, not asserted)")
+    return launches, out
+
+
 @dataclasses.dataclass(frozen=True)
 class Traffic:
     """The serve traffic of phases A-C at one scale: the engine geometry,
@@ -648,6 +901,11 @@ def _free(*engines) -> None:
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 def refcount_check(eng, what: str) -> None:
@@ -856,9 +1114,9 @@ def replay(eng, trace, chunk_s: float, step_s: float):
 
 
 def serve_overload(cfg, params, dev, tr: Traffic, trace, chunk_s, step_s,
-                   degrade: bool):
-    eng = ServeEngine(cfg, params, config=tr.engine(degrade=degrade),
-                      device=dev)
+                   degrade: bool, **knobs):
+    eng = ServeEngine(cfg, params, config=tr.engine(degrade=degrade,
+                                                    **knobs), device=dev)
     eng.trace_logits = True
     reqs = []
     launches = _counted_run(eng, lambda: reqs.extend(
@@ -903,6 +1161,63 @@ def reduced_serve_runs(cfg, params, dev):
         eng, reqs, _ = serve_overload(cfg, params, dev, tr, trace, 0.010,
                                       0.020, degrade)
         runs[f"C degrade={degrade}"] = (eng, reqs)
+    return runs
+
+
+#: the speculative runs of phases 5 and D: the serve CLI's defaults
+#: (spec_k 4; tree nodes 12, branch 3), heads with the drafter of that name
+SPEC_RUNS = {"chain": dict(spec_k=4),
+             "tree": dict(spec_k=4, spec_mode="tree"),
+             "auto": dict(spec_k=4, spec_mode="auto"),
+             "heads": dict(spec_k=4, spec_mode="tree", spec_drafter="heads")}
+
+#: speculative counters a CUDA run must share with the CPU run
+SPEC_COUNTERS = ("spec_drafted", "spec_accepted", "spec_lanes_drafted",
+                 "spec_lanes_hit", "spec_pages_rolled_back", "spec_steps",
+                 "spec_tree_steps", "spec_shape_chain", "spec_shape_tree")
+
+
+def spec_prompts(lens, vocab, seed, passage=64, edits=2):
+    """Prompts where prompt lookup pays: per request a seeded
+    ``passage``-token passage repeated to its length, each copy with
+    ``edits`` tokens changed (code edits, quoted summaries)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in lens:
+        base = rng.integers(0, vocab, passage)
+        reps = []
+        for _ in range(-(-n // passage)):
+            p = base.copy()
+            p[rng.integers(0, passage, edits)] = rng.integers(0, vocab,
+                                                              edits)
+            reps.append(p)
+        out.append(np.concatenate(reps)[:n].tolist())
+    return out
+
+
+def reduced_spec_runs(cfg, params, dev):
+    """Phase 5's speculative runs on ``dev``: the sequential engine and
+    each of SPEC_RUNS (random draft heads for "heads") on one traffic of
+    repeated passages; (engine, requests) by run name."""
+    heads = init_params(get_api(cfg).draft_head_specs(cfg, 3, 16),
+                        torch.Generator().manual_seed(9),
+                        torch.device("cpu"), torch.float32)
+    prompts = spec_prompts((40, 13, 28, 20, 33), cfg.vocab, seed=13,
+                           passage=6, edits=1)
+    runs = {}
+    for name, knobs in [("sequential", {})] + list(SPEC_RUNS.items()):
+        p = params
+        if name == "heads":
+            p = dict(params, draft_heads=map_tree(lambda t: t.to(dev),
+                                                  heads))
+        eng = ServeEngine(cfg, p, config=EngineConfig(
+            max_slots=2, max_seq=64, prefill_chunk=16, page_size=16,
+            **knobs), device=dev)
+        reqs = [eng.submit(q, 16) for q in prompts]
+        launches = _counted_run(eng, eng.run)
+        _check_launches(eng, launches, f"reduced spec {name}")
+        refcount_check(eng, f"reduced spec {name}")
+        runs[name] = (eng, reqs)
     return runs
 
 
@@ -1598,32 +1913,51 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build()
+    t_start = time.perf_counter()
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[wall] {label}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("2 build", phase_build)
     full_cfg = get_config("llama3.2-3b")
-    full_ecfg = EngineConfig(max_slots=4, max_seq=2048,
-                             prefill_chunk=256).resolve(full_cfg)
+    full_ecfg = EngineConfig(max_slots=4, max_seq=2048, prefill_chunk=256,
+                             spec_k=4).resolve(full_cfg)
     shapes = path_shapes(full_cfg, full_ecfg)
-    err = phase_kernel_check(shapes)
-    flash_err = phase_flash_check()
-    phase_reduced_parity()
-    launches, serve_params, chunk_s, step_s = phase_full_width()
-    serve_launches = {"A": phase_shared_prefix(full_cfg, serve_params),
-                      "B": phase_sessions(full_cfg, serve_params),
-                      "C": phase_overload(full_cfg, serve_params, chunk_s,
-                                          step_s)}
+    err = timed("3 moa_reduce check", phase_kernel_check, shapes)
+    flash_err = timed("4 flash check", phase_flash_check)
+    timed("5 reduced serve parity", phase_reduced_parity)
+    launches, serve_params, chunk_s, step_s = timed("6 full width",
+                                                    phase_full_width)
+    serve_launches = {
+        "A": timed("A shared prefix", phase_shared_prefix, full_cfg,
+                   serve_params),
+        "B": timed("B sessions", phase_sessions, full_cfg, serve_params),
+        "C": timed("C overload", phase_overload, full_cfg, serve_params,
+                   chunk_s, step_s)}
+    spec_rows, serve_launches["D"], chain_step_s = timed(
+        "D speculative serve", phase_spec_serve, full_cfg, serve_params)
+    serve_launches["C spec"], _ = timed(
+        "C overload, spec_k=4", phase_overload_spec, full_cfg,
+        serve_params, chunk_s, step_s, chain_step_s)
     del serve_params
-    rows = phase_timing(shapes)
+    rows = timed("7 moa_reduce timing", phase_timing, shapes)
     gc.collect()
     torch.cuda.empty_cache()       # the serve weights and KV pool go
-    phase_train_parity()
-    flash_launches = phase_train_full()
+    timed("8 train parity", phase_train_parity)
+    flash_launches = timed("9 train full width", phase_train_full)
     gc.collect()
     torch.cuda.empty_cache()       # the train state goes
-    flash_rows = phase_flash_timing()
+    flash_rows = timed("10 flash timing", phase_flash_timing)
     bitplane, matmul = adder_shapes(full_cfg)
-    adder_err = phase_adder_check(bitplane, matmul)
-    adder_launches = phase_adder_path(full_cfg, bitplane, matmul)
-    adder_rows = phase_adder_timing(bitplane, matmul)
+    adder_err = timed("11 adder check", phase_adder_check, bitplane, matmul)
+    adder_launches = timed("12 adder path", phase_adder_path, full_cfg,
+                           bitplane, matmul)
+    adder_rows = timed("13 adder timing", phase_adder_timing, bitplane,
+                       matmul)
+    print(f"[wall] phases 2-13: {time.perf_counter() - t_start:.1f} s")
 
     main_row = next(r for r in rows if r["label"] == "prefill_o")
     source, replaces = KERNELS["moa_reduce"]
@@ -1634,6 +1968,7 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
         "library_ms": main_row["library_ms"], "shape": main_row["shape"],
         "checked": "torch.equal vs moa_reduce_plain", "shapes": rows,
+        "spec_serve": spec_rows,
         "launches_by_serve_phase": {
             f"{ph} {run}": n for ph, d in serve_launches.items()
             for run, n in d.items()}}]

@@ -8,7 +8,9 @@ prefill chunk 256, page 128, prefix cache off), and traces two windows
 after a warm-up:
 
 * decode: ``--steps`` engine steps with all 4 slots live and nothing to
-  admit (pure batched decode);
+  admit (pure batched decode; with ``--spec-k`` and the other speculative
+  flags of the serve CLI, each step is one verify dispatch instead — the
+  default stays sequential, as in phase 6);
 * prefill: the admission of one ``--prompt-len``-token prompt (its chunked
   prefill pieces, nothing decoding).
 
@@ -16,7 +18,10 @@ For each window it prints the wall time (host clock, ending in a
 synchronize), the device busy time (union of kernel intervals), the idle
 share, the kernel launches, and the kernels with the most device time.
 The profiler's own per-op bookkeeping lengthens the host side, so the idle
-share under the trace is an upper bound of the untraced one.
+share under the trace is an upper bound of the untraced one; the decode
+window therefore runs ``--steps`` steps untraced first and prints their
+wall time per step and the engine's dispatch p50 (``decode_step_p50_s``:
+the dispatch and the read of its tokens, without drafting).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.models.common import init_params
 from repro_torch.models.registry import get_api
 from repro_torch.serve import EngineConfig, ServeEngine
+from repro_torch.serve.config import add_spec_args, spec_knobs
 
 __all__ = ["main"]
 
@@ -88,6 +94,7 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
+    add_spec_args(ap, spec_k_default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
@@ -103,7 +110,9 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(get_api(cfg).param_specs(cfg), gen, dev, cfg.dtype)
     eng = ServeEngine(cfg, params, config=EngineConfig(
-        max_slots=4, max_seq=2048, prefill_chunk=256, prefix_cache=False))
+        max_slots=4, max_seq=2048, prefill_chunk=256, prefix_cache=False,
+        **spec_knobs(args)))
+    print(f"[engine] spec_k {eng.spec_k}, spec_mode {eng.spec_mode}")
     rng = np.random.default_rng(args.seed)
 
     def prompt(n):
@@ -114,9 +123,20 @@ def main(argv=None) -> int:
 
     # decode window: 4 live slots, nothing pending
     for _ in range(eng.max_slots):
-        eng.submit(prompt(512), args.steps + 8)
+        eng.submit(prompt(512), 2 * args.steps + 8)
     eng.step()                                        # admits all four
+    eng.reset_stats()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats_summary()
+    print(f"[decode] untraced: {args.steps} step(s), wall "
+          f"{1e3 * wall / args.steps:.3f} ms per step, dispatch p50 "
+          f"{1e3 * st['decode_step_p50_s']:.3f} ms, "
+          f"{st['tokens_per_step']:.3f} tokens a slot per step")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -1,5 +1,6 @@
 """Serving CLI of the port: chunked prefill, continuous batching, prefix
-cache, page dedup, SLO admission and the degrade ladder.
+cache, page dedup, SLO admission, the degrade ladder and speculative
+decode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         --requests 8 --slots 4 --prompt-len 512 --gen 32 --slo-ms 2000
@@ -8,8 +9,14 @@ Requests flow through :class:`repro_torch.serve.ServeEngine` on the card
 (``--device cpu`` runs the plain PyTorch path instead; ``--reduced`` swaps
 in the tiny same-family config).  Weights are random, drawn from
 ``--seed``; prompts have staggered lengths around ``--prompt-len``, so
-finished slots are refilled mid-flight.  Decoding is greedy.  The flags are
-the JAX CLI's (``repro/launch/serve.py``) for what the port has.
+finished slots are refilled mid-flight.  Decoding is greedy and, as in the
+JAX CLI, speculative by default: ``--spec-k`` prompt-lookup drafts verified
+in one K+1-wide dispatch (``--no-spec`` decodes one token a step);
+``--spec-mode tree`` drafts a token tree per slot (n-gram fan-out, or
+``--spec-drafter heads`` when the params carry draft heads), verified in
+one ancestor-masked dispatch, and ``--spec-mode auto`` picks chain or tree
+per slot per step.  The flags are the JAX CLI's (``repro/launch/serve.py``)
+for what the port has.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.models.common import init_params
 from repro_torch.models.registry import get_api
 from repro_torch.serve import EngineConfig, ServeEngine
+from repro_torch.serve.config import add_spec_args, spec_knobs
 
 __all__ = ["main"]
 
@@ -63,6 +71,7 @@ def main(argv=None) -> int:
                     help="enable the overload degrade ladder (smaller "
                          "prefill chunks -> shed hopeless pending requests, "
                          "hysteretic recovery)")
+    add_spec_args(ap, spec_k_default=4)
     ap.add_argument("--slo-ms", type=float, default=None,
                     help="per-request completion-latency SLO in ms "
                          "(enables deadline-aware admission)")
@@ -90,7 +99,8 @@ def main(argv=None) -> int:
                         min_prefix=args.min_prefix,
                         pool_pages=args.pool_pages,
                         trie_capacity=args.trie_capacity,
-                        page_dedup=args.page_dedup, degrade=args.degrade)
+                        page_dedup=args.page_dedup, degrade=args.degrade,
+                        **spec_knobs(args))
     eng = ServeEngine(cfg, params, config=ecfg, device=device)
     reqs = [eng.submit(p, args.gen, slo_ms=args.slo_ms) for p in prompts]
     eng.run()
@@ -108,6 +118,23 @@ def main(argv=None) -> int:
           f"{st['pages_shared']} pages shared by reference, "
           f"{st['prefix_bytes_copied']} bytes copied); dedup "
           f"{st['dedup_pages_shared']} pages shared")
+    if st["spec_k"]:
+        print(f"speculative decode (k={st['spec_k']}): "
+              f"{st['tokens_per_step']:.2f} tokens/step, "
+              f"accept rate {st['spec_accept_rate']:.0%}, "
+              f"draft hit rate {st['spec_draft_hit_rate']:.0%}, "
+              f"decode step p50 {st['decode_step_p50_s'] * 1e3:.2f}ms / "
+              f"p99 {st['decode_step_p99_s'] * 1e3:.2f}ms")
+    if st["spec_mode"] != "chain":
+        print(f"tree speculation (mode={st['spec_mode']}, "
+              f"nodes={st['spec_tree_nodes']}, "
+              f"branch={st['spec_branch']}, "
+              f"drafter={st['spec_drafter']}): "
+              f"{st['spec_tree_steps']} tree steps, "
+              f"accept p50 {st['spec_accept_p50']:.2f} / "
+              f"p99 {st['spec_accept_p99']:.2f}, "
+              f"shape picks chain={st['spec_shape_chain']} "
+              f"tree={st['spec_shape_tree']}")
     if args.slo_ms is not None:
         print(f"SLO {args.slo_ms:.0f}ms: {st['slo_met']} met / "
               f"{st['slo_missed']} missed  (preemptions "

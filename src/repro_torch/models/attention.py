@@ -13,13 +13,17 @@ runs.
   and combine the per-page partial accumulators through
   :func:`repro_torch.kernels.ops.moa_reduce` — the hand-written Hopper
   kernel on CUDA tensors, its plain radix-4 tree on CPU tensors.
+* Speculative verification: the same call with a per-slot row count
+  ``nvalid`` (a chain of drafts: rows past it are dropped from the view
+  write and sent to scratch by the pool scatter) or a token tree
+  (``tree``: rope at each row's depth, the ancestor mask of
+  :func:`tree_valid`, only the chain rows committed to the pool).
 
 Layouts match the JAX functions: activations ``(B, S, H, hd)``, pools
 ``(num_pages, page, Hkv, hd)``.  Weights are cast to the activations'
 dtype at use, as in the JAX package (fp32 masters, bf16 compute).
 
-Not in these slices: the dense-cache decode variants, speculative row
-masks (``nvalid``) and tree verification, quantized pools and
+Not in these slices: the dense-cache decode variants, quantized pools and
 tensor-parallel head padding (``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
@@ -35,7 +39,8 @@ from repro_torch.models.common import ParamSpec, apply_rope, rope_angles
 
 __all__ = ["gqa_param_specs", "gqa_train", "chunked_attention",
            "gqa_decode_pages", "decode_positions", "batched_cache_write",
-           "causal_valid", "NEG_INF"]
+           "masked_cache_write", "masked_write_plan", "causal_valid",
+           "ancestor_matrix", "tree_valid", "attend_mask", "NEG_INF"]
 
 #: Mask value of the scores; finite, so a masked key enters the split-K sum
 #: as ``exp(NEG_INF - m) * v == 0 * v`` (pools must hold finite values).
@@ -68,6 +73,47 @@ def causal_valid(pos: torch.Tensor, smax: int) -> torch.Tensor:
     return (k_pos[None, None, :] <= pos[:, :, None])[:, None]
 
 
+def ancestor_matrix(parents: torch.Tensor) -> torch.Tensor:
+    """Ancestor-or-self reachability of a flattened token tree.
+
+    ``parents`` (B, C): row ``j``'s parent row in the fed block (``-1`` =
+    none: the block root attends only the committed cache; padding rows
+    point at themselves, so they are never another row's ancestor).
+    Returns (B, C, C) bool, ``anc[b, q, r]`` iff row ``r`` is on row
+    ``q``'s root path (``r == q`` included), by ``C - 1`` pointer hops."""
+    b, c = parents.shape
+    rows = torch.arange(c, device=parents.device)
+    anc = torch.eye(c, dtype=torch.bool,
+                    device=parents.device)[None].expand(b, c, c)
+    ptr = rows[None].expand(b, c)
+    for _ in range(c - 1):
+        hop = torch.gather(parents, 1, torch.clamp(ptr, 0, c - 1))
+        ptr = torch.where(ptr >= 0, hop, torch.full_like(hop, -1))
+        anc = anc | (ptr[:, :, None] == rows[None, None, :])
+    return anc
+
+
+def tree_valid(index: torch.Tensor, parents: torch.Tensor,
+               nvalid: torch.Tensor, smax: int) -> torch.Tensor:
+    """The attendable-key mask of tree verification: key ``s`` is visible
+    to block row ``q`` of slot ``b`` iff ``s < index[b]`` (the committed
+    cache), or ``s = index[b] + r`` for a valid row ``r < nvalid[b]`` that
+    is an ancestor-or-self of ``q`` (:func:`ancestor_matrix`).  Rows are
+    written at the row-unique view positions ``index[b] + j``, so the mask,
+    not the write position, carries the topology.  Returns (B, 1, C, smax),
+    broadcastable against (B, H, C, S) scores."""
+    b, c = parents.shape
+    s = torch.arange(smax, device=parents.device)
+    committed = s[None, :] < index[:, None]                     # (B, S)
+    kr = s[None, :] - index[:, None]                            # (B, S)
+    in_block = (kr >= 0) & (kr < nvalid[:, None])               # (B, S)
+    anc = ancestor_matrix(parents)                              # (B, C, C)
+    krc = torch.clamp(kr, 0, c - 1)
+    anc_qs = torch.gather(anc, 2, krc[:, None, :].expand(b, c, smax))
+    valid = committed[:, None, :] | (anc_qs & in_block[:, None, :])
+    return valid[:, None]
+
+
 def batched_cache_write(cache: torch.Tensor, new: torch.Tensor,
                         cur_index: torch.Tensor) -> torch.Tensor:
     """Write ``new`` (B, C, ...) into ``cache`` (B, S, ...) at offset
@@ -84,6 +130,69 @@ def batched_cache_write(cache: torch.Tensor, new: torch.Tensor,
     rows = start[:, None] + torch.arange(c, device=start.device)[None]
     bidx = torch.arange(b, device=start.device)[:, None].expand(b, c)
     cache[bidx, rows] = new.to(cache.dtype)
+    return cache
+
+
+def attend_mask(cur_index: torch.Tensor, chunk: int, smax: int,
+                nvalid: Optional[torch.Tensor] = None,
+                tree: Optional[tuple] = None) -> torch.Tensor:
+    """The mask :func:`gqa_decode_pages` attends under for a block of
+    ``chunk`` rows: :func:`causal_valid`, or :func:`tree_valid` under a
+    ``tree`` triple.  The same for every layer of a dispatch, so the
+    decode stack builds it once (the tree mask's pointer walk is ``chunk -
+    1`` small kernels)."""
+    if tree is None:
+        return causal_valid(decode_positions(cur_index, chunk), smax)
+    return tree_valid(cur_index, tree[0], nvalid, smax)
+
+
+def masked_write_plan(pos: torch.Tensor, nvalid: torch.Tensor, smax: int,
+                      batch: int) -> Tuple[torch.Tensor, ...]:
+    """The layer-independent indices of :func:`masked_cache_write` for a
+    block at ``pos`` ((B, C), or (C,) for every slot) with ``nvalid`` (B,)
+    valid rows, in a cache of ``smax`` positions: ``(bi, tgt, src, has)``.
+    Row ``j`` of slot ``b`` writes ``new[b, src[b, j]]`` at ``tgt[b, j]``: a
+    kept row (``j < nvalid[b]``, position below ``smax``) its own value at
+    its position, a dropped row the first kept row's value at that row's
+    position (the same write twice), and in a slot with no kept row
+    (``has`` false) position 0's own value at position 0.  No boolean index,
+    so no host sync."""
+    if pos.dim() == 1:
+        pos = pos[None].expand(batch, pos.shape[0])
+    c = pos.shape[1]
+    rows = torch.arange(c, device=pos.device)
+    keep = (rows[None] < nvalid[:, None]) & (pos < smax)
+    bi = torch.arange(batch, device=pos.device)[:, None]
+    first = keep.to(torch.int8).argmax(1, keepdim=True)   # first kept, or 0
+    src = torch.where(keep, rows[None], first)
+    tgt = torch.gather(pos, 1, src)
+    has = keep.any(1)
+    tgt = torch.where(has[:, None], tgt, torch.zeros_like(tgt))
+    return bi, tgt, src, has
+
+
+def masked_cache_write(cache: torch.Tensor, new: torch.Tensor,
+                       pos: Optional[torch.Tensor] = None,
+                       nvalid: Optional[torch.Tensor] = None,
+                       plan: Optional[Tuple[torch.Tensor, ...]] = None
+                       ) -> torch.Tensor:
+    """Row-masked :func:`batched_cache_write` of speculative verification,
+    in place; returns ``cache``: row ``j`` of slot ``b`` goes to position
+    ``pos[b, j]`` (``pos`` (B, C), or (C,) for every slot) only when ``j <
+    nvalid[b]`` and the position is below ``S``.  Other rows (draft
+    padding, idle lanes with ``nvalid == 0``, positions at or past
+    capacity) are dropped, as ``.at[].set(mode="drop")`` drops them; a
+    clamped start would shift them over earlier valid positions.  ``plan``
+    (:func:`masked_write_plan`, the same for every layer of a dispatch)
+    replaces ``pos`` and ``nvalid``."""
+    if plan is None:
+        plan = masked_write_plan(pos, nvalid, cache.shape[1], new.shape[0])
+    bi, tgt, src, has = plan
+    new = new.to(cache.dtype)
+    tail = (1,) * (new.dim() - 2)
+    vals = torch.where(has.view(has.shape + (1,) + tail), new[bi, src],
+                       cache[bi[:, 0], :1])
+    cache[bi, tgt] = vals
     return cache
 
 
@@ -191,13 +300,18 @@ def gqa_train(x: torch.Tensor, p: dict, cfg: ModelConfig,
 
 
 def _decode_qkv_new(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                    cur: torch.Tensor):
+                    cur: torch.Tensor,
+                    rope_pos: Optional[torch.Tensor] = None):
     """Project + rope the C new tokens; returns ``(q, k_new, v_new, pos)``
-    with ``pos`` the per-row write positions ((C,) or (B, C))."""
+    with ``pos`` the per-row write positions ((C,) or (B, C)).  q and k are
+    roped at ``pos`` unless ``rope_pos`` is given (tree verification:
+    siblings share a token position but write at distinct view positions;
+    rope follows the token, the write follows the row)."""
     c = x.shape[1]
     q, k_new, v_new = _project_qkv(x, p, cfg)
     pos = decode_positions(cur, c)
-    sin, cos = _rope_tables(pos, cfg.hd, cfg.rope_theta)
+    sin, cos = _rope_tables(pos if rope_pos is None else rope_pos, cfg.hd,
+                            cfg.rope_theta)
     return apply_rope(q, sin, cos), apply_rope(k_new, sin, cos), v_new, pos
 
 
@@ -242,7 +356,12 @@ def _splitk_attend(q: torch.Tensor, k_view: torch.Tensor,
 
 def gqa_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
                      pool_k: torch.Tensor, pool_v: torch.Tensor,
-                     cur_index: torch.Tensor, pages: torch.Tensor
+                     cur_index: torch.Tensor, pages: torch.Tensor,
+                     nvalid: Optional[torch.Tensor] = None,
+                     tree: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]] = None,
+                     valid: Optional[torch.Tensor] = None,
+                     write_plan: Optional[Tuple[torch.Tensor, ...]] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Paged split-K decode of ``C`` new tokens per slot.
 
@@ -252,16 +371,46 @@ def gqa_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
     table.  The slot views are gathered from the pool, the new rows are
     written into the views (clamped like ``dynamic_update_slice``), the
     split-K attention runs over the views, and the new rows are scattered
-    into the pools in place.  Returns (out (B, C, D), pool_k, pool_v)."""
+    into the pools in place.  Returns (out (B, C, D), pool_k, pool_v).
+
+    ``nvalid`` (B,): speculative verification's per-slot count of valid
+    rows.  The view write drops rows at or past it
+    (:func:`masked_cache_write`: near capacity a clamped block would shift
+    over valid positions), and the pool scatter sends them to scratch.
+
+    ``tree = (parents, pos_off, nchain)`` (each (B, C), (B, C), (B,)): tree
+    verification.  The block is ``nchain[b]`` chain rows (tokens already
+    emitted, committed at ``index + j``) and then drafted tree rows.  Every
+    valid row is written into the view at ``index + j``, roped at ``index +
+    pos_off``, and masked by :func:`tree_valid`; the pool scatter counts
+    ``nchain`` rows, so drafted rows land on scratch and a rejected branch
+    needs no rollback.
+
+    ``valid`` and ``write_plan``: the attention mask and, with ``nvalid``,
+    the row-masked write's indices, when the caller built them once for
+    every layer (:func:`attend_mask`, :func:`masked_write_plan`); else they
+    are built here."""
     page = pool_k.shape[1]
     k_view = paging.gather_pages(pool_k, pages)
     v_view = paging.gather_pages(pool_v, pages)
     smax = pages.shape[1] * page
-    q, k_new, v_new, pos = _decode_qkv_new(x, p, cfg, cur_index)
-    k_view = batched_cache_write(k_view, k_new, cur_index)
-    v_view = batched_cache_write(v_view, v_new, cur_index)
-    out = _splitk_attend(q, k_view, v_view, causal_valid(pos, smax), cfg,
-                         page)
-    paging.scatter_token_rows(pool_k, pages, k_new, pos)
-    paging.scatter_token_rows(pool_v, pages, v_new, pos)
+    rope_pos, scatter_n = None, nvalid
+    if tree is not None:
+        _, pos_off, nchain = tree
+        rope_pos = cur_index[:, None] + pos_off
+        scatter_n = nchain
+    q, k_new, v_new, pos = _decode_qkv_new(x, p, cfg, cur_index, rope_pos)
+    if nvalid is None:
+        k_view = batched_cache_write(k_view, k_new, cur_index)
+        v_view = batched_cache_write(v_view, v_new, cur_index)
+    else:
+        if write_plan is None:
+            write_plan = masked_write_plan(pos, nvalid, smax, x.shape[0])
+        k_view = masked_cache_write(k_view, k_new, plan=write_plan)
+        v_view = masked_cache_write(v_view, v_new, plan=write_plan)
+    if valid is None:
+        valid = attend_mask(cur_index, x.shape[1], smax, nvalid, tree)
+    out = _splitk_attend(q, k_view, v_view, valid, cfg, page)
+    paging.scatter_token_rows(pool_k, pages, k_new, pos, scatter_n)
+    paging.scatter_token_rows(pool_v, pages, v_new, pos, scatter_n)
     return out @ p["wo"].to(out.dtype), pool_k, pool_v

@@ -8,16 +8,20 @@ them, a list of per-layer dicts of views: see
 Python loop over layers (``lax.scan`` in JAX).  For decode, the state
 leaves are physical page pools ``(layers, num_pages, page_size, Hkv, hd)``
 (see :func:`repro_torch.serve.cache.paged_state_specs`), updated in place.
+Speculative decode scores a drafted chain (:func:`verify_chunk`) or token
+tree (:func:`verify_tree`) in one dispatch; medusa-style draft heads
+(:func:`draft_head_specs`, :func:`fit_draft_heads`) propose the tree's
+nodes from the hidden states that dispatch already computed.
 
 Not in these slices: dense (unpaged) decode caches, MLA, MoE, the vision
-and audio frontend stubs, speculative and tree verification, draft heads
-(``ROADMAP.md``, queue 1).
+and audio frontend stubs (``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -27,7 +31,9 @@ from repro_torch.tree import index_tree, map_tree
 
 __all__ = ["param_specs", "block_specs", "stack_specs", "forward",
            "train_loss", "embed_inputs", "decode_state_specs",
-           "decode_step", "prefill_chunk"]
+           "decode_step", "prefill_chunk", "verify_chunk",
+           "draft_head_specs", "verify_tree", "hidden_states",
+           "fit_draft_heads"]
 
 
 def stack_specs(per_layer: Any, n: int) -> Any:
@@ -143,19 +149,37 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
     """Run the block stack over C new tokens against paged KV pools.
 
     batch: {"tokens": (B, C) int64, "index": 0-d chunk start or (B,)
-    per-slot lengths, "pages": (B, n_pages) int64 page table}.  Every layer
-    attends over its gathered pages and scatters its new rows into its
-    pool, in place.  Returns the final hidden states (B, C, D) and the
+    per-slot lengths, "pages": (B, n_pages) int64 page table}, and for
+    speculative verification "nspec" (B,): valid rows per slot (rows at or
+    past it write nothing but scratch).  Tree verification
+    (:func:`verify_tree`) also passes "parents" (B, C), "pos_off" (B, C)
+    and "nchain" (B,): every layer then ropes at ``index + pos_off``,
+    attends under the ancestor mask and commits only the chain rows to the
+    pool (:func:`repro_torch.models.attention.gqa_decode_pages`).  Every
+    layer attends over its gathered pages and scatters its new rows into
+    its pool, in place.  Returns the final hidden states (B, C, D) and the
     state (the same dict)."""
     cur = batch["index"]
     pages = batch["pages"]
+    nspec = batch.get("nspec")
+    tree = None
+    if "parents" in batch:
+        tree = (batch["parents"], batch["pos_off"], batch["nchain"])
     blocks = params["blocks"]
     x = params["embed"][batch["tokens"]].to(cfg.dtype)
+    # the mask and the row-masked write's indices are the same for every
+    # layer: built once (the tree mask's pointer walk is C - 1 hops)
+    b, c = batch["tokens"].shape
+    smax = pages.shape[1] * state["k"].shape[2]
+    valid = attention.attend_mask(cur, c, smax, nspec, tree)
+    plan = (None if nspec is None else attention.masked_write_plan(
+        attention.decode_positions(cur, c), nspec, smax, b))
     for i in range(cfg.n_layers):
         bp = _layer(blocks, i)
         h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
         h, _, _ = attention.gqa_decode_pages(
-            h, bp["attn"], cfg, state["k"][i], state["v"][i], cur, pages)
+            h, bp["attn"], cfg, state["k"][i], state["v"][i], cur, pages,
+            nspec, tree, valid, plan)
         x = x + h
         h = rms_norm(x, bp["ffn_norm"], cfg.norm_eps)
         x = x + moe.dense_ffn(h, bp["ffn"], cfg)
@@ -189,3 +213,216 @@ def prefill_chunk(params: dict, state: Dict[str, torch.Tensor],
                       cfg.norm_eps)
     logits = (x_last @ params["lm_head"].to(x_last.dtype))[:, 0]
     return logits.float(), state
+
+
+def verify_chunk(params: dict, state: Dict[str, torch.Tensor],
+                 batch: Dict[str, torch.Tensor], cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Score a (B, K+1) speculative block in one dispatch: each slot feeds
+    its last sampled token and up to K drafted tokens, and the logits come
+    back at every fed row.
+
+    batch: {"tokens": (B, K+1), "index": (B,) per-slot cache lengths,
+    "nspec": (B,) valid fed rows per slot (1 = no drafts, 0 = idle lane),
+    "pages": (B, n_pages)}.  Rows at or past ``nspec`` write only scratch;
+    the engine rolls back pages past what it accepts.  Returns (logits
+    (B, K+1, V) float32, state): ``logits[:, j]`` is the next-token
+    distribution after fed token ``j``."""
+    x, state = _decode_blocks(params, state, batch, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = x @ params["lm_head"].to(x.dtype)
+    return logits.float(), state
+
+
+def draft_head_specs(cfg: ModelConfig, n_heads: int,
+                     head_dim: int = 64) -> Dict[str, ParamSpec]:
+    """Medusa-style draft heads: ``n_heads`` small residual MLPs over the
+    final hidden state, sharing ``lm_head``; head ``h`` predicts the token
+    ``h + 2`` after the row it reads.  They run inside :func:`verify_tree`
+    on hidden states that dispatch already has; the engine reads them from
+    ``params["draft_heads"]``."""
+    d = cfg.d_model
+    return {
+        "w1": ParamSpec((n_heads, d, head_dim), (None, "embed", None)),
+        "w2": ParamSpec((n_heads, head_dim, d), (None, None, "embed")),
+    }
+
+
+def _topk_low_index_first(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest entries along the last axis, ranked by
+    value and, among equal values, lower index first (``jax.lax.top_k``'s
+    order; ``torch.topk`` promises none).  fp32 values map to int32 keys
+    of the same order (-0 counted as +0), each made unique by its reversed
+    index in the low 32 bits of an int64 key."""
+    bits = (x.float() + 0.0).contiguous().view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    n = x.shape[-1]
+    rev = (n - 1) - torch.arange(n, device=x.device, dtype=torch.int64)
+    key64 = key.to(torch.int64) * (1 << 32) + rev
+    top = torch.topk(key64, k, dim=-1).values
+    return (n - 1) - (top & 0xFFFFFFFF)
+
+
+def _draft_head_top(params: dict, x: torch.Tensor, head_topk: int
+                    ) -> torch.Tensor:
+    """Top-``head_topk`` candidates of every draft head at every fed row:
+    ``x`` is the final-normed hidden state (B, C, D); head ``h`` scores
+    ``lm_head(x + silu(x @ w1[h]) @ w2[h])``.  Returns (B, C, H, A) int64,
+    ranked by logit (ties: lower token id first)."""
+    hp = params["draft_heads"]
+    w1 = hp["w1"].to(x.dtype)
+    w2 = hp["w2"].to(x.dtype)
+    t = F.silu(torch.einsum("bcd,hde->bhce", x, w1))
+    xh = x[:, None] + torch.einsum("bhce,hed->bhcd", t, w2)     # (B,H,C,D)
+    head_logits = xh @ params["lm_head"].to(x.dtype)            # (B,H,C,V)
+    top = _topk_low_index_first(head_logits, head_topk)
+    return top.transpose(1, 2)                                  # (B,C,H,A)
+
+
+def verify_tree(params: dict, state: Dict[str, torch.Tensor],
+                batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+                head_topk: int = 4
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                           Dict[str, torch.Tensor]]:
+    """Score a (B, C) speculative token tree in one dispatch.
+
+    Each slot feeds ``nchain`` chain rows (tokens the previous step
+    accepted but did not write, committed at ``index + j``) and then its
+    drafted tree rows, whose topology travels per row, so one dispatch
+    verifies another tree shape per slot per step.
+
+    batch: {"tokens": (B, C), "index": (B,) committed lengths, "parents":
+    (B, C) parent row per row (-1: the committed cache only; chain row
+    ``j`` has parent ``j - 1``; padding rows point at themselves),
+    "pos_off": (B, C) token-position offsets (chain row ``j``: ``j``; a
+    node: ``nchain - 1 + depth``), "nchain": (B,), "nspec": (B,) valid rows
+    (0 = idle lane), "pages": (B, n_pages)}.  Drafted rows reach only the
+    attended view and scratch, so a rejected branch needs no rollback.
+
+    Returns ``(logits (B, C, V) float32, head_top, state)``; ``head_top``
+    is (B, C, H, ``head_topk``) draft-head candidates when
+    ``params["draft_heads"]`` exists (:func:`draft_head_specs`), else
+    None."""
+    x, state = _decode_blocks(params, state, batch, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = x @ params["lm_head"].to(x.dtype)
+    head_top = (_draft_head_top(params, x, head_topk)
+                if "draft_heads" in params else None)
+    return logits.float(), head_top, state
+
+
+#: page of the temporary pool :func:`hidden_states` runs over
+_HIDDEN_PAGE = 16
+
+
+def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor
+                  ) -> torch.Tensor:
+    """Teacher-forced final-normed hidden states of whole sequences:
+    ``tokens`` (B, L) -> (B, L, D) float32, the ``x`` that
+    :func:`verify_tree` hands the draft heads (full causal attention over a
+    fresh cache).  The port has no dense cache, so the block stack runs
+    once over a temporary pool with an identity page table (the sequence
+    padded to whole pages; padding rows come after every real row, so the
+    causal mask hides them)."""
+    b, l = tokens.shape
+    dev = tokens.device
+    n_pages = -(-l // _HIDDEN_PAGE)
+    pool = (cfg.n_layers, b * n_pages + 1, _HIDDEN_PAGE, cfg.n_kv_heads,
+            cfg.hd)
+    state = {"k": torch.zeros(pool, dtype=cfg.dtype, device=dev),
+             "v": torch.zeros(pool, dtype=cfg.dtype, device=dev)}
+    padded = torch.zeros((b, n_pages * _HIDDEN_PAGE), dtype=torch.int64,
+                         device=dev)
+    padded[:, :l] = tokens
+    pages = 1 + torch.arange(b * n_pages, device=dev).reshape(b, n_pages)
+    batch = {"tokens": padded, "pages": pages,
+             "index": torch.tensor(0, device=dev)}
+    x, _ = _decode_blocks(params, state, batch, cfg)
+    x = rms_norm(x[:, :l], params["final_norm"], cfg.norm_eps)
+    return x.float()
+
+
+def draft_head_loss(w: Dict[str, torch.Tensor], x_all: torch.Tensor,
+                    y_all: torch.Tensor, m_all: torch.Tensor,
+                    lm_head: torch.Tensor) -> torch.Tensor:
+    """The distillation loss of :func:`fit_draft_heads`: the masked mean
+    NLL of head ``h``'s target ``y_all[h]`` over the rows ``x_all`` (N, D),
+    with ``lm_head`` (D, V) frozen; ``y_all``, ``m_all`` (H, N)."""
+    t = F.silu(torch.einsum("nd,hde->hne", x_all, w["w1"]))
+    xh = x_all[None] + torch.einsum("hne,hed->hnd", t, w["w2"])
+    logp = torch.log_softmax(xh @ lm_head, dim=-1)             # (H, N, V)
+    nll = -torch.gather(logp, -1, y_all[..., None])[..., 0]
+    return (nll * m_all).sum() / torch.clamp(m_all.sum(), min=1.0)
+
+
+def adam_update(w: Dict[str, torch.Tensor], g: Dict[str, torch.Tensor],
+                opt: Dict[str, Dict[str, torch.Tensor]], i: int, lr: float
+                ) -> None:
+    """One bias-corrected Adam step of :func:`fit_draft_heads`, in place
+    (``i`` counts from 0; the corrections are computed in fp32, as the
+    JAX step computes them from its fp32 step counter)."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    t = torch.tensor(float(i + 1), dtype=torch.float32)
+    c1 = 1 - torch.tensor(b1, dtype=torch.float32) ** t
+    c2 = 1 - torch.tensor(b2, dtype=torch.float32) ** t
+    for k in w:
+        mu, nu = opt["mu"][k], opt["nu"][k]
+        mu.mul_(b1).add_(g[k], alpha=1 - b1)
+        nu.mul_(b2).add_(g[k] * g[k], alpha=1 - b2)
+        w[k].sub_(lr * (mu / c1.item())
+                  / (torch.sqrt(nu / c2.item()) + eps))
+
+
+def fit_draft_heads(cfg: ModelConfig, params: dict, streams: Any, *,
+                    n_heads: int = 4, head_dim: int = 64, steps: int = 300,
+                    lr: float = 1e-2, seed: int = 0
+                    ) -> Dict[str, torch.Tensor]:
+    """Train medusa-style draft heads (:func:`draft_head_specs`) by
+    distillation on the model's own trajectories: head ``h`` learns
+    ``token[t + h + 2]`` from the hidden state at ``t``, ``lm_head`` frozen
+    and shared.  ``w2`` starts at zero, so each head begins as the plain
+    next-token head; ``w1`` is drawn from a ``torch.Generator`` seeded
+    with ``seed`` on the params' device (the JAX package draws it with
+    threefry, so the two fits start from other weights).  Full-batch Adam
+    for ``steps`` steps.
+
+    Args:
+      streams: token sequences, each longer than ``n_heads + 2`` (e.g.
+        finished requests' histories).
+    Returns:
+      {"w1", "w2"} float32 tensors for ``params["draft_heads"]``."""
+    seqs = [list(s) for s in streams if len(s) > n_heads + 2]
+    if not seqs:
+        raise ValueError("fit_draft_heads needs a non-empty stream set")
+    dev = params["lm_head"].device
+    xs, ys, ms = [], [], []
+    with torch.no_grad():
+        for s in seqs:
+            t = torch.tensor(s, dtype=torch.int64, device=dev)
+            xs.append(hidden_states(params, cfg, t[None])[0])   # (L, D)
+            tgt = torch.zeros((n_heads, len(s)), dtype=torch.int64,
+                              device=dev)
+            mask = torch.zeros((n_heads, len(s)), device=dev)
+            for h in range(n_heads):
+                n_valid = max(len(s) - h - 2, 0)
+                tgt[h, :n_valid] = t[h + 2:]
+                mask[h, :n_valid] = 1.0
+            ys.append(tgt)
+            ms.append(mask)
+    x_all = torch.cat(xs, 0)
+    y_all = torch.cat(ys, 1)
+    m_all = torch.cat(ms, 1)
+    lm_head = params["lm_head"].float()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = {"w1": torch.randn((n_heads, cfg.d_model, head_dim), generator=gen,
+                           device=dev) * 0.02,
+         "w2": torch.zeros((n_heads, head_dim, cfg.d_model), device=dev)}
+    opt = {"mu": {k: torch.zeros_like(v) for k, v in w.items()},
+           "nu": {k: torch.zeros_like(v) for k, v in w.items()}}
+    for i in range(steps):
+        wg = {k: v.detach().requires_grad_(True) for k, v in w.items()}
+        loss = draft_head_loss(wg, x_all, y_all, m_all, lm_head)
+        g = dict(zip(wg, torch.autograd.grad(loss, list(wg.values()))))
+        with torch.no_grad():
+            adam_update(w, g, opt, i, lr)
+    return w

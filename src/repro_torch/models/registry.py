@@ -8,7 +8,7 @@ item), ``attn_kind == "gqa"``, no experts.  Every other family raises
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
@@ -31,6 +31,17 @@ class ModelAPI:
     #: a (B, C) prompt chunk in one dispatch: batch {tokens, index, nvalid,
     #: pages}; returns the logits at the last valid row
     prefill_chunk: Callable[..., Any]
+    #: speculative verification of a (B, K+1) drafted block in one
+    #: dispatch: batch {tokens, index, nspec, pages}; returns the logits at
+    #: every fed row.  None keeps speculative decode off for a family.
+    verify_chunk: Optional[Callable[..., Any]] = None
+    #: tree verification under the ancestor mask: batch {tokens, index,
+    #: parents, pos_off, nchain, nspec, pages}; returns (logits at every
+    #: row, draft-head candidates or None, state).  None keeps the tree and
+    #: auto modes off.
+    verify_tree: Optional[Callable[..., Any]] = None
+    #: draft-head parameter declaration (cfg, n_heads) -> specs
+    draft_head_specs: Optional[Callable[..., Any]] = None
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:
@@ -58,4 +69,7 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
                     forward=lm.forward,
                     decode_state_specs=lm.decode_state_specs,
                     decode_step=lm.decode_step,
-                    prefill_chunk=lm.prefill_chunk)
+                    prefill_chunk=lm.prefill_chunk,
+                    verify_chunk=lm.verify_chunk,
+                    verify_tree=lm.verify_tree,
+                    draft_head_specs=lm.draft_head_specs)

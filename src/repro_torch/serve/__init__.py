@@ -1,13 +1,25 @@
 """Serve tier of the port: engine, scheduler, page pool and reuse indices,
-sessions, config, sampling."""
+sessions, speculative drafting and acceptance, config, sampling."""
 from repro_torch.serve.cache import PageDedupIndex, PagePool, PrefixTrie
-from repro_torch.serve.config import EngineConfig, auto_page_size
+from repro_torch.serve.config import (SPEC_DRAFTERS, SPEC_MODES,
+                                      EngineConfig, auto_page_size)
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.sampling import GREEDY, SamplingParams
 from repro_torch.serve.scheduler import DegradeLadder, Request, Scheduler
 from repro_torch.serve.sessions import Session, SessionStore
+from repro_torch.serve.spec import (DraftHeadDrafter, NGramTreeDrafter,
+                                    PromptLookupDrafter, SuffixCache,
+                                    TreeDraft, accept_path, accept_tokens,
+                                    expected_tokens_chain,
+                                    expected_tokens_tree,
+                                    per_candidate_accept, pick_shape,
+                                    propose_draft, tree_depth)
 
-__all__ = ["EngineConfig", "auto_page_size", "ServeEngine", "GREEDY",
-           "SamplingParams", "Request", "Scheduler", "DegradeLadder",
-           "PagePool", "PrefixTrie", "PageDedupIndex", "Session",
-           "SessionStore"]
+__all__ = ["EngineConfig", "SPEC_MODES", "SPEC_DRAFTERS", "auto_page_size",
+           "ServeEngine", "GREEDY", "SamplingParams", "Request", "Scheduler",
+           "DegradeLadder", "PagePool", "PrefixTrie", "PageDedupIndex",
+           "Session", "SessionStore", "PromptLookupDrafter",
+           "propose_draft", "accept_tokens", "SuffixCache", "TreeDraft",
+           "accept_path", "NGramTreeDrafter", "DraftHeadDrafter",
+           "expected_tokens_chain", "expected_tokens_tree", "pick_shape",
+           "per_candidate_accept", "tree_depth"]

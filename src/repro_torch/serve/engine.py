@@ -32,22 +32,40 @@ engine with greedy sampling:
 * **SLO admission and overload** — earliest-deadline-first admission under
   an engine-fed cost model, preemption that rescues an at-risk request,
   and (``degrade``) the :class:`~repro_torch.serve.scheduler.DegradeLadder`:
-  smaller prefill chunks, then shedding of hopeless pending requests.
-* **Split-K page combine** — decode and prefill attention combine their
-  pages through :func:`repro_torch.kernels.ops.moa_reduce`: on the card
-  that is the hand-written Hopper kernel, twice per layer per dispatch.
+  speculative decode off, then smaller prefill chunks, then shedding of
+  hopeless pending requests.
+* **Speculative decode** (``spec_k > 0``) — a prompt-lookup drafter
+  (:class:`~repro_torch.serve.spec.PromptLookupDrafter`) proposes up to K
+  tokens per slot from its own history, ONE ``verify_chunk`` dispatch
+  scores all K+1 rows, and the longest matching prefix plus one token is
+  emitted (:func:`~repro_torch.serve.spec.accept_tokens`); pages advanced
+  past the accepted point are released.  Greedy tokens equal sequential
+  decode's.
+* **Tree speculative decode** (``spec_mode="tree"`` / ``"auto"``) — a
+  token tree per slot (n-gram fan-out, or draft heads with
+  ``spec_drafter="heads"``) verified in ONE ``verify_tree`` dispatch under
+  an ancestor mask; the longest accepted root-to-leaf path is emitted
+  (:func:`~repro_torch.serve.spec.accept_path`) and becomes the next
+  step's chain part, so drafted rows only ever touch scratch.  ``"auto"``
+  picks a chain or a tree shape per slot per step from its accept-rate
+  EWMA (the Lemma-3 closed forms; decision trace in ``stats_summary``).
+* **Split-K page combine** — decode, verify and prefill attention combine
+  their pages through :func:`repro_torch.kernels.ops.moa_reduce`: on the
+  card that is the hand-written Hopper kernel, twice per layer per
+  dispatch.
 
 Dispatch is eager PyTorch (the JAX engine compiles ahead of time); the
-state tensors are updated in place.  Speculative decode, quantized KV,
-stochastic sampling, contiguous slots and mesh sharding are still to port
-(``ROADMAP.md``, queue 1).
+state tensors are updated in place, and a verify dispatch takes the argmax
+on the device and moves only ``(B, C)`` token ids to the host.  Quantized
+KV, stochastic sampling, contiguous slots and mesh sharding are still to
+port (``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
 import hashlib
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,14 +79,49 @@ from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.sampling import SamplingParams, greedy_tokens
 from repro_torch.serve.scheduler import DegradeLadder, Request, Scheduler
 from repro_torch.serve.sessions import SessionStore
+from repro_torch.serve.spec import (DraftHeadDrafter, NGramTreeDrafter,
+                                    PromptLookupDrafter, SuffixCache,
+                                    TreeDraft,
+                                    accept_path, accept_tokens,
+                                    expected_tokens_chain,
+                                    expected_tokens_tree,
+                                    per_candidate_accept, pick_shape)
 
-__all__ = ["ServeEngine"]
+__all__ = ["ServeEngine", "tree_width"]
 
 #: EWMA weight for the scheduler cost model's newest timing sample.
 _COST_EWMA = 0.5
 
+#: EWMA weight of a slot's per-candidate accept rate (slower than the
+#: timing EWMA: one rejected tree must not swing the shape decision).
+_ACCEPT_EWMA = 0.3
+
+#: Accept rate assumed for a slot with no measurement yet.
+_ACCEPT_PRIOR = 0.5
+
+#: Length of the reconfigurator decision trace ``stats_summary`` keeps.
+_DECISION_TRACE = 64
+
+#: Auto mode runs a shape once anyway after it lost this many consecutive
+#: decisions on a slot, so a stale losing estimate can recover.
+_EXPLORE_EVERY = 16
+
 #: Sliding-window length for the latency samples behind the percentiles.
 _LATENCY_WINDOW = 4096
+
+
+def tree_width(spec_k: int, nodes: int, branch: int, mode: str,
+               n_heads: int = 0) -> int:
+    """Row width of the tree-verify dispatch: the widest chain part plus
+    the drafted-node budget.  Drafting depth is capped (``nodes //
+    branch`` for the n-gram tree, ``n_heads`` for draft heads), so an
+    accepted path, the next step's chain part, is at most ``depth + 1``
+    tokens.  Auto mode also fits a chain-``spec_k`` shape (drafts
+    ``spec_k`` nodes, accepts up to ``spec_k + 1``)."""
+    d = max(1, nodes // max(branch, 1), n_heads)
+    if mode == "auto":
+        return max(d, spec_k) + 1 + max(nodes, spec_k)
+    return d + 1 + nodes
 
 
 def _buckets(chunk: int, lo: int = 8) -> Tuple[int, ...]:
@@ -139,6 +192,37 @@ class ServeEngine:
         self.sessions = SessionStore()
         #: overload degrade ladder (None = every knob always as configured)
         self.ladder = DegradeLadder() if ecfg.degrade else None
+        # speculative decode (resolve() turned spec_k off and spec_mode to
+        # "chain" where the family cannot verify)
+        self.spec_k = ecfg.spec_k
+        self.spec_mode = ecfg.spec_mode
+        self.spec_tree_nodes = ecfg.spec_tree_nodes
+        self.spec_branch = ecfg.spec_branch
+        self.spec_drafter = ecfg.spec_drafter
+        self.drafter = (PromptLookupDrafter(ngram_max=ecfg.spec_ngram)
+                        if ecfg.spec_k else None)
+        self.tree_drafter = (NGramTreeDrafter(ngram_max=ecfg.spec_ngram)
+                             if self.spec_mode != "chain" else None)
+        # draft heads need trained weights; without them the n-gram tree
+        # drafter serves
+        self.head_drafter = None
+        if self.spec_mode != "chain" and ecfg.spec_drafter == "heads" \
+                and "draft_heads" in params:
+            self.head_drafter = DraftHeadDrafter(
+                n_heads=int(params["draft_heads"]["w1"].shape[0]))
+        #: per-slot incremental suffix-lookup caches (fresh on admission)
+        self._suffix_caches: Dict[int, SuffixCache] = {}
+        #: per-slot count of emitted tokens not yet written to the pages
+        #: (the chain part the next tree step commits; 1 after admission)
+        self._spec_unwritten: Dict[int, int] = {}
+        #: per-slot (H, A) draft-head candidates at the last accepted row
+        self._head_preds: Dict[int, np.ndarray] = {}
+        #: per-slot, per-shape ("chain" / "tree") accept-rate EWMAs
+        self._slot_accept: Dict[int, Dict[str, float]] = {}
+        #: per-slot decisions since each shape last ran (auto mode)
+        self._shape_age: Dict[int, Dict[str, int]] = {}
+        #: per-slot emitted-tokens-per-step EWMA (the scheduler's rate)
+        self._slot_tps: Dict[int, float] = {}
         # eviction tie-breaks consult how many pages a victim's release
         # would actually free
         self.scheduler.freed_probe = self._freed_pages
@@ -148,6 +232,7 @@ class ServeEngine:
         self.logit_trace: List[np.ndarray] = []
         self._chunk_ewma: Optional[float] = None
         self._step_ewma: Optional[float] = None
+        self._tps_ewma: Optional[float] = None
         self.reset_stats()
 
     def _probe_reuse(self, ctx) -> int:
@@ -170,6 +255,15 @@ class ServeEngine:
             "prefix_reused_tokens": 0, "prefix_evictions": 0,
             "prefix_bytes_copied": 0, "pages_shared": 0, "pages_cow": 0,
             "oom_deferred": 0, "hit_admit_s": 0.0, "cold_admit_s": 0.0,
+            # speculative decode (all 0 with spec_k == 0): drafted and
+            # accepted tokens, lanes that drafted and kept >= 1 draft,
+            # pages rolled back, verify dispatches; tree dispatches and
+            # the reconfigurator's shape picks (all 0 in chain mode)
+            "spec_drafted": 0, "spec_accepted": 0,
+            "spec_lanes_drafted": 0, "spec_lanes_hit": 0,
+            "spec_pages_rolled_back": 0, "spec_steps": 0,
+            "spec_tree_steps": 0, "spec_shape_chain": 0,
+            "spec_shape_tree": 0,
             # page-content dedup: admissions that shared >= 1 page by
             # content, pages shared so, digest matches the bytes refuted
             "dedup_hits": 0, "dedup_pages_shared": 0,
@@ -181,6 +275,9 @@ class ServeEngine:
             "degrade_steps": 0, "prefill_dispatches": 0,
             "moa_reduce_launches": 0,
         }
+        #: recent reconfigurator decisions (slot, accept estimates, shape)
+        self._spec_decisions: Deque[Dict[str, Any]] = deque(
+            maxlen=_DECISION_TRACE)
         self._step_times: Deque[float] = deque(maxlen=_LATENCY_WINDOW)
         self._admit_times: Dict[str, Deque[float]] = {
             "hit": deque(maxlen=_LATENCY_WINDOW),
@@ -193,7 +290,9 @@ class ServeEngine:
         prefix hit rate, *effective* prefill tok/s (reused tokens count as
         served), hit and cold admission means and medians, decode-step
         percentiles, pool usage, trie evictions, SLO and goodput tallies,
-        the ladder's level and the dedup and session figures."""
+        the ladder's level, the dedup and session figures, and the
+        speculative accept and draft-hit rates, accept-rate percentiles
+        over the slots' EWMAs and the reconfigurator's decision trace."""
         s = dict(self.stats)
         s["prefill_tok_s"] = s["prefill_tokens"] / max(s["prefill_s"], 1e-9)
         s["decode_tok_s"] = s["decode_tokens"] / max(s["decode_s"], 1e-9)
@@ -218,6 +317,23 @@ class ServeEngine:
                                   if self._step_times else 0.0)
         s["tokens_per_step"] = (s["decode_tokens"] / s["decode_lane_steps"]
                                 if s["decode_lane_steps"] else 0.0)
+        s["spec_accept_rate"] = (s["spec_accepted"] / s["spec_drafted"]
+                                 if s["spec_drafted"] else 0.0)
+        s["spec_draft_hit_rate"] = (
+            s["spec_lanes_hit"] / s["spec_lanes_drafted"]
+            if s["spec_lanes_drafted"] else 0.0)
+        s["spec_k"] = self.spec_k
+        s["spec_mode"] = self.spec_mode
+        s["spec_tree_nodes"] = self.spec_tree_nodes
+        s["spec_branch"] = self.spec_branch
+        s["spec_drafter"] = self.spec_drafter
+        accepts = sorted(max(d.values()) for d in
+                         self._slot_accept.values() if d)
+        s["spec_accept_p50"] = (float(np.percentile(accepts, 50))
+                                if accepts else 0.0)
+        s["spec_accept_p99"] = (float(np.percentile(accepts, 99))
+                                if accepts else 0.0)
+        s["spec_decision_trace"] = list(self._spec_decisions)
         s["trie_evictions"] = (self.prefix.evictions
                                if self.prefix is not None else 0)
         s["pages_in_use"] = self.pool.used_count
@@ -308,9 +424,11 @@ class ServeEngine:
         old = self.sessions.take_snapshot(sess)
         if old is not None:
             self._deref_row_pages(old[old != 0])
-        # the turn's last sampled token is never written: req.pos
-        # positions are materialized
-        covered = req.pos
+        # the positions written to the row: req.pos under sequential and
+        # chain decode (the last sampled token is never written), fewer
+        # under tree decode, where the last step's whole accepted path
+        # retires unwritten
+        covered = req.pos + 1 - self._spec_unwritten.get(slot, 1)
         npages = -(-covered // self.page_size)
         row = self.table[slot, :npages].copy()
         if covered > 0 and int((row != 0).sum()) == npages:
@@ -420,6 +538,20 @@ class ServeEngine:
         if self.pool.free_count < 1:
             self._reclaim_pages(1)
         return self.pool.alloc()
+
+    def _rollback_pages(self, slot: int, length: int) -> None:
+        """Rewind ``slot``'s row after a chain step's rejection: release
+        every mapped page wholly past the accepted ``length`` (they hold
+        only rejected drafts, causally masked).  Sharing stops below the
+        write frontier, so each release drops this row's own reference and
+        refcounts stay equal to the table."""
+        first = -(-length // self.page_size)
+        row = self.table[slot]
+        stale = first + np.flatnonzero(row[first:] != 0)
+        if stale.size:
+            self._deref_row_pages(row[stale])
+            row[stale] = 0
+            self.stats["spec_pages_rolled_back"] += int(stale.size)
 
     def _bind_pages(self, slot: int, src_row: Optional[np.ndarray],
                     reuse: int, end: int, *, in_place: bool = False
@@ -554,10 +686,12 @@ class ServeEngine:
         return self.prefill_chunk
 
     def _feed_cost_model(self, chunk_s: Optional[float] = None,
-                         step_s: Optional[float] = None) -> None:
-        """EWMA the newest measured prefill-chunk and decode-step times
-        into the scheduler's cost model (a sequential decode step emits
-        one token a slot, the scheduler's default rate)."""
+                         step_s: Optional[float] = None,
+                         tokens_per_step: Optional[float] = None) -> None:
+        """EWMA the newest measured prefill-chunk and decode-step times,
+        and the tokens a decode step emits per live slot (1 sequential,
+        more under speculative decode), into the scheduler's cost
+        model."""
         if chunk_s is not None:
             self._chunk_ewma = (chunk_s if self._chunk_ewma is None else
                                 (1 - _COST_EWMA) * self._chunk_ewma
@@ -566,7 +700,12 @@ class ServeEngine:
             self._step_ewma = (step_s if self._step_ewma is None else
                                (1 - _COST_EWMA) * self._step_ewma
                                + _COST_EWMA * step_s)
-        self.scheduler.update_cost_model(self._chunk_ewma, self._step_ewma)
+        if tokens_per_step is not None:
+            self._tps_ewma = (tokens_per_step if self._tps_ewma is None else
+                              (1 - _COST_EWMA) * self._tps_ewma
+                              + _COST_EWMA * tokens_per_step)
+        self.scheduler.update_cost_model(self._chunk_ewma, self._step_ewma,
+                                         self._tps_ewma)
 
     def _pieces(self, ctx: Sequence[int], start: int = 0,
                 chunk: Optional[int] = None) -> List[Tuple[int, int, int]]:
@@ -680,6 +819,16 @@ class ServeEngine:
             # only a cold admission prices a whole prefill chunk
             self._feed_cost_model(chunk_s=dt / max(1, len(pieces)))
         self.scheduler.on_prefill(req, first)
+        if self.drafter is not None:
+            # fresh speculative state for the slot's new occupant: one
+            # unwritten token (the first sample), a cold suffix cache, no
+            # accept or head history
+            self._spec_unwritten[slot] = 1
+            self._suffix_caches[slot] = self.drafter.make_cache()
+            self._head_preds.pop(slot, None)
+            self._slot_accept.pop(slot, None)
+            self._shape_age.pop(slot, None)
+            self._slot_tps.pop(slot, None)
         if self.prefix is not None:
             # the pages now hold exactly ctx (the first sampled token is
             # written by the next decode step)
@@ -708,17 +857,16 @@ class ServeEngine:
             return []
         tokens = np.zeros((self.max_slots, 1), np.int64)
         positions = np.zeros((self.max_slots,), np.int64)
-        disp = np.zeros((self.max_slots, self.max_pages), np.int64)
         live = list(self.scheduler.active)
         for slot in live:
             req = self.scheduler.active[slot]
             tokens[slot, 0] = req.generated[-1]
             positions[slot] = req.pos
-            disp[slot] = self.table[slot]
         dev = self.device
         batch = {"tokens": torch.as_tensor(tokens, device=dev),
                  "index": torch.as_tensor(positions, device=dev),
-                 "pages": torch.as_tensor(disp, device=dev)}
+                 "pages": torch.as_tensor(self._dispatch_table(),
+                                          device=dev)}
         occ = self.scheduler.occupancy
         launches0 = _moa.LAUNCHES
         t0 = time.perf_counter()
@@ -735,7 +883,7 @@ class ServeEngine:
         self.stats["decode_lane_steps"] += len(live)
         self.stats["occupancy_sum"] += occ
         self._step_times.append(dt)
-        self._feed_cost_model(step_s=dt)
+        self._feed_cost_model(step_s=dt, tokens_per_step=1.0)
         if self.prefix is not None:
             # this step wrote each live slot's fed token into its pages
             for slot in live:
@@ -751,17 +899,404 @@ class ServeEngine:
                     self._release_row(slot)
         return done
 
+    # ----------------------------------------------- speculative decode
+    def _truncate_emitted(self, req: Request, emitted: List[int]
+                          ) -> List[int]:
+        """Clip a slot's emitted tokens at its retire point: sequential
+        decode never samples past ``eos_id`` or the ``max_new`` budget."""
+        out: List[int] = []
+        room = req.remaining
+        for t in emitted:
+            if room <= 0:
+                break
+            out.append(t)
+            room -= 1
+            if req.eos_id is not None and t == req.eos_id:
+                break
+        return out
+
+    def _update_slot_accept(self, slot: int, shape: str, successes: int,
+                            trials: int, mean_branch: float) -> None:
+        """Fold one step's acceptance into ``slot``'s per-candidate accept
+        EWMA for ``shape`` (``mean_branch`` > 1 turns a tree step's
+        per-level rate back into a per-candidate one).  The first
+        observation blends with the prior too: a rate of 0 would never be
+        picked again, so it could never heal."""
+        if trials <= 0:
+            return
+        p = per_candidate_accept(successes, trials, mean_branch)
+        per = self._slot_accept.setdefault(slot, {})
+        prev = per.get(shape, _ACCEPT_PRIOR)
+        per[shape] = (1 - _ACCEPT_EWMA) * prev + _ACCEPT_EWMA * p
+
+    def _feed_slot_rate(self, slot: int, rate: float) -> None:
+        """EWMA ``slot``'s expected emitted tokens per step (the Lemma-3
+        closed form at its own accept estimate) into the scheduler's
+        per-slot rate."""
+        prev = self._slot_tps.get(slot)
+        r = (rate if prev is None
+             else (1 - _COST_EWMA) * prev + _COST_EWMA * rate)
+        self._slot_tps[slot] = r
+        self.scheduler.slot_tokens_per_step[slot] = max(1.0, r)
+
+    def _dispatch_table(self) -> np.ndarray:
+        """The page table of a dispatch: live slots' rows, idle lanes all
+        scratch."""
+        disp = np.zeros((self.max_slots, self.max_pages), np.int64)
+        for slot in self.scheduler.active:
+            disp[slot] = self.table[slot]
+        return disp
+
+    def _spec_decode_once(self) -> List[Request]:
+        """One chain speculative step over every live slot: draft up to
+        ``spec_k`` tokens per slot by prompt lookup over its history (its
+        incremental suffix cache), verify all K+1 rows in ONE
+        ``verify_chunk`` dispatch, emit each slot's longest matching draft
+        prefix plus one token, then release the pages past the accepted
+        point.  Idle lanes run with ``nspec == 0``: every write masked."""
+        k = self.spec_k
+        drafts: Dict[int, List[int]] = {}
+        for slot, req in self.scheduler.active.items():
+            # a draft past the cache or the budget could never be emitted
+            kd = min(k, self.max_seq - req.pos - 1, req.remaining - 1)
+            sc = self._suffix_caches.get(slot)
+            if kd <= 0:
+                drafts[slot] = []
+            elif sc is not None:
+                drafts[slot] = self.drafter.propose_cached(
+                    sc, req.context, kd)
+            else:
+                drafts[slot] = self.drafter.propose(req.context, kd)
+        for slot, req in list(self.scheduler.active.items()):
+            end = req.pos + 1 + len(drafts[slot])
+            if not self._ensure_pages(slot, req.pos, end):
+                # not even the draft-free step fits: defer, not drop
+                drafts[slot] = []
+                if not self._ensure_pages(slot, req.pos, req.pos + 1):
+                    self.evict(slot)
+                    self.stats["oom_deferred"] += 1
+        if not self.scheduler.active:
+            return []
+        b = self.max_slots
+        tokens = np.zeros((b, k + 1), np.int64)
+        positions = np.zeros((b,), np.int64)
+        nspec = np.zeros((b,), np.int64)     # idle lanes: writes masked
+        for slot, req in self.scheduler.active.items():
+            d = drafts[slot]
+            tokens[slot, 0] = req.generated[-1]
+            tokens[slot, 1:1 + len(d)] = d
+            positions[slot] = req.pos
+            nspec[slot] = 1 + len(d)
+        dev = self.device
+        batch = {"tokens": torch.as_tensor(tokens, device=dev),
+                 "index": torch.as_tensor(positions, device=dev),
+                 "nspec": torch.as_tensor(nspec, device=dev),
+                 "pages": torch.as_tensor(self._dispatch_table(),
+                                          device=dev)}
+        occ = self.scheduler.occupancy
+        live = list(self.scheduler.active)
+        launches0 = _moa.LAUNCHES
+        t0 = time.perf_counter()
+        logits, self.state = self.api.verify_chunk(self.params, self.state,
+                                                   batch, self.cfg)
+        nxt = greedy_tokens(logits).cpu().numpy()         # (B, K+1)
+        dt = time.perf_counter() - t0
+        self.stats["moa_reduce_launches"] += _moa.LAUNCHES - launches0
+        if self.trace_logits:
+            self.logit_trace.append(logits[live].cpu().numpy())
+
+        emitted: Dict[int, List[int]] = {}
+        n_emitted = 0
+        for slot in live:
+            req = self.scheduler.active[slot]
+            d = drafts[slot]
+            toks, accepted = accept_tokens(nxt[slot], d)
+            toks = self._truncate_emitted(req, toks)
+            emitted[slot] = toks
+            n_emitted += len(toks)
+            self.stats["spec_drafted"] += len(d)
+            self.stats["spec_accepted"] += accepted
+            if d:
+                self.stats["spec_lanes_drafted"] += 1
+                if accepted:
+                    self.stats["spec_lanes_hit"] += 1
+                # candidates tested: the accepted prefix and the first
+                # mismatch, if the walk stopped inside the draft
+                self._update_slot_accept(
+                    slot, "chain", accepted,
+                    accepted + (1 if accepted < len(d) else 0), 1.0)
+            p = self._slot_accept.get(slot, {}).get("chain")
+            if p is not None:
+                self._feed_slot_rate(slot, expected_tokens_chain(p, k))
+        self.stats["decode_s"] += dt
+        self.stats["decode_tokens"] += n_emitted
+        self.stats["decode_steps"] += 1
+        self.stats["spec_steps"] += 1
+        self.stats["decode_lane_steps"] += len(live)
+        self.stats["occupancy_sum"] += occ
+        self._step_times.append(dt)
+        self._feed_cost_model(step_s=dt,
+                              tokens_per_step=n_emitted / len(live))
+        if self.prefix is not None:
+            # the step wrote each slot's fed-and-kept tokens: the last
+            # sampled token and its accepted draft prefix
+            for slot in live:
+                for t in ([int(tokens[slot, 0])]
+                          + drafts[slot][:len(emitted[slot]) - 1]):
+                    self.prefix.extend(slot, t)
+        new_len = {slot: int(positions[slot]) + len(emitted[slot])
+                   for slot in live}
+        reqs = {s: self.scheduler.active[s] for s in live}
+        done = self.scheduler.on_decode_tokens(emitted)
+        for slot in live:
+            # rewind: rejected-draft pages past the accepted frontier
+            self._rollback_pages(slot, new_len[slot])
+            if slot not in self.scheduler.active:
+                # snapshot after the rollback: the row maps exactly the
+                # accepted positions
+                self._session_retire(reqs[slot], slot)
+                if not self._row_reusable(slot):
+                    self._release_row(slot)
+        return done
+
+    def _tree_width(self) -> int:
+        """Row width of this engine's tree-verify dispatch
+        (:func:`tree_width`)."""
+        return tree_width(self.spec_k, self.spec_tree_nodes,
+                          self.spec_branch, self.spec_mode,
+                          self.head_drafter.n_heads
+                          if self.head_drafter is not None else 0)
+
+    def _tree_decode_once(self, draft: bool = True) -> List[Request]:
+        """One tree speculative step over every live slot.
+
+        A slot's fed block is its chain part (the ``_spec_unwritten``
+        tokens the previous step accepted but did not write, committed at
+        ``[index, index + u)``), then its drafted tree, whose rows reach
+        only the attended view and scratch: a rejected branch needs no
+        rollback.  The longest accepted root-to-leaf path is emitted and
+        becomes the next step's chain part.  ``draft=False`` (the ladder's
+        ``SPEC_OFF``) runs the dispatch with no drafted node, which still
+        writes the chain part.  In ``"auto"`` mode each slot's accept
+        EWMAs price the Lemma-3 closed forms and pick a chain-``spec_k``
+        or a tree shape per step; both run in the same dispatch."""
+        branch = self.spec_branch
+        heads = self.head_drafter
+        cw = self._tree_width()
+        trees: Dict[int, Optional[TreeDraft]] = {}
+        shapes: Dict[int, str] = {}
+        u_map: Dict[int, int] = {}
+        # the chain part is emitted already and cannot shrink: a slot that
+        # cannot page it is evicted (deferred); drafted rows need no pages
+        for slot, req in list(self.scheduler.active.items()):
+            u = self._spec_unwritten.get(slot, 1)
+            index = req.pos + 1 - u
+            if not self._ensure_pages(slot, index, index + u):
+                self.evict(slot)
+                self._spec_unwritten.pop(slot, None)
+                self.stats["oom_deferred"] += 1
+        if not self.scheduler.active:
+            return []
+
+        # ---- drafting and the per-slot shape decision
+        for slot, req in self.scheduler.active.items():
+            u = self._spec_unwritten.get(slot, 1)
+            u_map[slot] = u
+            index = req.pos + 1 - u
+            room = self.max_seq - index - u    # cache rows left for drafts
+            max_depth = min(req.remaining - 1, room)
+            nodes = min(self.spec_tree_nodes, room, cw - u)
+            tree: Optional[TreeDraft] = None
+            if draft and nodes > 0 and max_depth > 0:
+                acc = self._slot_accept.get(slot, {})
+                p_chain = acc.get("chain", _ACCEPT_PRIOR)
+                p_tree = acc.get("tree", _ACCEPT_PRIOR)
+                shape = "tree"
+                kd = min(self.spec_k, room, max_depth, cw - u)
+                if self.spec_mode == "auto":
+                    # one dispatch either way: the decision is on expected
+                    # emitted tokens alone, each shape at its own estimate
+                    shape = pick_shape(p_chain, p_tree, kd, nodes, branch)
+                    other = "tree" if shape == "chain" else "chain"
+                    age = self._shape_age.setdefault(
+                        slot, {"chain": 0, "tree": 0})
+                    explore = age[other] >= _EXPLORE_EVERY
+                    if explore:
+                        shape = other
+                    age[shape] = 0
+                    age["tree" if shape == "chain" else "chain"] += 1
+                    self.stats[f"spec_shape_{shape}"] += 1
+                    rec = {"slot": slot, "accept_chain": round(p_chain, 4),
+                           "accept_tree": round(p_tree, 4), "shape": shape}
+                    if explore:
+                        rec["explore"] = True
+                    self._spec_decisions.append(rec)
+                sc = self._suffix_caches.get(slot)
+                if shape == "chain":
+                    d = (self.drafter.propose_cached(sc, req.context, kd)
+                         if sc is not None
+                         else self.drafter.propose(req.context, kd))
+                    tree = TreeDraft.chain(tuple(d)) if d else None
+                elif heads is not None and slot in self._head_preds:
+                    tree = heads.propose_tree(self._head_preds[slot],
+                                              nodes, branch, max_depth)
+                elif sc is not None:
+                    # depth capped at nodes // branch, so the budget buys
+                    # hedges instead of one rank-0 spine
+                    tree = self.tree_drafter.propose_tree(
+                        sc, req.context, nodes, branch,
+                        min(max_depth, max(1, nodes // branch)))
+                if tree is not None and tree.n == 0:
+                    tree = None
+                shapes[slot] = shape
+            trees[slot] = tree
+
+        # ---- the (B, C) block
+        b = self.max_slots
+        tokens = np.zeros((b, cw), np.int64)
+        # padding rows parent themselves: never an ancestor of a valid row
+        parents = np.broadcast_to(np.arange(cw, dtype=np.int64),
+                                  (b, cw)).copy()
+        pos_off = np.zeros((b, cw), np.int64)
+        positions = np.zeros((b,), np.int64)
+        nchain = np.zeros((b,), np.int64)    # idle lanes: writes masked
+        nspec = np.zeros((b,), np.int64)
+        for slot, req in self.scheduler.active.items():
+            u = u_map[slot]
+            ctx = req.context
+            tokens[slot, :u] = ctx[len(ctx) - u:]
+            parents[slot, 0] = -1
+            parents[slot, 1:u] = np.arange(u - 1)
+            pos_off[slot, :u] = np.arange(u)
+            tree = trees[slot]
+            n = tree.n if tree is not None else 0
+            if n:
+                tokens[slot, u:u + n] = tree.tokens
+                parents[slot, u:u + n] = [u - 1 if p < 0 else u + p
+                                          for p in tree.parents]
+                pos_off[slot, u:u + n] = [u - 1 + d for d in tree.depths]
+            positions[slot] = req.pos + 1 - u
+            nchain[slot] = u
+            nspec[slot] = u + n
+        dev = self.device
+        batch = {"tokens": torch.as_tensor(tokens, device=dev),
+                 "index": torch.as_tensor(positions, device=dev),
+                 "parents": torch.as_tensor(parents, device=dev),
+                 "pos_off": torch.as_tensor(pos_off, device=dev),
+                 "nchain": torch.as_tensor(nchain, device=dev),
+                 "nspec": torch.as_tensor(nspec, device=dev),
+                 "pages": torch.as_tensor(self._dispatch_table(),
+                                          device=dev)}
+        occ = self.scheduler.occupancy
+        live = list(self.scheduler.active)
+        launches0 = _moa.LAUNCHES
+        t0 = time.perf_counter()
+        logits, head_top, self.state = self.api.verify_tree(
+            self.params, self.state, batch, self.cfg, head_topk=branch)
+        nxt = greedy_tokens(logits).cpu().numpy()         # (B, C)
+        dt = time.perf_counter() - t0
+        head_np = head_top.cpu().numpy() if heads is not None else None
+        self.stats["moa_reduce_launches"] += _moa.LAUNCHES - launches0
+        if self.trace_logits:
+            self.logit_trace.append(logits[live].cpu().numpy())
+
+        # ---- the longest accepted root-to-leaf path per slot
+        emitted: Dict[int, List[int]] = {}
+        n_emitted = 0
+        for slot in live:
+            req = self.scheduler.active[slot]
+            u = u_map[slot]
+            tree = trees[slot]
+            if tree is not None:
+                sampled = [int(nxt[slot, u - 1])] + [
+                    int(nxt[slot, u + i]) for i in range(tree.n)]
+                toks, path = accept_path(sampled, tree)
+            else:
+                toks, path = [int(nxt[slot, u - 1])], []
+            toks = self._truncate_emitted(req, toks)
+            emitted[slot] = toks
+            n_emitted += len(toks)
+            n = tree.n if tree is not None else 0
+            self.stats["spec_drafted"] += n
+            self.stats["spec_accepted"] += len(path)
+            if n:
+                self.stats["spec_lanes_drafted"] += 1
+                if path:
+                    self.stats["spec_lanes_hit"] += 1
+                # per accepted level the walk tested |children| candidates,
+                # plus the last level it failed at, if that had any
+                kids: Dict[int, int] = {}
+                for par in tree.parents:
+                    kids[par] = kids.get(par, 0) + 1
+                levels = []
+                cur = -1
+                for node in path:
+                    levels.append(kids.get(cur, 0))
+                    cur = node
+                fail = 1 if kids.get(cur, 0) else 0
+                if fail:
+                    levels.append(kids[cur])
+                if levels:
+                    self._update_slot_accept(
+                        slot, shapes.get(slot, "tree"), len(path),
+                        len(path) + fail, sum(levels) / len(levels))
+            acc = self._slot_accept.get(slot, {})
+            rates = []
+            if "tree" in acc:
+                rates.append(expected_tokens_tree(
+                    acc["tree"], self.spec_tree_nodes, branch))
+            if "chain" in acc and self.spec_mode == "auto":
+                rates.append(expected_tokens_chain(acc["chain"],
+                                                   self.spec_k))
+            if rates:
+                # auto mode runs the better-priced shape next step
+                self._feed_slot_rate(slot, max(rates))
+            if head_np is not None:
+                # head candidates at the last accepted row seed the next
+                # step's tree
+                r_star = (u - 1 if len(toks) <= 1
+                          else u + path[len(toks) - 2])
+                self._head_preds[slot] = head_np[slot, r_star]
+
+        self.stats["decode_s"] += dt
+        self.stats["decode_tokens"] += n_emitted
+        self.stats["decode_steps"] += 1
+        self.stats["spec_steps"] += 1
+        self.stats["spec_tree_steps"] += 1
+        self.stats["decode_lane_steps"] += len(live)
+        self.stats["occupancy_sum"] += occ
+        self._step_times.append(dt)
+        self._feed_cost_model(step_s=dt,
+                              tokens_per_step=n_emitted / len(live))
+        if self.prefix is not None:
+            # this step wrote each live slot's chain part
+            for slot in live:
+                for t in tokens[slot, :u_map[slot]]:
+                    self.prefix.extend(slot, int(t))
+        reqs = {s: self.scheduler.active[s] for s in live}
+        done = self.scheduler.on_decode_tokens(emitted)
+        for slot in live:
+            # the accepted path is the next step's chain part
+            self._spec_unwritten[slot] = max(1, len(emitted[slot]))
+            if slot not in self.scheduler.active:
+                self._session_retire(reqs[slot], slot)
+                self._head_preds.pop(slot, None)
+                if not self._row_reusable(slot):
+                    self._release_row(slot)
+        return done
+
     def step(self) -> List[Request]:
         """One engine iteration: the degrade ladder's observation (when
         ``degrade`` is on; at ``SHED`` hopeless pending requests are
         retired with a reason), the preemption check, admissions into free
         slots (chunked prefill each), then one batched decode step shared
-        by all live slots.  Returns the requests that finished during this
-        iteration, shed ones included."""
+        by all live slots: speculative when ``spec_k`` is set and the
+        ladder is below ``SPEC_OFF``, sequential otherwise (tree and auto
+        modes verify with no drafted node instead, which still writes each
+        slot's unwritten chain part).  Returns the requests that finished
+        during this iteration, shed ones included."""
         finished: List[Request] = []
         if self.ladder is not None:
-            # the ladder keeps the JAX engine's level numbers; SPEC_OFF has
-            # no effect until speculative decode is ported
             level = self.ladder.observe(self.scheduler.slo_pressure())
             if level:
                 self.stats["degrade_steps"] += 1
@@ -774,7 +1309,15 @@ class ServeEngine:
         for slot, req in self.scheduler.admissions():
             finished += self._admit(slot, req)
         if self.scheduler.active:
-            finished += self._decode_once()
+            spec_on = self.spec_k and not (
+                self.ladder is not None
+                and self.ladder.level >= DegradeLadder.SPEC_OFF)
+            if self.spec_mode != "chain":
+                finished += self._tree_decode_once(draft=bool(spec_on))
+            elif spec_on:
+                finished += self._spec_decode_once()
+            else:
+                finished += self._decode_once()
         return finished
 
     def run(self, max_steps: Optional[int] = None) -> List[Request]:

@@ -22,8 +22,10 @@ no-SLO requests in FIFO order.  ``maybe_preempt()`` evicts a live request
 only when that rescues an at-risk pending one and the victim still meets
 its own SLO.  Under overload, ``shed_hopeless()`` retires pending requests
 whose SLO is already unattainable, and :class:`DegradeLadder` decides which
-knob the engine gives up next.  Per-slot speculative rates and mesh-shard
-balancing arrive with those features (``ROADMAP.md``, queue 1).
+knob the engine gives up next.  Under speculative decode the engine feeds
+each slot's expected tokens per step (:attr:`Scheduler.slot_tokens_per_step`),
+and a live request's decode is priced at its own rate.  Mesh-shard
+balancing arrives with that feature (``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
@@ -124,8 +126,12 @@ class Scheduler:
         self.est_chunk_s: float = 0.0
         self.est_step_s: float = 0.0
         #: mean tokens one decode step emits per live slot (1.0 for
-        #: sequential decode)
+        #: sequential decode, more under speculative decode)
         self.est_tokens_per_step: float = 1.0
+        #: engine-fed expected tokens per step of each live slot (its own
+        #: accept-rate estimate under speculative decode); a slot missing
+        #: here is priced at the batch mean ``est_tokens_per_step``
+        self.slot_tokens_per_step: Dict[int, float] = {}
         self.slo_met_count = 0
         self.slo_missed_count = 0
         #: requests retired unserved by :meth:`shed_hopeless`
@@ -165,25 +171,33 @@ class Scheduler:
         if tokens_per_step is not None:
             self.est_tokens_per_step = max(1.0, float(tokens_per_step))
 
-    def est_decode_s(self, n_tokens: int) -> float:
+    def est_decode_s(self, n_tokens: int,
+                     tokens_per_step: Optional[float] = None) -> float:
         """Estimated time to decode ``n_tokens`` for one request: the steps
-        needed at the tokens-per-step rate, each one batched-step time."""
+        needed at the tokens-per-step rate (``tokens_per_step`` overrides
+        the batch mean: a live slot's own rate), each one batched-step
+        time."""
         if n_tokens <= 0:
             return 0.0
-        return math.ceil(n_tokens / self.est_tokens_per_step) \
-            * self.est_step_s
+        rate = (self.est_tokens_per_step if tokens_per_step is None
+                else max(1.0, float(tokens_per_step)))
+        return math.ceil(n_tokens / rate) * self.est_step_s
 
     def est_service_s(self, req: Request) -> float:
         """Estimated remaining service time of ``req`` if admitted now:
         chunked prefill of its context (less the resident prefix the
-        ``reuse_probe`` reports) plus its remaining decode budget; 0 while
+        ``reuse_probe`` reports) plus its remaining decode budget, at its
+        slot's own rate when :attr:`slot_tokens_per_step` has one; 0 while
         the model is cold."""
         ctx_len = max(1, len(req.context))
         to_prefill = ctx_len
         if self.reuse_probe is not None:
             to_prefill = max(1, ctx_len - int(self.reuse_probe(req.context)))
         chunks = math.ceil(to_prefill / self.prefill_chunk)
-        return chunks * self.est_chunk_s + self.est_decode_s(req.remaining)
+        rate = (self.slot_tokens_per_step.get(req.slot)
+                if req.slot is not None else None)
+        return chunks * self.est_chunk_s \
+            + self.est_decode_s(req.remaining, rate)
 
     def deadline(self, req: Request) -> Optional[float]:
         """Absolute completion deadline of ``req`` on the scheduler clock,
@@ -258,15 +272,26 @@ class Scheduler:
         """Advance every live slot by its sampled token (``tokens`` maps
         slot -> token id); returns the requests that finished this step
         (their slots are free again)."""
+        return self.on_decode_tokens({s: [t] for s, t in tokens.items()})
+
+    def on_decode_tokens(self, tokens: Dict[int, Sequence[int]]
+                         ) -> List[Request]:
+        """Advance every live slot by the 1..K+1 tokens one (speculative)
+        decode step emitted for it; returns the requests that finished.
+        Appending stops at retirement (eos, budget, capacity): the engine
+        already truncates there, and this keeps ``pos == len(context) - 1``
+        if it did not."""
         done = []
-        for slot, tok in tokens.items():
+        for slot, toks in tokens.items():
             req = self.active.get(slot)
             if req is None:
                 continue
-            req.generated.append(int(tok))
-            req.pos += 1
-            if self._maybe_retire(req):
-                done.append(req)
+            for tok in toks:
+                req.generated.append(int(tok))
+                req.pos += 1
+                if self._maybe_retire(req):
+                    done.append(req)
+                    break
         return done
 
     def _maybe_retire(self, req: Request) -> bool:
@@ -275,6 +300,7 @@ class Scheduler:
         if req.done or req.pos >= self.max_seq:
             if req.slot in self.active:
                 del self.active[req.slot]
+                self.slot_tokens_per_step.pop(req.slot, None)
             req.slot = None
             req.finish_t = self.clock()
             if req.slo_ms is not None and req.submit_t is not None:
@@ -338,6 +364,7 @@ class Scheduler:
         """Put the live request in ``slot`` back at the head of the queue;
         its re-admission re-prefills prompt + generated tokens."""
         req = self.active.pop(slot)
+        self.slot_tokens_per_step.pop(slot, None)
         req.slot = None
         req.pos = 0
         self.pending.appendleft(req)
@@ -378,8 +405,9 @@ class Scheduler:
                      key=lambda r: self.slack_s(r, now), default=None)
         if urgent is None:
             return None
-        est_wait = min((self.est_decode_s(r.remaining)
-                        for r in self.active.values()), default=0.0)
+        est_wait = min((self.est_decode_s(
+                            r.remaining, self.slot_tokens_per_step.get(s))
+                        for s, r in self.active.items()), default=0.0)
         if self.slack_s(urgent, now) >= est_wait:
             return None                       # not at risk: waiting is fine
         victim = self.eviction_candidate(now)
@@ -412,8 +440,9 @@ class DegradeLadder:
     level   name              engine effect
     ======  ================  ==============================================
     0       ``normal``        every knob at its configured value
-    1       ``spec_off``      speculative decode suspended (no effect until
-                              speculative decode is ported)
+    1       ``spec_off``      speculative decode suspended (chain mode
+                              decodes sequentially; tree and auto modes
+                              verify with no drafted node)
     2       ``small_chunks``  prefill dispatches capped at the smallest
                               shape bucket
     3       ``shed``          pending requests whose SLO is already

@@ -14,6 +14,9 @@ operation that:
 * every live slot's write page (where mapped) has refcount 1;
 * every shed request was retired with a reason and counted as a miss.
 
+The speculative walks repeat it with chain and tree decode on (prompts
+with repeated n-grams, so drafts are accepted and rolled back).
+
 No engine is shared between seeds or examples: every walk starts from a
 fresh engine, so a failure reproduces from its seed alone."""
 import numpy as np
@@ -62,7 +65,10 @@ def _assert_invariants(eng):
             assert eng._digest_fn(eng._page_bytes_of(p)) == \
                 eng.dedup.digest_of(p), f"stale digest on page {p}"
     for slot, req in eng.scheduler.active.items():
-        p = int(eng.table[slot, req.pos // eng.page_size])
+        # the next write position: req.pos, or the first of a tree step's
+        # unwritten chain part
+        nxt = req.pos + 1 - eng._spec_unwritten.get(slot, 1)
+        p = int(eng.table[slot, nxt // eng.page_size])
         assert p == 0 or int(pool.refcount[p]) == 1, (
             f"slot {slot} would write through shared page {p}")
     shed = [r for r in eng.scheduler.finished if r.shed_reason is not None]
@@ -70,14 +76,15 @@ def _assert_invariants(eng):
     assert all(r.slo_met is False for r in shed)
 
 
-def _walk(model, seed):
-    """The random walk of ``seed`` on a fresh engine, invariants checked
-    after every operation; returns the engine's summary."""
+def _walk(model, seed, **knobs):
+    """The random walk of ``seed`` on a fresh engine (``knobs`` added to
+    its config), invariants checked after every operation; returns the
+    engine's summary."""
     cfg, params = model
     eng = ServeEngine(cfg, params, config=EngineConfig(
         max_slots=2, max_seq=48, prefill_chunk=8, page_size=8,
-        pool_pages=12, trie_capacity=3, page_dedup=True, degrade=True),
-        device="cpu")
+        pool_pages=12, trie_capacity=3, page_dedup=True, degrade=True,
+        **knobs), device="cpu")
     clock = [0.0]
     eng.scheduler.clock = lambda: clock[0]
     rng = np.random.default_rng(seed)
@@ -105,6 +112,9 @@ def _walk(model, seed):
                     int(rng.integers(1, 9)),)).tolist()
             elif kind == 1:          # dedup's: a shared span after one page
                 prompt = rng.integers(0, vocab, (8,)).tolist() + shared
+            elif knobs:              # drafts hit: a repeated n-gram
+                prompt = rng.integers(0, vocab, (3,)).tolist() * int(
+                    rng.integers(2, 6))
             else:
                 prompt = rng.integers(0, vocab, (
                     int(rng.integers(4, 20)),)).tolist()
@@ -154,8 +164,40 @@ def test_churn_walks_exercise_the_sharing_paths(model):
     totals = {}
     for seed in SEEDS:
         for key, v in _walk(model, seed).items():
-            totals[key] = totals.get(key, 0) + v
+            if isinstance(v, (int, float)):     # counters, not the knobs
+                totals[key] = totals.get(key, 0) + v
     for key in ("prefix_hits", "pages_shared", "pages_cow", "session_hits",
                 "session_snapshot_drops", "dedup_pages_shared", "evictions",
                 "shed_requests", "prefix_evictions"):
         assert totals[key] > 0, key
+
+
+SPEC_KNOBS = {"chain": dict(spec_k=3),
+              "tree": dict(spec_k=3, spec_mode="tree", spec_tree_nodes=4,
+                           spec_branch=2)}
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+@pytest.mark.parametrize("mode", sorted(SPEC_KNOBS))
+def test_spec_churn_conserves_every_serve_invariant(model, mode, seed):
+    """The walk with speculative decode: chain steps roll pages back, tree
+    steps leave an accepted path unwritten across evictions, sessions and
+    the ladder's spec_off level."""
+    st = _walk(model, seed, **SPEC_KNOBS[mode])
+    assert st["spec_steps"] > 0
+    assert st["spec_tree_steps"] == (0 if mode == "chain"
+                                     else st["spec_steps"])
+
+
+@pytest.mark.parametrize("mode", sorted(SPEC_KNOBS))
+def test_spec_churn_walks_draft_and_roll_back(model, mode):
+    """Over the speculative walks' seeds drafts were proposed, accepted and
+    (chain) rolled back, so the invariants were checked there."""
+    totals = {}
+    for seed in SEEDS[:3]:
+        for key, v in _walk(model, seed, **SPEC_KNOBS[mode]).items():
+            if isinstance(v, (int, float)):
+                totals[key] = totals.get(key, 0) + v
+    assert totals["spec_drafted"] > 0 and totals["spec_accepted"] > 0
+    if mode == "chain":
+        assert totals["spec_pages_rolled_back"] > 0

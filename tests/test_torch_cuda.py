@@ -17,7 +17,7 @@ from repro_torch.kernels import moa_reduce as moa
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qmm
 from repro_torch.launch import sass_mix
-from repro_torch.models import attention
+from repro_torch.models import attention, lm
 from repro_torch.models.common import ParamSpec, init_params
 from repro_torch.models.registry import get_api
 from repro_torch.optim.adamw import AdamWConfig
@@ -789,3 +789,107 @@ def test_warm_tokens_equal_cold_on_a_reduced_bf16_config(cuda_device):
     st = warm.stats_summary()
     assert st["prefix_hits"] == 3 and st["pages_cow"] == 0
     assert st["pages_shared"] > 0 and st["prefix_bytes_copied"] == 0
+
+
+#: moa_reduce's verify shapes at full width (4 slots, 24 heads, hd 128,
+#: 16 pages of 128): l and o of a chain block (C = 5) and a tree block at
+#: the default knobs (C = 17)
+VERIFY_SHAPES = [(16, 4 * 24 * c * w) for c in (5, 17) for w in (1, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", VERIFY_SHAPES, ids=str)
+def test_moa_reduce_at_the_verify_shapes(cuda_device, n, m):
+    x, acc = _operands(n, m, "float32", cuda_device)
+    x[:, :8] = -0.0
+    before = moa.LAUNCHES
+    got = ops.moa_reduce(x, acc, out_dtype=acc)
+    want = moa.moa_reduce_plain(x, acc, acc)
+    torch.cuda.synchronize()
+    assert moa.LAUNCHES == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+
+
+@pytest.mark.cuda
+def test_speculative_masks_on_the_card_equal_cpu(cuda_device):
+    """The row-masked view write, the ancestor mask and the masked pool
+    scatter give the CPU's results on CUDA tensors."""
+    gen = torch.Generator().manual_seed(5)
+    cache_ = torch.randn((3, 12, 2, 4), generator=gen)
+    new = torch.randn((3, 5, 2, 4), generator=gen)
+    pos = torch.tensor([[3], [10], [0]]) + torch.arange(5)[None]
+    nvalid = torch.tensor([5, 5, 0])
+    parents = torch.tensor([[-1, 0, 1, 1, 3], [-1, 0, 1, 3, 4],
+                            [0, 1, 2, 3, 4]])
+    pool = torch.randn((6, 16, 2, 4), generator=gen)
+    pages = torch.tensor([[1, 2], [3, 4], [0, 0]])
+    cpu = (attention.masked_cache_write(cache_.clone(), new, pos, nvalid),
+           attention.tree_valid(torch.tensor([3, 10, 0]), parents, nvalid,
+                                24),
+           attention.paging.scatter_token_rows(pool.clone(), pages, new,
+                                               pos, nvalid))
+    dev = [t.to(cuda_device) for t in (cache_, new, pos, nvalid, parents,
+                                       pool, pages)]
+    gpu = (attention.masked_cache_write(dev[0].clone(), dev[1], dev[2],
+                                        dev[3]),
+           attention.tree_valid(torch.tensor([3, 10, 0], device=cuda_device),
+                                dev[4], dev[3], 24),
+           attention.paging.scatter_token_rows(dev[5].clone(), dev[6],
+                                               dev[1], dev[2], dev[3]))
+    assert torch.equal(gpu[0].cpu(), cpu[0])
+    assert torch.equal(gpu[1].cpu(), cpu[1])
+    assert torch.equal(gpu[2].cpu()[1:], cpu[2][1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["chain", "tree", "auto", "heads"])
+def test_spec_engine_on_the_card_equals_cpu(cuda_device, mode):
+    """Reduced fp32 config, TF32 off: chain (``spec_k=4``), tree, auto and
+    draft-head speculative engines on CUDA give the CPU engine's tokens
+    and spec counters, launching moa_reduce twice a layer on every
+    prefill and verify dispatch."""
+    knobs = {"chain": dict(spec_k=4),
+             "tree": dict(spec_k=4, spec_mode="tree"),
+             "auto": dict(spec_k=4, spec_mode="auto"),
+             "heads": dict(spec_k=4, spec_mode="tree",
+                           spec_drafter="heads")}[mode]
+    cfg = get_config("llama3.2-3b").reduced(dtype=torch.float32,
+                                            n_kv_heads=2)
+    params = init_params(get_api(cfg).param_specs(cfg),
+                         torch.Generator().manual_seed(0),
+                         torch.device("cpu"), torch.float32)
+    if mode == "heads":
+        params["draft_heads"] = init_params(
+            lm.draft_head_specs(cfg, 3, 16), torch.Generator().manual_seed(9),
+            torch.device("cpu"), torch.float32)
+    gen = torch.Generator().manual_seed(3)
+    pat = torch.randint(0, cfg.vocab, (5,), generator=gen).tolist()
+    prompts = [pat * 4, torch.randint(0, cfg.vocab, (13,),
+                                      generator=gen).tolist(),
+               pat * 3 + [1], pat[::-1] * 3]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            p = map_tree(lambda t: t.to(dev), params)
+            eng = ServeEngine(cfg, p, config=EngineConfig(
+                max_slots=2, max_seq=64, prefill_chunk=16, page_size=16,
+                **knobs), device=dev)
+            before = moa.LAUNCHES
+            reqs = [eng.submit(q, 12) for q in prompts]
+            eng.run()
+            st = eng.stats_summary()
+            out[dev] = ([r.generated for r in reqs],
+                        {k: v for k, v in st.items() if k.startswith("spec_")},
+                        moa.LAUNCHES - before, st)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert out["cuda"][0] == out["cpu"][0]
+    assert out["cuda"][1] == out["cpu"][1]
+    st = out["cuda"][3]
+    assert st["spec_steps"] == st["decode_steps"] > 0
+    assert out["cpu"][2] == 0
+    assert out["cuda"][2] == 2 * cfg.n_layers * (st["prefill_dispatches"]
+                                                 + st["decode_steps"])
