@@ -36,7 +36,12 @@ Phases:
      draft-head speculative engines on repeated passages, CUDA against
      CPU: tokens and every counter (the spec_* ones too) equal; whether
      each CUDA spec run's tokens equal the CUDA sequential run's is
-     printed
+     printed; then int8 and int4 pools and sampled requests (temperature
+     0.8, top-k 40, top-p 0.9, a seed each), each sequential and chain
+     (spec_k 4), CUDA against CPU: tokens and every counter equal; and
+     sample_tokens on one seeded (64, 128256) fp32 logits tensor, CUDA
+     against CPU: equal tokens, with threefry's bits and uniforms bit for
+     bit
   6. serve, full width: llama3.2-3b, 28 layers, bf16, 8 greedy requests
      of 128 to 1024 prompt tokens and 32 new tokens on 4 slots, prefix
      cache off (what PRs 11-17 measured); every request retires with 32
@@ -78,6 +83,23 @@ Phases:
      tokens
   C (spec). phase C's trace again with spec_k 4, ladder off and on, the
      virtual step priced at D's chain step p50: goodput and SLOs printed
+  E. quantized KV and sampling, full width on phase 6's weights and
+     geometry.  E1: phase 6's 8 greedy requests over an unquantized (bf16),
+     an int8 and an int4 pool: pool bytes asserted (114,688 / 59,136 /
+     30,464 bytes a token over the pool's pages, scratch included), the
+     refcount invariant after every step, moa_reduce launched 2 * layers
+     * dispatches; prefill tok/s, decode step p50 / p99 and tok/s, requests
+     with the unquantized run's tokens and the logit drift against it
+     (max and mean over the aligned decode traces) printed.  E2: int8 on
+     8 slots with the pool pages that fit E1's bf16 pool bytes, 16
+     requests of the same length mix: decode tok/s and step p50 beside
+     E1's bf16 run.  E3: phase D's repeated passages x 64 new tokens,
+     every request sampled (temperature 0.8, top-k 40, seed 7) over an
+     int8 pool: sequential twice (equal tokens asserted: restart
+     determinism), chain (spec_k 4) and tree (12 nodes, branch 3); step
+     p50, tokens a step, accept rate and requests equal to the sequential
+     run printed, and where each request first parts from it (the two
+     tokens' score gap and logit ranks in a teacher-forced bf16 pass)
   7. moa_reduce timings at the serve path shapes, the verify shapes of a
      chain (C = 5) and a tree (C = 17) among them (CUDA events, median of
      50), beside the bound, the plain version and torch.sum
@@ -161,7 +183,11 @@ from repro_torch.models.registry import get_api  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, global_norm  # noqa: E402
 from repro_torch.optim.grad_accum import value_and_grad  # noqa: E402
 from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
-from repro_torch.serve import EngineConfig, ServeEngine  # noqa: E402
+from repro_torch.models.quant_kv import KV_DTYPES  # noqa: E402
+from repro_torch.serve import (EngineConfig, SamplingParams,  # noqa: E402
+                               ServeEngine, prng)
+from repro_torch.serve.sampling import (sample_tokens,  # noqa: E402
+                                        sampling_lanes)
 from repro_torch.serve.engine import tree_width  # noqa: E402
 from repro_torch.train.loop import LoopConfig, TrainLoop  # noqa: E402
 from repro_torch.train.state import (build_train_step,  # noqa: E402
@@ -404,6 +430,30 @@ def phase_reduced_parity() -> None:
               f"tokens == CUDA sequential: {_tokens(greqs) == seq}")
     _free(*(e for e, _ in cpu_runs.values()),
           *(e for e, _ in gpu_runs.values()))
+    cpu_runs = reduced_quant_runs(cfg, cpu_params, "cpu")
+    gpu_runs = reduced_quant_runs(cfg, map_tree(lambda t: t.to("cuda"),
+                                                cpu_params), "cuda")
+    for name, (ceng, creqs) in cpu_runs.items():
+        geng, greqs = gpu_runs[name]
+        check(_tokens(creqs) == _tokens(greqs),
+              f"reduced {name}: CUDA tokens differ from CPU")
+        cst, gst = ceng.stats_summary(), geng.stats_summary()
+        bad = [k for k in SERVE_COUNTERS + SPEC_COUNTERS + (
+            "kv_dtype", "kv_bytes_per_slot", "pool_bytes")
+            if k != "moa_reduce_launches" and cst[k] != gst[k]]
+        check(not bad, f"reduced {name}: counters differ CPU vs CUDA: "
+                       f"{[(k, cst[k], gst[k]) for k in bad]}")
+        base = gpu_runs[name.removesuffix(" chain")][1]
+        print(f"[parity] reduced {name}: tokens and counters equal CPU vs "
+              f"CUDA over {len(creqs)} requests (CUDA tokens == CUDA "
+              f"sequential: {_tokens(greqs) == _tokens(base)}; kv_dtype "
+              f"{gst['kv_dtype']}, {gst['kv_bytes_per_slot']} bytes a slot;"
+              f" decode steps {gst['decode_steps']}, drafted "
+              f"{gst['spec_drafted']}, accepted {gst['spec_accepted']}; "
+              f"moa_reduce launches {gst['moa_reduce_launches']})")
+    _free(*(e for e, _ in cpu_runs.values()),
+          *(e for e, _ in gpu_runs.values()))
+    sampling_parity()
 
 
 def phase_full_width():
@@ -664,18 +714,22 @@ SPEC_LENS = (1024, 128, 768, 256, 896, 384, 640, 512)
 SPEC_NEW, FIT_WINDOW, FIT_STEPS = 64, 256, 100
 
 
-def serve_spec(cfg, params, knobs, prompts, what):
-    """One full-width engine (phase 6's geometry) with ``knobs`` serving
-    ``prompts``: a warm-up request first (untimed), then the traffic,
-    stepped with the refcount invariant after every step and every
-    logit's finiteness held on the card.  Returns (engine, requests,
-    moa_reduce launches)."""
-    eng = ServeEngine(cfg, params, config=EngineConfig(
-        max_slots=4, max_seq=2048, prefill_chunk=256, prefix_cache=False,
-        **knobs))
-    eng.submit(spec_prompts((192,), cfg.vocab, seed=3)[0], 16)
+def serve_spec(cfg, params, knobs, prompts, what, new=SPEC_NEW,
+               sampling=None, trace=False):
+    """One full-width engine (phase 6's geometry, ``knobs`` over it)
+    serving ``prompts`` x ``new`` tokens, each request with ``sampling``:
+    a warm-up request first (untimed), then the traffic, stepped with the
+    refcount invariant after every step and every logit's finiteness held
+    on the card (``trace``: decode logits kept in ``logit_trace``).
+    Returns (engine, requests, moa_reduce launches)."""
+    eng = ServeEngine(cfg, params, config=EngineConfig(**dict(dict(
+        max_slots=4, max_seq=2048, prefill_chunk=256, prefix_cache=False),
+        **knobs)))
+    eng.submit(spec_prompts((192,), cfg.vocab, seed=3)[0], 16,
+               sampling=sampling)
     eng.run()
     eng.reset_stats()
+    eng.trace_logits = trace
     finite = [torch.ones((), dtype=torch.bool, device=eng.device)]
     api = eng.api
 
@@ -690,7 +744,7 @@ def serve_spec(cfg, params, knobs, prompts, what):
         api, decode_step=held(api.decode_step),
         verify_chunk=held(api.verify_chunk),
         verify_tree=held(api.verify_tree))
-    reqs = [eng.submit(p, SPEC_NEW) for p in prompts]
+    reqs = [eng.submit(p, new, sampling=sampling) for p in prompts]
 
     def drive():
         while eng.scheduler.has_work:
@@ -699,9 +753,9 @@ def serve_spec(cfg, params, knobs, prompts, what):
 
     launches = _counted_run(eng, drive)
     _check_launches(eng, launches, what)
-    check(all(r.slot is None and len(r.generated) == SPEC_NEW
+    check(all(r.slot is None and len(r.generated) == new
               for r in reqs), f"{what}: a request did not retire with "
-                              f"{SPEC_NEW} tokens")
+                              f"{new} tokens")
     check(bool(finite[0]), f"{what}: a decode or verify logit is not "
                            f"finite")
     check(eng.pool.used_count == 0, f"{what}: pages left allocated")
@@ -776,14 +830,17 @@ def phase_spec_serve(cfg, params):
     return rows, launches, rows["chain"]["step_p50_ms"] / 1e3
 
 
-def divergence(cfg, params, prompts, seq, toks):
+def divergence(cfg, params, prompts, seq, toks, sampling=None):
     """Where each request's tokens first leave the sequential run's: the
     index, and in one teacher-forced pass over the sequential context
     before it (``lm.hidden_states``, bf16 logits as the engine takes them)
     the logit of the sequential token less that of the other token, beside
     one bf16 ulp at that logit.  A gap within an ulp or two is a near tie
     that another accumulation order (C = 5 or 17 rows against 1) may
-    flip."""
+    flip.  With ``sampling`` the gap is between the draw's scores (the
+    logit over the temperature plus the Gumbel noise of the request's
+    seed at that index), and each token's rank among the logits is kept
+    (a top-k mask keeps ranks below ``top_k``)."""
     out = []
     head = params["lm_head"]
     for r, (p, a, b) in enumerate(zip(prompts, seq, toks)):
@@ -794,11 +851,21 @@ def divergence(cfg, params, prompts, seq, toks):
         with torch.no_grad():
             x = hidden_states(params, cfg, ctx)[0, -1]
             logits = (x.to(head.dtype) @ head).float()
-        top = float(logits[a[i]])
-        out.append({"request": r, "index": i,
-                    "gap": top - float(logits[b[i]]),
-                    "ulp": 2.0 ** (math.floor(math.log2(abs(top))) - 7)
-                    if top else 0.0})
+        score, ulp_at = logits, float(logits[a[i]])
+        row = {"request": r, "index": i}
+        if sampling is not None:
+            temp = max(sampling.temperature, 1e-6)
+            key = prng.fold_in(prng.prng_key(torch.tensor(
+                [sampling.seed], device=head.device)), i)
+            score = logits / temp + prng.gumbel(key, logits.shape[-1])[0]
+            ulp_at /= temp
+            row["ranks"] = [int((logits > logits[t]).sum()) for t in
+                            (a[i], b[i])]
+        top = float(score[a[i]])
+        row["gap"] = top - float(score[b[i]])
+        row["ulp"] = (2.0 ** (math.floor(math.log2(abs(ulp_at))) - 7)
+                      if ulp_at else 0.0)
+        out.append(row)
     return out
 
 
@@ -843,6 +910,154 @@ def phase_overload_spec(cfg, params, chunk_s, trace_step_s, step_s):
           f"{out[True]['goodput_tokens']} tokens, without "
           f"{out[False]['goodput_tokens']} (reported, not asserted)")
     return launches, out
+
+
+#: phase E: phase 6's new tokens (its prompt lengths are SPEC_LENS); the
+#: E3 sampling (the stochastic pair of the JAX package's bench_serve)
+QUANT_NEW = 32
+E3_SAMPLING = SamplingParams(temperature=0.8, top_k=40, seed=7)
+
+
+def kv_token_bytes(cfg, kv_dtype: str) -> int:
+    """KV bytes a token at ``cfg``'s width, K and V in every layer: a row
+    of ``hd`` values in the model's dtype, or int8 codes (int4: two a byte)
+    plus the row's fp32 scale."""
+    row = {"fp32": cfg.hd * cfg.dtype.itemsize, "int8": cfg.hd + 4,
+           "int4": cfg.hd // 2 + 4}[kv_dtype]
+    return cfg.n_layers * 2 * cfg.n_kv_heads * row
+
+
+def logit_drift(a: np.ndarray, b: np.ndarray) -> tuple:
+    """(max, mean) |a - b| over the aligned decode logit traces (the JAX
+    package's bench_serve probe: rows correspond step for step, since the
+    runs schedule alike; after tokens part it measures free-running
+    divergence)."""
+    n = min(len(a), len(b))
+    d = np.abs(a[:n].astype(np.float64) - b[:n].astype(np.float64))
+    return float(d.max()), float(d.mean())
+
+
+def _serve_row(st) -> dict:
+    return {"prefill_tok_s": st["prefill_tok_s"],
+            "decode_tok_s": st["decode_tok_s"],
+            "step_p50_ms": 1e3 * st["decode_step_p50_s"],
+            "step_p99_ms": 1e3 * st["decode_step_p99_s"],
+            "tokens_per_step": st["tokens_per_step"],
+            "decode_steps": st["decode_steps"],
+            "prefill_dispatches": st["prefill_dispatches"],
+            "pool_bytes": st["pool_bytes"],
+            "kv_bytes_per_slot": st["kv_bytes_per_slot"]}
+
+
+def _serve_line(st) -> str:
+    return (f"prefill {st['prefill_tokens']} tok in "
+            f"{st['prefill_dispatches']} dispatches = "
+            f"{st['prefill_tok_s']:.1f} tok/s; decode {st['decode_tokens']} "
+            f"tok in {st['decode_steps']} steps = {st['decode_tok_s']:.1f} "
+            f"tok/s, step p50 {1e3 * st['decode_step_p50_s']:.3f} ms, p99 "
+            f"{1e3 * st['decode_step_p99_s']:.3f} ms")
+
+
+def phase_quant_serve(cfg, params):
+    """Phase E at full width on phase 6's weights: E1 the pool dtypes on
+    phase 6's traffic, E2 int8 on 8 slots within E1's bf16 pool bytes, E3
+    sampled sequential (twice), chain and tree decode over an int8 pool.
+    Returns (summary rows, launches by run)."""
+    rows, launches = {}, {}
+    prompts = make_prompts(SPEC_LENS, cfg.vocab, seed=2)
+    base = None
+    for kv in KV_DTYPES:
+        what = f"E1 {kv}"
+        eng, reqs, launched = serve_spec(cfg, params, dict(kv_dtype=kv),
+                                         prompts, what, new=QUANT_NEW,
+                                         trace=True)
+        st = eng.stats_summary()
+        per_token = kv_token_bytes(cfg, kv)
+        check(st["pool_bytes"] == per_token * eng.pool.num_pages
+              * eng.page_size and st["kv_bytes_per_slot"]
+              == per_token * eng.max_seq,
+              f"{what}: pool bytes {st['pool_bytes']} (slot "
+              f"{st['kv_bytes_per_slot']}), expected {per_token} a token")
+        trace = np.concatenate(eng.logit_trace, axis=0)
+        toks = _tokens(reqs)
+        if base is None:
+            base = (toks, trace)
+        same = sum(a == b for a, b in zip(toks, base[0]))
+        drift = logit_drift(trace, base[1])
+        rows[what] = dict(_serve_row(st), kv_dtype=kv,
+                          bytes_per_token=per_token, launches=launched,
+                          equal_to_unquantized=same, logit_drift=drift)
+        launches[what] = launched
+        print(f"[quant] {what}: pool {eng.pool.num_pages} pages = "
+              f"{st['pool_bytes']} bytes ({per_token} a token, "
+              f"{st['kv_bytes_per_slot']} a slot); {_serve_line(st)}; "
+              f"requests with the unquantized tokens {same} of "
+              f"{len(reqs)}; logit drift max {drift[0]:.4f} mean "
+              f"{drift[1]:.5f}; moa_reduce launches {launched} = 2 * "
+              f"{cfg.n_layers} * ({st['prefill_dispatches']} + "
+              f"{st['decode_steps']})")
+        _free(eng)
+    bf16 = rows["E1 fp32"]
+    page_bytes = kv_token_bytes(cfg, "int8") * 128
+    pool_pages = bf16["pool_bytes"] // page_bytes - 1     # + scratch
+    what = "E2 int8 8 slots"
+    eng, reqs, launched = serve_spec(
+        cfg, params, dict(kv_dtype="int8", max_slots=8,
+                          pool_pages=pool_pages),
+        make_prompts(SPEC_LENS * 2, cfg.vocab, seed=4), what,
+        new=QUANT_NEW)
+    st = eng.stats_summary()
+    check(st["pool_bytes"] <= bf16["pool_bytes"],
+          f"{what}: pool {st['pool_bytes']} bytes exceeds the bf16 pool's")
+    rows[what] = dict(_serve_row(st), kv_dtype="int8", slots=8,
+                      pool_pages=pool_pages, launches=launched,
+                      decode_tok_s_over_bf16=st["decode_tok_s"]
+                      / bf16["decode_tok_s"],
+                      step_p50_over_bf16=1e3 * st["decode_step_p50_s"]
+                      / bf16["step_p50_ms"])
+    launches[what] = launched
+    print(f"[quant] {what}: {pool_pages} pool pages, {st['pool_bytes']} "
+          f"bytes (bf16 4 slots: {bf16['pool_bytes']}); 16 requests; "
+          f"{_serve_line(st)}; mean occupancy {st['mean_occupancy']:.3f}; "
+          f"decode tok/s {st['decode_tok_s'] / bf16['decode_tok_s']:.3f}x "
+          f"and step p50 {rows[what]['step_p50_over_bf16']:.3f}x E1's "
+          f"bf16 4-slot run; moa_reduce launches {launched}")
+    _free(eng)
+    prompts = spec_prompts(SPEC_LENS, cfg.vocab, seed=23)
+    seq = None
+    for name, knobs in (("sequential", {}), ("sequential again", {}),
+                        ("chain", SPEC_RUNS["chain"]),
+                        ("tree", SPEC_RUNS["tree"])):
+        what = f"E3 sampled {name}"
+        eng, reqs, launched = serve_spec(cfg, params,
+                                         dict(kv_dtype="int8", **knobs),
+                                         prompts, what,
+                                         sampling=E3_SAMPLING)
+        st = eng.stats_summary()
+        toks = _tokens(reqs)
+        if seq is None:
+            seq = toks
+        elif name == "sequential again":
+            check(toks == seq, f"{what}: the sampled tokens did not repeat")
+        same = sum(a == b for a, b in zip(toks, seq))
+        where = divergence(cfg, params, prompts, seq, toks, E3_SAMPLING)
+        rows[what] = dict(_serve_row(st), launches=launched,
+                          accept_rate=st["spec_accept_rate"],
+                          equal_to_sequential=same, divergence=where)
+        launches[what] = launched
+        print(f"[quant] {what}: {_serve_line(st)}; "
+              f"{st['tokens_per_step']:.3f} tokens/step, accept rate "
+              f"{st['spec_accept_rate']:.4f} (drafted {st['spec_drafted']},"
+              f" accepted {st['spec_accepted']}); requests with the "
+              f"sampled sequential tokens {same} of {len(reqs)}; moa_reduce"
+              f" launches {launched}")
+        if where:
+            print(f"[quant] {what}: first token unlike the sequential "
+                  f"run's, (request, index, score gap, ulp of the scaled "
+                  f"logit, logit ranks of the two tokens): "
+                  f"{[(w['request'], w['index'], round(w['gap'], 4), w['ulp'], w['ranks']) for w in where]}")
+        _free(eng)
+    return rows, launches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1219,6 +1434,68 @@ def reduced_spec_runs(cfg, params, dev):
         refcount_check(eng, f"reduced spec {name}")
         runs[name] = (eng, reqs)
     return runs
+
+
+#: phase 5's quantized and sampled runs: (engine knobs, sampled?)
+REDUCED_QUANT_RUNS = {
+    "int8": (dict(kv_dtype="int8"), False),
+    "int8 chain": (dict(kv_dtype="int8", spec_k=4), False),
+    "int4": (dict(kv_dtype="int4"), False),
+    "int4 chain": (dict(kv_dtype="int4", spec_k=4), False),
+    "sampled": ({}, True),
+    "sampled chain": (dict(spec_k=4), True)}
+
+
+def reduced_quant_runs(cfg, params, dev):
+    """Phase 5's quantized and sampled runs on ``dev`` over repeated
+    passages; a sampled run's request ``i`` draws with temperature 0.8,
+    top-k 40, top-p 0.9 and seed ``i``.  (engine, requests) by run name."""
+    prompts = spec_prompts((40, 13, 28, 20, 33), cfg.vocab, seed=14,
+                           passage=6, edits=1)
+    runs = {}
+    for name, (knobs, sampled) in REDUCED_QUANT_RUNS.items():
+        eng = ServeEngine(cfg, params, config=EngineConfig(
+            max_slots=2, max_seq=64, prefill_chunk=16, page_size=16,
+            **knobs), device=dev)
+        reqs = [eng.submit(q, 16, sampling=SamplingParams(
+            temperature=0.8, top_k=40, top_p=0.9, seed=i) if sampled
+            else None) for i, q in enumerate(prompts)]
+        launches = _counted_run(eng, eng.run)
+        _check_launches(eng, launches, f"reduced {name}")
+        refcount_check(eng, f"reduced {name}")
+        runs[name] = (eng, reqs)
+    return runs
+
+
+def sampling_parity() -> None:
+    """sample_tokens on one seeded (64, 128256) fp32 logits tensor and
+    threefry's bits and uniforms, CUDA against CPU."""
+    gen = torch.Generator().manual_seed(0)
+    logits = 3 * torch.randn((64, 128256), generator=gen)
+    sps = [SamplingParams(temperature=(0.0, 0.5, 0.8, 1.5)[i % 4],
+                          top_k=(0, 1, 40)[i % 3],
+                          top_p=(0.05, 0.9, 1.0)[(i // 3) % 3], seed=i)
+           for i in range(64)]
+    idxs = list(range(0, 640, 10))
+    cpu = sample_tokens(logits, *sampling_lanes(sps, idxs))
+    gpu = sample_tokens(logits.cuda(), *sampling_lanes(sps, idxs, "cuda"))
+    check(torch.equal(gpu.cpu(), cpu),
+          f"sample_tokens: CUDA differs from CPU in "
+          f"{int((gpu.cpu() != cpu).sum())} of 64 rows")
+    seeds = torch.tensor([s.seed for s in sps])
+    bits, unis = [], []
+    for dev in ("cpu", "cuda"):
+        key = prng.fold_in(prng.prng_key(seeds.to(dev)),
+                           torch.tensor(idxs, device=dev))
+        bits.append(prng.random_bits(key, 128256).cpu())
+        unis.append(prng.uniform(key, 128256, torch.finfo(
+            torch.float32).tiny).cpu().view(torch.int32))
+    check(torch.equal(*bits) and torch.equal(*unis),
+          "threefry bits or uniforms differ CUDA vs CPU")
+    print(f"[parity] sample_tokens (64, 128256) fp32: tokens equal CPU vs "
+          f"CUDA ({int((cpu != logits.argmax(-1)).sum())} of 64 rows drew "
+          f"a token other than the argmax); threefry bits and uniforms "
+          f"bit for bit over 64 x 128256")
 
 
 def device_ms(fn, reps: int = 50) -> float:
@@ -1942,6 +2219,9 @@ def main() -> int:
     serve_launches["C spec"], _ = timed(
         "C overload, spec_k=4", phase_overload_spec, full_cfg,
         serve_params, chunk_s, step_s, chain_step_s)
+    quant_rows, serve_launches["E"] = timed(
+        "E quantized KV and sampling", phase_quant_serve, full_cfg,
+        serve_params)
     del serve_params
     rows = timed("7 moa_reduce timing", phase_timing, shapes)
     gc.collect()
@@ -1968,7 +2248,7 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
         "library_ms": main_row["library_ms"], "shape": main_row["shape"],
         "checked": "torch.equal vs moa_reduce_plain", "shapes": rows,
-        "spec_serve": spec_rows,
+        "spec_serve": spec_rows, "quant_serve": quant_rows,
         "launches_by_serve_phase": {
             f"{ph} {run}": n for ph, d in serve_launches.items()
             for run, n in d.items()}}]

@@ -14,6 +14,11 @@ after a warm-up:
 * prefill: the admission of one ``--prompt-len``-token prompt (its chunked
   prefill pieces, nothing decoding).
 
+``--kv-dtype int8`` (or ``int4``) traces a quantized pool, whose gathers
+dequantize and whose writes quantize; ``--temperature`` samples every
+request (top-k 40, seeds 0-4) instead of taking the argmax, so the trace
+counts the sampling kernels a step adds.
+
 For each window it prints the wall time (host clock, ending in a
 synchronize), the device busy time (union of kernel intervals), the idle
 share, the kernel launches, and the kernels with the most device time.
@@ -37,8 +42,9 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs.registry import get_config
 from repro_torch.models.common import init_params
 from repro_torch.models.registry import get_api
-from repro_torch.serve import EngineConfig, ServeEngine
-from repro_torch.serve.config import add_spec_args, spec_knobs
+from repro_torch.serve import EngineConfig, SamplingParams, ServeEngine
+from repro_torch.serve.config import (add_kv_dtype_arg, add_spec_args,
+                                      spec_knobs)
 
 __all__ = ["main"]
 
@@ -95,6 +101,10 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
     add_spec_args(ap, spec_k_default=0)
+    add_kv_dtype_arg(ap)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sample every request at this temperature with "
+                         "top-k 40 (0 = greedy)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
@@ -111,19 +121,26 @@ def main(argv=None) -> int:
     params = init_params(get_api(cfg).param_specs(cfg), gen, dev, cfg.dtype)
     eng = ServeEngine(cfg, params, config=EngineConfig(
         max_slots=4, max_seq=2048, prefill_chunk=256, prefix_cache=False,
-        **spec_knobs(args)))
-    print(f"[engine] spec_k {eng.spec_k}, spec_mode {eng.spec_mode}")
+        kv_dtype=args.kv_dtype, **spec_knobs(args)))
+    print(f"[engine] spec_k {eng.spec_k}, spec_mode {eng.spec_mode}, "
+          f"kv_dtype {eng.kv_dtype}, temperature {args.temperature}")
     rng = np.random.default_rng(args.seed)
+    seeds = iter(range(1 << 30))
+
+    def sampling():
+        return SamplingParams(temperature=args.temperature,
+                              top_k=40 if args.temperature else 0,
+                              seed=next(seeds))
 
     def prompt(n):
         return rng.integers(0, cfg.vocab, n).tolist()
 
-    eng.submit(prompt(300), 4)                        # warm-up, untraced
+    eng.submit(prompt(300), 4, sampling=sampling())   # warm-up, untraced
     eng.run()
 
     # decode window: 4 live slots, nothing pending
     for _ in range(eng.max_slots):
-        eng.submit(prompt(512), 2 * args.steps + 8)
+        eng.submit(prompt(512), 2 * args.steps + 8, sampling=sampling())
     eng.step()                                        # admits all four
     eng.reset_stats()
     torch.cuda.synchronize()
@@ -148,7 +165,7 @@ def main(argv=None) -> int:
     eng.run()
 
     # prefill window: one admission, retired on its first token
-    eng.submit(prompt(args.prompt_len), 1)
+    eng.submit(prompt(args.prompt_len), 1, sampling=sampling())
     before = eng.stats["prefill_dispatches"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,

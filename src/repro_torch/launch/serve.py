@@ -1,16 +1,21 @@
-"""Serving CLI of the port: chunked prefill, continuous batching, prefix
-cache, page dedup, SLO admission, the degrade ladder and speculative
-decode.
+"""Serving CLI of the port: chunked prefill, continuous batching, quantized
+KV pages, prefix cache, page dedup, SLO admission, the degrade ladder,
+sampling and speculative decode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
-        --requests 8 --slots 4 --prompt-len 512 --gen 32 --slo-ms 2000
+        --requests 8 --slots 4 --prompt-len 512 --gen 32 --slo-ms 2000 \
+        --kv-dtype int8 --temperature 0.8 --top-k 40
 
 Requests flow through :class:`repro_torch.serve.ServeEngine` on the card
 (``--device cpu`` runs the plain PyTorch path instead; ``--reduced`` swaps
 in the tiny same-family config).  Weights are random, drawn from
 ``--seed``; prompts have staggered lengths around ``--prompt-len``, so
-finished slots are refilled mid-flight.  Decoding is greedy and, as in the
-JAX CLI, speculative by default: ``--spec-k`` prompt-lookup drafts verified
+finished slots are refilled mid-flight.  Every request samples with
+``--temperature`` / ``--top-k`` / ``--top-p`` and the seed ``--seed``, one
+shared :class:`~repro_torch.serve.SamplingParams` as in the JAX CLI
+(``--temperature 0``, the default, is greedy), over a KV pool of
+``--kv-dtype`` pages.  As in the JAX CLI, decoding is
+speculative by default: ``--spec-k`` prompt-lookup drafts verified
 in one K+1-wide dispatch (``--no-spec`` decodes one token a step);
 ``--spec-mode tree`` drafts a token tree per slot (n-gram fan-out, or
 ``--spec-drafter heads`` when the params carry draft heads), verified in
@@ -29,8 +34,9 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.models.common import init_params
 from repro_torch.models.registry import get_api
-from repro_torch.serve import EngineConfig, ServeEngine
-from repro_torch.serve.config import add_spec_args, spec_knobs
+from repro_torch.serve import EngineConfig, SamplingParams, ServeEngine
+from repro_torch.serve.config import (add_kv_dtype_arg, add_spec_args,
+                                      spec_knobs)
 
 __all__ = ["main"]
 
@@ -72,6 +78,13 @@ def main(argv=None) -> int:
                          "prefill chunks -> shed hopeless pending requests, "
                          "hysteretic recovery)")
     add_spec_args(ap, spec_k_default=4)
+    add_kv_dtype_arg(ap)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k truncation (0 = disabled)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus truncation (1.0 = disabled)")
     ap.add_argument("--slo-ms", type=float, default=None,
                     help="per-request completion-latency SLO in ms "
                          "(enables deadline-aware admission)")
@@ -100,14 +113,21 @@ def main(argv=None) -> int:
                         pool_pages=args.pool_pages,
                         trie_capacity=args.trie_capacity,
                         page_dedup=args.page_dedup, degrade=args.degrade,
-                        **spec_knobs(args))
+                        kv_dtype=args.kv_dtype, **spec_knobs(args))
     eng = ServeEngine(cfg, params, config=ecfg, device=device)
-    reqs = [eng.submit(p, args.gen, slo_ms=args.slo_ms) for p in prompts]
+    sampling = SamplingParams(temperature=args.temperature,
+                              top_k=args.top_k, top_p=args.top_p,
+                              seed=args.seed)
+    reqs = [eng.submit(p, args.gen, slo_ms=args.slo_ms, sampling=sampling)
+            for p in prompts]
     eng.run()
     st = eng.stats_summary()
     print(f"[engine] arch={cfg.arch_id} device={device} "
           f"requests={args.requests} slots={args.slots} gen={args.gen} "
           f"prompt_lens={lens} page={eng.page_size}")
+    print(f"kv pool: kv_dtype={st['kv_dtype']} "
+          f"{st['kv_bytes_per_slot']} bytes a slot, {st['pool_bytes']} "
+          f"bytes in all; sampling={sampling}")
     print(f"prefill {st['prefill_s']:.3f}s ({st['prefill_tok_s']:.1f} tok/s, "
           f"{st['prefill_dispatches']} dispatches)  decode "
           f"{st['decode_s']:.3f}s ({st['decode_tok_s']:.1f} tok/s, "

@@ -19,22 +19,27 @@ runs.
   (``tree``: rope at each row's depth, the ancestor mask of
   :func:`tree_valid`, only the chain rows committed to the pool).
 
+* Quantized pools (``kv_dtype`` int8 or int4): each pool is a ``(codes,
+  scales)`` pair; the view is gathered and dequantized into the
+  activations' dtype, the new rows enter it at full precision, and they
+  are quantized on their way into the pool.
+
 Layouts match the JAX functions: activations ``(B, S, H, hd)``, pools
 ``(num_pages, page, Hkv, hd)``.  Weights are cast to the activations'
 dtype at use, as in the JAX package (fp32 masters, bf16 compute).
 
-Not in these slices: the dense-cache decode variants, quantized pools and
-tensor-parallel head padding (``ROADMAP.md``, queue 1).
+Not in these slices: the dense-cache decode variants and tensor-parallel
+head padding (``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models import paging
+from repro_torch.models import paging, quant_kv
 from repro_torch.models.common import ParamSpec, apply_rope, rope_angles
 
 __all__ = ["gqa_param_specs", "gqa_train", "chunked_attention",
@@ -354,15 +359,44 @@ def _splitk_attend(q: torch.Tensor, k_view: torch.Tensor,
     return out.reshape(b, c, hq * cfg.hd)
 
 
+#: one layer's pool: a tensor, or a quantized ``(codes, scales)`` pair
+Pool = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _gather_view(pool: Pool, pages: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The slot view of ``pool``: gathered, and dequantized into ``dtype``
+    when the pool is a ``(codes, scales)`` pair."""
+    if isinstance(pool, tuple):
+        return paging.gather_pages_dequant(pool[0], pool[1], pages, dtype)
+    return paging.gather_pages(pool, pages)
+
+
+def _scatter_rows(pool: Pool, pages: torch.Tensor, rows: torch.Tensor,
+                  pos: torch.Tensor, nvalid: Optional[torch.Tensor]) -> None:
+    """Write ``rows`` into ``pool`` in place; a quantized pair takes the
+    rows' codes and scales to the same coordinates (page table and row
+    mask), computed once for both."""
+    if isinstance(pool, tuple):
+        codes, scales = quant_kv.quantize_rows(
+            rows, quant_kv.kv_bits(pool[0]))
+        coords = paging.token_coords(pages, pos, pool[0].shape[1],
+                                     rows.shape[0], nvalid)
+        pool[0].index_put_(coords, codes)
+        pool[1].index_put_(coords, scales)
+    else:
+        paging.scatter_token_rows(pool, pages, rows, pos, nvalid)
+
+
 def gqa_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                     pool_k: torch.Tensor, pool_v: torch.Tensor,
+                     pool_k: Pool, pool_v: Pool,
                      cur_index: torch.Tensor, pages: torch.Tensor,
                      nvalid: Optional[torch.Tensor] = None,
                      tree: Optional[Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]] = None,
                      valid: Optional[torch.Tensor] = None,
                      write_plan: Optional[Tuple[torch.Tensor, ...]] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                     ) -> Tuple[torch.Tensor, Pool, Pool]:
     """Paged split-K decode of ``C`` new tokens per slot.
 
     x: (B, C, D); pool_k/pool_v: ``(num_pages, page, Hkv, hd)`` physical
@@ -389,10 +423,18 @@ def gqa_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
     ``valid`` and ``write_plan``: the attention mask and, with ``nvalid``,
     the row-masked write's indices, when the caller built them once for
     every layer (:func:`attend_mask`, :func:`masked_write_plan`); else they
-    are built here."""
-    page = pool_k.shape[1]
-    k_view = paging.gather_pages(pool_k, pages)
-    v_view = paging.gather_pages(pool_v, pages)
+    are built here.
+
+    Quantized pages: ``pool_k`` and ``pool_v`` may each be a ``(codes,
+    scales)`` pair (:func:`repro_torch.serve.cache.quant_state_specs`).
+    The view is dequantized into ``x.dtype``
+    (:func:`~repro_torch.models.paging.gather_pages_dequant`), the new
+    rows are written into it unquantized, and
+    :func:`~repro_torch.models.quant_kv.quantize_rows` runs on the scatter:
+    codes and scales through the same table with the same row count."""
+    page = (pool_k[0] if isinstance(pool_k, tuple) else pool_k).shape[1]
+    k_view = _gather_view(pool_k, pages, x.dtype)
+    v_view = _gather_view(pool_v, pages, x.dtype)
     smax = pages.shape[1] * page
     rope_pos, scatter_n = None, nvalid
     if tree is not None:
@@ -411,6 +453,6 @@ def gqa_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
     if valid is None:
         valid = attend_mask(cur_index, x.shape[1], smax, nvalid, tree)
     out = _splitk_attend(q, k_view, v_view, valid, cfg, page)
-    paging.scatter_token_rows(pool_k, pages, k_new, pos, scatter_n)
-    paging.scatter_token_rows(pool_v, pages, v_new, pos, scatter_n)
+    _scatter_rows(pool_k, pages, k_new, pos, scatter_n)
+    _scatter_rows(pool_v, pages, v_new, pos, scatter_n)
     return out @ p["wo"].to(out.dtype), pool_k, pool_v

@@ -7,7 +7,9 @@ them, a list of per-layer dicts of views: see
 :func:`repro_torch.train.state.split_layers`); the block stack runs as a
 Python loop over layers (``lax.scan`` in JAX).  For decode, the state
 leaves are physical page pools ``(layers, num_pages, page_size, Hkv, hd)``
-(see :func:`repro_torch.serve.cache.paged_state_specs`), updated in place.
+(see :func:`repro_torch.serve.cache.paged_state_specs`), or int8/int4 code
+pools with fp32 per-row scales beside them
+(:func:`repro_torch.serve.cache.quant_state_specs`), updated in place.
 Speculative decode scores a drafted chain (:func:`verify_chunk`) or token
 tree (:func:`verify_tree`) in one dispatch; medusa-style draft heads
 (:func:`draft_head_specs`, :func:`fit_draft_heads`) propose the tree's
@@ -157,8 +159,14 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
     attends under the ancestor mask and commits only the chain rows to the
     pool (:func:`repro_torch.models.attention.gqa_decode_pages`).  Every
     layer attends over its gathered pages and scatters its new rows into
-    its pool, in place.  Returns the final hidden states (B, C, D) and the
-    state (the same dict)."""
+    its pool, in place.  A quantized state (``"k_scale"`` beside ``"k"``,
+    :func:`repro_torch.serve.cache.quant_state_specs`) passes each layer
+    its ``(codes, scales)`` pairs.  Returns the final hidden states (B, C,
+    D) and the state (the same dict)."""
+    quant = "k_scale" in state
+    if quant and batch.get("pages") is None:
+        raise ValueError("quantized KV state requires a page table "
+                         "(kv_dtype != 'fp32' is paged-only)")
     cur = batch["index"]
     pages = batch["pages"]
     nspec = batch.get("nspec")
@@ -177,9 +185,14 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
     for i in range(cfg.n_layers):
         bp = _layer(blocks, i)
         h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
+        if quant:
+            pool_k = (state["k"][i], state["k_scale"][i])
+            pool_v = (state["v"][i], state["v_scale"][i])
+        else:
+            pool_k, pool_v = state["k"][i], state["v"][i]
         h, _, _ = attention.gqa_decode_pages(
-            h, bp["attn"], cfg, state["k"][i], state["v"][i], cur, pages,
-            nspec, tree, valid, plan)
+            h, bp["attn"], cfg, pool_k, pool_v, cur, pages, nspec, tree,
+            valid, plan)
         x = x + h
         h = rms_norm(x, bp["ffn_norm"], cfg.norm_eps)
         x = x + moe.dense_ffn(h, bp["ffn"], cfg)

@@ -8,17 +8,26 @@ out-of-table rows are written there, and so are the rows a speculative
 verify masks off (``nvalid``: draft padding, idle lanes, a tree's drafted
 rows), so only scratch ever receives duplicate scatter targets.
 
+A quantized pool (``kv_dtype`` int8 or int4) is a pair of leaves, integer
+codes and fp32 per-row scales in the same pooled layout:
+:func:`gather_pages_dequant` gathers both through the page table and
+returns the float view, and the writer quantizes its rows and scatters
+codes and scales through the same table with the same row mask.
+
 Unlike the JAX version, :func:`scatter_token_rows` writes into the pool in
 place (PyTorch tensors are mutable; the pool is the largest tensor the
 engine holds) and returns the same tensor.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["gather_pages", "scatter_token_rows"]
+from repro_torch.models.quant_kv import dequantize_rows
+
+__all__ = ["gather_pages", "gather_pages_dequant", "token_coords",
+           "scatter_token_rows"]
 
 
 def gather_pages(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
@@ -30,6 +39,40 @@ def gather_pages(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
     ``pool[pages[b, s // page_size], s % page_size]``."""
     v = pool[pages]                              # (B, n_pages, page, ...)
     return v.reshape((v.shape[0], v.shape[1] * v.shape[2]) + v.shape[3:])
+
+
+def gather_pages_dequant(pool: torch.Tensor, scale_pool: torch.Tensor,
+                         pages: torch.Tensor, out_dtype: torch.dtype
+                         ) -> torch.Tensor:
+    """Dequantizing :func:`gather_pages`: gather a code pool
+    (``(num_pages, page, ..., D)`` int8, or ``(..., D/2)`` packed uint8)
+    and its per-row scale pool (``(num_pages, page, ...)`` fp32) through
+    ``pages`` and return the ``(B, n_pages * page, ..., D)`` view in
+    ``out_dtype``."""
+    return dequantize_rows(gather_pages(pool, pages),
+                           gather_pages(scale_pool, pages), out_dtype)
+
+
+def token_coords(pages: torch.Tensor, pos: torch.Tensor, page: int,
+                 batch: int, nvalid: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``(phys_page, offset)`` pool coordinates, each ``(B, C)``, that
+    :func:`scatter_token_rows` writes row ``j`` of slot ``b`` to: ``(pages[b,
+    pos // page], pos % page)``, with scratch page 0 for a position past
+    the table and, with ``nvalid``, for every row ``j >= nvalid[b]``.
+    ``pos`` is ``(B, C)``, or ``(C,)`` for all ``batch`` slots."""
+    n_pages = pages.shape[1]
+    if pos.dim() == 1:
+        pos = pos[None].expand(batch, pos.shape[0])
+    lp = torch.div(pos, page, rounding_mode="floor")          # (B, C)
+    off = pos % page
+    in_range = lp < n_pages
+    if nvalid is not None:
+        rows_idx = torch.arange(pos.shape[1], device=pos.device)
+        in_range = in_range & (rows_idx[None] < nvalid[:, None])
+    phys = torch.gather(pages, 1, torch.clamp(lp, max=n_pages - 1))
+    phys = torch.where(in_range, phys, torch.zeros_like(phys))  # 0 = scratch
+    return phys, off
 
 
 def scatter_token_rows(pool: torch.Tensor, pages: torch.Tensor,
@@ -45,18 +88,7 @@ def scatter_token_rows(pool: torch.Tensor, pages: torch.Tensor,
     ``(pages[b, pos // page], pos % page)``.  Rows whose position lies
     past the table go to scratch page 0, and so, with ``nvalid`` (a
     ``(B,)`` per-slot count of valid rows), does every row ``j >=
-    nvalid[b]``.  Returns ``pool``."""
-    page = pool.shape[1]
-    n_pages = pages.shape[1]
-    if pos.dim() == 1:
-        pos = pos[None].expand(rows.shape[0], rows.shape[1])
-    lp = torch.div(pos, page, rounding_mode="floor")          # (B, C)
-    off = pos % page
-    in_range = lp < n_pages
-    if nvalid is not None:
-        rows_idx = torch.arange(rows.shape[1], device=pos.device)
-        in_range = in_range & (rows_idx[None] < nvalid[:, None])
-    phys = torch.gather(pages, 1, torch.clamp(lp, max=n_pages - 1))
-    phys = torch.where(in_range, phys, torch.zeros_like(phys))  # 0 = scratch
-    pool.index_put_((phys, off), rows.to(pool.dtype))
+    nvalid[b]`` (:func:`token_coords`).  Returns ``pool``."""
+    coords = token_coords(pages, pos, pool.shape[1], rows.shape[0], nvalid)
+    pool.index_put_(coords, rows.to(pool.dtype))
     return pool

@@ -1,10 +1,12 @@
 """Serve tier of the port: engine, scheduler, page pool and reuse indices,
-sessions, speculative drafting and acceptance, config, sampling."""
+sessions, speculative drafting and acceptance, config, sampling and its
+threefry PRNG."""
 from repro_torch.serve.cache import PageDedupIndex, PagePool, PrefixTrie
-from repro_torch.serve.config import (SPEC_DRAFTERS, SPEC_MODES,
-                                      EngineConfig, auto_page_size)
+from repro_torch.serve.config import (KV_DTYPES, SPEC_DRAFTERS,
+                                      SPEC_MODES, EngineConfig,
+                                      auto_page_size)
 from repro_torch.serve.engine import ServeEngine
-from repro_torch.serve.sampling import GREEDY, SamplingParams
+from repro_torch.serve.sampling import GREEDY, SamplingParams, sample_tokens
 from repro_torch.serve.scheduler import DegradeLadder, Request, Scheduler
 from repro_torch.serve.sessions import Session, SessionStore
 from repro_torch.serve.spec import (DraftHeadDrafter, NGramTreeDrafter,
@@ -15,8 +17,9 @@ from repro_torch.serve.spec import (DraftHeadDrafter, NGramTreeDrafter,
                                     per_candidate_accept, pick_shape,
                                     propose_draft, tree_depth)
 
-__all__ = ["EngineConfig", "SPEC_MODES", "SPEC_DRAFTERS", "auto_page_size",
-           "ServeEngine", "GREEDY", "SamplingParams", "Request", "Scheduler",
+__all__ = ["EngineConfig", "KV_DTYPES", "SPEC_MODES", "SPEC_DRAFTERS",
+           "auto_page_size", "ServeEngine", "GREEDY", "SamplingParams",
+           "sample_tokens", "Request", "Scheduler",
            "DegradeLadder", "PagePool", "PrefixTrie", "PageDedupIndex",
            "Session", "SessionStore", "PromptLookupDrafter",
            "propose_draft", "accept_tokens", "SuffixCache", "TreeDraft",

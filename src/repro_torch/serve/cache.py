@@ -22,8 +22,12 @@ Prefix reuse is only sound when every state leaf is positional
 (:func:`supports_prefix`): a KV row at position ``i`` depends only on
 tokens ``[0..i]``, so a shared page equals a recomputed one.
 
-Not in this slice: quantized pools and sharded pools (``ROADMAP.md``,
-queue 1).
+A quantized pool (``kv_dtype`` int8 or int4, :func:`quant_state_specs`)
+turns each leaf into integer codes plus an fp32 ``<name>_scale`` sibling
+in the same pooled layout, so every page operation here (zeroing,
+copy-on-write, the bytes dedup hashes) moves codes and scales together.
+
+Not in this slice: sharded pools (``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from repro_torch.models.common import ParamSpec
 from repro_torch.tree import leaves, map_tree
 
 __all__ = ["state_zeros", "state_bytes", "supports_prefix",
-           "paged_state_specs", "zero_page", "copy_page", "page_bytes",
+           "paged_state_specs", "quant_state_specs", "zero_page", "copy_page", "page_bytes",
            "PagePool", "PrefixTrie", "PageDedupIndex"]
 
 
@@ -90,6 +94,40 @@ def paged_state_specs(specs: Dict[str, ParamSpec], page_size: int,
             s.shape[:bax] + (num_pages, page_size) + s.shape[bax + 2:],
             s.axes[:bax] + ("phys_page", "page_seq") + s.axes[bax + 2:],
             dtype=s.dtype, init=s.init, scale=s.scale)
+    return out
+
+
+def quant_state_specs(pspecs: Dict[str, ParamSpec], kv_dtype: str
+                      ) -> Dict[str, ParamSpec]:
+    """Rewrite a pooled spec dict (:func:`paged_state_specs`) into its
+    quantized layout: every leaf becomes an integer code leaf plus an fp32
+    ``<name>_scale`` sibling with one scale per (page, position, head) row
+    (the last axis is the quantization group), keeping the ``(phys_page,
+    page_seq)`` axes.  ``"int8"`` keeps the leaf shapes (int8 codes);
+    ``"int4"`` halves the last axis (two codes a uint8 byte; an odd extent
+    raises); ``"fp32"`` returns ``pspecs`` unchanged."""
+    if kv_dtype == "fp32":
+        return pspecs
+    if kv_dtype not in ("int8", "int4"):
+        raise ValueError(f"kv_dtype must be one of ('fp32', 'int8', "
+                         f"'int4'), got {kv_dtype!r}")
+    out: Dict[str, ParamSpec] = {}
+    for name, s in pspecs.items():
+        if not isinstance(s, ParamSpec):
+            raise ValueError(f"quant_state_specs needs a flat dict of "
+                             f"ParamSpecs, got {type(s)} at {name!r}")
+        if kv_dtype == "int4":
+            feat = s.shape[-1]
+            if feat % 2:
+                raise ValueError(
+                    f"kv_dtype='int4' packs two codes per byte, but leaf "
+                    f"{name!r} has an odd feature extent {feat}")
+            shape, dtype = s.shape[:-1] + (feat // 2,), torch.uint8
+        else:
+            shape, dtype = s.shape, torch.int8
+        out[name] = ParamSpec(shape, s.axes, dtype=dtype, init="zeros")
+        out[name + "_scale"] = ParamSpec(s.shape[:-1], s.axes[:-1],
+                                         dtype=torch.float32, init="zeros")
     return out
 
 

@@ -1,10 +1,10 @@
 """Typed serve-engine configuration (counterpart of ``repro/serve/config.py``).
 
 The port's :class:`EngineConfig` holds the knobs of the features the port
-serves — batching, paging, the prefix cache, page dedup, the degrade
-ladder and chain and tree speculative decode — with the JAX config's
-defaults and validation messages; the JAX config's other knobs (quantized
-KV, contiguous slots, mesh shards) arrive with their features
+serves — batching, paging, quantized KV pages, the prefix cache, page
+dedup, the degrade ladder and chain and tree speculative decode — with
+the JAX config's defaults and validation messages; the JAX config's other
+knobs (contiguous slots, mesh shards) arrive with their features
 (``ROADMAP.md``, queue 1).  The engine always runs the paged allocator, so
 ``page_size`` must resolve to a page.
 """
@@ -13,8 +13,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["EngineConfig", "SPEC_MODES", "SPEC_DRAFTERS", "auto_page_size",
-           "add_spec_args", "spec_knobs"]
+from repro_torch.models.quant_kv import KV_DTYPES
+
+__all__ = ["EngineConfig", "SPEC_MODES", "SPEC_DRAFTERS", "KV_DTYPES",
+           "auto_page_size", "add_spec_args", "spec_knobs",
+           "add_kv_dtype_arg"]
 
 #: speculative topologies: a linear K-token draft, a token tree verified
 #: under an ancestor mask, or a per-slot per-step choice between the two
@@ -72,6 +75,9 @@ class EngineConfig:
       spec_drafter: tree drafter, one of :data:`SPEC_DRAFTERS`: n-gram
         fan-out, or trained draft heads (``params["draft_heads"]``; the
         n-gram drafter without them).
+      kv_dtype: KV page element type, one of :data:`KV_DTYPES`: ``"fp32"``
+        (the unquantized pool, in the model's dtype), or ``"int8"`` /
+        ``"int4"`` per-row codes with fp32 scales.
     """
 
     max_slots: int = 4
@@ -90,6 +96,7 @@ class EngineConfig:
     spec_tree_nodes: int = 12
     spec_branch: int = 3
     spec_drafter: str = "ngram"
+    kv_dtype: str = "fp32"
 
     def validate(self) -> "EngineConfig":
         """Check the model-independent constraints; returns ``self``."""
@@ -123,6 +130,16 @@ class EngineConfig:
         if self.trie_capacity is not None and self.trie_capacity < 1:
             raise ValueError(
                 f"trie_capacity must be >= 1, got {self.trie_capacity}")
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype must be one of {KV_DTYPES},"
+                             f" got {self.kv_dtype!r}")
+        if self.kv_dtype != "fp32" and self.page_size == 0:
+            # page_size 0 asks for contiguous slots, the JAX engine's
+            # paged_kv=False
+            raise ValueError(
+                f"kv_dtype={self.kv_dtype!r} quantizes pooled KV pages, "
+                f"which requires the paged engine — incompatible with "
+                f"paged_kv=False")
         if self.page_size is not None and self.page_size < 1:
             raise ValueError(
                 f"page_size must be >= 1 (the port serves paged KV only; "
@@ -210,6 +227,16 @@ def add_spec_args(parser, spec_k_default: int = 4) -> None:
                         default="ngram", choices=SPEC_DRAFTERS,
                         help="tree drafter: suffix-lookup n-gram fan-out "
                              "or medusa-style trained draft heads")
+
+
+def add_kv_dtype_arg(parser) -> None:
+    """Register ``--kv-dtype`` on an argparse ``parser`` with the JAX serve
+    CLI's choices and default."""
+    parser.add_argument("--kv-dtype", dest="kv_dtype", default="fp32",
+                        choices=KV_DTYPES,
+                        help="KV page element type: quantized int8/int4 "
+                             "pages shrink the pool (per-row codes + fp32 "
+                             "scales, dequantized on gather)")
 
 
 def spec_knobs(args) -> dict:

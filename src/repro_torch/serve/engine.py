@@ -1,7 +1,7 @@
 """Chunked-prefill, continuous-batching serve engine over a paged KV pool.
 
 The counterpart of ``repro/serve/engine.py`` for the single-device paged
-engine with greedy sampling:
+engine:
 
 * **Chunked prefill** — an admission ingests its context in pieces of at
   most ``prefill_chunk`` tokens, each padded to a power-of-two shape bucket
@@ -17,7 +17,18 @@ engine with greedy sampling:
   them.  Idle lanes point their whole row at scratch page 0, which is
   re-zeroed after every admission.  Pool exhaustion reclaims retired rows
   and session snapshots least-recently-used first, then defers the
-  admission (never drops it).
+  admission (never drops it).  With ``kv_dtype`` ``"int8"`` or ``"int4"``
+  the pool holds per-row codes and fp32 scales
+  (:func:`~repro_torch.serve.cache.quant_state_specs`), dequantized on
+  every gather and quantized on every write; the page size is audited
+  against the int32 carrier at build
+  (:func:`~repro_torch.models.quant_kv.assert_kv_accumulator`).
+* **Sampling** — per-request :class:`SamplingParams` ride every dispatch
+  as per-slot lanes; a request's ``n``-th token draws with
+  ``fold_in(PRNGKey(seed), n)`` (:mod:`repro_torch.serve.prng`), so its
+  stream is the same across restarts, slots and preemption, and a verify
+  row draws at the sequential index it stands for.  A dispatch whose live
+  lanes are all greedy takes the argmax alone.
 * **Prefix cache** — a :class:`~repro_torch.serve.cache.PrefixTrie` indexes
   the tokens each row's pages hold, retired rows included; an admission
   whose context extends a resident prefix shares its full pages by
@@ -39,8 +50,9 @@ engine with greedy sampling:
   tokens per slot from its own history, ONE ``verify_chunk`` dispatch
   scores all K+1 rows, and the longest matching prefix plus one token is
   emitted (:func:`~repro_torch.serve.spec.accept_tokens`); pages advanced
-  past the accepted point are released.  Greedy tokens equal sequential
-  decode's.
+  past the accepted point are released.  Tokens equal sequential
+  decode's, sampled ones too (exact-match acceptance of draws made at the
+  sequential indices).
 * **Tree speculative decode** (``spec_mode="tree"`` / ``"auto"``) — a
   token tree per slot (n-gram fan-out, or draft heads with
   ``spec_drafter="heads"``) verified in ONE ``verify_tree`` dispatch under
@@ -55,10 +67,9 @@ engine with greedy sampling:
   dispatch.
 
 Dispatch is eager PyTorch (the JAX engine compiles ahead of time); the
-state tensors are updated in place, and a verify dispatch takes the argmax
-on the device and moves only ``(B, C)`` token ids to the host.  Quantized
-KV, stochastic sampling, contiguous slots and mesh sharding are still to
-port (``ROADMAP.md``, queue 1).
+state tensors are updated in place, and every dispatch samples on the
+device and moves only the token ids to the host.  Contiguous slots and
+mesh sharding are still to port (``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
@@ -73,10 +84,13 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import moa_reduce as _moa
+from repro_torch.models import quant_kv
 from repro_torch.models.registry import get_api
 from repro_torch.serve import cache
 from repro_torch.serve.config import EngineConfig
-from repro_torch.serve.sampling import SamplingParams, greedy_tokens
+from repro_torch.serve.sampling import (GREEDY, SamplingParams,
+                                        greedy_tokens, sample_tokens,
+                                        sampling_lanes)
 from repro_torch.serve.scheduler import DegradeLadder, Request, Scheduler
 from repro_torch.serve.sessions import SessionStore
 from repro_torch.serve.spec import (DraftHeadDrafter, NGramTreeDrafter,
@@ -138,7 +152,8 @@ class ServeEngine:
     """Continuous-batching engine over one dense GQA model's paged KV pool.
 
     Args:
-      cfg: model config (its ``dtype`` is the compute and KV dtype).
+      cfg: model config (its ``dtype`` is the compute dtype, and the KV
+        dtype of an unquantized pool).
       params: parameter dict in the JAX tree's layout, on ``device`` and in
         ``cfg.dtype`` (from :func:`repro_torch.models.common.init_params`
         or :func:`repro_torch.convert.params_from_numpy`).
@@ -169,6 +184,13 @@ class ServeEngine:
         specs = self.api.decode_state_specs(cfg, ecfg.max_slots, ecfg.max_seq)
         self.pspecs = cache.paged_state_specs(specs, ecfg.page_size,
                                               ecfg.pool_pages + 1)
+        self.kv_dtype = ecfg.kv_dtype
+        if self.kv_dtype != "fp32":
+            # page_size int{bits} magnitudes must sum exactly inside the
+            # int32 carrier (the paper's carry math)
+            quant_kv.assert_kv_accumulator(
+                ecfg.page_size, 8 if self.kv_dtype == "int8" else 4)
+            self.pspecs = cache.quant_state_specs(self.pspecs, self.kv_dtype)
         self.state = cache.state_zeros(self.pspecs, self.device)
         #: bytes of one physical page across every leaf
         self.page_bytes = cache.state_bytes(self.pspecs) // (
@@ -338,6 +360,10 @@ class ServeEngine:
                                if self.prefix is not None else 0)
         s["pages_in_use"] = self.pool.used_count
         s["pool_pages"] = self.pool.num_pages - 1
+        # capacity under the kv_dtype knob: the bytes of one slot's full
+        # row of pages, and of the whole pool
+        s["kv_dtype"] = self.kv_dtype
+        s["kv_bytes_per_slot"] = self.page_bytes * self.max_pages
         s["pool_bytes"] = cache.state_bytes(self.pspecs)
         s["slo_met"] = self.scheduler.slo_met_count
         s["slo_missed"] = self.scheduler.slo_missed_count
@@ -370,8 +396,8 @@ class ServeEngine:
           prompt: token ids to condition on.
           max_new: generation budget.
           eos_id: optional stop token.
-          sampling: per-request :class:`SamplingParams` (``None`` = greedy;
-            only greedy exists in the port so far).
+          sampling: per-request :class:`SamplingParams` (``None`` =
+            greedy).
           slo_ms: optional completion-latency SLO in milliseconds.
 
         Returns:
@@ -675,6 +701,25 @@ class ServeEngine:
         if shared_any:
             self.stats["dedup_hits"] += 1
 
+    # --------------------------------------------------------- sampling
+    def _lanes(self, sps: Sequence[SamplingParams],
+               idxs: Sequence[int]) -> Optional[tuple]:
+        """The sampling lanes of a dispatch's rows (one
+        :class:`SamplingParams` and sample index a row) on the device, or
+        None when every row is greedy: the argmax alone then gives the
+        same tokens."""
+        if all(sp.is_greedy for sp in sps):
+            return None
+        return sampling_lanes(sps, idxs, self.device)
+
+    @staticmethod
+    def _draw(logits: torch.Tensor, lanes: Optional[tuple]) -> torch.Tensor:
+        """One token a row of ``logits`` (N, V), on the device: the argmax
+        without lanes, else :func:`sample_tokens`."""
+        if lanes is None:
+            return greedy_tokens(logits)
+        return sample_tokens(logits, *lanes)
+
     # ------------------------------------------------------------ admit
     def _effective_chunk(self) -> int:
         """The prefill chunk cap for admissions planned now: the smallest
@@ -794,6 +839,9 @@ class ServeEngine:
             batches.append({"tokens": torch.as_tensor(toks, device=dev),
                             "index": torch.tensor(start, device=dev),
                             "nvalid": nvalid, "pages": row})
+        # the first token continues the request's sample stream (a
+        # re-admission draws at the index its tokens so far reach)
+        lanes = self._lanes([req.sampling or GREEDY], [len(req.generated)])
         launches0 = _moa.LAUNCHES
         t0 = time.perf_counter()
         if cow is not None:
@@ -804,7 +852,7 @@ class ServeEngine:
         for batch in batches:
             logits, self.state = self.api.prefill_chunk(
                 self.params, self.state, batch, self.cfg)
-        first = int(greedy_tokens(logits)[0])
+        first = int(self._draw(logits, lanes)[0])
         dt = time.perf_counter() - t0
         self.stats["moa_reduce_launches"] += _moa.LAUNCHES - launches0
         self.stats["prefill_s"] += dt
@@ -857,11 +905,16 @@ class ServeEngine:
             return []
         tokens = np.zeros((self.max_slots, 1), np.int64)
         positions = np.zeros((self.max_slots,), np.int64)
+        sps = [GREEDY] * self.max_slots
+        sidx = [0] * self.max_slots
         live = list(self.scheduler.active)
         for slot in live:
             req = self.scheduler.active[slot]
             tokens[slot, 0] = req.generated[-1]
             positions[slot] = req.pos
+            sps[slot] = req.sampling or GREEDY
+            sidx[slot] = len(req.generated)
+        lanes = self._lanes(sps, sidx)
         dev = self.device
         batch = {"tokens": torch.as_tensor(tokens, device=dev),
                  "index": torch.as_tensor(positions, device=dev),
@@ -872,7 +925,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         logits, self.state = self.api.decode_step(self.params, self.state,
                                                   batch, self.cfg)
-        nxt = greedy_tokens(logits).cpu().numpy()
+        nxt = self._draw(logits, lanes).cpu().numpy()
         dt = time.perf_counter() - t0
         self.stats["moa_reduce_launches"] += _moa.LAUNCHES - launches0
         if self.trace_logits:
@@ -981,12 +1034,20 @@ class ServeEngine:
         tokens = np.zeros((b, k + 1), np.int64)
         positions = np.zeros((b,), np.int64)
         nspec = np.zeros((b,), np.int64)     # idle lanes: writes masked
+        # row j of a slot draws at sample index len(generated) + j: the
+        # draw sequential decode makes there
+        sps = [GREEDY] * (b * (k + 1))
+        sidx = [0] * (b * (k + 1))
         for slot, req in self.scheduler.active.items():
             d = drafts[slot]
             tokens[slot, 0] = req.generated[-1]
             tokens[slot, 1:1 + len(d)] = d
             positions[slot] = req.pos
             nspec[slot] = 1 + len(d)
+            for j in range(k + 1):
+                sps[slot * (k + 1) + j] = req.sampling or GREEDY
+                sidx[slot * (k + 1) + j] = len(req.generated) + j
+        lanes = self._lanes(sps, sidx)
         dev = self.device
         batch = {"tokens": torch.as_tensor(tokens, device=dev),
                  "index": torch.as_tensor(positions, device=dev),
@@ -999,7 +1060,8 @@ class ServeEngine:
         t0 = time.perf_counter()
         logits, self.state = self.api.verify_chunk(self.params, self.state,
                                                    batch, self.cfg)
-        nxt = greedy_tokens(logits).cpu().numpy()         # (B, K+1)
+        nxt = self._draw(logits.reshape(b * (k + 1), -1),
+                         lanes).reshape(b, k + 1).cpu().numpy()
         dt = time.perf_counter() - t0
         self.stats["moa_reduce_launches"] += _moa.LAUNCHES - launches0
         if self.trace_logits:
@@ -1178,6 +1240,19 @@ class ServeEngine:
             positions[slot] = req.pos + 1 - u
             nchain[slot] = u
             nspec[slot] = u + n
+        # row j draws at len(generated) + pos_off[j] - (u - 1): the anchor
+        # (the last chain row) at the next sequential index, a depth-d node
+        # at d past it, so an accepted path's draws are the sequential
+        # ones; chain rows before the anchor redraw emitted indices
+        # (clamped at 0) and are discarded
+        sps = [GREEDY] * (b * cw)
+        sidx = [0] * (b * cw)
+        for slot, req in self.scheduler.active.items():
+            base = len(req.generated) - (u_map[slot] - 1)
+            for j in range(cw):
+                sps[slot * cw + j] = req.sampling or GREEDY
+                sidx[slot * cw + j] = max(base + int(pos_off[slot, j]), 0)
+        lanes = self._lanes(sps, sidx)
         dev = self.device
         batch = {"tokens": torch.as_tensor(tokens, device=dev),
                  "index": torch.as_tensor(positions, device=dev),
@@ -1193,7 +1268,8 @@ class ServeEngine:
         t0 = time.perf_counter()
         logits, head_top, self.state = self.api.verify_tree(
             self.params, self.state, batch, self.cfg, head_topk=branch)
-        nxt = greedy_tokens(logits).cpu().numpy()         # (B, C)
+        nxt = self._draw(logits.reshape(b * cw, -1),
+                         lanes).reshape(b, cw).cpu().numpy()
         dt = time.perf_counter() - t0
         head_np = head_top.cpu().numpy() if heads is not None else None
         self.stats["moa_reduce_launches"] += _moa.LAUNCHES - launches0

@@ -17,11 +17,12 @@ from repro_torch.kernels import moa_reduce as moa
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qmm
 from repro_torch.launch import sass_mix
-from repro_torch.models import attention, lm
+from repro_torch.models import attention, lm, quant_kv
 from repro_torch.models.common import ParamSpec, init_params
 from repro_torch.models.registry import get_api
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.serve import EngineConfig, ServeEngine, cache
+from repro_torch.serve import (EngineConfig, SamplingParams, ServeEngine,
+                                cache, prng, sampling)
 from repro_torch.train.state import build_train_step, init_train_state
 from repro_torch.tree import map_tree
 
@@ -891,5 +892,125 @@ def test_spec_engine_on_the_card_equals_cpu(cuda_device, mode):
     st = out["cuda"][3]
     assert st["spec_steps"] == st["decode_steps"] > 0
     assert out["cpu"][2] == 0
+    assert out["cuda"][2] == 2 * cfg.n_layers * (st["prefill_dispatches"]
+                                                 + st["decode_steps"])
+
+
+@pytest.mark.cuda
+def test_prng_bits_on_the_card_equal_cpu(cuda_device):
+    """Threefry is integer arithmetic: keys, bits and uniforms are the
+    same bits on CUDA as on the CPU (the CPU ones equal JAX's,
+    tests/test_torch_sampling.py)."""
+    seeds = torch.tensor([0, 7, -5, 2 ** 31 - 1, 123456])
+    idxs = torch.tensor([0, 1, 1000, 3, 2 ** 31 - 1])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        key = prng.fold_in(prng.prng_key(seeds.to(dev)), idxs.to(dev))
+        out[dev] = (key, prng.random_bits(key, 128257),
+                    prng.uniform(key, 128257, torch.finfo(torch.float32).tiny))
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        assert torch.equal(a, b.cpu())
+    assert torch.equal(out["cpu"][1], out["cuda"][1].cpu())
+    assert torch.equal(out["cpu"][2].view(torch.int32),
+                       out["cuda"][2].cpu().view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_sample_tokens_on_the_card_equal_cpu(cuda_device):
+    """Seeded (64, 128256) fp32 logits, the engine's lanes: CUDA draws the
+    CPU's tokens."""
+    gen = torch.Generator().manual_seed(0)
+    logits = 3 * torch.randn((64, 128256), generator=gen)
+    sps = [SamplingParams(temperature=(0.0, 0.5, 0.8, 1.5)[i % 4],
+                          top_k=(0, 1, 40)[i % 3],
+                          top_p=(0.05, 0.9, 1.0)[(i // 3) % 3], seed=i)
+           for i in range(64)]
+    idxs = list(range(0, 640, 10))
+    cpu = sampling.sample_tokens(logits, *sampling.sampling_lanes(sps, idxs))
+    gpu = sampling.sample_tokens(logits.to(cuda_device),
+                                 *sampling.sampling_lanes(sps, idxs,
+                                                          cuda_device))
+    assert torch.equal(gpu.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_rows_on_the_card_equal_cpu(cuda_device, bits):
+    gen = torch.Generator().manual_seed(bits)
+    x = 2 * torch.randn((4, 128, 8, 128), generator=gen)
+    x[0, 0] = 0.0
+    codes, scale = quant_kv.quantize_rows(x, bits)
+    gcodes, gscale = quant_kv.quantize_rows(x.to(cuda_device), bits)
+    assert torch.equal(gcodes.cpu(), codes)
+    assert torch.equal(gscale.cpu().view(torch.int32),
+                       scale.view(torch.int32))
+    for dt in (torch.float32, torch.bfloat16):
+        want = quant_kv.dequantize_rows(codes, scale, dt)
+        got = quant_kv.dequantize_rows(gcodes, gscale, dt)
+        assert torch.equal(got.cpu(), want)
+
+
+def _reduced_engine_runs(knobs, sps=None):
+    """The reduced fp32 config (TF32 off) on the CPU and on CUDA with
+    ``knobs``: (tokens, stats, moa_reduce launches) by device."""
+    cfg = get_config("llama3.2-3b").reduced(dtype=torch.float32,
+                                            n_kv_heads=2)
+    params = init_params(get_api(cfg).param_specs(cfg),
+                         torch.Generator().manual_seed(0),
+                         torch.device("cpu"), torch.float32)
+    gen = torch.Generator().manual_seed(3)
+    pat = torch.randint(0, cfg.vocab, (5,), generator=gen).tolist()
+    prompts = [pat * 4, torch.randint(0, cfg.vocab, (13,),
+                                      generator=gen).tolist(),
+               pat * 3 + [1], pat[::-1] * 3]
+    sps = sps or [None] * len(prompts)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            p = map_tree(lambda t: t.to(dev), params)
+            eng = ServeEngine(cfg, p, config=EngineConfig(
+                max_slots=2, max_seq=64, prefill_chunk=16, page_size=16,
+                **knobs), device=dev)
+            before = moa.LAUNCHES
+            reqs = [eng.submit(q, 12, sampling=sp)
+                    for q, sp in zip(prompts, sps)]
+            eng.run()
+            out[dev] = ([r.generated for r in reqs], eng.stats_summary(),
+                        moa.LAUNCHES - before)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return cfg, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+def test_quantized_engine_on_the_card_equals_cpu(cuda_device, kv_dtype):
+    """int8 and int4 pools: the CUDA engine gives the CPU engine's tokens
+    and pool accounting, launching moa_reduce twice a layer a dispatch."""
+    cfg, out = _reduced_engine_runs(dict(kv_dtype=kv_dtype))
+    assert out["cuda"][0] == out["cpu"][0]
+    st, cst = out["cuda"][1], out["cpu"][1]
+    for k in ("kv_dtype", "kv_bytes_per_slot", "pool_bytes",
+              "decode_steps", "prefill_dispatches"):
+        assert st[k] == cst[k], k
+    assert out["cpu"][2] == 0
+    assert out["cuda"][2] == 2 * cfg.n_layers * (st["prefill_dispatches"]
+                                                 + st["decode_steps"]) > 0
+
+
+@pytest.mark.cuda
+def test_sampled_chain_engine_on_the_card_equals_cpu(cuda_device):
+    """Sampled requests (temperature 0.8, top-k 40, top-p 0.9, one seed
+    each) under chain speculative decode: CUDA draws the CPU's tokens and
+    accepts as many drafts."""
+    sps = [SamplingParams(temperature=0.8, top_k=40, top_p=0.9, seed=i)
+           for i in range(4)]
+    cfg, out = _reduced_engine_runs(dict(spec_k=4), sps)
+    assert out["cuda"][0] == out["cpu"][0]
+    for k in ("spec_drafted", "spec_accepted", "decode_steps"):
+        assert out["cuda"][1][k] == out["cpu"][1][k], k
+    st = out["cuda"][1]
     assert out["cuda"][2] == 2 * cfg.n_layers * (st["prefill_dispatches"]
                                                  + st["decode_steps"])
