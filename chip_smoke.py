@@ -6,7 +6,8 @@
 Builds every kernel of the serve and training paths from the sources in
 the checkout, holds each against its plain PyTorch version on the card,
 drives the port's serve engine and its trainer at the full width of
-``llama3.2-3b`` (random weights from a seed), and times each kernel beside
+``llama3.2-3b``, and its serve engine at the full width of the MLA model
+``minicpm3-4b`` (random weights from a seed), and times each kernel beside
 its bound, its plain version and a library call.  Raises at the first
 failed check, so any failure exits non-zero; with no CUDA device, or
 outside a checkout of the repository, it exits non-zero before printing
@@ -41,7 +42,11 @@ Phases:
      (spec_k 4), CUDA against CPU: tokens and every counter equal; and
      sample_tokens on one seeded (64, 128256) fp32 logits tensor, CUDA
      against CPU: equal tokens, with threefry's bits and uniforms bit for
-     bit
+     bit; then the reduced fp32 minicpm3-4b engine (MLA's latent pools),
+     CUDA against CPU on the same weights: sequential, prefix-cache warm,
+     chain (spec_k 4), tree, int8 and int4 pools, sampled (temperature
+     0.8, top-k 40): tokens and every counter equal, decode logits within
+     1e-3, no kernel launched
   6. serve, full width: llama3.2-3b, 28 layers, bf16, 8 greedy requests
      of 128 to 1024 prompt tokens and 32 new tokens on 4 slots, prefix
      cache off (what PRs 11-17 measured); every request retires with 32
@@ -98,8 +103,24 @@ Phases:
      int8 pool: sequential twice (equal tokens asserted: restart
      determinism), chain (spec_k 4) and tree (12 nodes, branch 3); step
      p50, tokens a step, accept rate and requests equal to the sequential
-     run printed, and where each request first parts from it (the two
-     tokens' score gap and logit ranks in a teacher-forced bf16 pass)
+     run printed, and where each request first parts from it, scored as
+     the sampler scores it: each run's own logits row of that draw (kept
+     on the card during the run), sorted, masked past top-k and given the
+     Gumbel noise of (seed, index) by rank; each run's winning rank and
+     margin, and how many of the top-k ranks hold another token in the
+     two rows
+  F. MLA serve: minicpm3-4b at its published width (62 layers, d 2560, 40
+     heads, q_lora_rank 768, kv_lora_rank 256, nope 64, rope 32, v 64,
+     d_ff 6400, vocab 73448; 4.26 B params, bf16, random from seed 0),
+     after E with the llama weights freed, on phase 6's geometry: phase
+     6's traffic over bf16, int8 and int4 latent pools (35,712 / 18,352 /
+     9,424 bytes a token asserted), phase A's shared-prefix traffic cold
+     and warm (tokens equal, 7 hits), chain (spec_k 4) and tree (12 nodes,
+     branch 3) on phase D's passages, and E3's sampling over int8 twice
+     (tokens equal); the refcount invariant after every step, every
+     request complete, no NaN logit, and moa_reduce, flash_attention,
+     bitplane_add and quant_matmul launched 0 times in every run; prefill
+     tok/s, decode step p50/p99, decode tok/s and tokens a step printed
   7. moa_reduce timings at the serve path shapes, the verify shapes of a
      chain (C = 5) and a tree (C = 17) among them (CUDA events, median of
      50), beside the bound, the plain version and torch.sum
@@ -214,6 +235,9 @@ KERNELS = {
     "quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                      "src/repro/kernels/quant_matmul.py:61"),
 }
+
+#: the second served architecture: Multi-head Latent Attention
+MLA_ARCH = "minicpm3-4b"
 
 #: the training path's attention shape: llama3.2-3b at batch 2 x seq 2048
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
@@ -454,6 +478,90 @@ def phase_reduced_parity() -> None:
     _free(*(e for e, _ in cpu_runs.values()),
           *(e for e, _ in gpu_runs.values()))
     sampling_parity()
+    mla_parity()
+
+
+#: phase 5's MLA runs: (engine knobs, sampled?); "prefix warm" serves
+#: shared-prefix prompts, the others repeated passages
+REDUCED_MLA_RUNS = {
+    "sequential": (dict(prefix_cache=False), False),
+    "prefix warm": ({}, False),
+    "chain": (dict(spec_k=4), False),
+    "tree": (dict(spec_k=4, spec_mode="tree"), False),
+    "int8": (dict(kv_dtype="int8"), False),
+    "int4": (dict(kv_dtype="int4"), False),
+    "sampled": ({}, True)}
+
+
+def reduced_mla_runs(cfg, params, dev):
+    """Phase 5's MLA runs on ``dev``: every run stepped with the refcount
+    invariant after every step and its decode logits traced; a sampled
+    run's request ``i`` draws with temperature 0.8, top-k 40 and seed
+    ``i``.  (engine, requests) by run name."""
+    passages = spec_prompts((40, 13, 28, 20, 33), cfg.vocab, seed=15,
+                            passage=6, edits=1)
+    rng = np.random.default_rng(16)
+    system = rng.integers(0, cfg.vocab, 24).tolist()
+    shared = [system + rng.integers(0, cfg.vocab, n).tolist()
+              for n in (5, 9, 3, 12, 7)]
+    runs = {}
+    for name, (knobs, sampled) in REDUCED_MLA_RUNS.items():
+        eng = ServeEngine(cfg, params, config=EngineConfig(
+            max_slots=2, max_seq=64, prefill_chunk=16, page_size=16,
+            **knobs), device=dev)
+        eng.trace_logits = True
+        prompts = shared if name == "prefix warm" else passages
+        reqs = [eng.submit(q, 16, sampling=SamplingParams(
+            temperature=0.8, top_k=40, seed=i) if sampled else None)
+            for i, q in enumerate(prompts)]
+
+        def drive():
+            while eng.scheduler.has_work:
+                eng.step()
+                refcount_check(eng, f"reduced MLA {name}")
+
+        launches = _counted_run(eng, drive)
+        _check_launches(eng, launches, f"reduced MLA {name}")
+        runs[name] = (eng, reqs)
+    return runs
+
+
+def mla_parity() -> None:
+    """The reduced fp32 minicpm3-4b engine, CUDA against CPU on the same
+    weights: tokens and every counter equal, decode logits within 1e-3,
+    and no kernel launched."""
+    cfg = get_config(MLA_ARCH).reduced(dtype=torch.float32)
+    cpu_params = init_params(get_api(cfg).param_specs(cfg),
+                             torch.Generator().manual_seed(0),
+                             torch.device("cpu"), cfg.dtype)
+    cpu_runs = reduced_mla_runs(cfg, cpu_params, "cpu")
+    gpu_runs = reduced_mla_runs(cfg, map_tree(lambda t: t.to("cuda"),
+                                              cpu_params), "cuda")
+    for name, (ceng, creqs) in cpu_runs.items():
+        geng, greqs = gpu_runs[name]
+        check(_tokens(creqs) == _tokens(greqs),
+              f"reduced MLA {name}: CUDA tokens differ from CPU")
+        cst, gst = ceng.stats_summary(), geng.stats_summary()
+        bad = [k for k in SERVE_COUNTERS + SPEC_COUNTERS + (
+            "kv_dtype", "kv_bytes_per_slot", "pool_bytes")
+            if cst[k] != gst[k]]
+        check(not bad, f"reduced MLA {name}: counters differ CPU vs CUDA: "
+                       f"{[(k, cst[k], gst[k]) for k in bad]}")
+        diff = _logit_diff(ceng, geng)
+        check(diff <= 1e-3, f"reduced MLA {name}: decode logits differ by "
+                            f"{diff} (> 1e-3)")
+        print(f"[parity] reduced {MLA_ARCH} {name}: tokens and "
+              f"{len(SERVE_COUNTERS) + len(SPEC_COUNTERS) + 3} counters "
+              f"equal CPU vs CUDA over {len(creqs)} requests (decode steps "
+              f"{gst['decode_steps']}, prefix hits {gst['prefix_hits']}, "
+              f"pages shared {gst['pages_shared']}, drafted "
+              f"{gst['spec_drafted']}, accepted {gst['spec_accepted']}, "
+              f"tree steps {gst['spec_tree_steps']}, kv_dtype "
+              f"{gst['kv_dtype']}, {gst['kv_bytes_per_slot']} bytes a slot); "
+              f"max |logit diff| {diff:.3e} (tol 1e-3); kernel launches "
+              f"{geng.kernel_launches}")
+    _free(*(e for e, _ in cpu_runs.values()),
+          *(e for e, _ in gpu_runs.values()))
 
 
 def phase_full_width():
@@ -715,13 +823,15 @@ SPEC_NEW, FIT_WINDOW, FIT_STEPS = 64, 256, 100
 
 
 def serve_spec(cfg, params, knobs, prompts, what, new=SPEC_NEW,
-               sampling=None, trace=False):
+               sampling=None, trace=False, record=None):
     """One full-width engine (phase 6's geometry, ``knobs`` over it)
     serving ``prompts`` x ``new`` tokens, each request with ``sampling``:
     a warm-up request first (untimed), then the traffic, stepped with the
     refcount invariant after every step and every logit's finiteness held
-    on the card (``trace``: decode logits kept in ``logit_trace``).
-    Returns (engine, requests, moa_reduce launches)."""
+    on the card (``trace``: decode logits kept in ``logit_trace``; a
+    ``record`` list: every decode and verify dispatch's live slots, batch
+    and logits, kept on the card for :func:`drawn_rows`).  Returns
+    (engine, requests, moa_reduce launches)."""
     eng = ServeEngine(cfg, params, config=EngineConfig(**dict(dict(
         max_slots=4, max_seq=2048, prefill_chunk=256, prefix_cache=False),
         **knobs)))
@@ -734,9 +844,11 @@ def serve_spec(cfg, params, knobs, prompts, what, new=SPEC_NEW,
     api = eng.api
 
     def held(fn):
-        def call(*args, **kw):
-            out = fn(*args, **kw)
+        def call(params, state, batch, cfg, **kw):
+            out = fn(params, state, batch, cfg, **kw)
             finite[0] &= torch.isfinite(out[0]).all()
+            if record is not None:
+                record.append((dict(eng.scheduler.active), batch, out[0]))
             return out
         return call
 
@@ -758,7 +870,9 @@ def serve_spec(cfg, params, knobs, prompts, what, new=SPEC_NEW,
                               f"{new} tokens")
     check(bool(finite[0]), f"{what}: a decode or verify logit is not "
                            f"finite")
-    check(eng.pool.used_count == 0, f"{what}: pages left allocated")
+    # with the prefix cache, retired rows stay resident for later hits
+    check(eng.prefix is not None or eng.pool.used_count == 0,
+          f"{what}: pages left allocated")
     return eng, reqs, launches
 
 
@@ -830,41 +944,124 @@ def phase_spec_serve(cfg, params):
     return rows, launches, rows["chain"]["step_p50_ms"] / 1e3
 
 
-def divergence(cfg, params, prompts, seq, toks, sampling=None):
-    """Where each request's tokens first leave the sequential run's: the
-    index, and in one teacher-forced pass over the sequential context
+def divergence(cfg, params, prompts, seq, toks):
+    """Where each request's greedy tokens first leave the sequential run's:
+    the index, and in one teacher-forced pass over the sequential context
     before it (``lm.hidden_states``, bf16 logits as the engine takes them)
     the logit of the sequential token less that of the other token, beside
     one bf16 ulp at that logit.  A gap within an ulp or two is a near tie
     that another accumulation order (C = 5 or 17 rows against 1) may
-    flip.  With ``sampling`` the gap is between the draw's scores (the
-    logit over the temperature plus the Gumbel noise of the request's
-    seed at that index), and each token's rank among the logits is kept
-    (a top-k mask keeps ranks below ``top_k``)."""
+    flip."""
     out = []
     head = params["lm_head"]
     for r, (p, a, b) in enumerate(zip(prompts, seq, toks)):
-        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        i = _parting(a, b)
         if i is None:
             continue
         ctx = torch.tensor([p + a[:i]], device=head.device)
         with torch.no_grad():
             x = hidden_states(params, cfg, ctx)[0, -1]
             logits = (x.to(head.dtype) @ head).float()
-        score, ulp_at = logits, float(logits[a[i]])
+        top = float(logits[a[i]])
+        out.append({"request": r, "index": i,
+                    "gap": top - float(logits[b[i]]),
+                    "ulp": (2.0 ** (math.floor(math.log2(abs(top))) - 7)
+                            if top else 0.0)})
+    return out
+
+
+def _parting(a, b):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def drawn_rows(record, reqs):
+    """The logits row each request's token ``i`` was drawn from, by
+    ``(request, i)``, from a :func:`serve_spec` ``record``: a dispatch row
+    counts when every fed token on its path (the chain before it, or its
+    tree ancestors) is the request's final stream at that position, and the
+    first such row of an index is the one whose draw was emitted (later
+    ones are a tree's chain rows drawing an emitted index again)."""
+    number = {id(r): n for n, r in enumerate(reqs)}
+    streams = [list(r.prompt) + r.generated for r in reqs]
+    out = {}
+    for active, batch, logits in record:
+        tokens = batch["tokens"].cpu().numpy()
+        index = batch["index"].cpu().numpy()
+        c = tokens.shape[1]
+        parents = (batch["parents"].cpu().numpy() if "parents" in batch
+                   else np.broadcast_to(np.arange(c) - 1, tokens.shape))
+        pos_off = (batch["pos_off"].cpu().numpy() if "pos_off" in batch
+                   else np.broadcast_to(np.arange(c), tokens.shape))
+        nspec = (batch["nspec"].cpu().numpy() if "nspec" in batch
+                 else np.ones(len(tokens), np.int64))
+        rows = logits if logits.dim() == 3 else logits[:, None]
+        for slot, req in active.items():
+            n = number.get(id(req))
+            if n is None:
+                continue
+            stream, lp = streams[n], len(req.prompt)
+            for j in range(int(nspec[slot])):
+                q, ok = j, True
+                while q >= 0 and ok:
+                    at = int(index[slot] + pos_off[slot, q])
+                    ok = at < len(stream) and stream[at] == tokens[slot, q]
+                    q = int(parents[slot, q])
+                i = int(index[slot] + pos_off[slot, j]) + 1 - lp
+                if ok and 0 <= i < len(req.generated) and (n, i) not in out:
+                    out[(n, i)] = rows[slot, j].clone()
+    return out
+
+
+def rank_draw(logits, sp, index):
+    """``sample_tokens``' draw of one logits row, in its rank space: the
+    stable descending order, and per rank the scaled logit plus the Gumbel
+    noise that ``(seed, index)`` gives that rank (-inf past top-k and the
+    nucleus).  Returns (order, scores)."""
+    v = logits.shape[-1]
+    order = torch.sort(-logits, stable=True).indices
+    scaled = logits[order] / max(sp.temperature, 1e-6)
+    ranks = torch.arange(v, device=logits.device)
+    keep = ranks < (sp.top_k if sp.top_k > 0 else v)
+    e = torch.exp(scaled - scaled.max())
+    probs = e / e.sum()
+    keep &= (torch.cumsum(probs, 0) - probs) < sp.top_p
+    keep[0] = True
+    key = prng.fold_in(prng.prng_key(torch.tensor(
+        [sp.seed], device=logits.device)), index)
+    noise = prng.gumbel(key, v)[0]
+    return order, torch.where(keep, scaled, -torch.inf) + noise
+
+
+def sampled_divergence(seq, toks, seq_rows, run_rows, sp):
+    """Where each sampled request first leaves the sequential run's, scored
+    as the sampler scores it: each run's own logits row at that index
+    (:func:`drawn_rows`) through :func:`rank_draw`.  Per parting: each
+    run's winning rank and its margin over the runner-up, whether that
+    rank's token is the run's token, the count of top-k ranks whose token
+    differs between the two rows, and their largest |logit| difference."""
+    out = []
+    for r, (a, b) in enumerate(zip(seq, toks)):
+        i = _parting(a, b)
+        if i is None:
+            continue
         row = {"request": r, "index": i}
-        if sampling is not None:
-            temp = max(sampling.temperature, 1e-6)
-            key = prng.fold_in(prng.prng_key(torch.tensor(
-                [sampling.seed], device=head.device)), i)
-            score = logits / temp + prng.gumbel(key, logits.shape[-1])[0]
-            ulp_at /= temp
-            row["ranks"] = [int((logits > logits[t]).sum()) for t in
-                            (a[i], b[i])]
-        top = float(score[a[i]])
-        row["gap"] = top - float(score[b[i]])
-        row["ulp"] = (2.0 ** (math.floor(math.log2(abs(ulp_at))) - 7)
-                      if ulp_at else 0.0)
+        pair = (seq_rows.get((r, i)), run_rows.get((r, i)))
+        if pair[0] is None or pair[1] is None:
+            row["missing"] = [x is None for x in pair]
+            out.append(row)
+            continue
+        draws = [rank_draw(x.float(), sp, i) for x in pair]
+        row["win_rank"], row["margin"], row["drew_own_token"] = [], [], []
+        for (order, score), tok in zip(draws, (a[i], b[i])):
+            top2 = torch.topk(score, 2)
+            row["win_rank"].append(int(top2.indices[0]))
+            row["margin"].append(float(top2.values[0] - top2.values[1]))
+            row["drew_own_token"].append(int(order[top2.indices[0]]) == tok)
+        k = sp.top_k if sp.top_k > 0 else len(draws[0][0])
+        row["top_k_ranks_differ"] = int((draws[0][0][:k]
+                                         != draws[1][0][:k]).sum())
+        row["max_logit_diff"] = float((pair[0].float() - pair[1].float())
+                                      .abs().max())
         out.append(row)
     return out
 
@@ -919,12 +1116,16 @@ E3_SAMPLING = SamplingParams(temperature=0.8, top_k=40, seed=7)
 
 
 def kv_token_bytes(cfg, kv_dtype: str) -> int:
-    """KV bytes a token at ``cfg``'s width, K and V in every layer: a row
-    of ``hd`` values in the model's dtype, or int8 codes (int4: two a byte)
-    plus the row's fp32 scale."""
-    row = {"fp32": cfg.hd * cfg.dtype.itemsize, "int8": cfg.hd + 4,
-           "int4": cfg.hd // 2 + 4}[kv_dtype]
-    return cfg.n_layers * 2 * cfg.n_kv_heads * row
+    """KV bytes a token at ``cfg``'s width in every layer: a row of
+    values in the model's dtype, or int8 codes (int4: two a byte) plus the
+    row's fp32 scale.  GQA keeps a row of ``hd`` for K and for V in each
+    KV head; MLA one latent ``ckv`` row of ``kv_lora_rank`` and one shared
+    rope-key row of ``qk_rope_dim``."""
+    widths = ((cfg.kv_lora_rank, cfg.qk_rope_dim) if cfg.attn_kind == "mla"
+              else (cfg.hd,) * (2 * cfg.n_kv_heads))
+    row = {"fp32": lambda w: w * cfg.dtype.itemsize,
+           "int8": lambda w: w + 4, "int4": lambda w: w // 2 + 4}[kv_dtype]
+    return cfg.n_layers * sum(row(w) for w in widths)
 
 
 def logit_drift(a: np.ndarray, b: np.ndarray) -> tuple:
@@ -1024,23 +1225,26 @@ def phase_quant_serve(cfg, params):
           f"bf16 4-slot run; moa_reduce launches {launched}")
     _free(eng)
     prompts = spec_prompts(SPEC_LENS, cfg.vocab, seed=23)
-    seq = None
+    seq = seq_rows = None
     for name, knobs in (("sequential", {}), ("sequential again", {}),
                         ("chain", SPEC_RUNS["chain"]),
                         ("tree", SPEC_RUNS["tree"])):
         what = f"E3 sampled {name}"
+        record = []
         eng, reqs, launched = serve_spec(cfg, params,
                                          dict(kv_dtype="int8", **knobs),
                                          prompts, what,
-                                         sampling=E3_SAMPLING)
+                                         sampling=E3_SAMPLING, record=record)
         st = eng.stats_summary()
         toks = _tokens(reqs)
+        drawn = drawn_rows(record, reqs)
+        del record
         if seq is None:
-            seq = toks
+            seq, seq_rows = toks, drawn
         elif name == "sequential again":
             check(toks == seq, f"{what}: the sampled tokens did not repeat")
         same = sum(a == b for a, b in zip(toks, seq))
-        where = divergence(cfg, params, prompts, seq, toks, E3_SAMPLING)
+        where = sampled_divergence(seq, toks, seq_rows, drawn, E3_SAMPLING)
         rows[what] = dict(_serve_row(st), launches=launched,
                           accept_rate=st["spec_accept_rate"],
                           equal_to_sequential=same, divergence=where)
@@ -1049,14 +1253,115 @@ def phase_quant_serve(cfg, params):
               f"{st['tokens_per_step']:.3f} tokens/step, accept rate "
               f"{st['spec_accept_rate']:.4f} (drafted {st['spec_drafted']},"
               f" accepted {st['spec_accepted']}); requests with the "
-              f"sampled sequential tokens {same} of {len(reqs)}; moa_reduce"
-              f" launches {launched}")
-        if where:
-            print(f"[quant] {what}: first token unlike the sequential "
-                  f"run's, (request, index, score gap, ulp of the scaled "
-                  f"logit, logit ranks of the two tokens): "
-                  f"{[(w['request'], w['index'], round(w['gap'], 4), w['ulp'], w['ranks']) for w in where]}")
+              f"sampled sequential tokens {same} of {len(reqs)}; the "
+              f"decode or verify row of {len(drawn)} of its "
+              f"{sum(len(t) - 1 for t in toks)} draws after the first "
+              f"found; moa_reduce launches {launched}")
+        for w in where:
+            print(f"[quant] {what}: parts from the sequential run at "
+                  f"request {w['request']} index {w['index']}: "
+                  + (f"no drawn row found (sequential, this run) "
+                     f"{w['missing']}" if "missing" in w else
+                     f"winning rank (sequential, this run) {w['win_rank']}, "
+                     f"margin over the runner-up "
+                     f"{[round(m, 4) for m in w['margin']]}, the rank's "
+                     f"token is the run's {w['drew_own_token']}; "
+                     f"{w['top_k_ranks_differ']} of the top-"
+                     f"{E3_SAMPLING.top_k} ranks hold another token in the "
+                     f"two rows; max |logit diff| "
+                     f"{w['max_logit_diff']:.4f}"))
+        del drawn
         _free(eng)
+    return rows, launches
+
+
+def mla_params(cfg):
+    """minicpm3-4b's weights on the card: random, bf16, from seed 0."""
+    t0 = time.perf_counter()
+    params = init_params(get_api(cfg).param_specs(cfg),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         torch.device("cuda"), cfg.dtype)
+    _sync()
+    n_params = sum(t.numel() for t in leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    print(f"[mla] {cfg.arch_id}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads, q_lora_rank {cfg.q_lora_rank}, "
+          f"kv_lora_rank {cfg.kv_lora_rank}, nope {cfg.qk_nope_dim}, rope "
+          f"{cfg.qk_rope_dim}, v {cfg.v_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}: {n_params / 1e9:.3f} B params, "
+          f"{nbytes / 1e9:.3f} GB {cfg.dtype}, initialized in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return params
+
+
+def phase_mla_serve(cfg, params):
+    """Phase F: minicpm3-4b at its published width (``params`` from
+    :func:`mla_params`) on phase 6's geometry.  Phase 6's traffic over
+    bf16, int8 and int4 latent pools (pool bytes a token asserted exactly);
+    phase A's shared-prefix traffic cold and warm (tokens equal); chain and
+    tree on phase D's repeated passages; E3's sampling over int8,
+    sequential twice (tokens equal).  Every run: the refcount invariant
+    after every step, every request complete, no NaN logit, and no kernel
+    launched.  Returns (summary rows, moa_reduce launches by run)."""
+    rows, launches = {}, {}
+
+    def run(name, knobs, prompts, new, sampling=None):
+        what = f"F {name}"
+        eng, reqs, launched = serve_spec(cfg, params, knobs, prompts, what,
+                                         new=new, sampling=sampling)
+        st = eng.stats_summary()
+        per_token = kv_token_bytes(cfg, eng.kv_dtype)
+        check(st["pool_bytes"] == per_token * eng.pool.num_pages
+              * eng.page_size and st["kv_bytes_per_slot"]
+              == per_token * eng.max_seq,
+              f"{what}: pool bytes {st['pool_bytes']} (slot "
+              f"{st['kv_bytes_per_slot']}), expected {per_token} a token")
+        rows[name] = dict(_serve_row(st), kv_dtype=eng.kv_dtype,
+                          bytes_per_token=per_token,
+                          spec_k=eng.spec_k, spec_mode=eng.spec_mode,
+                          accept_rate=st["spec_accept_rate"],
+                          prefix_hits=st["prefix_hits"],
+                          kernel_launches=eng.kernel_launches)
+        launches[name] = launched
+        print(f"[mla] {what}: pool {eng.pool.num_pages} pages x "
+              f"{eng.page_size} = {st['pool_bytes']} bytes ({per_token} a "
+              f"token, kv_dtype {eng.kv_dtype}); {_serve_line(st)}; "
+              f"{st['tokens_per_step']:.3f} tokens/step (spec_k "
+              f"{eng.spec_k}, {eng.spec_mode}; accept rate "
+              f"{st['spec_accept_rate']:.4f}); prefix hits "
+              f"{st['prefix_hits']}; kernel launches {eng.kernel_launches}")
+        toks = _tokens(reqs)
+        _free(eng)
+        return toks, st
+
+    plain = make_prompts(SPEC_LENS, cfg.vocab, seed=2)
+    for kv in KV_DTYPES:
+        run(kv, dict(kv_dtype=kv), plain, QUANT_NEW)
+    shared = shared_prefix_prompts(FULL_TRAFFIC, cfg.vocab, seed=20)
+    cold, _ = run("prefix cold", {}, shared, FULL_TRAFFIC.new)
+    warm, wst = run("prefix warm", dict(prefix_cache=True), shared,
+                    FULL_TRAFFIC.new)
+    n = FULL_TRAFFIC.requests
+    check(warm == cold, "F prefix warm: tokens differ from cold")
+    check(wst["prefix_hits"] == n - 1 and wst["prefix_reused_tokens"]
+          == (n - 1) * FULL_TRAFFIC.system,
+          f"F prefix warm: hits {wst['prefix_hits']}, reused "
+          f"{wst['prefix_reused_tokens']}")
+    passages = spec_prompts(SPEC_LENS, cfg.vocab, seed=23)
+    for name in ("chain", "tree"):
+        run(name, SPEC_RUNS[name], passages, SPEC_NEW)
+    first, _ = run("sampled int8", dict(kv_dtype="int8"), passages, SPEC_NEW,
+                   E3_SAMPLING)
+    again, _ = run("sampled int8 again", dict(kv_dtype="int8"), passages,
+                   SPEC_NEW, E3_SAMPLING)
+    check(again == first, "F sampled int8: the sampled tokens did not "
+                          "repeat")
+    print(f"[mla] warm tokens == cold over {n} requests ({n - 1} hits); the "
+          f"sampled int8 run repeated its tokens; pool bytes a token "
+          f"{[rows[kv]['bytes_per_token'] for kv in KV_DTYPES]} "
+          f"(bf16, int8, int4; llama3.2-3b's bf16 "
+          f"{kv_token_bytes(get_config('llama3.2-3b'), 'fp32')}); no kernel "
+          f"launched in {len(rows)} runs")
     return rows, launches
 
 
@@ -1142,18 +1447,41 @@ def refcount_check(eng, what: str) -> None:
           f"{what}: the refcount invariant does not hold")
 
 
+def _zero_kernel_counts() -> None:
+    moa.LAUNCHES = bpa.LAUNCHES = qmm.LAUNCHES = 0
+    _zero_flash_counts()
+
+
+def _kernel_counts() -> dict:
+    """Every kernel's launch counter, by kernel."""
+    return {"moa_reduce": moa.LAUNCHES, "bitplane_add": bpa.LAUNCHES,
+            "quant_matmul": qmm.LAUNCHES,
+            **{f"flash_attention_{k}": v for k, v in _flash_counts().items()}}
+
+
 def _counted_run(eng, drive) -> int:
-    """moa_reduce launches of ``drive()``: the count is zeroed just before
-    and read just after."""
-    moa.LAUNCHES = 0
+    """moa_reduce launches of ``drive()``: every kernel's count is zeroed
+    just before and read just after (all of them into
+    ``eng.kernel_launches``)."""
+    _zero_kernel_counts()
     drive()
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
+    eng.kernel_launches = _kernel_counts()
     return moa.LAUNCHES
 
 
 def _check_launches(eng, launches: int, what: str) -> None:
+    """On the card: GQA launches moa_reduce twice a layer a dispatch; MLA
+    (a plain softmax over the latent view, no page combine) launches no
+    kernel at all."""
     st = eng.stats
+    if eng.cfg.attn_kind == "mla":
+        check(launches == st["moa_reduce_launches"] == 0 and not any(
+            eng.kernel_launches.values()),
+            f"{what}: an MLA run launched a kernel: "
+            f"{eng.kernel_launches}")
+        return
     want = 2 * eng.cfg.n_layers * (st["prefill_dispatches"]
                                    + st["decode_steps"])
     if eng.device.type == "cuda":
@@ -2223,9 +2551,17 @@ def main() -> int:
         "E quantized KV and sampling", phase_quant_serve, full_cfg,
         serve_params)
     del serve_params
-    rows = timed("7 moa_reduce timing", phase_timing, shapes)
     gc.collect()
-    torch.cuda.empty_cache()       # the serve weights and KV pool go
+    torch.cuda.empty_cache()       # the llama serve weights go
+    mla_cfg = get_config(MLA_ARCH)
+    mla_weights = mla_params(mla_cfg)
+    mla_rows, serve_launches["F"] = timed("F minicpm3-4b serve",
+                                          phase_mla_serve, mla_cfg,
+                                          mla_weights)
+    del mla_weights
+    gc.collect()
+    torch.cuda.empty_cache()       # the MLA weights go
+    rows = timed("7 moa_reduce timing", phase_timing, shapes)
     timed("8 train parity", phase_train_parity)
     flash_launches = timed("9 train full width", phase_train_full)
     gc.collect()
@@ -2249,6 +2585,7 @@ def main() -> int:
         "library_ms": main_row["library_ms"], "shape": main_row["shape"],
         "checked": "torch.equal vs moa_reduce_plain", "shapes": rows,
         "spec_serve": spec_rows, "quant_serve": quant_rows,
+        "mla_serve": mla_rows,
         "launches_by_serve_phase": {
             f"{ph} {run}": n for ph, d in serve_launches.items()
             for run, n in d.items()}}]

@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve
 
-Builds ``llama3.2-3b`` at full width (random bf16 weights from ``--seed``),
+Builds ``--arch`` (default ``llama3.2-3b``; ``minicpm3-4b`` serves through
+MLA's latent pools) at full width (random bf16 weights from ``--seed``),
 engine knobs as in ``chip_smoke.py``'s phase 6 (4 slots, max_seq 2048,
 prefill chunk 256, page 128, prefix cache off), and traces two windows
 after a warm-up:
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.models.common import init_params
 from repro_torch.models.registry import get_api
 from repro_torch.serve import EngineConfig, SamplingParams, ServeEngine
@@ -96,6 +97,7 @@ def _report(name: str, prof, wall_s: float, units: int, unit: str,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="llama3.2-3b", choices=list_archs())
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--top", type=int, default=12)
@@ -115,15 +117,16 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(args.arch)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(get_api(cfg).param_specs(cfg), gen, dev, cfg.dtype)
     eng = ServeEngine(cfg, params, config=EngineConfig(
         max_slots=4, max_seq=2048, prefill_chunk=256, prefix_cache=False,
         kv_dtype=args.kv_dtype, **spec_knobs(args)))
-    print(f"[engine] spec_k {eng.spec_k}, spec_mode {eng.spec_mode}, "
-          f"kv_dtype {eng.kv_dtype}, temperature {args.temperature}")
+    print(f"[engine] arch {cfg.arch_id}, spec_k {eng.spec_k}, spec_mode "
+          f"{eng.spec_mode}, kv_dtype {eng.kv_dtype}, temperature "
+          f"{args.temperature}")
     rng = np.random.default_rng(args.seed)
     seeds = iter(range(1 << 30))
 

@@ -1,13 +1,16 @@
 """Decoder LM: parameter layout, the training forward and loss, paged decode.
 
-The counterpart of ``repro/models/lm.py`` for the dense GQA decoder.
+The counterpart of ``repro/models/lm.py`` for the dense decoders, GQA
+(``llama3.2-3b``) and MLA (``minicpm3-4b``, :mod:`repro_torch.models.mla`).
 Parameters are a plain dict of tensors in the JAX tree's layout, with
 ``blocks`` stacked on a leading layers axis (or, as the train step passes
 them, a list of per-layer dicts of views: see
 :func:`repro_torch.train.state.split_layers`); the block stack runs as a
 Python loop over layers (``lax.scan`` in JAX).  For decode, the state
 leaves are physical page pools ``(layers, num_pages, page_size, Hkv, hd)``
-(see :func:`repro_torch.serve.cache.paged_state_specs`), or int8/int4 code
+for GQA, ``(layers, num_pages, page_size, kv_lora_rank)`` and ``(...,
+qk_rope_dim)`` latent pools for MLA (see
+:func:`repro_torch.serve.cache.paged_state_specs`), or int8/int4 code
 pools with fp32 per-row scales beside them
 (:func:`repro_torch.serve.cache.quant_state_specs`), updated in place.
 Speculative decode scores a drafted chain (:func:`verify_chunk`) or token
@@ -15,8 +18,8 @@ tree (:func:`verify_tree`) in one dispatch; medusa-style draft heads
 (:func:`draft_head_specs`, :func:`fit_draft_heads`) propose the tree's
 nodes from the hidden states that dispatch already computed.
 
-Not in these slices: dense (unpaged) decode caches, MLA, MoE, the vision
-and audio frontend stubs (``ROADMAP.md``, queue 1).
+Not in these slices: dense (unpaged) decode caches, MoE, the vision and
+audio frontend stubs (``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, moe
+from repro_torch.models import attention, mla, moe
 from repro_torch.models.common import ParamSpec, cross_entropy_loss, rms_norm
 from repro_torch.tree import index_tree, map_tree
 
@@ -52,7 +55,8 @@ def block_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return {
         "attn_norm": ParamSpec((d,), ("embed",), init="ones"),
         "ffn_norm": ParamSpec((d,), ("embed",), init="ones"),
-        "attn": attention.gqa_param_specs(cfg),
+        "attn": (mla.mla_param_specs(cfg) if cfg.attn_kind == "mla"
+                 else attention.gqa_param_specs(cfg)),
         "ffn": moe.dense_ffn_specs(cfg),
     }
 
@@ -75,8 +79,18 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 def decode_state_specs(cfg: ModelConfig, batch: int, max_seq: int
                        ) -> Dict[str, ParamSpec]:
     """Contiguous KV-cache layout; the serve tier rewrites its adjacent
-    ``(batch, kv_seq)`` axis pair into a page pool."""
+    ``(batch, kv_seq)`` axis pair into a page pool.  MLA caches the latent
+    ``ckv`` rows and the shared rope key ``kr``; GQA caches ``k`` and
+    ``v``."""
     l, hd = cfg.n_layers, cfg.hd
+    if cfg.attn_kind == "mla":
+        return {
+            name: ParamSpec((l, batch, max_seq, width),
+                            ("layers", "batch", "kv_seq", None),
+                            dtype=cfg.dtype, init="zeros")
+            for name, width in (("ckv", cfg.kv_lora_rank),
+                                ("kr", cfg.qk_rope_dim))
+        }
     return {
         name: ParamSpec((l, batch, max_seq, cfg.n_kv_heads, hd),
                         ("layers", "batch", "kv_seq", None, None),
@@ -96,7 +110,8 @@ def _layer(blocks: Any, i: int) -> dict:
 
 def _block_train(x: torch.Tensor, bp: dict, cfg: ModelConfig) -> torch.Tensor:
     h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
-    x = x + attention.gqa_train(h, bp["attn"], cfg)
+    attend = mla.mla_train if cfg.attn_kind == "mla" else attention.gqa_train
+    x = x + attend(h, bp["attn"], cfg)
     h = rms_norm(x, bp["ffn_norm"], cfg.norm_eps)
     return x + moe.dense_ffn(h, bp["ffn"], cfg)
 
@@ -159,14 +174,21 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
     attends under the ancestor mask and commits only the chain rows to the
     pool (:func:`repro_torch.models.attention.gqa_decode_pages`).  Every
     layer attends over its gathered pages and scatters its new rows into
-    its pool, in place.  A quantized state (``"k_scale"`` beside ``"k"``,
+    its pool, in place: GQA's ``k`` / ``v`` pools, or MLA's latent ``ckv``
+    / ``kr`` pools (:func:`repro_torch.models.mla.mla_decode_pages`).  A
+    quantized state (``"<leaf>_scale"`` beside each leaf,
     :func:`repro_torch.serve.cache.quant_state_specs`) passes each layer
     its ``(codes, scales)`` pairs.  Returns the final hidden states (B, C,
     D) and the state (the same dict)."""
-    quant = "k_scale" in state
-    if quant and batch.get("pages") is None:
-        raise ValueError("quantized KV state requires a page table "
-                         "(kv_dtype != 'fp32' is paged-only)")
+    names = ("ckv", "kr") if cfg.attn_kind == "mla" else ("k", "v")
+    decode = (mla.mla_decode_pages if cfg.attn_kind == "mla"
+              else attention.gqa_decode_pages)
+    quant = names[0] + "_scale" in state
+    if batch.get("pages") is None:
+        raise ValueError(
+            f"{'quantized ' if quant else ''}KV state requires a page table "
+            f"(the port's decode caches are paged; kv_dtype != 'fp32' is "
+            f"paged-only)")
     cur = batch["index"]
     pages = batch["pages"]
     nspec = batch.get("nspec")
@@ -178,21 +200,17 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
     # the mask and the row-masked write's indices are the same for every
     # layer: built once (the tree mask's pointer walk is C - 1 hops)
     b, c = batch["tokens"].shape
-    smax = pages.shape[1] * state["k"].shape[2]
+    smax = pages.shape[1] * state[names[0]].shape[2]
     valid = attention.attend_mask(cur, c, smax, nspec, tree)
     plan = (None if nspec is None else attention.masked_write_plan(
         attention.decode_positions(cur, c), nspec, smax, b))
     for i in range(cfg.n_layers):
         bp = _layer(blocks, i)
         h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
-        if quant:
-            pool_k = (state["k"][i], state["k_scale"][i])
-            pool_v = (state["v"][i], state["v_scale"][i])
-        else:
-            pool_k, pool_v = state["k"][i], state["v"][i]
-        h, _, _ = attention.gqa_decode_pages(
-            h, bp["attn"], cfg, pool_k, pool_v, cur, pages, nspec, tree,
-            valid, plan)
+        pools = [(state[n][i], state[n + "_scale"][i]) if quant
+                 else state[n][i] for n in names]
+        h, _, _ = decode(h, bp["attn"], cfg, *pools, cur, pages, nspec,
+                         tree, valid, plan)
         x = x + h
         h = rms_norm(x, bp["ffn_norm"], cfg.norm_eps)
         x = x + moe.dense_ffn(h, bp["ffn"], cfg)
@@ -340,10 +358,11 @@ def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor
     b, l = tokens.shape
     dev = tokens.device
     n_pages = -(-l // _HIDDEN_PAGE)
-    pool = (cfg.n_layers, b * n_pages + 1, _HIDDEN_PAGE, cfg.n_kv_heads,
-            cfg.hd)
-    state = {"k": torch.zeros(pool, dtype=cfg.dtype, device=dev),
-             "v": torch.zeros(pool, dtype=cfg.dtype, device=dev)}
+    # decode_state_specs' (batch, kv_seq) extents read as (pool pages,
+    # page): page 0 is scratch
+    state = map_tree(
+        lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+        decode_state_specs(cfg, b * n_pages + 1, _HIDDEN_PAGE))
     padded = torch.zeros((b, n_pages * _HIDDEN_PAGE), dtype=torch.int64,
                          device=dev)
     padded[:, :l] = tokens

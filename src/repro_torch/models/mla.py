@@ -1,0 +1,213 @@
+"""Multi-head Latent Attention (MiniCPM3 / DeepSeek-V2 style).
+
+The counterpart of ``repro/models/mla.py``.  Training expands K and V from
+the latent and attends chunked over queries (:func:`mla_train`).  Decode
+uses the *absorbed* formulation (:func:`mla_decode_pages`): the page pools
+hold only the latent ``c_kv`` rows and the one shared rope key, ``wk_b`` is
+folded into the queries and ``wv_b`` into the output, so a decode step
+reads ``S * (kv_lora_rank + qk_rope_dim)`` values a slot instead of ``S *
+H * hd``.  The attention is a plain softmax over the latent view: no
+split-K page combine, so no hand-written kernel runs on this path.
+
+Layouts match the JAX functions: pools ``(num_pages, page, rkv)`` and
+``(num_pages, page, dr)``; a quantized pool is a ``(codes, scales)`` pair
+with one fp32 scale per (page, position) row.  Weights are cast to the
+activations' dtype at use.  The helpers shared with GQA decode (positions,
+masks, the row-masked view write, the gather and the quantizing scatter)
+are :mod:`repro_torch.models.attention`'s.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention
+from repro_torch.models.attention import NEG_INF, Pool
+from repro_torch.models.common import (ParamSpec, apply_rope, rms_norm,
+                                       rope_angles)
+
+__all__ = ["mla_param_specs", "mla_train", "mla_decode_pages"]
+
+
+def mla_param_specs(cfg: ModelConfig) -> dict:
+    """Per-layer MLA params (leading layer axis added by the caller)."""
+    d, h = cfg.d_model, cfg.n_heads
+    rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq_a": ParamSpec((d, rq), ("embed", "latent")),
+        "q_norm": ParamSpec((rq,), ("latent",), init="ones"),
+        "wq_b": ParamSpec((rq, h * (dn + dr)), ("latent", "q_heads")),
+        "wkv_a": ParamSpec((d, rkv + dr), ("embed", "latent")),
+        "kv_norm": ParamSpec((rkv,), ("latent",), init="ones"),
+        "wk_b": ParamSpec((rkv, h * dn), ("latent", "q_heads")),
+        "wv_b": ParamSpec((rkv, h * dv), ("latent", "q_heads")),
+        "wo": ParamSpec((h * dv, d), ("q_heads", "embed")),
+    }
+
+
+def _mla_rope_tables(positions: torch.Tensor, dr: int, theta: float):
+    """(sin, cos) for ``positions``: per-slot (B, S) positions get an
+    explicit head axis, so the tables broadcast against (B, S, H, dr)
+    instead of colliding with H."""
+    sin, cos = rope_angles(positions, dr, theta)
+    if positions.dim() == 2:
+        sin, cos = sin[:, :, None, :], cos[:, :, None, :]
+    return sin, cos
+
+
+def _queries(x: torch.Tensor, p: dict, cfg: ModelConfig,
+             positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope (B, S, H, dn), roped q_rope (B, S, H, dr))."""
+    b, s, _ = x.shape
+    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    ql = rms_norm(x @ p["wq_a"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+    q = (ql @ p["wq_b"].to(x.dtype)).reshape(b, s, h, dn + dr)
+    sin, cos = _mla_rope_tables(positions, dr, cfg.rope_theta)
+    return q[..., :dn], apply_rope(q[..., dn:], sin, cos)
+
+
+def _latent_kv(x: torch.Tensor, p: dict, cfg: ModelConfig,
+               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(c_kv (B, S, rkv), roped k_rope (B, S, dr)): the one rope head is
+    shared by every query head."""
+    rkv, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    kv = x @ p["wkv_a"].to(x.dtype)                     # (B, S, rkv + dr)
+    c_kv = rms_norm(kv[..., :rkv], p["kv_norm"], cfg.norm_eps)
+    k_rope = kv[..., rkv:][..., None, :]
+    sin, cos = _mla_rope_tables(positions, dr, cfg.rope_theta)
+    return c_kv, apply_rope(k_rope, sin, cos)[..., 0, :]
+
+
+def _train_scale(d: int, dtype: torch.dtype) -> float:
+    """``1 / sqrt(d)`` as the JAX training path forms it: the fp32 root
+    rounded to ``dtype``, its reciprocal rounded to ``dtype``."""
+    root = torch.tensor(float(d)).sqrt().to(dtype)
+    return float(1.0 / root)
+
+
+def mla_train(x: torch.Tensor, p: dict, cfg: ModelConfig,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence causal MLA. x: (B, S, D) -> (B, S, D).  K and V are
+    expanded from the latent; the softmax runs over query chunks of
+    ``attn_chunk`` (unchunked when the chunk does not divide S), with the
+    scores scaled in ``x.dtype`` before the fp32 cast, as in JAX."""
+    b, s, _ = x.shape
+    h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q_nope, q_rope = _queries(x, p, cfg, positions)
+    c_kv, k_rope = _latent_kv(x, p, cfg, positions)
+    k_nope = (c_kv @ p["wk_b"].to(x.dtype)).reshape(b, s, h, dn)
+    v = (c_kv @ p["wv_b"].to(x.dtype)).reshape(b, s, h, dv)
+    scale = _train_scale(dn + dr, x.dtype)
+    chunk = min(cfg.attn_chunk, s)
+    if s % chunk:
+        chunk = s
+    k_pos = torch.arange(s, device=x.device)[None, :]
+    outs = []
+    for off in range(0, s, chunk):
+        qn, qr = q_nope[:, off:off + chunk], q_rope[:, off:off + chunk]
+        scores = (torch.einsum("bchd,bshd->bhcs", qn, k_nope)
+                  + torch.einsum("bchd,bsd->bhcs", qr, k_rope)) * scale
+        q_pos = off + torch.arange(chunk, device=x.device)[:, None]
+        scores = torch.where((k_pos <= q_pos)[None, None], scores.float(),
+                             NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        outs.append(torch.einsum("bhcs,bshd->bchd", probs, v))
+    out = torch.cat(outs, dim=1).reshape(b, s, h * dv)
+    return out @ p["wo"].to(x.dtype)
+
+
+def _absorbed_attend(p: dict, cfg: ModelConfig, q_nope: torch.Tensor,
+                     q_rope: torch.Tensor, ckv_view: torch.Tensor,
+                     kr_view: torch.Tensor, valid: torch.Tensor
+                     ) -> torch.Tensor:
+    """Absorbed attention over latent views: q_nope/q_rope (B, C, H,
+    dn/dr), ckv_view (B, Smax, rkv), kr_view (B, Smax, dr), ``valid``
+    broadcastable against (B, H, C, Smax).  Scores and PV contract in
+    latent space; the fp32 scores are divided by ``sqrt(dn + dr)``.
+    Returns (B, C, H * dv)."""
+    dt = q_nope.dtype
+    b, c = q_nope.shape[0], q_nope.shape[1]
+    h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    rkv = cfg.kv_lora_rank
+    wk_b = p["wk_b"].to(dt).reshape(rkv, h, dn)
+    q_lat = torch.einsum("bchd,rhd->bchr", q_nope, wk_b)      # (B,C,H,rkv)
+    ckv = ckv_view.to(dt)
+    scores = (torch.einsum("bchr,bsr->bhcs", q_lat, ckv)
+              + torch.einsum("bchd,bsd->bhcs", q_rope, kr_view.to(dt)))
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by
+    # its reciprocal, an ulp off the CPU's (and XLA's) division
+    root = scores.new_full((1,), math.sqrt(float(dn + dr)),
+                           dtype=torch.float32)
+    scores = torch.where(valid, scores.float() / root, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    ctx_lat = torch.einsum("bhcs,bsr->bchr", probs, ckv)       # (B,C,H,rkv)
+    wv_b = p["wv_b"].to(dt).reshape(rkv, h, dv)
+    ctx = torch.einsum("bchr,rhd->bchd", ctx_lat, wv_b)
+    return ctx.reshape(b, c, h * dv)
+
+
+def mla_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                     pool_ckv: Pool, pool_kr: Pool,
+                     cur_index: torch.Tensor, pages: torch.Tensor,
+                     nvalid: Optional[torch.Tensor] = None,
+                     tree: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]] = None,
+                     valid: Optional[torch.Tensor] = None,
+                     write_plan: Optional[Tuple[torch.Tensor, ...]] = None
+                     ) -> Tuple[torch.Tensor, Pool, Pool]:
+    """Paged absorbed decode of ``C`` new tokens per slot (the JAX
+    package's ``mla_decode_paged``).
+
+    x: (B, C, D); pool_ckv ``(num_pages, page, rkv)`` and pool_kr
+    ``(num_pages, page, dr)`` (this layer's); ``cur_index``: scalar chunk
+    start (prefill) or (B,) per-slot lengths; ``pages``: (B, n_pages) page
+    table.  The latent views are gathered, the new latent rows written into
+    them, the absorbed attention runs over the views, and the new rows are
+    scattered into the pools in place.  Returns (out (B, C, D), pool_ckv,
+    pool_kr).
+
+    ``nvalid``, ``tree``, ``valid`` and ``write_plan`` as in
+    :func:`repro_torch.models.attention.gqa_decode_pages`: rows at or past
+    ``nvalid`` are dropped from the view and sent to scratch; a tree ropes
+    at ``index + pos_off``, attends under the ancestor mask and scatters
+    only its ``nchain`` chain rows.  Either pool may be a quantized
+    ``(codes, scales)`` pair: the view is dequantized into ``x.dtype``, the
+    new rows attend unquantized, and they are quantized on the scatter."""
+    page = (pool_ckv[0] if isinstance(pool_ckv, tuple) else pool_ckv).shape[1]
+    ckv_view = attention._gather_view(pool_ckv, pages, x.dtype)
+    kr_view = attention._gather_view(pool_kr, pages, x.dtype)
+    smax = pages.shape[1] * page
+    pos = attention.decode_positions(cur_index, x.shape[1])
+    rope_pos, scatter_n = pos, nvalid
+    if tree is not None:
+        _, pos_off, nchain = tree
+        rope_pos = cur_index[:, None] + pos_off
+        scatter_n = nchain
+    q_nope, q_rope = _queries(x, p, cfg, rope_pos)
+    c_new, kr_new = _latent_kv(x, p, cfg, rope_pos)
+    if nvalid is None:
+        ckv_view = attention.batched_cache_write(ckv_view, c_new, cur_index)
+        kr_view = attention.batched_cache_write(kr_view, kr_new, cur_index)
+    else:
+        if write_plan is None:
+            write_plan = attention.masked_write_plan(pos, nvalid, smax,
+                                                     x.shape[0])
+        ckv_view = attention.masked_cache_write(ckv_view, c_new,
+                                                plan=write_plan)
+        kr_view = attention.masked_cache_write(kr_view, kr_new,
+                                               plan=write_plan)
+    if valid is None:
+        valid = attention.attend_mask(cur_index, x.shape[1], smax, nvalid,
+                                      tree)
+    out = _absorbed_attend(p, cfg, q_nope, q_rope, ckv_view, kr_view, valid)
+    attention._scatter_rows(pool_ckv, pages, c_new, pos, scatter_n)
+    attention._scatter_rows(pool_kr, pages, kr_new, pos, scatter_n)
+    return out @ p["wo"].to(out.dtype), pool_ckv, pool_kr

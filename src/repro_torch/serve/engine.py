@@ -61,10 +61,11 @@ engine:
   step's chain part, so drafted rows only ever touch scratch.  ``"auto"``
   picks a chain or a tree shape per slot per step from its accept-rate
   EWMA (the Lemma-3 closed forms; decision trace in ``stats_summary``).
-* **Split-K page combine** — decode, verify and prefill attention combine
-  their pages through :func:`repro_torch.kernels.ops.moa_reduce`: on the
-  card that is the hand-written Hopper kernel, twice per layer per
-  dispatch.
+* **Split-K page combine** — GQA's decode, verify and prefill attention
+  combine their pages through :func:`repro_torch.kernels.ops.moa_reduce`:
+  on the card that is the hand-written Hopper kernel, twice per layer per
+  dispatch.  MLA (``minicpm3-4b``) attends over its latent pages with one
+  softmax and launches none.
 
 Dispatch is eager PyTorch (the JAX engine compiles ahead of time); the
 state tensors are updated in place, and every dispatch samples on the

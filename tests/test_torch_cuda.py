@@ -950,11 +950,18 @@ def test_quantize_rows_on_the_card_equal_cpu(cuda_device, bits):
         assert torch.equal(got.cpu(), want)
 
 
-def _reduced_engine_runs(knobs, sps=None):
-    """The reduced fp32 config (TF32 off) on the CPU and on CUDA with
-    ``knobs``: (tokens, stats, moa_reduce launches) by device."""
-    cfg = get_config("llama3.2-3b").reduced(dtype=torch.float32,
-                                            n_kv_heads=2)
+def _kernel_launches():
+    """Every kernel's launch counter, in one tuple."""
+    return (moa.LAUNCHES, fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ,
+            fa.LAUNCHES_BWD_DKV, bpa.LAUNCHES, qmm.LAUNCHES)
+
+
+def _reduced_engine_runs(knobs, sps=None, arch="llama3.2-3b"):
+    """The reduced fp32 ``arch`` (TF32 off; llama with ``n_kv_heads=2``)
+    on the CPU and on CUDA with ``knobs``: (tokens, stats, moa_reduce
+    launches, every kernel's launches) by device."""
+    over = {"n_kv_heads": 2} if arch == "llama3.2-3b" else {}
+    cfg = get_config(arch).reduced(dtype=torch.float32, **over)
     params = init_params(get_api(cfg).param_specs(cfg),
                          torch.Generator().manual_seed(0),
                          torch.device("cpu"), torch.float32)
@@ -974,11 +981,14 @@ def _reduced_engine_runs(knobs, sps=None):
                 max_slots=2, max_seq=64, prefill_chunk=16, page_size=16,
                 **knobs), device=dev)
             before = moa.LAUNCHES
+            counts = _kernel_launches()
             reqs = [eng.submit(q, 12, sampling=sp)
                     for q, sp in zip(prompts, sps)]
             eng.run()
             out[dev] = ([r.generated for r in reqs], eng.stats_summary(),
-                        moa.LAUNCHES - before)
+                        moa.LAUNCHES - before,
+                        tuple(a - b for a, b in zip(_kernel_launches(),
+                                                    counts)))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     return cfg, out
@@ -1014,3 +1024,69 @@ def test_sampled_chain_engine_on_the_card_equals_cpu(cuda_device):
     st = out["cuda"][1]
     assert out["cuda"][2] == 2 * cfg.n_layers * (st["prefill_dispatches"]
                                                  + st["decode_steps"])
+
+
+#: the MLA engine runs held CUDA against CPU: (knobs, sampled?)
+MLA_RUNS = {"cold": (dict(prefix_cache=False), False),
+            "prefix": ({}, False),
+            "chain": (dict(spec_k=4), False),
+            "tree": (dict(spec_k=4, spec_mode="tree"), False),
+            "int8": (dict(kv_dtype="int8"), False),
+            "int4 chain": (dict(kv_dtype="int4", spec_k=4), False),
+            "sampled": ({}, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", sorted(MLA_RUNS))
+def test_mla_engine_on_the_card_equals_cpu(cuda_device, run):
+    """The reduced fp32 MLA config: CUDA gives the CPU engine's tokens and
+    counters over latent pools, and launches no hand-written kernel (the
+    absorbed attention has no split-K page combine)."""
+    knobs, sampled = MLA_RUNS[run]
+    sps = ([SamplingParams(temperature=0.8, top_k=40, seed=i)
+            for i in range(4)] if sampled else None)
+    _, out = _reduced_engine_runs(knobs, sps, arch="minicpm3-4b")
+    assert out["cuda"][0] == out["cpu"][0]
+    st, cst = out["cuda"][1], out["cpu"][1]
+    for k in ("decode_steps", "prefill_dispatches", "prefix_hits",
+              "pages_shared", "pages_cow", "spec_drafted", "spec_accepted",
+              "spec_tree_steps", "kv_dtype", "kv_bytes_per_slot",
+              "pool_bytes", "moa_reduce_launches"):
+        assert st[k] == cst[k], k
+    assert st["decode_steps"] > 0
+    assert out["cuda"][3] == (0,) * 6 == out["cpu"][3]
+
+
+@pytest.mark.cuda
+def test_mla_train_loss_on_the_card_equals_cpu(cuda_device):
+    """mla_train is chunked attention (v_head_dim differs from the qk
+    dim), so the flash kernels never launch; the loss and gradient norm
+    equal the CPU's."""
+    cfg = get_config("minicpm3-4b").reduced(dtype=torch.float32)
+    params = init_params(get_api(cfg).param_specs(cfg),
+                         torch.Generator().manual_seed(0),
+                         torch.device("cpu"), torch.float32)
+    toks = torch.randint(0, cfg.vocab, (2, 32),
+                         generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            p = map_tree(lambda t: t.detach().to(dev).requires_grad_(),
+                         params)
+            counts = _kernel_launches()
+            loss = lm.train_loss(p, {"tokens": toks.to(dev),
+                                     "labels": toks.to(dev)}, cfg)
+            grads = torch.autograd.grad(loss, [p["blocks"]["attn"]["wq_a"],
+                                               p["blocks"]["attn"]["wkv_a"]])
+            out[dev] = (float(loss.detach()),
+                        [float(g.norm()) for g in grads],
+                        tuple(a - b for a, b in zip(_kernel_launches(),
+                                                    counts)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert abs(a - b) <= 1e-4 * max(1.0, b)
+    assert out["cuda"][2] == (0,) * 6

@@ -7,7 +7,9 @@ prefix cache, no speculative decode.  Four greedy requests (prompts of 5,
 padding and slot refill.  Tokens must be equal request for request; the
 first-token logits (prefill of the engine's own pieces) and every decode
 step's logits agree within 1e-4 (fp32); every page is back in the pool
-after ``run()``."""
+after ``run()``.  The reduced MLA config (``minicpm3-4b``, 1 layer) serves
+the same traffic in lockstep with the JAX engine: tokens, every shared
+counter, the page tables and the refcounts equal after every step."""
 import os
 import subprocess
 import sys
@@ -31,6 +33,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.models.common import init_params
 from repro_torch.models.registry import get_api
 from repro_torch.serve import EngineConfig, ServeEngine
+from test_torch_prefix import SHARED_COUNTERS, _conserved, _model
 
 ROOT = Path(__file__).resolve().parent.parent
 PROMPT_LENS = (5, 19, 33, 12)
@@ -145,6 +148,42 @@ def test_engine_matches_jax_on_edge_configs(knobs, lens, new):
     assert [len(r.generated) for r in treqs] == list(new)
     for key in ("prefill_dispatches", "decode_steps", "prefill_tokens"):
         assert teng.stats[key] == jeng.stats[key], key
+    assert teng.pool.used_count == 0
+
+
+def test_mla_greedy_engine_matches_jax():
+    """The first slice's traffic on the latent pools: chunked prefill,
+    bucket padding and slot refill, stepped in lockstep with the JAX
+    engine; decode logits within 1e-4."""
+    jcfg, tcfg, jp, tp = _model(arch="minicpm3-4b", n_layers=1)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, jcfg.vocab, n).tolist() for n in PROMPT_LENS]
+    knobs = dict(max_slots=2, max_seq=64, prefill_chunk=16, page_size=16,
+                 prefix_cache=False)
+    jeng = JEngine(jcfg, jp, config=JConfig(spec_k=0, paged_kv=True,
+                                            **knobs))
+    teng = ServeEngine(tcfg, tp, config=EngineConfig(**knobs), device="cpu")
+    assert sorted(teng.state) == ["ckv", "kr"]
+    for eng in (jeng, teng):
+        eng.trace_logits = True
+    jreqs = [jeng.submit(p, MAX_NEW) for p in prompts]
+    treqs = [teng.submit(p, MAX_NEW) for p in prompts]
+    while jeng.scheduler.has_work or teng.scheduler.has_work:
+        jeng.step()
+        teng.step()
+        assert (teng.table == np.asarray(jeng.table)).all()
+        assert (np.asarray(teng.pool.refcount)
+                == np.asarray(jeng.pool.refcount)).all()
+        _conserved(teng)
+    assert [r.generated for r in treqs] == [r.generated for r in jreqs]
+    assert all(len(r.generated) == MAX_NEW for r in treqs)
+    js, ts = jeng.stats_summary(), teng.stats_summary()
+    for key in SHARED_COUNTERS:
+        assert ts[key] == js[key], (key, ts[key], js[key])
+    assert ts["moa_reduce_launches"] == 0
+    assert len(teng.logit_trace) == len(jeng.logit_trace) > 0
+    for t, j in zip(teng.logit_trace, jeng.logit_trace):
+        np.testing.assert_allclose(t, j, atol=1e-4)
     assert teng.pool.used_count == 0
 
 

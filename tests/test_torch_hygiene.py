@@ -53,6 +53,7 @@ def test_port_files_found():
             "src/repro_torch/serve/prng.py",
             "src/repro_torch/serve/sampling.py",
             "src/repro_torch/models/quant_kv.py",
+            "src/repro_torch/models/mla.py",
             "chip_smoke.py"} <= rel
 
 
@@ -75,7 +76,8 @@ def _imports_no_jax(modules):
 
 
 def test_engine_import_loads_no_jax():
-    _imports_no_jax("repro_torch.serve.engine, repro_torch.launch.serve")
+    _imports_no_jax("repro_torch.serve.engine, repro_torch.launch.serve, "
+                    "repro_torch.models.mla")
 
 
 def test_train_import_loads_no_jax():
@@ -87,7 +89,15 @@ def test_adder_import_loads_no_jax():
 
 
 def test_engine_defaults_to_the_card():
-    cfg = get_config("llama3.2-3b").reduced(dtype=torch.float32)
+    _defaults_to_the_card("llama3.2-3b")
+
+
+def test_mla_engine_defaults_to_the_card():
+    _defaults_to_the_card("minicpm3-4b")
+
+
+def _defaults_to_the_card(arch):
+    cfg = get_config(arch).reduced(dtype=torch.float32)
     params = init_params(get_api(cfg).param_specs(cfg),
                          torch.Generator().manual_seed(0),
                          torch.device("cpu"), torch.float32)

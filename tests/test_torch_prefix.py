@@ -9,7 +9,9 @@ positions) with the weights carried across by ``params_from_numpy``, on the
 same knobs and the same traffic as the JAX engine: greedy tokens must be
 equal request for request, and so must every counter the two engines
 share, the page tables and the refcounts (both pools are fp32, so byte
-counters need no element-size factor)."""
+counters need no element-size factor).  The reduced MLA config
+(``minicpm3-4b``, 1 layer) runs a prefix hit, a copy-on-write boundary
+page and content dedup over its latent pools the same way."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,11 +48,14 @@ SHARED_COUNTERS = (
     "sessions_live")
 
 
-def _model(seed=0, **over):
-    jcfg = jget("llama3.2-3b").reduced(dtype=jnp.float32, n_kv_heads=2,
-                                       **over)
-    tcfg = tget("llama3.2-3b").reduced(dtype=torch.float32, n_kv_heads=2,
-                                       **over)
+def _model(seed=0, arch="llama3.2-3b", **over):
+    """(JAX config, port config, JAX params, port params) of the reduced
+    fp32 ``arch``: llama with ``n_kv_heads=2``, MLA (``minicpm3-4b``) as
+    ``reduced()`` makes it."""
+    if arch == "llama3.2-3b":
+        over = dict(over, n_kv_heads=2)
+    jcfg = jget(arch).reduced(dtype=jnp.float32, **over)
+    tcfg = tget(arch).reduced(dtype=torch.float32, **over)
     jp = jinit(jlm.param_specs(jcfg), jax.random.key(seed))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu",
                            torch.float32)
@@ -556,3 +561,70 @@ def test_in_place_readmission_detaches_shared_pages(model1):
     c3 = cold.submit(list(follow), 4)
     cold.run()
     assert treqs[-1].generated == c3.generated
+
+
+# ---------------------------------------------------------------------------
+# MLA: the latent ckv / kr pools
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mla_model1():
+    return _model(arch="minicpm3-4b", n_layers=1)
+
+
+def test_mla_prefix_hit_and_copy_on_write_match_jax(mla_model1):
+    """A live source's 12-token prefix shared by two followers: each copies
+    the boundary page (both latent leaves) and writes its own rows; a
+    page-aligned 16-token prefix is then shared by reference.  Tokens equal
+    a cold engine's where the prefill cut is the same."""
+    vocab = mla_model1[0].vocab
+    rng = np.random.default_rng(23)
+    system = _toks(rng, vocab, 12)
+    tail_a, tail_b = _toks(rng, vocab, 4), _toks(rng, vocab, 4)
+    aligned = _toks(rng, vocab, 16)
+
+    def drive(eng):
+        r1 = eng.submit(system, 20)
+        eng.step()
+        eng.step()
+        r2 = eng.submit(system + tail_a, 6)
+        while not r2.done:
+            eng.step()
+        r3 = eng.submit(system + tail_b, 6)
+        eng.run()
+        r4 = eng.submit(aligned + tail_a, 4)
+        r5 = eng.submit(aligned + tail_b, 4)
+        r6 = eng.submit(aligned + tail_a[:2], 4)
+        eng.run()
+        return [r1, r2, r3, r4, r5, r6]
+
+    knobs = dict(max_slots=2, max_seq=48, prefill_chunk=8, page_size=16)
+    _, teng, _, treqs = _both(mla_model1, drive, **knobs)
+    st = teng.stats_summary()
+    assert st["pages_cow"] >= 2 and st["pages_shared"] >= 1
+    assert st["prefix_bytes_copied"] == st["pages_cow"] * teng.page_bytes
+    assert sorted(teng.state) == ["ckv", "kr"]
+    cold = ServeEngine(mla_model1[1], mla_model1[3], config=EngineConfig(
+        prefix_cache=False, **knobs), device="cpu")
+    c1 = cold.submit(system, 20)
+    cold.run()
+    assert c1.generated == treqs[0].generated
+
+
+def test_mla_dedup_interior_span_shared_and_exact(mla_model1):
+    rng = np.random.default_rng(41)
+    prompts = _dedup_prompts(mla_model1[0].vocab, rng)
+
+    def drive(eng):
+        reqs = [eng.submit(p, 4) for p in prompts]
+        eng.run()
+        return reqs
+
+    _, off, _, offreqs = _both(mla_model1, drive, **DEDUP_KNOBS)
+    _, on, _, onreqs = _both(mla_model1, drive, page_dedup=True,
+                             **DEDUP_KNOBS)
+    assert [r.generated for r in onreqs] == [r.generated for r in offreqs]
+    st = on.stats_summary()
+    assert st["prefix_hits"] == 0 and st["dedup_hash_collisions"] == 0
+    assert st["dedup_hits"] >= len(prompts) - 1
+    assert on.pool.used_count < off.pool.used_count

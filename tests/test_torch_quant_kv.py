@@ -19,8 +19,10 @@ int8 and int4 greedy decode, prefix reuse with copy-on-write and content
 dedup (which hashes codes and scales) over quantized pages, chain and tree
 speculative decode over int8 pages: tokens, counters, page tables,
 refcounts and the ``kv_dtype`` / ``kv_bytes_per_slot`` / ``pool_bytes``
-stats equal.  The config's ``kv_dtype`` validation gives the JAX config's
-messages, and the serve CLI runs a quantized, sampled workload to length.
+stats equal; the reduced MLA config (``minicpm3-4b``, 1 layer) over
+int8 and int4 latent pools likewise.  The config's ``kv_dtype``
+validation gives the JAX config's messages, and the serve CLI runs a
+quantized, sampled workload to length.
 """
 import dataclasses
 import os
@@ -412,6 +414,30 @@ def test_quantized_engine_matches_jax(model1, kv_dtype, mode):
     assert st["kv_bytes_per_slot"] == per_token * GEOMETRY["max_seq"]
     assert teng.state["k"].dtype == (torch.int8 if kv_dtype == "int8"
                                      else torch.uint8)
+
+
+@pytest.fixture(scope="module")
+def mla_model1():
+    return _model(arch="minicpm3-4b", n_layers=1)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+@pytest.mark.parametrize("mode", ["sequential", "chain", "tree"])
+def test_mla_quantized_engine_matches_jax(mla_model1, kv_dtype, mode):
+    """int8 / int4 latent pools: one scale per (page, position) row of
+    ``ckv`` and of ``kr``, codes and scales scattered together."""
+    cfg = mla_model1[1]
+    prompts, gens = _prompts(cfg.vocab)
+    jeng, teng, jreqs, treqs = lockstep(
+        mla_model1, prompts, gens, **GEOMETRY, kv_dtype=kv_dtype,
+        **MODES.get(mode, {}))
+    assert_same(jeng, teng, jreqs, treqs)
+    assert sorted(teng.state) == ["ckv", "ckv_scale", "kr", "kr_scale"]
+    assert teng.state["ckv_scale"].shape == teng.state["ckv"].shape[:3]
+    per_token = cfg.n_layers * (
+        (cfg.kv_lora_rank + cfg.qk_rope_dim) // (8 // BITS[kv_dtype]) + 8)
+    assert teng.stats_summary()["kv_bytes_per_slot"] == \
+        per_token * GEOMETRY["max_seq"]
 
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "int4"])

@@ -15,7 +15,8 @@ The engine samples in lockstep with the JAX engine on the reduced
 chain, tree and auto, over fp32 and int8 pages, with tokens, every shared
 counter, page tables and refcounts equal; sampled speculative streams
 equal the sampled sequential ones; a stream repeats across engine
-restarts and survives preemption and re-admission."""
+restarts and survives preemption and re-admission.  The reduced MLA
+config (``minicpm3-4b``, 1 layer) samples in the same lockstep."""
 import itertools
 
 import jax
@@ -289,6 +290,27 @@ def test_sampled_engine_matches_jax(model, mode, kv_dtype):
     greedy = _sequential(model, prompts, gens, [None] * len(prompts),
                          kv_dtype=kv_dtype)
     assert seq[1] == greedy[1] and seq != greedy
+
+
+@pytest.fixture(scope="module")
+def mla_model():
+    return _model(arch="minicpm3-4b", n_layers=1)
+
+
+@pytest.mark.parametrize("mode,kv_dtype", [("sequential", "fp32"),
+                                           ("chain", "fp32"),
+                                           ("tree", "int8")])
+def test_mla_sampled_engine_matches_jax(mla_model, mode, kv_dtype):
+    prompts, gens = _prompts(mla_model[0].vocab)
+    sampling = _sampled(len(prompts))
+    sampling[1] = None
+    knobs = dict(GEOMETRY, kv_dtype=kv_dtype, **MODES.get(mode, {}))
+    jeng, teng, jreqs, treqs = lockstep(mla_model, prompts, gens, sampling,
+                                        **knobs)
+    assert_same(jeng, teng, jreqs, treqs)
+    assert all(len(r.generated) == g for r, g in zip(treqs, gens))
+    assert [r.generated for r in treqs] == _sequential(
+        mla_model, prompts, gens, sampling, kv_dtype=kv_dtype)
 
 
 @pytest.mark.parametrize("mode", ["chain", "tree"])

@@ -14,7 +14,9 @@ step: refcounts equal the table (chain: after ``_rollback_pages``); a live
 slot's write page has refcount 1; a tree step changes no pool row outside
 its slots' chain-part positions, scratch page 0 aside.  The degrade
 ladder's ``SPEC_OFF`` level, sessions under tree decode, and EOS and
-budget truncation are held against the JAX engine too."""
+budget truncation are held against the JAX engine too.  The reduced MLA
+config (``minicpm3-4b``, 1 layer) runs chain and tree decode over its
+latent pools in the same lockstep."""
 import dataclasses
 import os
 import subprocess
@@ -188,6 +190,31 @@ def test_spec_engine_matches_jax_and_sequential(model, heads_model, mode):
         assert st["spec_shape_chain"] + st["spec_shape_tree"] > 0
     if mode == "heads":
         assert teng.head_drafter is not None and teng._head_preds == {}
+
+
+@pytest.fixture(scope="module")
+def mla_model():
+    return _model(arch="minicpm3-4b", n_layers=1)
+
+
+@pytest.mark.parametrize("mode", ["chain", "tree"])
+def test_mla_spec_engine_matches_jax_and_sequential(mla_model, mode):
+    """Chain and tree verify over the latent ckv / kr pools: tokens, every
+    counter, the tables and refcounts after every step (a tree commits
+    only its chain rows), and the logits equal the JAX engine's; the
+    tokens equal the sequential run's."""
+    prompts, gens = _prompts(mla_model[0].vocab)
+    jeng, teng, jreqs, treqs = lockstep(mla_model, prompts, gens,
+                                        **MODES[mode])
+    assert_same(jeng, teng, jreqs, treqs)
+    assert [r.generated for r in treqs] == _sequential(mla_model, prompts,
+                                                       gens)
+    st = teng.stats_summary()
+    assert st["spec_accepted"] > 0 and st["decode_steps"] < sum(gens)
+    assert st["moa_reduce_launches"] == 0
+    if mode == "tree":
+        assert st["spec_tree_steps"] == st["decode_steps"]
+        assert teng.tree_writes_checked == st["decode_steps"]
 
 
 def test_chain_rollback_releases_pages(model):
