@@ -20,6 +20,7 @@ Phases:
   3. moa_reduce against moa_reduce_plain, torch.equal with the signs of
      zero, at the kernel-test shapes and dtypes (N = 2 to 300, so every
      split of the tree across lanes) and at the serve path's own shapes
+     (phase 6's paged geometry and G3's generate over pages of 32)
   4. flash attention: the forward kernel against flash_attention_plain
      (2e-5 fp32; bf16 2e-2 and relative norm error 1e-2) and the dq and
      dk/dv kernels against flash_attention_plain_bwd and against autograd
@@ -42,16 +43,33 @@ Phases:
      (spec_k 4), CUDA against CPU: tokens and every counter equal; and
      sample_tokens on one seeded (64, 128256) fp32 logits tensor, CUDA
      against CPU: equal tokens, with threefry's bits and uniforms bit for
-     bit; then the reduced fp32 minicpm3-4b engine (MLA's latent pools),
-     CUDA against CPU on the same weights: sequential, prefix-cache warm,
-     chain (spec_k 4), tree, int8 and int4 pools, sampled (temperature
-     0.8, top-k 40): tokens and every counter equal, decode logits within
-     1e-3, no kernel launched
+     bit; then contiguous slots (paged_kv=False) on the reduced llama,
+     CUDA against CPU: sequential, prefix-cache warm (copy_slot hits),
+     chain (spec_k 4), tree and sampled over slot rows read as pages of
+     16, and a page-0 engine (one softmax): tokens and every counter
+     equal, decode logits within 1e-3, moa_reduce launched 2 * layers per
+     dispatch (0 at page 0); then the reduced fp32 minicpm3-4b engine
+     (MLA's latent pools), CUDA against CPU on the same weights:
+     sequential, prefix-cache warm, chain (spec_k 4), tree, int8 and int4
+     pools, sampled (temperature 0.8, top-k 40), and contiguous,
+     contiguous prefix warm and contiguous tree: tokens and every counter
+     equal, decode logits within 1e-3, no kernel launched
   6. serve, full width: llama3.2-3b, 28 layers, bf16, 8 greedy requests
      of 128 to 1024 prompt tokens and 32 new tokens on 4 slots, prefix
      cache off (what PRs 11-17 measured); every request retires with 32
      tokens, no logit is NaN, and moa_reduce ran exactly 2 * layers times
      per dispatch
+  G. contiguous slots, full width on phase 6's weights, each engine
+     warmed up first (warmup() moves no counter): G1, phase 6's traffic
+     and geometry on contiguous slots read as pages of 128 (split-K over
+     dense rows), tokens equal phase 6's paged tokens and moa_reduce
+     launched 2 * layers * (prefill dispatches + decode steps); G2, the
+     same at page 0 (one softmax), moa_reduce launched 0 times, its token
+     agreement with G1 printed; G3, generate (one decode_step a position,
+     a 0-d index) on 4 prompts of 128 tokens x 32 new over pages of 32
+     (auto_page_size(160)), moa_reduce launched 2 * layers * 160
+     dispatches, and an engine on the same prompts: prefill and decode
+     tok/s and the token agreement printed
   A. shared prefix, full width on phase 6's weights: 8 requests of a
      1024-token system prompt and a 64-448-token tail, served cold (prefix
      cache off), warm (the default) and with page dedup (prefix cache
@@ -122,8 +140,9 @@ Phases:
      bitplane_add and quant_matmul launched 0 times in every run; prefill
      tok/s, decode step p50/p99, decode tok/s and tokens a step printed
   7. moa_reduce timings at the serve path shapes, the verify shapes of a
-     chain (C = 5) and a tree (C = 17) among them (CUDA events, median of
-     50), beside the bound, the plain version and torch.sum
+     chain (C = 5) and a tree (C = 17) and G3's generate (N = 5) among
+     them (CUDA events, median of 50), beside the bound, the plain version
+     and torch.sum
   8. train, reduced-config parity: 3 AdamW steps of the reduced fp32
      config from one state on the CPU (chunked attention) and on CUDA (the
      kernels): losses within 1e-4, kernels launched layers * steps times
@@ -198,6 +217,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moa_reduce as moa  # noqa: E402
 from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
 from repro_torch.models.common import init_params  # noqa: E402
+from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models.lm import (fit_draft_heads,  # noqa: E402
                                    hidden_states, train_loss)
 from repro_torch.models.registry import get_api  # noqa: E402
@@ -206,7 +226,7 @@ from repro_torch.optim.grad_accum import value_and_grad  # noqa: E402
 from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
 from repro_torch.models.quant_kv import KV_DTYPES  # noqa: E402
 from repro_torch.serve import (EngineConfig, SamplingParams,  # noqa: E402
-                               ServeEngine, prng)
+                               ServeEngine, auto_page_size, prng)
 from repro_torch.serve.sampling import (sample_tokens,  # noqa: E402
                                         sampling_lanes)
 from repro_torch.serve.engine import tree_width  # noqa: E402
@@ -290,6 +310,10 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.2f} s")
 
 
+#: phase G3: generate's traffic, GEN_ROWS equal prompts x new tokens
+GEN_ROWS, GEN_PROMPT, GEN_NEW = 4, 128, 32
+
+
 def verify_rows(ecfg) -> dict:
     """Rows a slot feeds a verify dispatch at ``ecfg``'s speculative
     knobs: ``spec_k + 1`` for a chain, and the width of an auto-mode tree
@@ -313,6 +337,17 @@ def path_shapes(cfg, ecfg):
         out += [(f"verify_{name}_l", n, b * h * rows),
                 (f"verify_{name}_o", n, b * h * rows * hd)]
     return out
+
+
+def generate_shapes(cfg):
+    """(label, N, M) of phase G3's two moa_reduce calls per layer per
+    dispatch: ``generate``'s GEN_ROWS lockstep rows (C = 1) over its dense
+    cache of GEN_PROMPT + GEN_NEW positions read as pages of
+    ``auto_page_size`` of that length."""
+    seq = GEN_PROMPT + GEN_NEW
+    n = seq // auto_page_size(seq)
+    rows = GEN_ROWS * cfg.n_heads
+    return [("generate_l", n, rows), ("generate_o", n, rows * cfg.hd)]
 
 
 def phase_kernel_check(shapes) -> float:
@@ -478,11 +513,13 @@ def phase_reduced_parity() -> None:
     _free(*(e for e, _ in cpu_runs.values()),
           *(e for e, _ in gpu_runs.values()))
     sampling_parity()
-    mla_parity()
+    table_parity(cfg, REDUCED_CONTIGUOUS_RUNS)
+    table_parity(get_config(MLA_ARCH).reduced(dtype=torch.float32),
+                 REDUCED_MLA_RUNS)
 
 
-#: phase 5's MLA runs: (engine knobs, sampled?); "prefix warm" serves
-#: shared-prefix prompts, the others repeated passages
+#: phase 5's MLA runs: (engine knobs, sampled?); a "prefix warm" run
+#: serves shared-prefix prompts, the others repeated passages
 REDUCED_MLA_RUNS = {
     "sequential": (dict(prefix_cache=False), False),
     "prefix warm": ({}, False),
@@ -490,14 +527,31 @@ REDUCED_MLA_RUNS = {
     "tree": (dict(spec_k=4, spec_mode="tree"), False),
     "int8": (dict(kv_dtype="int8"), False),
     "int4": (dict(kv_dtype="int4"), False),
-    "sampled": ({}, True)}
+    "sampled": ({}, True),
+    "contiguous": (dict(paged_kv=False), False),
+    "contiguous prefix warm": (dict(paged_kv=False), False),
+    "contiguous tree": (dict(paged_kv=False, spec_k=4, spec_mode="tree"),
+                        False)}
+
+#: phase 5's contiguous llama runs (the same table form): split-K over
+#: dense slot rows read as pages of 16, and (page 0) one softmax
+REDUCED_CONTIGUOUS_RUNS = {
+    "contiguous": (dict(paged_kv=False, prefix_cache=False), False),
+    "contiguous prefix warm": (dict(paged_kv=False), False),
+    "contiguous chain": (dict(paged_kv=False, spec_k=4), False),
+    "contiguous tree": (dict(paged_kv=False, spec_k=4, spec_mode="tree"),
+                        False),
+    "contiguous sampled": (dict(paged_kv=False), True),
+    "dense": (dict(page_size=0), False)}
 
 
-def reduced_mla_runs(cfg, params, dev):
-    """Phase 5's MLA runs on ``dev``: every run stepped with the refcount
-    invariant after every step and its decode logits traced; a sampled
-    run's request ``i`` draws with temperature 0.8, top-k 40 and seed
-    ``i``.  (engine, requests) by run name."""
+def reduced_table_runs(cfg, params, dev, table):
+    """Phase 5's runs of ``table`` (name -> (engine knobs, sampled?)) on
+    ``dev``: 2 slots x 64, chunk 16, page 16 under the knobs; every run
+    stepped with the refcount invariant after every step (paged) and its
+    decode logits traced; a sampled run's request ``i`` draws with
+    temperature 0.8, top-k 40 and seed ``i``.  (engine, requests) by run
+    name."""
     passages = spec_prompts((40, 13, 28, 20, 33), cfg.vocab, seed=15,
                             passage=6, edits=1)
     rng = np.random.default_rng(16)
@@ -505,12 +559,12 @@ def reduced_mla_runs(cfg, params, dev):
     shared = [system + rng.integers(0, cfg.vocab, n).tolist()
               for n in (5, 9, 3, 12, 7)]
     runs = {}
-    for name, (knobs, sampled) in REDUCED_MLA_RUNS.items():
-        eng = ServeEngine(cfg, params, config=EngineConfig(
-            max_slots=2, max_seq=64, prefill_chunk=16, page_size=16,
-            **knobs), device=dev)
+    for name, (knobs, sampled) in table.items():
+        eng = ServeEngine(cfg, params, config=EngineConfig(**dict(dict(
+            max_slots=2, max_seq=64, prefill_chunk=16, page_size=16),
+            **knobs)), device=dev)
         eng.trace_logits = True
-        prompts = shared if name == "prefix warm" else passages
+        prompts = shared if name.endswith("prefix warm") else passages
         reqs = [eng.submit(q, 16, sampling=SamplingParams(
             temperature=0.8, top_k=40, seed=i) if sampled else None)
             for i, q in enumerate(prompts)]
@@ -518,47 +572,50 @@ def reduced_mla_runs(cfg, params, dev):
         def drive():
             while eng.scheduler.has_work:
                 eng.step()
-                refcount_check(eng, f"reduced MLA {name}")
+                refcount_check(eng, f"reduced {cfg.arch_id} {name}")
 
         launches = _counted_run(eng, drive)
-        _check_launches(eng, launches, f"reduced MLA {name}")
+        _check_launches(eng, launches, f"reduced {cfg.arch_id} {name}")
         runs[name] = (eng, reqs)
     return runs
 
 
-def mla_parity() -> None:
-    """The reduced fp32 minicpm3-4b engine, CUDA against CPU on the same
-    weights: tokens and every counter equal, decode logits within 1e-3,
-    and no kernel launched."""
-    cfg = get_config(MLA_ARCH).reduced(dtype=torch.float32)
+def table_parity(cfg, table) -> None:
+    """The runs of ``table`` on the reduced fp32 ``cfg``, CUDA against CPU
+    on the same weights: tokens and every counter equal (the launch count
+    aside: CPU tensors launch nothing; the card's is held by
+    ``_check_launches``), decode logits within 1e-3."""
     cpu_params = init_params(get_api(cfg).param_specs(cfg),
                              torch.Generator().manual_seed(0),
                              torch.device("cpu"), cfg.dtype)
-    cpu_runs = reduced_mla_runs(cfg, cpu_params, "cpu")
-    gpu_runs = reduced_mla_runs(cfg, map_tree(lambda t: t.to("cuda"),
-                                              cpu_params), "cuda")
+    cpu_runs = reduced_table_runs(cfg, cpu_params, "cpu", table)
+    gpu_runs = reduced_table_runs(cfg, map_tree(lambda t: t.to("cuda"),
+                                                cpu_params), "cuda", table)
+    keys = [k for k in SERVE_COUNTERS + SPEC_COUNTERS + (
+        "kv_dtype", "kv_bytes_per_slot", "pool_bytes")
+        if k != "moa_reduce_launches"]
     for name, (ceng, creqs) in cpu_runs.items():
         geng, greqs = gpu_runs[name]
+        what = f"reduced {cfg.arch_id} {name}"
         check(_tokens(creqs) == _tokens(greqs),
-              f"reduced MLA {name}: CUDA tokens differ from CPU")
+              f"{what}: CUDA tokens differ from CPU")
         cst, gst = ceng.stats_summary(), geng.stats_summary()
-        bad = [k for k in SERVE_COUNTERS + SPEC_COUNTERS + (
-            "kv_dtype", "kv_bytes_per_slot", "pool_bytes")
-            if cst[k] != gst[k]]
-        check(not bad, f"reduced MLA {name}: counters differ CPU vs CUDA: "
+        bad = [k for k in keys if cst[k] != gst[k]]
+        check(not bad, f"{what}: counters differ CPU vs CUDA: "
                        f"{[(k, cst[k], gst[k]) for k in bad]}")
         diff = _logit_diff(ceng, geng)
-        check(diff <= 1e-3, f"reduced MLA {name}: decode logits differ by "
-                            f"{diff} (> 1e-3)")
-        print(f"[parity] reduced {MLA_ARCH} {name}: tokens and "
-              f"{len(SERVE_COUNTERS) + len(SPEC_COUNTERS) + 3} counters "
-              f"equal CPU vs CUDA over {len(creqs)} requests (decode steps "
+        check(diff <= 1e-3, f"{what}: decode logits differ by {diff} "
+                            f"(> 1e-3)")
+        print(f"[parity] {what}: tokens and {len(keys)} counters equal CPU "
+              f"vs CUDA over {len(creqs)} requests (paged_kv {geng.paged}, "
+              f"page {geng.page_size}, decode steps "
               f"{gst['decode_steps']}, prefix hits {gst['prefix_hits']}, "
-              f"pages shared {gst['pages_shared']}, drafted "
-              f"{gst['spec_drafted']}, accepted {gst['spec_accepted']}, "
-              f"tree steps {gst['spec_tree_steps']}, kv_dtype "
-              f"{gst['kv_dtype']}, {gst['kv_bytes_per_slot']} bytes a slot); "
-              f"max |logit diff| {diff:.3e} (tol 1e-3); kernel launches "
+              f"bytes copied {gst['prefix_bytes_copied']}, pages shared "
+              f"{gst['pages_shared']}, drafted {gst['spec_drafted']}, "
+              f"accepted {gst['spec_accepted']}, tree steps "
+              f"{gst['spec_tree_steps']}, kv_dtype {gst['kv_dtype']}, "
+              f"{gst['kv_bytes_per_slot']} bytes a slot); max |logit diff| "
+              f"{diff:.3e} (tol 1e-3); kernel launches "
               f"{geng.kernel_launches}")
     _free(*(e for e, _ in cpu_runs.values()),
           *(e for e, _ in gpu_runs.values()))
@@ -566,7 +623,8 @@ def mla_parity() -> None:
 
 def phase_full_width():
     """Returns the moa_reduce launches of the measured run, the weights,
-    and the run's mean prefill-dispatch and decode-step times."""
+    the run's mean prefill-dispatch and decode-step times, and its
+    tokens."""
     cfg = get_config("llama3.2-3b")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -590,7 +648,7 @@ def phase_full_width():
     eng.run()
     eng.reset_stats()
 
-    lens = (1024, 128, 768, 256, 896, 384, 640, 512)
+    lens = SPEC_LENS
     prompts = make_prompts(lens, cfg.vocab, seed=2)
     eng.trace_logits = True
     reqs = [eng.submit(p, 32) for p in prompts]
@@ -627,7 +685,104 @@ def phase_full_width():
     chunk_s = st["prefill_s"] / st["prefill_dispatches"]
     step_s = st["decode_s"] / st["decode_steps"]
     _free(eng)
-    return launches, params, chunk_s, step_s
+    return launches, params, chunk_s, step_s, _tokens(reqs)
+
+
+
+
+def phase_contiguous(cfg, params, paged_tokens):
+    """Phase G at full width on phase 6's weights.  G1: phase 6's traffic
+    and geometry on contiguous slots read as pages of 128 (split-K over
+    dense rows); its tokens equal phase 6's paged ones.  G2: the same with
+    page 0 (one softmax, no page combine).  G3: generate, the per-token
+    loop, on 4 equal prompts, and an engine on the same prompts.  Each
+    engine is warmed up (``warmup``) before its counted run.  Returns
+    (summary rows, launches by run)."""
+    prompts = make_prompts(SPEC_LENS, cfg.vocab, seed=2)
+    rows, launches, toks = {}, {}, {}
+    for name, knobs in (("G1 contiguous split-K",
+                         dict(paged_kv=False, page_size=128)),
+                        ("G2 contiguous dense", dict(page_size=0))):
+        eng = ServeEngine(cfg, params, config=EngineConfig(
+            max_slots=4, max_seq=2048, prefill_chunk=256,
+            prefix_cache=False, **knobs))
+        check(not eng.paged, f"{name}: the engine resolved paged_kv=True")
+        eng.warmup()
+        check(all(v == 0 for v in eng.stats.values()),
+              f"{name}: warmup moved a counter")
+        eng.trace_logits = True
+        reqs = [eng.submit(p, QUANT_NEW) for p in prompts]
+        n = _counted_run(eng, eng.run)
+        _check_launches(eng, n, name)
+        check(all(r.slot is None and len(r.generated) == QUANT_NEW
+                  for r in reqs), f"{name}: a request did not retire")
+        check(all(np.isfinite(t).all() for t in eng.logit_trace),
+              f"{name}: a decode logit is not finite")
+        st = eng.stats_summary()
+        toks[name] = _tokens(reqs)
+        rows[name] = dict(_serve_row(st), launches=n,
+                          prefix_bytes_copied=st["prefix_bytes_copied"],
+                          page=eng.page_size)
+        launches[name] = n
+        print(f"[contig] {name} (page {eng.page_size}, "
+              f"{st['kv_bytes_per_slot']} bytes a slot): {_serve_line(st)};"
+              f" prefix_bytes_copied {st['prefix_bytes_copied']}; "
+              f"moa_reduce launches {n}")
+        _free(eng)
+    g1, g2 = toks["G1 contiguous split-K"], toks["G2 contiguous dense"]
+    check(g1 == paged_tokens, "G1: the contiguous split-K engine's tokens "
+                              "differ from phase 6's paged tokens")
+    same = sum(a == b for a, b in zip(g2, g1))
+    print(f"[contig] G1 tokens == phase 6's paged tokens in "
+          f"{len(g1)} of {len(g1)} requests (asserted); G2 (one softmax) "
+          f"equal to G1 in {same} of {len(g1)} requests (reported)")
+
+    # G3: the per-token baseline, split-K over pages of the page that
+    # divides its cache (auto_page_size of prompt + new tokens)
+    page = auto_page_size(GEN_PROMPT + GEN_NEW)
+    gcfg = dataclasses.replace(cfg, decode_page_size=page)
+    gp = make_prompts((GEN_PROMPT,) * GEN_ROWS, cfg.vocab, seed=30)
+    _zero_kernel_counts()
+    ids, gst = generate(gcfg, params, np.asarray(gp), GEN_NEW)
+    _sync()
+    n = moa.LAUNCHES
+    # one dispatch a position and one warm-up
+    disp = GEN_PROMPT + GEN_NEW
+    _check_count(params["embed"].device,
+                 n == 2 * cfg.n_layers * disp and not any(
+                     v for k, v in _kernel_counts().items()
+                     if k != "moa_reduce"),
+                 f"G3 generate: moa_reduce launched {n} times, expected 2 * "
+                 f"{cfg.n_layers} * {disp} (page {page})")
+    eng = ServeEngine(cfg, params, config=EngineConfig(
+        max_slots=4, max_seq=2048, prefill_chunk=256, prefix_cache=False,
+        paged_kv=False, page_size=128))
+    eng.warmup()
+    reqs = [eng.submit(p, GEN_NEW) for p in gp]
+    n_eng = _counted_run(eng, eng.run)
+    _check_launches(eng, n_eng, "G3 engine")
+    est = eng.stats_summary()
+    _free(eng)
+    same = sum(list(ids[i, GEN_PROMPT:]) == r.generated
+               for i, r in enumerate(reqs))
+    rows["G3 generate"] = {"prefill_tok_s": gst["prefill_tok_s"],
+                           "decode_tok_s": gst["decode_tok_s"],
+                           "prefill_s": gst["prefill_s"],
+                           "decode_s": gst["decode_s"], "launches": n,
+                           "page": page, "equal_to_engine": same}
+    rows["G3 engine"] = dict(_serve_row(est), launches=n_eng)
+    launches["G3 generate"] = n
+    launches["G3 engine"] = n_eng
+    print(f"[contig] G3 generate ({len(gp)} x {GEN_PROMPT} prompt + "
+          f"{GEN_NEW} new, page {page}): prefill {gst['prefill_s']:.4f} s ="
+          f" {gst['prefill_tok_s']:.1f} tok/s, decode {gst['decode_s']:.4f} s"
+          f" = {gst['decode_tok_s']:.1f} tok/s; moa_reduce launches {n} = "
+          f"2 * {cfg.n_layers} * {disp} dispatches (asserted)")
+    print(f"[contig] G3 engine on the same prompts (contiguous split-K, "
+          f"page 128): {_serve_line(est)}; launches {n_eng}; generate's "
+          f"tokens equal the engine's in {same} of {len(gp)} requests "
+          f"(reported: other prefill cuts)")
+    return rows, launches
 
 
 def phase_shared_prefix(cfg, params):
@@ -1431,7 +1586,10 @@ def _sync() -> None:
 def refcount_check(eng, what: str) -> None:
     """Every page's refcount equals its occurrences across table rows and
     session snapshots; scratch is pinned; the free list and the used pages
-    partition the pool; no dedup entry sits on a freed page."""
+    partition the pool; no dedup entry sits on a freed page.  A
+    contiguous engine has no pool: nothing to hold."""
+    if not eng.paged:
+        return
     pool = eng.pool
     counts = np.bincount(eng.table[eng.table != 0].ravel(),
                          minlength=pool.num_pages)
@@ -1471,10 +1629,19 @@ def _counted_run(eng, drive) -> int:
     return moa.LAUNCHES
 
 
+def _check_count(device: torch.device, ok: bool, msg: str) -> None:
+    """A launch count is held only on the card: on the CPU every wrapper
+    runs its plain version and counts nothing."""
+    if device.type == "cuda":
+        check(ok, msg)
+
+
 def _check_launches(eng, launches: int, what: str) -> None:
-    """On the card: GQA launches moa_reduce twice a layer a dispatch; MLA
-    (a plain softmax over the latent view, no page combine) launches no
-    kernel at all."""
+    """On the card: GQA launches moa_reduce twice a layer a dispatch when
+    its engine resolved a page (paged, or contiguous split-K over slot
+    rows) and never without one (a contiguous engine of page 0 takes one
+    softmax); MLA (a plain softmax over the latent view, no page combine)
+    launches no kernel at all."""
     st = eng.stats
     if eng.cfg.attn_kind == "mla":
         check(launches == st["moa_reduce_launches"] == 0 and not any(
@@ -1482,13 +1649,12 @@ def _check_launches(eng, launches: int, what: str) -> None:
             f"{what}: an MLA run launched a kernel: "
             f"{eng.kernel_launches}")
         return
-    want = 2 * eng.cfg.n_layers * (st["prefill_dispatches"]
-                                   + st["decode_steps"])
-    if eng.device.type == "cuda":
-        check(launches == want == st["moa_reduce_launches"],
-              f"{what}: moa_reduce launched {launches} times, expected "
-              f"2 * {eng.cfg.n_layers} * ({st['prefill_dispatches']} + "
-              f"{st['decode_steps']}) = {want}")
+    per = 2 * eng.cfg.n_layers if eng.page_size else 0
+    want = per * (st["prefill_dispatches"] + st["decode_steps"])
+    _check_count(eng.device, launches == want == st["moa_reduce_launches"],
+                 f"{what}: moa_reduce launched {launches} times, expected "
+                 f"{per} * ({st['prefill_dispatches']} + "
+                 f"{st['decode_steps']}) = {want} (page {eng.page_size})")
 
 
 def shared_prefix_prompts(tr: Traffic, vocab: int, seed: int):
@@ -2530,13 +2696,17 @@ def main() -> int:
     full_cfg = get_config("llama3.2-3b")
     full_ecfg = EngineConfig(max_slots=4, max_seq=2048, prefill_chunk=256,
                              spec_k=4).resolve(full_cfg)
-    shapes = path_shapes(full_cfg, full_ecfg)
+    shapes = path_shapes(full_cfg, full_ecfg) + generate_shapes(full_cfg)
     err = timed("3 moa_reduce check", phase_kernel_check, shapes)
     flash_err = timed("4 flash check", phase_flash_check)
     timed("5 reduced serve parity", phase_reduced_parity)
-    launches, serve_params, chunk_s, step_s = timed("6 full width",
-                                                    phase_full_width)
+    launches, serve_params, chunk_s, step_s, paged_tokens = timed(
+        "6 full width", phase_full_width)
+    contig_rows, contig_launches = timed(
+        "G contiguous slots", phase_contiguous, full_cfg, serve_params,
+        paged_tokens)
     serve_launches = {
+        "G": contig_launches,
         "A": timed("A shared prefix", phase_shared_prefix, full_cfg,
                    serve_params),
         "B": timed("B sessions", phase_sessions, full_cfg, serve_params),
@@ -2585,7 +2755,7 @@ def main() -> int:
         "library_ms": main_row["library_ms"], "shape": main_row["shape"],
         "checked": "torch.equal vs moa_reduce_plain", "shapes": rows,
         "spec_serve": spec_rows, "quant_serve": quant_rows,
-        "mla_serve": mla_rows,
+        "mla_serve": mla_rows, "contiguous_serve": contig_rows,
         "launches_by_serve_phase": {
             f"{ph} {run}": n for ph, d in serve_launches.items()
             for run, n in d.items()}}]

@@ -5,7 +5,9 @@
 Builds ``--arch`` (default ``llama3.2-3b``; ``minicpm3-4b`` serves through
 MLA's latent pools) at full width (random bf16 weights from ``--seed``),
 engine knobs as in ``chip_smoke.py``'s phase 6 (4 slots, max_seq 2048,
-prefill chunk 256, page 128, prefix cache off), and traces two windows
+prefill chunk 256, page 128, prefix cache off; every
+:class:`~repro_torch.serve.EngineConfig` knob has the serve CLI's flag,
+e.g. ``--no-paged-kv`` for contiguous slots), and traces two windows
 after a warm-up:
 
 * decode: ``--steps`` engine steps with all 4 slots live and nothing to
@@ -43,9 +45,8 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.models.common import init_params
 from repro_torch.models.registry import get_api
-from repro_torch.serve import EngineConfig, SamplingParams, ServeEngine
-from repro_torch.serve.config import (add_kv_dtype_arg, add_spec_args,
-                                      spec_knobs)
+from repro_torch.serve import (SamplingParams, ServeEngine, add_cli_args,
+                               config_from_args)
 
 __all__ = ["main"]
 
@@ -102,8 +103,9 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
-    add_spec_args(ap, spec_k_default=0)
-    add_kv_dtype_arg(ap)
+    # every engine knob, at phase 6's geometry unless given
+    add_cli_args(ap, spec_k_default=0)
+    ap.set_defaults(prefill_chunk=256, prefix_cache=False)
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sample every request at this temperature with "
                          "top-k 40 (0 = greedy)")
@@ -121,12 +123,12 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(get_api(cfg).param_specs(cfg), gen, dev, cfg.dtype)
-    eng = ServeEngine(cfg, params, config=EngineConfig(
-        max_slots=4, max_seq=2048, prefill_chunk=256, prefix_cache=False,
-        kv_dtype=args.kv_dtype, **spec_knobs(args)))
+    ecfg = config_from_args(args)
+    eng = ServeEngine(cfg, params, config=ecfg.replace(
+        max_seq=args.max_seq or 2048))
     print(f"[engine] arch {cfg.arch_id}, spec_k {eng.spec_k}, spec_mode "
-          f"{eng.spec_mode}, kv_dtype {eng.kv_dtype}, temperature "
-          f"{args.temperature}")
+          f"{eng.spec_mode}, kv_dtype {eng.kv_dtype}, paged_kv {eng.paged}, "
+          f"page {eng.page_size}, temperature {args.temperature}")
     rng = np.random.default_rng(args.seed)
     seeds = iter(range(1 << 30))
 

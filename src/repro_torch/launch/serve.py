@@ -1,31 +1,35 @@
-"""Serving CLI of the port: chunked prefill, continuous batching, quantized
-KV pages, prefix cache, page dedup, SLO admission, the degrade ladder,
-sampling and speculative decode.
+"""Serving CLI and static-batch API of the port: chunked prefill, continuous
+batching, paged or contiguous KV, quantized pages, prefix cache, page dedup,
+SLO admission, the degrade ladder, sampling and speculative decode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         --requests 8 --slots 4 --prompt-len 512 --gen 32 --slo-ms 2000 \
         --kv-dtype int8 --temperature 0.8 --top-k 40
 
-Requests flow through :class:`repro_torch.serve.ServeEngine` on the card
-(``--device cpu`` runs the plain PyTorch path instead; ``--reduced`` swaps
-in the tiny same-family config).  Weights are random, drawn from
-``--seed``; prompts have staggered lengths around ``--prompt-len``, so
-finished slots are refilled mid-flight.  Every request samples with
-``--temperature`` / ``--top-k`` / ``--top-p`` and the seed ``--seed``, one
-shared :class:`~repro_torch.serve.SamplingParams` as in the JAX CLI
-(``--temperature 0``, the default, is greedy), over a KV pool of
-``--kv-dtype`` pages.  As in the JAX CLI, decoding is
-speculative by default: ``--spec-k`` prompt-lookup drafts verified
-in one K+1-wide dispatch (``--no-spec`` decodes one token a step);
-``--spec-mode tree`` drafts a token tree per slot (n-gram fan-out, or
-``--spec-drafter heads`` when the params carry draft heads), verified in
-one ancestor-masked dispatch, and ``--spec-mode auto`` picks chain or tree
-per slot per step.  The flags are the JAX CLI's (``repro/launch/serve.py``)
-for what the port has.
+Requests flow through :func:`serve_batch` into
+:class:`repro_torch.serve.ServeEngine` on the card (``--device cpu`` runs
+the plain PyTorch path instead; ``--reduced`` swaps in the tiny same-family
+config).  Weights are random, drawn from ``--seed``; prompts have
+staggered lengths around ``--prompt-len``, so finished slots are refilled
+mid-flight.  Every request samples with ``--temperature`` / ``--top-k`` /
+``--top-p`` and the seed ``--seed``, one shared
+:class:`~repro_torch.serve.SamplingParams` as in the JAX CLI
+(``--temperature 0``, the default, is greedy).  Every engine knob is an
+:class:`~repro_torch.serve.EngineConfig` field bound by
+:func:`~repro_torch.serve.add_cli_args`, as in the JAX CLI: decoding is
+speculative by default (``--spec-k`` prompt-lookup drafts verified in one
+K+1-wide dispatch; ``--no-spec`` decodes one token a step; ``--spec-mode
+tree`` / ``auto`` verify token trees), ``--kv-dtype`` picks the page
+element type and ``--no-paged-kv`` serves contiguous slots.
+``--per-token`` instead runs :func:`generate`, the one-dispatch-per-token
+loop kept as the measurement baseline.  The flags are the JAX CLI's
+(``repro/launch/serve.py``) for what the port has.
 """
 from __future__ import annotations
 
 import argparse
+import time
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -34,11 +38,158 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.models.common import init_params
 from repro_torch.models.registry import get_api
-from repro_torch.serve import EngineConfig, SamplingParams, ServeEngine
-from repro_torch.serve.config import (add_kv_dtype_arg, add_spec_args,
-                                      spec_knobs)
+from repro_torch.serve import (EngineConfig, SamplingParams, ServeEngine,
+                               add_cli_args, config_from_args, prng,
+                               state_zeros)
 
-__all__ = ["main"]
+__all__ = ["main", "generate", "serve_batch", "batch_config"]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(cfg, params, prompts: np.ndarray, gen: int,
+             greedy: bool = True, seed: int = 0,
+             device: Optional[Union[str, torch.device]] = None):
+    """The per-token serve loop (the measurement baseline).
+
+    prompts: (B, P) int token ids.  Returns ((B, P + gen) int64 ids, stats).
+    One ``decode_step`` dispatch per token for every position, prefill
+    included, with a 0-d index (every row in lockstep) over dense zero
+    state of ``P + gen`` positions: the dispatch-bound shape the engine
+    replaces.  GQA attends split-K over pages of ``cfg.decode_page_size``
+    when it divides ``P + gen`` (the page combine is the ``moa_reduce``
+    kernel on the card), else with one softmax.  ``greedy=False`` draws
+    each token with ``jax.random.categorical`` of the key ``seed`` split
+    once a step, as the JAX package's ``generate`` does (the port's
+    threefry, :mod:`repro_torch.serve.prng`).  ``device``: ``None`` is the
+    card (raises without one); ``params`` must live there."""
+    dev = resolve_device(device)
+    api = get_api(cfg)
+    b, p = prompts.shape
+    max_seq = p + gen
+    state = state_zeros(api.decode_state_specs(cfg, b, max_seq), dev)
+    toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
+                           device=dev)
+
+    def step(tok, i):
+        return api.decode_step(params, state,
+                               {"tokens": tok, "index": torch.tensor(
+                                   i, device=dev)}, cfg)[0]
+
+    # warm up outside the timed region (first kernel use, cuBLAS handles):
+    # the call writes position 0, which the first timed step rewrites with
+    # the same rows
+    step(toks[:, :1], 0)
+    _sync(dev)
+    out = [toks]
+    key = prng.prng_key(torch.tensor(seed, device=dev))
+    t_prefill = t_decode = 0.0
+    cur = None
+    for i in range(max_seq - 1):
+        tok_i = toks[:, i:i + 1] if i < p else cur
+        t0 = time.perf_counter()
+        logits = step(tok_i, i)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        if i < p - 1:
+            t_prefill += dt
+            continue
+        t_decode += dt
+        if greedy:
+            nxt = torch.argmax(logits, dim=-1)
+        else:
+            # jax.random.split(key): the cipher of counters (0, 0), (0, 1)
+            key, sub = prng.fold_in(key, 0), prng.fold_in(key, 1)
+            noise = prng.gumbel(sub, logits.numel()).reshape(logits.shape)
+            nxt = torch.argmax(noise + logits, dim=-1)
+        cur = nxt[:, None]
+        out.append(cur)
+    ids = torch.cat(out, dim=1).cpu().numpy()
+    return ids, {
+        "prefill_s": t_prefill, "decode_s": t_decode,
+        "prefill_tok_s": b * (p - 1) / max(t_prefill, 1e-9),
+        "decode_tok_s": b * gen / max(t_decode, 1e-9)}
+
+
+def batch_config(prompts, gens, *, config=None, slots=None, max_seq=None,
+                 **knobs) -> EngineConfig:
+    """Resolve the :func:`serve_batch` knob surface into ONE
+    :class:`~repro_torch.serve.EngineConfig` (planning only: no engine is
+    built).
+
+    Args:
+      prompts: list of 1-D int token lists (sizes the derived capacity).
+      gens: per-request generation lengths (int or list).
+      config: a ready-made config; mutually exclusive with ``knobs``.
+      slots: alias for ``max_slots``; overrides the config when given.
+      max_seq: per-slot cache capacity.  ``0`` derives it from the longest
+        request (padded to 16); ``None`` (default) derives too unless an
+        explicit ``config`` was given (whose ``max_seq`` then stands); any
+        other value is used as is.
+      knobs: any other :class:`~repro_torch.serve.EngineConfig` field by
+        name.
+
+    Returns:
+      The populated (unresolved) config the engine will run."""
+    if config is not None and knobs:
+        raise TypeError(
+            f"pass engine knobs via config= OR as keywords, not both "
+            f"(got config= plus {sorted(knobs)})")
+    ecfg = config if config is not None else EngineConfig(**knobs)
+    if slots is not None:
+        ecfg = ecfg.replace(max_slots=slots)
+    if max_seq:
+        ecfg = ecfg.replace(max_seq=max_seq)
+    elif max_seq == 0 or config is None:
+        if isinstance(gens, int):
+            gens = [gens] * len(prompts)
+        need = max(len(p) + g for p, g in zip(prompts, gens))
+        ecfg = ecfg.replace(max_seq=max(16, -(-need // 16) * 16))
+    return ecfg
+
+
+def serve_batch(cfg, params, prompts, gens, *, config=None, slots=None,
+                max_seq=None, sampling=None, slo_ms=None,
+                device: Optional[Union[str, torch.device]] = None, **knobs):
+    """Run a list of requests through one engine; returns (outputs, stats).
+
+    Args:
+      cfg, params: the model config and parameters (on ``device``).
+      prompts: list of 1-D int token lists.
+      gens: per-request generation lengths (int or list).
+      config, slots, max_seq, knobs: the engine knobs, as
+        :func:`batch_config` takes them.
+      sampling: per-request :class:`SamplingParams`, one shared instance,
+        or None for greedy decoding everywhere.
+      slo_ms: per-request completion-latency SLO in ms (scalar or list;
+        None = no SLO).
+      device: ``None`` is the card (raises without one); ``"cpu"`` the
+        plain PyTorch path.
+
+    Returns:
+      (outputs, stats): per-request generated-token lists in submission
+      order, and the engine's
+      :meth:`~repro_torch.serve.ServeEngine.stats_summary`.  The engine is
+      warmed up (:meth:`~repro_torch.serve.ServeEngine.warmup`) before the
+      first submission, so no request's SLO clock pays for it."""
+    n = len(prompts)
+    if isinstance(gens, int):
+        gens = [gens] * n
+    if sampling is None or isinstance(sampling, SamplingParams):
+        sampling = [sampling] * n
+    if slo_ms is None or isinstance(slo_ms, (int, float)):
+        slo_ms = [slo_ms] * n
+    ecfg = batch_config(prompts, gens, config=config, slots=slots,
+                        max_seq=max_seq, **knobs)
+    eng = ServeEngine(cfg, params, config=ecfg, device=device)
+    eng.warmup()
+    reqs = [eng.submit(list(p), g, sampling=sp, slo_ms=sl)
+            for p, g, sp, sl in zip(prompts, gens, sampling, slo_ms)]
+    eng.run()
+    return [r.generated for r in reqs], eng.stats_summary()
 
 
 def main(argv=None) -> int:
@@ -47,38 +198,12 @@ def main(argv=None) -> int:
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (fp32)")
     ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--slots", type=int, default=4,
-                    help="decode batch width (concurrent requests)")
     ap.add_argument("--prompt-len", type=int, default=16,
                     help="mean prompt length (lengths are staggered)")
     ap.add_argument("--gen", type=int, default=32)
-    ap.add_argument("--max-seq", type=int, default=0,
-                    help="per-slot cache capacity (0 = derive from the "
-                         "requests, padded to 16)")
-    ap.add_argument("--prefill-chunk", type=int, default=32,
-                    help="max tokens per prefill dispatch")
-    ap.add_argument("--page", type=int, default=None,
-                    help="KV page size (default auto)")
-    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
-                    action="store_false", default=True,
-                    help="disable prefix-cache reuse across requests")
-    ap.add_argument("--min-prefix", type=int, default=8,
-                    help="smallest resident-prefix match worth reusing")
-    ap.add_argument("--pool-pages", type=int, default=None,
-                    help="physical page-pool size (default: one full row "
-                         "per slot)")
-    ap.add_argument("--trie-capacity", type=int, default=None,
-                    help="LRU bound on prefix-trie entries (default: "
-                         "unbounded)")
-    ap.add_argument("--page-dedup", action="store_true",
-                    help="content-hash full pages at admission and share "
-                         "byte-identical ones by reference")
-    ap.add_argument("--degrade", action="store_true",
-                    help="enable the overload degrade ladder (smaller "
-                         "prefill chunks -> shed hopeless pending requests, "
-                         "hysteretic recovery)")
-    add_spec_args(ap, spec_k_default=4)
-    add_kv_dtype_arg(ap)
+    ap.add_argument("--per-token", action="store_true",
+                    help="run the per-token baseline loop (generate) "
+                         "instead")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy argmax)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -91,6 +216,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card, cuda)")
+    # every engine knob: --slots, --max-seq, --prefill-chunk, --page,
+    # --no-prefix-cache, --min-prefix, --no-paged-kv, --pool-pages,
+    # --trie-capacity, --spec-k / --no-spec and the spec flags,
+    # --kv-dtype, --page-dedup, --degrade, --mesh-shards
+    add_cli_args(ap)
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -101,30 +231,40 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(api.param_specs(cfg), gen, device, cfg.dtype)
     rng = np.random.default_rng(args.seed)
+
+    if args.per_token:
+        prompts = rng.integers(0, cfg.vocab,
+                               (args.max_slots, args.prompt_len))
+        ids, st = generate(cfg, params, prompts, args.gen,
+                           greedy=args.temperature == 0.0, seed=args.seed,
+                           device=device)
+        print(f"[per-token] arch={cfg.arch_id} device={device} "
+              f"batch={args.max_slots} prompt={args.prompt_len} "
+              f"gen={args.gen}")
+        print(f"prefill {st['prefill_s']:.3f}s ({st['prefill_tok_s']:.1f} "
+              f"tok/s)  decode {st['decode_s']:.3f}s "
+              f"({st['decode_tok_s']:.1f} tok/s)")
+        print(f"first request ids: {ids[0, :args.prompt_len].tolist()} -> "
+              f"{ids[0, args.prompt_len:].tolist()}")
+        return 0
+
     lens = [max(1, args.prompt_len + int(d))
             for d in rng.integers(-args.prompt_len // 2,
                                   args.prompt_len // 2 + 1, args.requests)]
     prompts = [rng.integers(0, cfg.vocab, (n,)).tolist() for n in lens]
-    max_seq = args.max_seq or max(16, -(-(max(lens) + args.gen) // 16) * 16)
-    ecfg = EngineConfig(max_slots=args.slots, max_seq=max_seq,
-                        prefill_chunk=args.prefill_chunk,
-                        page_size=args.page, prefix_cache=args.prefix_cache,
-                        min_prefix=args.min_prefix,
-                        pool_pages=args.pool_pages,
-                        trie_capacity=args.trie_capacity,
-                        page_dedup=args.page_dedup, degrade=args.degrade,
-                        kv_dtype=args.kv_dtype, **spec_knobs(args))
-    eng = ServeEngine(cfg, params, config=ecfg, device=device)
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p,
                               seed=args.seed)
-    reqs = [eng.submit(p, args.gen, slo_ms=args.slo_ms, sampling=sampling)
-            for p in prompts]
-    eng.run()
-    st = eng.stats_summary()
+    ecfg = batch_config(prompts, args.gen, config=config_from_args(args),
+                        max_seq=args.max_seq)
+    resolved = ecfg.resolve(cfg)
+    outs, st = serve_batch(cfg, params, prompts, args.gen, config=ecfg,
+                           sampling=sampling, slo_ms=args.slo_ms,
+                           device=device)
     print(f"[engine] arch={cfg.arch_id} device={device} "
-          f"requests={args.requests} slots={args.slots} gen={args.gen} "
-          f"prompt_lens={lens} page={eng.page_size}")
+          f"requests={args.requests} slots={resolved.max_slots} "
+          f"gen={args.gen} prompt_lens={lens} page={resolved.page_size} "
+          f"paged_kv={resolved.paged_kv}")
     print(f"kv pool: kv_dtype={st['kv_dtype']} "
           f"{st['kv_bytes_per_slot']} bytes a slot, {st['pool_bytes']} "
           f"bytes in all; sampling={sampling}")
@@ -159,7 +299,7 @@ def main(argv=None) -> int:
         print(f"SLO {args.slo_ms:.0f}ms: {st['slo_met']} met / "
               f"{st['slo_missed']} missed  (preemptions "
               f"{st['preemptions']}, shed {st['shed_requests']})")
-    print(f"first request: {prompts[0]} -> {reqs[0].generated}")
+    print(f"first request: {prompts[0]} -> {outs[0]}")
     return 0
 
 

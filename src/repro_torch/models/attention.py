@@ -1,4 +1,4 @@
-"""GQA attention: the full-sequence training path and paged split-K decode.
+"""GQA attention: the full-sequence training path and cache-attend decode.
 
 The counterpart of ``repro/models/attention.py`` for the paths the port
 runs.
@@ -13,6 +13,10 @@ runs.
   and combine the per-page partial accumulators through
   :func:`repro_torch.kernels.ops.moa_reduce` — the hand-written Hopper
   kernel on CUDA tensors, its plain radix-4 tree on CPU tensors.
+* Dense slots (a contiguous engine, ``paged_kv=False``): the same front
+  end over a slot's own rows, then split-K over them read as pages
+  (:func:`gqa_decode_paged`, the same combine and kernel) or, without a
+  decode page, one softmax over the whole cache (:func:`gqa_decode`).
 * Speculative verification: the same call with a per-slot row count
   ``nvalid`` (a chain of drafts: rows past it are dropped from the view
   write and sent to scratch by the pool scatter) or a token tree
@@ -28,8 +32,8 @@ Layouts match the JAX functions: activations ``(B, S, H, hd)``, pools
 ``(num_pages, page, Hkv, hd)``.  Weights are cast to the activations'
 dtype at use, as in the JAX package (fp32 masters, bf16 compute).
 
-Not in these slices: the dense-cache decode variants and tensor-parallel
-head padding (``ROADMAP.md``, queue 1).
+Not in these slices: the mesh's split-K decode and tensor-parallel head
+padding (``ROADMAP.md``, queue 1 step 6).
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ from repro_torch.models import paging, quant_kv
 from repro_torch.models.common import ParamSpec, apply_rope, rope_angles
 
 __all__ = ["gqa_param_specs", "gqa_train", "chunked_attention",
-           "gqa_decode_pages", "decode_positions", "batched_cache_write",
+           "gqa_decode", "gqa_decode_paged", "gqa_decode_pages",
+           "decode_positions", "batched_cache_write",
            "masked_cache_write", "masked_write_plan", "causal_valid",
            "ancestor_matrix", "tree_valid", "attend_mask", "NEG_INF"]
 
@@ -326,7 +331,8 @@ def _splitk_attend(q: torch.Tensor, k_view: torch.Tensor,
     """Split-K attention over fixed-size KV pages.
 
     q: (B, C, H, hd) roped queries; k_view/v_view: (B, Smax, Hkv, hd)
-    gathered views; ``valid`` masks attendable positions.  Each page gives
+    views of the cache (a slot's dense rows or its gathered pages: the
+    same math either way); ``valid`` masks attendable positions.  Each page gives
     a partial (sum-exp, PV) accumulator under the global row max; the
     page-axis combine is ONE :func:`~repro_torch.kernels.ops.moa_reduce`
     call for ``l`` and one for ``o`` (the radix-4 tree of
@@ -388,6 +394,98 @@ def _scatter_rows(pool: Pool, pages: torch.Tensor, rows: torch.Tensor,
         paging.scatter_token_rows(pool, pages, rows, pos, nvalid)
 
 
+def _decode_qkv_cache(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                      cache_k: torch.Tensor, cache_v: torch.Tensor,
+                      cur_index: torch.Tensor,
+                      nvalid: Optional[torch.Tensor] = None,
+                      tree: Optional[tuple] = None,
+                      valid: Optional[torch.Tensor] = None,
+                      write_plan: Optional[Tuple[torch.Tensor, ...]] = None):
+    """The decode front end every GQA decode path shares: project and rope
+    the ``C`` new tokens, write them into ``cache_k`` / ``cache_v`` ((B,
+    Smax, Hkv, hd): a slot's dense rows or its gathered page view) in
+    place, and build the attention mask.  Without ``nvalid`` the write is
+    :func:`batched_cache_write` (clamped like ``dynamic_update_slice``);
+    with it, :func:`masked_cache_write` (near capacity a clamped block
+    would shift over valid positions).  A ``tree`` ropes at ``index +
+    pos_off`` and masks with :func:`tree_valid`.  ``valid`` and
+    ``write_plan``, when the caller built them once for every layer,
+    replace the mask and the row-masked write's indices.  Returns ``(q,
+    k_new, v_new, pos, valid)``."""
+    smax = cache_k.shape[1]
+    rope_pos = None if tree is None else cur_index[:, None] + tree[1]
+    q, k_new, v_new, pos = _decode_qkv_new(x, p, cfg, cur_index, rope_pos)
+    if nvalid is None:
+        batched_cache_write(cache_k, k_new, cur_index)
+        batched_cache_write(cache_v, v_new, cur_index)
+    else:
+        if write_plan is None:
+            write_plan = masked_write_plan(pos, nvalid, smax, x.shape[0])
+        masked_cache_write(cache_k, k_new, plan=write_plan)
+        masked_cache_write(cache_v, v_new, plan=write_plan)
+    if valid is None:
+        valid = attend_mask(cur_index, x.shape[1], smax, nvalid, tree)
+    return q, k_new, v_new, pos, valid
+
+
+def gqa_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
+               cache_k: torch.Tensor, cache_v: torch.Tensor,
+               cur_index: torch.Tensor,
+               nvalid: Optional[torch.Tensor] = None,
+               tree: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]] = None,
+               valid: Optional[torch.Tensor] = None,
+               write_plan: Optional[Tuple[torch.Tensor, ...]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense-cache decode or chunked prefill of ``C`` new tokens per slot
+    with one softmax over the whole cache (no page combine, no kernel).
+
+    x: (B, C, D); cache_k/cache_v: (B, Smax, Hkv, hd), this layer's
+    contiguous slot rows, written in place; ``cur_index``: a 0-d index
+    (lockstep: every slot, or one slot's prefill chunk, at one offset) or
+    (B,) per-slot lengths.  ``nvalid``, ``tree``, ``valid`` and
+    ``write_plan`` as in :func:`_decode_qkv_cache`.  Returns (out (B, C,
+    D), cache_k, cache_v)."""
+    b, c, _ = x.shape
+    q, _, _, _, valid = _decode_qkv_cache(x, p, cfg, cache_k, cache_v,
+                                          cur_index, nvalid, tree, valid,
+                                          write_plan)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    k = _repeat_kv(cache_k.to(x.dtype), n_rep)
+    v = _repeat_kv(cache_v.to(x.dtype), n_rep)
+    scores = torch.einsum("bchd,bshd->bhcs", q, k) / _sqrt_hd(cfg.hd, x.dtype)
+    scores = torch.where(valid, scores.float(), NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhcs,bshd->bchd", probs, v)
+    out = out.reshape(b, c, cfg.n_heads * cfg.hd)
+    return out @ p["wo"].to(x.dtype), cache_k, cache_v
+
+
+def gqa_decode_paged(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     cur_index: torch.Tensor, page: int,
+                     nvalid: Optional[torch.Tensor] = None,
+                     tree: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]] = None,
+                     valid: Optional[torch.Tensor] = None,
+                     write_plan: Optional[Tuple[torch.Tensor, ...]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Split-K decode over a *dense* per-slot cache: :func:`gqa_decode`'s
+    arguments, with the cache's rows read as pages of ``page`` positions
+    and combined by :func:`_splitk_attend` (the page combine is
+    :func:`~repro_torch.kernels.ops.moa_reduce`, the hand-written kernel
+    on CUDA tensors).  The same math as :func:`gqa_decode_pages` over the
+    same rows, so a contiguous engine's tokens equal a paged one's."""
+    smax = cache_k.shape[1]
+    if smax % page:
+        raise ValueError(f"page={page} must divide max_seq={smax}")
+    q, _, _, _, valid = _decode_qkv_cache(x, p, cfg, cache_k, cache_v,
+                                          cur_index, nvalid, tree, valid,
+                                          write_plan)
+    out = _splitk_attend(q, cache_k, cache_v, valid, cfg, page)
+    return out @ p["wo"].to(out.dtype), cache_k, cache_v
+
+
 def gqa_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
                      pool_k: Pool, pool_v: Pool,
                      cur_index: torch.Tensor, pages: torch.Tensor,
@@ -435,24 +533,11 @@ def gqa_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
     page = (pool_k[0] if isinstance(pool_k, tuple) else pool_k).shape[1]
     k_view = _gather_view(pool_k, pages, x.dtype)
     v_view = _gather_view(pool_v, pages, x.dtype)
-    smax = pages.shape[1] * page
-    rope_pos, scatter_n = None, nvalid
-    if tree is not None:
-        _, pos_off, nchain = tree
-        rope_pos = cur_index[:, None] + pos_off
-        scatter_n = nchain
-    q, k_new, v_new, pos = _decode_qkv_new(x, p, cfg, cur_index, rope_pos)
-    if nvalid is None:
-        k_view = batched_cache_write(k_view, k_new, cur_index)
-        v_view = batched_cache_write(v_view, v_new, cur_index)
-    else:
-        if write_plan is None:
-            write_plan = masked_write_plan(pos, nvalid, smax, x.shape[0])
-        k_view = masked_cache_write(k_view, k_new, plan=write_plan)
-        v_view = masked_cache_write(v_view, v_new, plan=write_plan)
-    if valid is None:
-        valid = attend_mask(cur_index, x.shape[1], smax, nvalid, tree)
+    q, k_new, v_new, pos, valid = _decode_qkv_cache(
+        x, p, cfg, k_view, v_view, cur_index, nvalid, tree, valid,
+        write_plan)
     out = _splitk_attend(q, k_view, v_view, valid, cfg, page)
+    scatter_n = nvalid if tree is None else tree[2]
     _scatter_rows(pool_k, pages, k_new, pos, scatter_n)
     _scatter_rows(pool_v, pages, v_new, pos, scatter_n)
     return out @ p["wo"].to(out.dtype), pool_k, pool_v

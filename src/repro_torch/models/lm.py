@@ -1,4 +1,4 @@
-"""Decoder LM: parameter layout, the training forward and loss, paged decode.
+"""Decoder LM: parameter layout, the training forward and loss, decode.
 
 The counterpart of ``repro/models/lm.py`` for the dense decoders, GQA
 (``llama3.2-3b``) and MLA (``minicpm3-4b``, :mod:`repro_torch.models.mla`).
@@ -7,8 +7,9 @@ Parameters are a plain dict of tensors in the JAX tree's layout, with
 them, a list of per-layer dicts of views: see
 :func:`repro_torch.train.state.split_layers`); the block stack runs as a
 Python loop over layers (``lax.scan`` in JAX).  For decode, the state
-leaves are physical page pools ``(layers, num_pages, page_size, Hkv, hd)``
-for GQA, ``(layers, num_pages, page_size, kv_lora_rank)`` and ``(...,
+leaves are a contiguous engine's dense ``(layers, batch, max_seq, ...)``
+slot rows (:func:`decode_state_specs`), or physical page pools ``(layers,
+num_pages, page_size, Hkv, hd)`` for GQA, ``(layers, num_pages, page_size, kv_lora_rank)`` and ``(...,
 qk_rope_dim)`` latent pools for MLA (see
 :func:`repro_torch.serve.cache.paged_state_specs`), or int8/int4 code
 pools with fp32 per-row scales beside them
@@ -18,8 +19,8 @@ tree (:func:`verify_tree`) in one dispatch; medusa-style draft heads
 (:func:`draft_head_specs`, :func:`fit_draft_heads`) propose the tree's
 nodes from the hidden states that dispatch already computed.
 
-Not in these slices: dense (unpaged) decode caches, MoE, the vision and
-audio frontend stubs (``ROADMAP.md``, queue 1).
+Not in these slices: MoE, the vision and audio frontend stubs
+(``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
@@ -163,53 +164,75 @@ def train_loss(params: dict, batch: Dict[str, torch.Tensor],
 def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
                    batch: Dict[str, torch.Tensor], cfg: ModelConfig
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Run the block stack over C new tokens against paged KV pools.
+    """Run the block stack over C new tokens against the KV caches.
 
-    batch: {"tokens": (B, C) int64, "index": 0-d chunk start or (B,)
-    per-slot lengths, "pages": (B, n_pages) int64 page table}, and for
-    speculative verification "nspec" (B,): valid rows per slot (rows at or
-    past it write nothing but scratch).  Tree verification
-    (:func:`verify_tree`) also passes "parents" (B, C), "pos_off" (B, C)
-    and "nchain" (B,): every layer then ropes at ``index + pos_off``,
-    attends under the ancestor mask and commits only the chain rows to the
-    pool (:func:`repro_torch.models.attention.gqa_decode_pages`).  Every
-    layer attends over its gathered pages and scatters its new rows into
-    its pool, in place: GQA's ``k`` / ``v`` pools, or MLA's latent ``ckv``
-    / ``kr`` pools (:func:`repro_torch.models.mla.mla_decode_pages`).  A
-    quantized state (``"<leaf>_scale"`` beside each leaf,
-    :func:`repro_torch.serve.cache.quant_state_specs`) passes each layer
-    its ``(codes, scales)`` pairs.  Returns the final hidden states (B, C,
-    D) and the state (the same dict)."""
-    names = ("ckv", "kr") if cfg.attn_kind == "mla" else ("k", "v")
-    decode = (mla.mla_decode_pages if cfg.attn_kind == "mla"
-              else attention.gqa_decode_pages)
+    batch: {"tokens": (B, C) int64, "index": 0-d chunk start (or lockstep
+    position) or (B,) per-slot lengths, optionally "pages": (B, n_pages)
+    int64 page table}, and for speculative verification "nspec" (B,):
+    valid rows per slot (rows at or past it write nothing, or only
+    scratch).  Tree verification (:func:`verify_tree`) also passes
+    "parents" (B, C), "pos_off" (B, C) and "nchain" (B,): every layer then
+    ropes at ``index + pos_off`` and attends under the ancestor mask.
+
+    With "pages" the state leaves are physical page pools: every layer
+    attends over its gathered pages and scatters its new rows into its
+    pool, in place (GQA's ``k`` / ``v`` through
+    :func:`repro_torch.models.attention.gqa_decode_pages`, MLA's latent
+    ``ckv`` / ``kr`` through
+    :func:`repro_torch.models.mla.mla_decode_pages`); a tree commits only
+    its chain rows.  A quantized state (``"<leaf>_scale"`` beside each
+    leaf, :func:`repro_torch.serve.cache.quant_state_specs`) passes each
+    layer its ``(codes, scales)`` pairs, and is paged-only.
+
+    Without "pages" the leaves are dense ``(layers, B, Smax, ...)`` slot
+    rows, written in place: GQA takes split-K over the rows read as pages
+    (:func:`~repro_torch.models.attention.gqa_decode_paged`) when
+    ``cfg.decode_page_size`` is set and divides ``Smax``, else one softmax
+    (:func:`~repro_torch.models.attention.gqa_decode`); MLA takes
+    :func:`repro_torch.models.mla.mla_decode`.  Returns the final hidden
+    states (B, C, D) and the state (the same dict)."""
+    mla_kind = cfg.attn_kind == "mla"
+    names = ("ckv", "kr") if mla_kind else ("k", "v")
     quant = names[0] + "_scale" in state
-    if batch.get("pages") is None:
-        raise ValueError(
-            f"{'quantized ' if quant else ''}KV state requires a page table "
-            f"(the port's decode caches are paged; kv_dtype != 'fp32' is "
-            f"paged-only)")
+    pages = batch.get("pages")
+    if quant and pages is None:
+        raise ValueError("quantized KV state requires a page table "
+                         "(kv_dtype != 'fp32' is paged-only)")
     cur = batch["index"]
-    pages = batch["pages"]
     nspec = batch.get("nspec")
     tree = None
     if "parents" in batch:
         tree = (batch["parents"], batch["pos_off"], batch["nchain"])
     blocks = params["blocks"]
     x = params["embed"][batch["tokens"]].to(cfg.dtype)
+    b, c = batch["tokens"].shape
+    if pages is not None:
+        smax = pages.shape[1] * state[names[0]].shape[2]
+        decode = mla.mla_decode_pages if mla_kind \
+            else attention.gqa_decode_pages
+        extra = (pages,)
+    else:
+        smax = state[names[0]].shape[2]
+        page = cfg.decode_page_size
+        extra = ()
+        if mla_kind:
+            decode = mla.mla_decode
+        elif page > 0 and smax % page == 0:
+            decode = attention.gqa_decode_paged
+            extra = (page,)
+        else:
+            decode = attention.gqa_decode
     # the mask and the row-masked write's indices are the same for every
     # layer: built once (the tree mask's pointer walk is C - 1 hops)
-    b, c = batch["tokens"].shape
-    smax = pages.shape[1] * state[names[0]].shape[2]
     valid = attention.attend_mask(cur, c, smax, nspec, tree)
     plan = (None if nspec is None else attention.masked_write_plan(
         attention.decode_positions(cur, c), nspec, smax, b))
     for i in range(cfg.n_layers):
         bp = _layer(blocks, i)
         h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
-        pools = [(state[n][i], state[n + "_scale"][i]) if quant
-                 else state[n][i] for n in names]
-        h, _, _ = decode(h, bp["attn"], cfg, *pools, cur, pages, nspec,
+        caches = [(state[n][i], state[n + "_scale"][i]) if quant
+                  else state[n][i] for n in names]
+        h, _, _ = decode(h, bp["attn"], cfg, *caches, cur, *extra, nspec,
                          tree, valid, plan)
         x = x + h
         h = rms_norm(x, bp["ffn_norm"], cfg.norm_eps)
@@ -221,8 +244,8 @@ def decode_step(params: dict, state: Dict[str, torch.Tensor],
                 batch: Dict[str, torch.Tensor], cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One new token for every slot. batch: {"tokens": (B, 1), "index":
-    (B,) per-slot lengths, "pages": (B, n_pages)}.  Returns (logits (B, V)
-    float32, state)."""
+    (B,) per-slot lengths or a 0-d lockstep position, optionally "pages":
+    (B, n_pages)}.  Returns (logits (B, V) float32, state)."""
     x, state = _decode_blocks(params, state, batch, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"].to(x.dtype))[:, -1]
@@ -234,9 +257,9 @@ def prefill_chunk(params: dict, state: Dict[str, torch.Tensor],
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Ingest a prompt chunk in one dispatch. batch: {"tokens": (B, C),
     "index": 0-d chunk start, "nvalid": count of real tokens in the chunk
-    (trailing bucket padding only writes masked-off positions), "pages":
-    (B, n_pages)}.  Returns (logits (B, V) float32 at row ``nvalid - 1``,
-    state)."""
+    (trailing bucket padding only writes masked-off positions), optionally
+    "pages": (B, n_pages)}.  Returns (logits (B, V) float32 at row
+    ``nvalid - 1``, state)."""
     x, state = _decode_blocks(params, state, batch, cfg)
     c = x.shape[1]
     last = min(max(int(batch.get("nvalid", c)) - 1, 0), c - 1)
@@ -255,10 +278,11 @@ def verify_chunk(params: dict, state: Dict[str, torch.Tensor],
 
     batch: {"tokens": (B, K+1), "index": (B,) per-slot cache lengths,
     "nspec": (B,) valid fed rows per slot (1 = no drafts, 0 = idle lane),
-    "pages": (B, n_pages)}.  Rows at or past ``nspec`` write only scratch;
-    the engine rolls back pages past what it accepts.  Returns (logits
-    (B, K+1, V) float32, state): ``logits[:, j]`` is the next-token
-    distribution after fed token ``j``."""
+    optionally "pages": (B, n_pages)}.  Rows at or past ``nspec`` write
+    nothing (dense rows) or only scratch (pages); the engine rolls back
+    pages past what it accepts.  Returns (logits (B, K+1, V) float32,
+    state): ``logits[:, j]`` is the next-token distribution after fed
+    token ``j``."""
     x, state = _decode_blocks(params, state, batch, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ params["lm_head"].to(x.dtype)
@@ -327,8 +351,10 @@ def verify_tree(params: dict, state: Dict[str, torch.Tensor],
     ``j`` has parent ``j - 1``; padding rows point at themselves),
     "pos_off": (B, C) token-position offsets (chain row ``j``: ``j``; a
     node: ``nchain - 1 + depth``), "nchain": (B,), "nspec": (B,) valid rows
-    (0 = idle lane), "pages": (B, n_pages)}.  Drafted rows reach only the
-    attended view and scratch, so a rejected branch needs no rollback.
+    (0 = idle lane), optionally "pages": (B, n_pages)}.  Through a page
+    table drafted rows reach only the attended view and scratch; in dense
+    rows they land past the committed length, masked until overwritten.
+    Either way a rejected branch needs no rollback.
 
     Returns ``(logits (B, C, V) float32, head_top, state)``; ``head_top``
     is (B, C, H, ``head_topk``) draft-head candidates when
@@ -342,35 +368,19 @@ def verify_tree(params: dict, state: Dict[str, torch.Tensor],
     return logits.float(), head_top, state
 
 
-#: page of the temporary pool :func:`hidden_states` runs over
-_HIDDEN_PAGE = 16
-
-
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor
                   ) -> torch.Tensor:
     """Teacher-forced final-normed hidden states of whole sequences:
     ``tokens`` (B, L) -> (B, L, D) float32, the ``x`` that
     :func:`verify_tree` hands the draft heads (full causal attention over a
-    fresh cache).  The port has no dense cache, so the block stack runs
-    once over a temporary pool with an identity page table (the sequence
-    padded to whole pages; padding rows come after every real row, so the
-    causal mask hides them)."""
+    fresh dense cache of ``L`` positions)."""
     b, l = tokens.shape
-    dev = tokens.device
-    n_pages = -(-l // _HIDDEN_PAGE)
-    # decode_state_specs' (batch, kv_seq) extents read as (pool pages,
-    # page): page 0 is scratch
     state = map_tree(
-        lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
-        decode_state_specs(cfg, b * n_pages + 1, _HIDDEN_PAGE))
-    padded = torch.zeros((b, n_pages * _HIDDEN_PAGE), dtype=torch.int64,
-                         device=dev)
-    padded[:, :l] = tokens
-    pages = 1 + torch.arange(b * n_pages, device=dev).reshape(b, n_pages)
-    batch = {"tokens": padded, "pages": pages,
-             "index": torch.tensor(0, device=dev)}
+        lambda s: torch.zeros(s.shape, dtype=s.dtype, device=tokens.device),
+        decode_state_specs(cfg, b, l))
+    batch = {"tokens": tokens, "index": torch.tensor(0, device=tokens.device)}
     x, _ = _decode_blocks(params, state, batch, cfg)
-    x = rms_norm(x[:, :l], params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x.float()
 
 

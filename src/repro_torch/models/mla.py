@@ -2,7 +2,8 @@
 
 The counterpart of ``repro/models/mla.py``.  Training expands K and V from
 the latent and attends chunked over queries (:func:`mla_train`).  Decode
-uses the *absorbed* formulation (:func:`mla_decode_pages`): the page pools
+uses the *absorbed* formulation (:func:`mla_decode_pages` over page pools,
+:func:`mla_decode` over a contiguous engine's dense slot rows): the caches
 hold only the latent ``c_kv`` rows and the one shared rope key, ``wk_b`` is
 folded into the queries and ``wv_b`` into the output, so a decode step
 reads ``S * (kv_lora_rank + qk_rope_dim)`` values a slot instead of ``S *
@@ -10,7 +11,8 @@ H * hd``.  The attention is a plain softmax over the latent view: no
 split-K page combine, so no hand-written kernel runs on this path.
 
 Layouts match the JAX functions: pools ``(num_pages, page, rkv)`` and
-``(num_pages, page, dr)``; a quantized pool is a ``(codes, scales)`` pair
+``(num_pages, page, dr)``, dense caches ``(B, Smax, rkv)`` and ``(B, Smax,
+dr)``; a quantized pool is a ``(codes, scales)`` pair
 with one fp32 scale per (page, position) row.  Weights are cast to the
 activations' dtype at use.  The helpers shared with GQA decode (positions,
 masks, the row-masked view write, the gather and the quantizing scatter)
@@ -29,7 +31,7 @@ from repro_torch.models.attention import NEG_INF, Pool
 from repro_torch.models.common import (ParamSpec, apply_rope, rms_norm,
                                        rope_angles)
 
-__all__ = ["mla_param_specs", "mla_train", "mla_decode_pages"]
+__all__ = ["mla_param_specs", "mla_train", "mla_decode", "mla_decode_pages"]
 
 
 def mla_param_specs(cfg: ModelConfig) -> dict:
@@ -154,6 +156,63 @@ def _absorbed_attend(p: dict, cfg: ModelConfig, q_nope: torch.Tensor,
     return ctx.reshape(b, c, h * dv)
 
 
+def _decode_latent_cache(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                         ckv_cache: torch.Tensor, kr_cache: torch.Tensor,
+                         cur_index: torch.Tensor,
+                         nvalid: Optional[torch.Tensor] = None,
+                         tree: Optional[tuple] = None,
+                         valid: Optional[torch.Tensor] = None,
+                         write_plan: Optional[Tuple[torch.Tensor, ...]] = None):
+    """The front end both MLA decode paths share: queries and the new
+    latent rows of the ``C`` tokens (roped at ``index + pos_off`` under a
+    ``tree``), written into ``ckv_cache`` (B, Smax, rkv) and ``kr_cache``
+    (B, Smax, dr) in place, a slot's dense rows or its gathered view, as
+    :func:`repro_torch.models.attention._decode_qkv_cache` writes GQA's;
+    then the mask.  Returns ``(q_nope, q_rope, c_new, kr_new, pos,
+    valid)``."""
+    smax = ckv_cache.shape[1]
+    pos = attention.decode_positions(cur_index, x.shape[1])
+    rope_pos = pos if tree is None else cur_index[:, None] + tree[1]
+    q_nope, q_rope = _queries(x, p, cfg, rope_pos)
+    c_new, kr_new = _latent_kv(x, p, cfg, rope_pos)
+    if nvalid is None:
+        attention.batched_cache_write(ckv_cache, c_new, cur_index)
+        attention.batched_cache_write(kr_cache, kr_new, cur_index)
+    else:
+        if write_plan is None:
+            write_plan = attention.masked_write_plan(pos, nvalid, smax,
+                                                     x.shape[0])
+        attention.masked_cache_write(ckv_cache, c_new, plan=write_plan)
+        attention.masked_cache_write(kr_cache, kr_new, plan=write_plan)
+    if valid is None:
+        valid = attention.attend_mask(cur_index, x.shape[1], smax, nvalid,
+                                      tree)
+    return q_nope, q_rope, c_new, kr_new, pos, valid
+
+
+def mla_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
+               cache_ckv: torch.Tensor, cache_kr: torch.Tensor,
+               cur_index: torch.Tensor,
+               nvalid: Optional[torch.Tensor] = None,
+               tree: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]] = None,
+               valid: Optional[torch.Tensor] = None,
+               write_plan: Optional[Tuple[torch.Tensor, ...]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Absorbed decode or chunked prefill over a slot's *dense* latent
+    rows (a contiguous engine).  x: (B, C, D); cache_ckv (B, Smax, rkv)
+    and cache_kr (B, Smax, dr), written in place; ``cur_index`` a 0-d
+    index (lockstep) or (B,) per-slot lengths; ``nvalid``, ``tree``,
+    ``valid`` and ``write_plan`` as in :func:`mla_decode_pages`.  Returns
+    (out (B, C, D), cache_ckv, cache_kr)."""
+    q_nope, q_rope, _, _, _, valid = _decode_latent_cache(
+        x, p, cfg, cache_ckv, cache_kr, cur_index, nvalid, tree, valid,
+        write_plan)
+    out = _absorbed_attend(p, cfg, q_nope, q_rope, cache_ckv, cache_kr,
+                           valid)
+    return out @ p["wo"].to(out.dtype), cache_ckv, cache_kr
+
+
 def mla_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
                      pool_ckv: Pool, pool_kr: Pool,
                      cur_index: torch.Tensor, pages: torch.Tensor,
@@ -181,33 +240,13 @@ def mla_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
     only its ``nchain`` chain rows.  Either pool may be a quantized
     ``(codes, scales)`` pair: the view is dequantized into ``x.dtype``, the
     new rows attend unquantized, and they are quantized on the scatter."""
-    page = (pool_ckv[0] if isinstance(pool_ckv, tuple) else pool_ckv).shape[1]
     ckv_view = attention._gather_view(pool_ckv, pages, x.dtype)
     kr_view = attention._gather_view(pool_kr, pages, x.dtype)
-    smax = pages.shape[1] * page
-    pos = attention.decode_positions(cur_index, x.shape[1])
-    rope_pos, scatter_n = pos, nvalid
-    if tree is not None:
-        _, pos_off, nchain = tree
-        rope_pos = cur_index[:, None] + pos_off
-        scatter_n = nchain
-    q_nope, q_rope = _queries(x, p, cfg, rope_pos)
-    c_new, kr_new = _latent_kv(x, p, cfg, rope_pos)
-    if nvalid is None:
-        ckv_view = attention.batched_cache_write(ckv_view, c_new, cur_index)
-        kr_view = attention.batched_cache_write(kr_view, kr_new, cur_index)
-    else:
-        if write_plan is None:
-            write_plan = attention.masked_write_plan(pos, nvalid, smax,
-                                                     x.shape[0])
-        ckv_view = attention.masked_cache_write(ckv_view, c_new,
-                                                plan=write_plan)
-        kr_view = attention.masked_cache_write(kr_view, kr_new,
-                                               plan=write_plan)
-    if valid is None:
-        valid = attention.attend_mask(cur_index, x.shape[1], smax, nvalid,
-                                      tree)
+    q_nope, q_rope, c_new, kr_new, pos, valid = _decode_latent_cache(
+        x, p, cfg, ckv_view, kr_view, cur_index, nvalid, tree, valid,
+        write_plan)
     out = _absorbed_attend(p, cfg, q_nope, q_rope, ckv_view, kr_view, valid)
+    scatter_n = nvalid if tree is None else tree[2]
     attention._scatter_rows(pool_ckv, pages, c_new, pos, scatter_n)
     attention._scatter_rows(pool_kr, pages, kr_new, pos, scatter_n)
     return out @ p["wo"].to(out.dtype), pool_ckv, pool_kr

@@ -22,12 +22,19 @@ Prefix reuse is only sound when every state leaf is positional
 (:func:`supports_prefix`): a KV row at position ``i`` depends only on
 tokens ``[0..i]``, so a shared page equals a recomputed one.
 
+A contiguous engine (``paged_kv=False``) keeps the ``(layers, batch,
+kv_seq, ...)`` layout of ``decode_state_specs`` instead: each request owns
+one batch index, a *slot*, and admission works on that slot alone
+(:func:`slot_slice`, :func:`slot_update`, :func:`reset_slot`,
+:func:`copy_slot`, all in place).  :func:`pageable` says when a state tree
+can be pooled at all.
+
 A quantized pool (``kv_dtype`` int8 or int4, :func:`quant_state_specs`)
 turns each leaf into integer codes plus an fp32 ``<name>_scale`` sibling
 in the same pooled layout, so every page operation here (zeroing,
 copy-on-write, the bytes dedup hashes) moves codes and scales together.
 
-Not in this slice: sharded pools (``ROADMAP.md``, queue 1).
+Not in these slices: sharded pools (``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
@@ -39,8 +46,9 @@ import torch
 from repro_torch.models.common import ParamSpec
 from repro_torch.tree import leaves, map_tree
 
-__all__ = ["state_zeros", "state_bytes", "supports_prefix",
-           "paged_state_specs", "quant_state_specs", "zero_page", "copy_page", "page_bytes",
+__all__ = ["state_zeros", "state_bytes", "supports_prefix", "batch_axis",
+           "slot_slice", "slot_update", "reset_slot", "copy_slot",
+           "pageable", "paged_state_specs", "quant_state_specs", "zero_page", "copy_page", "page_bytes",
            "PagePool", "PrefixTrie", "PageDedupIndex"]
 
 
@@ -70,6 +78,71 @@ def supports_prefix(specs: Any) -> bool:
     and does not."""
     lv = leaves(specs)
     return bool(lv) and all("kv_seq" in s.axes for s in lv)
+
+
+def batch_axis(spec: ParamSpec) -> int:
+    """Index of the batch (slot) axis in one state leaf's ``spec.axes``."""
+    return spec.axes.index("batch")
+
+
+def slot_slice(state: Dict[str, torch.Tensor],
+               specs: Dict[str, ParamSpec], slot: int
+               ) -> Dict[str, torch.Tensor]:
+    """``slot``'s rows of the contiguous ``state`` as a batch-1 state dict
+    of views: a write through them lands in ``state``."""
+    return {name: t.narrow(batch_axis(specs[name]), slot, 1)
+            for name, t in state.items()}
+
+
+def slot_update(state: Dict[str, torch.Tensor],
+                specs: Dict[str, ParamSpec], slot: int,
+                slot_state: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """Write the batch-1 dict ``slot_state`` into ``slot`` of ``state``, in
+    place; returns ``state``."""
+    for name, view in slot_slice(state, specs, slot).items():
+        view.copy_(slot_state[name])
+    return state
+
+
+def reset_slot(state: Dict[str, torch.Tensor],
+               specs: Dict[str, ParamSpec], slot: int
+               ) -> Dict[str, torch.Tensor]:
+    """Zero exactly one ``slot`` of ``state``, in place (an admission must
+    not disturb the other slots); returns ``state``."""
+    for view in slot_slice(state, specs, slot).values():
+        view.zero_()
+    return state
+
+
+def copy_slot(state: Dict[str, torch.Tensor],
+              specs: Dict[str, ParamSpec], src: int, dst: int
+              ) -> Dict[str, torch.Tensor]:
+    """Copy slot ``src`` of ``state`` over slot ``dst``, in place; returns
+    ``state``.  The contiguous engine's prefix-cache hit: the whole slot is
+    copied, positions past the reused prefix included, which is safe
+    because attention masks positions at or past the current length and
+    prefill overwrites them in order."""
+    return slot_update(state, specs, dst, slot_slice(state, specs, src))
+
+
+def pageable(specs: Dict[str, ParamSpec], page_size: int) -> bool:
+    """True when ``specs`` can be pooled in pages of ``page_size`` tokens:
+    every leaf has adjacent ``(batch, kv_seq)`` axes and a ``kv_seq``
+    extent the page divides.  Attention families qualify; SSM and hybrid
+    state does not (it keeps contiguous slots)."""
+    if page_size <= 0:
+        return False
+    lv = leaves(specs)
+    if not lv:
+        return False
+    for s in lv:
+        if "batch" not in s.axes or "kv_seq" not in s.axes:
+            return False
+        bax, sax = s.axes.index("batch"), s.axes.index("kv_seq")
+        if sax != bax + 1 or s.shape[sax] % page_size:
+            return False
+    return True
 
 
 def paged_state_specs(specs: Dict[str, ParamSpec], page_size: int,

@@ -1,7 +1,7 @@
-"""Chunked-prefill, continuous-batching serve engine over a paged KV pool.
+"""Chunked-prefill, continuous-batching serve engine over a paged KV pool or
+contiguous slots.
 
-The counterpart of ``repro/serve/engine.py`` for the single-device paged
-engine:
+The counterpart of ``repro/serve/engine.py`` for one device:
 
 * **Chunked prefill** — an admission ingests its context in pieces of at
   most ``prefill_chunk`` tokens, each padded to a power-of-two shape bucket
@@ -23,6 +23,17 @@ engine:
   every gather and quantized on every write; the page size is audited
   against the int32 carrier at build
   (:func:`~repro_torch.models.quant_kv.assert_kv_accumulator`).
+* **Contiguous slots** (``paged_kv=False``, and every state tree that
+  cannot be paged) — each request owns one batch index of dense
+  ``(layers, slots, max_seq, ...)`` caches: an admission resets its slot
+  (:func:`~repro_torch.serve.cache.reset_slot`), and a prefix hit copies
+  the whole source slot (:func:`~repro_torch.serve.cache.copy_slot`).  An
+  idle lane's discarded decode write lands at the first position the
+  prefix trie does not index, so a retired slot's matchable prefix
+  survives.  GQA attends over the slot rows read as pages of
+  ``page_size`` (the same split-K combine, and kernel, as a paged engine:
+  the same tokens) or, with ``page_size`` 0, with one softmax.  Sessions
+  keep their history but no page snapshot.
 * **Sampling** — per-request :class:`SamplingParams` ride every dispatch
   as per-slot lanes; a request's ``n``-th token draws with
   ``fold_in(PRNGKey(seed), n)`` (:mod:`repro_torch.serve.prng`), so its
@@ -64,16 +75,21 @@ engine:
 * **Split-K page combine** — GQA's decode, verify and prefill attention
   combine their pages through :func:`repro_torch.kernels.ops.moa_reduce`:
   on the card that is the hand-written Hopper kernel, twice per layer per
-  dispatch.  MLA (``minicpm3-4b``) attends over its latent pages with one
-  softmax and launches none.
+  dispatch (none on a contiguous engine with ``page_size`` 0).  MLA
+  (``minicpm3-4b``) attends over its latent rows with one softmax and
+  launches none.
+* **Warm-up** (:meth:`ServeEngine.warmup`) — every dispatch shape once
+  before any request, so first-use costs stay out of timed regions and
+  SLO clocks.
 
 Dispatch is eager PyTorch (the JAX engine compiles ahead of time); the
 state tensors are updated in place, and every dispatch samples on the
-device and moves only the token ids to the host.  Contiguous slots and
-mesh sharding are still to port (``ROADMAP.md``, queue 1).
+device and moves only the token ids to the host.  Mesh sharding is still
+to port (``ROADMAP.md``, queue 1 step 6).
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import time
 from collections import deque
@@ -150,7 +166,9 @@ def _buckets(chunk: int, lo: int = 8) -> Tuple[int, ...]:
 
 
 class ServeEngine:
-    """Continuous-batching engine over one dense GQA model's paged KV pool.
+    """Continuous-batching engine over one dense decoder's KV caches: a
+    paged pool, or contiguous slots (``config.paged_kv``, resolved by
+    :meth:`EngineConfig.resolve`).
 
     Args:
       cfg: model config (its ``dtype`` is the compute dtype, and the KV
@@ -170,7 +188,9 @@ class ServeEngine:
         ecfg = (config or EngineConfig()).resolve(cfg)
         self.config = ecfg
         self.api = get_api(cfg)
-        self.cfg = cfg
+        # a contiguous engine's GQA decode reads its slot rows as pages of
+        # this size (0: one softmax over the whole cache)
+        self.cfg = dataclasses.replace(cfg, decode_page_size=ecfg.page_size)
         self.params = params
         self.max_slots = ecfg.max_slots
         self.max_seq = ecfg.max_seq
@@ -179,25 +199,34 @@ class ServeEngine:
         self.min_prefix = ecfg.min_prefix
         self.chunk_buckets = _buckets(ecfg.prefill_chunk)
         self.scheduler = Scheduler.from_config(ecfg)
-        self.max_pages = ecfg.max_seq // ecfg.page_size
-        # one more physical page than allocatable: page 0 is scratch
-        self.pool = cache.PagePool(ecfg.pool_pages + 1)
-        specs = self.api.decode_state_specs(cfg, ecfg.max_slots, ecfg.max_seq)
-        self.pspecs = cache.paged_state_specs(specs, ecfg.page_size,
-                                              ecfg.pool_pages + 1)
+        self.specs = self.api.decode_state_specs(self.cfg, ecfg.max_slots,
+                                                 ecfg.max_seq)
+        self.paged = ecfg.paged_kv
         self.kv_dtype = ecfg.kv_dtype
-        if self.kv_dtype != "fp32":
-            # page_size int{bits} magnitudes must sum exactly inside the
-            # int32 carrier (the paper's carry math)
-            quant_kv.assert_kv_accumulator(
-                ecfg.page_size, 8 if self.kv_dtype == "int8" else 4)
-            self.pspecs = cache.quant_state_specs(self.pspecs, self.kv_dtype)
-        self.state = cache.state_zeros(self.pspecs, self.device)
-        #: bytes of one physical page across every leaf
-        self.page_bytes = cache.state_bytes(self.pspecs) // (
-            ecfg.pool_pages + 1)
-        # per-slot page tables; 0 = the scratch page (unallocated)
-        self.table = np.zeros((ecfg.max_slots, self.max_pages), np.int64)
+        if self.paged:
+            self.max_pages = ecfg.max_seq // ecfg.page_size
+            # one more physical page than allocatable: page 0 is scratch
+            self.pool = cache.PagePool(ecfg.pool_pages + 1)
+            self.pspecs = cache.paged_state_specs(self.specs, ecfg.page_size,
+                                                  ecfg.pool_pages + 1)
+            if self.kv_dtype != "fp32":
+                # page_size int{bits} magnitudes must sum exactly inside
+                # the int32 carrier (the paper's carry math)
+                quant_kv.assert_kv_accumulator(
+                    ecfg.page_size, 8 if self.kv_dtype == "int8" else 4)
+                self.pspecs = cache.quant_state_specs(self.pspecs,
+                                                      self.kv_dtype)
+            self.state = cache.state_zeros(self.pspecs, self.device)
+            #: bytes of one physical page across every leaf
+            self.page_bytes = cache.state_bytes(self.pspecs) // (
+                ecfg.pool_pages + 1)
+            # per-slot page tables; 0 = the scratch page (unallocated)
+            self.table = np.zeros((ecfg.max_slots, self.max_pages),
+                                  np.int64)
+        else:
+            self.state = cache.state_zeros(self.specs, self.device)
+        #: bytes one contiguous copy_slot moves (its prefix hit's cost)
+        self.slot_bytes = cache.state_bytes(self.specs) // ecfg.max_slots
         # resolve() already gated prefix_cache on supports_prefix
         self.prefix = (cache.PrefixTrie(capacity=ecfg.trie_capacity)
                        if ecfg.prefix_cache else None)
@@ -246,9 +275,10 @@ class ServeEngine:
         self._shape_age: Dict[int, Dict[str, int]] = {}
         #: per-slot emitted-tokens-per-step EWMA (the scheduler's rate)
         self._slot_tps: Dict[int, float] = {}
-        # eviction tie-breaks consult how many pages a victim's release
-        # would actually free
-        self.scheduler.freed_probe = self._freed_pages
+        if self.paged:
+            # eviction tie-breaks consult how many pages a victim's
+            # release would actually free
+            self.scheduler.freed_probe = self._freed_pages
         #: when True, every decode dispatch appends its live-lane fp32
         #: logits (a numpy array) to ``logit_trace``
         self.trace_logits = False
@@ -359,13 +389,15 @@ class ServeEngine:
         s["spec_decision_trace"] = list(self._spec_decisions)
         s["trie_evictions"] = (self.prefix.evictions
                                if self.prefix is not None else 0)
-        s["pages_in_use"] = self.pool.used_count
-        s["pool_pages"] = self.pool.num_pages - 1
+        s["pages_in_use"] = self.pool.used_count if self.paged else 0
+        s["pool_pages"] = self.pool.num_pages - 1 if self.paged else 0
         # capacity under the kv_dtype knob: the bytes of one slot's full
-        # row of pages, and of the whole pool
+        # row of pages (or its contiguous slot), and of the whole state
         s["kv_dtype"] = self.kv_dtype
-        s["kv_bytes_per_slot"] = self.page_bytes * self.max_pages
-        s["pool_bytes"] = cache.state_bytes(self.pspecs)
+        s["kv_bytes_per_slot"] = (self.page_bytes * self.max_pages
+                                  if self.paged else self.slot_bytes)
+        s["pool_bytes"] = cache.state_bytes(
+            self.pspecs if self.paged else self.specs)
         s["slo_met"] = self.scheduler.slo_met_count
         s["slo_missed"] = self.scheduler.slo_missed_count
         s["shed_requests"] = self.scheduler.shed_count
@@ -439,15 +471,17 @@ class ServeEngine:
 
     def _session_retire(self, req: Request, slot: int) -> None:
         """A session turn just retired out of ``slot``: fold its reply into
-        the history and snapshot the slot's page row — one pool reference
-        per page — so the history stays resident for the next turn.
-        Replaces (and releases) any previous snapshot."""
+        the history and (paged engines) snapshot the slot's page row — one
+        pool reference per page — so the history stays resident for the
+        next turn.  Replaces (and releases) any previous snapshot."""
         conv = getattr(req, "_conv_id", None)
         if conv is None:
             return
         sess = self.sessions.ensure(conv)
         sess.history = req.context
         sess.turns += 1
+        if not self.paged:
+            return
         old = self.sessions.take_snapshot(sess)
         if old is not None:
             self._deref_row_pages(old[old != 0])
@@ -465,11 +499,12 @@ class ServeEngine:
 
     def evict(self, slot: int) -> Request:
         """Preempt the live request in ``slot`` back to the pending queue
-        (its re-admission re-prefills, or prefix-reuses, its context).  The
-        slot's pages are released at once when nothing can reuse them."""
+        (its re-admission re-prefills, or prefix-reuses, its context).  A
+        paged slot's pages are released at once when nothing can reuse
+        them."""
         self.stats["evictions"] += 1
         req = self.scheduler.evict(slot)
-        if not self._row_reusable(slot):
+        if self.paged and not self._row_reusable(slot):
             self._release_row(slot)
         return req
 
@@ -654,6 +689,76 @@ class ServeEngine:
         which a NaN or inf would poison."""
         cache.zero_page(self.state, self.pspecs, 0)
 
+    # ----------------------------------------------------------- warm-up
+    def warmup(self) -> None:
+        """Run every dispatch shape once before any request: each prefill
+        bucket, the decode step, the chain verify (``spec_k`` in chain
+        mode) or the tree verify (tree and auto modes), a greedy and a
+        sampled draw, and the admission's page or slot copy.  The first
+        use of a kernel (its nvcc build and its load), cuBLAS's handles and
+        the allocator's first blocks then never reach a timed region or an
+        SLO clock.
+
+        A paged engine runs them on all-scratch page tables, and re-zeroes
+        scratch after.  A contiguous engine runs the verifies with ``nspec
+        = 0`` (every write masked) and the rest on the first positions of
+        every slot, saved before and put back as they were.  The state
+        (a paged engine's scratch page aside) and every counter are left
+        as they were."""
+        b, dev = self.max_slots, self.device
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int64, device=dev)
+
+        buckets = sorted({min(cb, self.max_seq) for cb in self.chunk_buckets})
+        saved, tables, table1 = {}, {}, {}
+        slot_state = self.state
+        if self.paged:
+            tables = {"pages": zeros(b, self.max_pages)}
+            table1 = {"pages": zeros(1, self.max_pages)}
+            if self.prefix is not None:
+                cache.copy_page(self.state, self.pspecs, 0, 0)
+        else:
+            for name, t in self.state.items():
+                first = t.narrow(self.specs[name].axes.index("kv_seq"), 0,
+                                 buckets[-1])
+                saved[name] = (first, first.clone())
+            slot_state = cache.slot_slice(self.state, self.specs, 0)
+            if self.prefix is not None:
+                cache.copy_slot(self.state, self.specs, 0, 0)
+        for cb in buckets:
+            self.api.prefill_chunk(
+                self.params, slot_state,
+                {"tokens": zeros(1, cb), "index": zeros(), "nvalid": cb,
+                 **table1}, self.cfg)
+        logits, _ = self.api.decode_step(
+            self.params, self.state,
+            {"tokens": zeros(b, 1), "index": zeros(b), **tables}, self.cfg)
+        self._draw(logits, None)
+        self._draw(logits, sampling_lanes(
+            [SamplingParams(temperature=1.0)] * b, [0] * b, dev))
+        idle = zeros(b)
+        if self.spec_k and self.spec_mode == "chain":
+            self.api.verify_chunk(
+                self.params, self.state,
+                {"tokens": zeros(b, self.spec_k + 1), "index": idle,
+                 "nspec": idle, **tables}, self.cfg)
+        if self.spec_mode != "chain":
+            cw = self._tree_width()
+            # padding rows parent themselves: never anyone's ancestor
+            parents = torch.arange(cw, device=dev).expand(b, cw)
+            self.api.verify_tree(
+                self.params, self.state,
+                {"tokens": zeros(b, cw), "index": idle, "parents": parents,
+                 "pos_off": zeros(b, cw), "nchain": idle, "nspec": idle,
+                 **tables}, self.cfg, head_topk=self.spec_branch)
+        if self.paged:
+            self._scrub_scratch()
+        for view, before in saved.values():
+            view.copy_(before)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
     # ---------------------------------------------------- content dedup
     def _page_bytes_of(self, page: int) -> bytes:
         """The raw bytes of ONE physical page across every leaf, on the
@@ -772,10 +877,11 @@ class ServeEngine:
 
     def _admit(self, slot: int, req: Request) -> List[Request]:
         """Admit ``req`` into ``slot``: prefix-cache lookup, then page
-        sharing and the boundary copy-on-write, then chunked prefill of the
-        rest of the context; samples the first token.  An admission that
-        finds the pool exhausted even after reclaim is deferred to the
-        head of the queue, never dropped."""
+        sharing and the boundary copy-on-write (paged) or a slot copy or
+        reset (contiguous), then chunked prefill of the rest of the
+        context; samples the first token.  A paged admission that finds
+        the pool exhausted even after reclaim is deferred to the head of
+        the queue, never dropped."""
         ctx = req.context
         # ---- prefix-cache lookup, clamped to keep >= 1 token to prefill
         # (its logits sample the first token)
@@ -791,7 +897,7 @@ class ServeEngine:
         # ---- a returning conversation's snapshot, when it covers more
         sess_row = None
         conv = getattr(req, "_conv_id", None)
-        if conv is not None:
+        if self.paged and conv is not None:
             sess = self.sessions.get(conv)
             if sess is not None and sess.row is not None:
                 s_reuse = min(sess.covered, len(ctx) - 1)
@@ -800,23 +906,25 @@ class ServeEngine:
                     sess_row = sess.row
         # ---- the pieces from the reuse point (the ladder caps the chunk)
         pieces = self._pieces(ctx, reuse, self._effective_chunk())
-        prefill_end = max(start + cb for start, _, cb in pieces)
-        in_place = bool(reuse) and sess_row is None and src == slot
-        row_src = sess_row if sess_row is not None else (
-            self.table[src] if reuse and not in_place else None)
-        ok, cow = self._bind_pages(slot, row_src, reuse, prefill_end,
-                                   in_place=in_place)
-        if not ok:
-            if removed and src != slot:        # the entry is gone even on
-                self.stats["prefix_evictions"] += 1   # deferral
-            self.stats["oom_deferred"] += 1
-            self.scheduler.evict(slot)         # head of queue: deferred
-            if not self.scheduler.active and not self.pool.used_count:
-                raise RuntimeError(
-                    f"page pool ({self.pool.num_pages - 1} pages of "
-                    f"{self.page_size} tokens) cannot hold a single request "
-                    f"of {len(ctx)} context tokens")
-            return []
+        cow = None
+        if self.paged:
+            prefill_end = max(start + cb for start, _, cb in pieces)
+            in_place = bool(reuse) and sess_row is None and src == slot
+            row_src = sess_row if sess_row is not None else (
+                self.table[src] if reuse and not in_place else None)
+            ok, cow = self._bind_pages(slot, row_src, reuse, prefill_end,
+                                       in_place=in_place)
+            if not ok:
+                if removed and src != slot:    # the entry is gone even on
+                    self.stats["prefix_evictions"] += 1   # deferral
+                self.stats["oom_deferred"] += 1
+                self.scheduler.evict(slot)     # head of queue: deferred
+                if not self.scheduler.active and not self.pool.used_count:
+                    raise RuntimeError(
+                        f"page pool ({self.pool.num_pages - 1} pages of "
+                        f"{self.page_size} tokens) cannot hold a single "
+                        f"request of {len(ctx)} context tokens")
+                return []
         # ---- committed: account the lookup (session reuse is tallied on
         # its own; the trie counters mean "the trie found or missed it")
         if sess_row is not None:
@@ -830,16 +938,23 @@ class ServeEngine:
                 self.stats["prefix_misses"] += 1
             if removed and src != slot:
                 self.stats["prefix_evictions"] += 1
-        # every piece's inputs go to the device before the timer starts
+        # every piece's inputs go to the device before the timer starts; a
+        # contiguous prefill runs on the slot's own rows (views, so its
+        # writes land in the state)
         dev = self.device
-        row = torch.as_tensor(self.table[slot][None], device=dev)
+        extra, state = {}, self.state
+        if self.paged:
+            extra = {"pages": torch.as_tensor(self.table[slot][None],
+                                              device=dev)}
+        else:
+            state = cache.slot_slice(self.state, self.specs, slot)
         batches = []
         for start, nvalid, cb in pieces:
             toks = np.zeros((1, cb), np.int64)
             toks[0, :nvalid] = ctx[start:start + nvalid]
             batches.append({"tokens": torch.as_tensor(toks, device=dev),
                             "index": torch.tensor(start, device=dev),
-                            "nvalid": nvalid, "pages": row})
+                            "nvalid": nvalid, **extra})
         # the first token continues the request's sample stream (a
         # re-admission draws at the index its tokens so far reach)
         lanes = self._lanes([req.sampling or GREEDY], [len(req.generated)])
@@ -850,9 +965,17 @@ class ServeEngine:
             cache.copy_page(self.state, self.pspecs, *cow)
             self.stats["prefix_bytes_copied"] += self.page_bytes
             self.stats["pages_cow"] += 1
+        elif not self.paged and reuse and src != slot:
+            # the whole source slot, positions past the prefix included
+            # (masked, and overwritten by the prefill in order)
+            cache.copy_slot(self.state, self.specs, src, slot)
+            self.stats["prefix_bytes_copied"] += self.slot_bytes
+        elif not self.paged and not reuse:
+            cache.reset_slot(self.state, self.specs, slot)
+        # (contiguous reuse in the slot itself: the rows are there already)
         for batch in batches:
-            logits, self.state = self.api.prefill_chunk(
-                self.params, self.state, batch, self.cfg)
+            logits, _ = self.api.prefill_chunk(self.params, state, batch,
+                                               self.cfg)
         first = int(self._draw(logits, lanes)[0])
         dt = time.perf_counter() - t0
         self.stats["moa_reduce_launches"] += _moa.LAUNCHES - launches0
@@ -863,7 +986,8 @@ class ServeEngine:
         if self.prefix is not None:
             self.stats["hit_admit_s" if reuse else "cold_admit_s"] += dt
             self._admit_times["hit" if reuse else "cold"].append(dt)
-        self._scrub_scratch()
+        if self.paged:
+            self._scrub_scratch()
         if not reuse:
             # only a cold admission prices a whole prefill chunk
             self._feed_cost_model(chunk_s=dt / max(1, len(pieces)))
@@ -881,12 +1005,14 @@ class ServeEngine:
         if self.prefix is not None:
             # the pages now hold exactly ctx (the first sampled token is
             # written by the next decode step)
-            self._release_trie_evicted(self.prefix.insert(slot, ctx))
+            evicted = self.prefix.insert(slot, ctx)
+            if self.paged:
+                self._release_trie_evicted(evicted)
         if self.dedup is not None:
             self._dedup_slot(slot, len(ctx))
         if req.slot is None:                   # retired on its first token
             self._session_retire(req, slot)
-            if not self._row_reusable(slot):
+            if self.paged and not self._row_reusable(slot):
                 self._release_row(slot)
             return [req]
         return []
@@ -894,16 +1020,19 @@ class ServeEngine:
     # ------------------------------------------------------------- step
     def _decode_once(self) -> List[Request]:
         """One batched decode step over every live slot (idle lanes run
-        with token 0 at position 0 on an all-scratch row; their outputs are
-        discarded)."""
-        # each live slot's write page; a slot that cannot get one even
-        # after reclaim is evicted back to the queue (deferred, not dropped)
-        for slot, req in list(self.scheduler.active.items()):
-            if not self._ensure_pages(slot, req.pos, req.pos + 1):
-                self.evict(slot)
-                self.stats["oom_deferred"] += 1
-        if not self.scheduler.active:
-            return []
+        with token 0, their outputs discarded: paged, at position 0 on an
+        all-scratch row; contiguous, in their own slot at the first
+        position the prefix trie does not index)."""
+        if self.paged:
+            # each live slot's write page; a slot that cannot get one even
+            # after reclaim is evicted back to the queue (deferred, not
+            # dropped)
+            for slot, req in list(self.scheduler.active.items()):
+                if not self._ensure_pages(slot, req.pos, req.pos + 1):
+                    self.evict(slot)
+                    self.stats["oom_deferred"] += 1
+            if not self.scheduler.active:
+                return []
         tokens = np.zeros((self.max_slots, 1), np.int64)
         positions = np.zeros((self.max_slots,), np.int64)
         sps = [GREEDY] * self.max_slots
@@ -915,12 +1044,23 @@ class ServeEngine:
             positions[slot] = req.pos
             sps[slot] = req.sampling or GREEDY
             sidx[slot] = len(req.generated)
+        if not self.paged and self.prefix is not None:
+            # an idle lane's discarded write lands in its own slot: aim it
+            # at the first position the trie does not index, so a retired
+            # slot's matchable prefix survives until the slot is reused
+            for slot in range(self.max_slots):
+                if slot in self.scheduler.active:
+                    continue
+                n = self.prefix.length(slot)
+                if n is None:
+                    continue
+                if n >= self.max_seq:          # a full row: nowhere safe
+                    self.prefix.remove(slot)
+                    self.stats["prefix_evictions"] += 1
+                else:
+                    positions[slot] = n
         lanes = self._lanes(sps, sidx)
-        dev = self.device
-        batch = {"tokens": torch.as_tensor(tokens, device=dev),
-                 "index": torch.as_tensor(positions, device=dev),
-                 "pages": torch.as_tensor(self._dispatch_table(),
-                                          device=dev)}
+        batch = self._batch(tokens, positions)
         occ = self.scheduler.occupancy
         launches0 = _moa.LAUNCHES
         t0 = time.perf_counter()
@@ -949,7 +1089,7 @@ class ServeEngine:
                 # a retiring session turn snapshots its row before any
                 # release can free it; a row nothing can reuse goes now
                 self._session_retire(reqs[slot], slot)
-                if not self._row_reusable(slot):
+                if self.paged and not self._row_reusable(slot):
                     self._release_row(slot)
         return done
 
@@ -993,13 +1133,23 @@ class ServeEngine:
         self._slot_tps[slot] = r
         self.scheduler.slot_tokens_per_step[slot] = max(1.0, r)
 
-    def _dispatch_table(self) -> np.ndarray:
-        """The page table of a dispatch: live slots' rows, idle lanes all
-        scratch."""
-        disp = np.zeros((self.max_slots, self.max_pages), np.int64)
-        for slot in self.scheduler.active:
-            disp[slot] = self.table[slot]
-        return disp
+    def _batch(self, tokens: np.ndarray, positions: np.ndarray,
+               **rows: np.ndarray) -> Dict[str, torch.Tensor]:
+        """A decode or verify dispatch's inputs on the device: the fed
+        ``tokens``, each slot's ``index``, the per-row ``rows`` (``nspec``,
+        a tree's ``parents`` ...) and, on a paged engine, the page table:
+        live slots' rows, idle lanes all scratch."""
+        dev = self.device
+        batch = {"tokens": torch.as_tensor(tokens, device=dev),
+                 "index": torch.as_tensor(positions, device=dev)}
+        batch.update((k, torch.as_tensor(v, device=dev))
+                     for k, v in rows.items())
+        if self.paged:
+            disp = np.zeros((self.max_slots, self.max_pages), np.int64)
+            for slot in self.scheduler.active:
+                disp[slot] = self.table[slot]
+            batch["pages"] = torch.as_tensor(disp, device=dev)
+        return batch
 
     def _spec_decode_once(self) -> List[Request]:
         """One chain speculative step over every live slot: draft up to
@@ -1023,7 +1173,7 @@ class ServeEngine:
                 drafts[slot] = self.drafter.propose(req.context, kd)
         for slot, req in list(self.scheduler.active.items()):
             end = req.pos + 1 + len(drafts[slot])
-            if not self._ensure_pages(slot, req.pos, end):
+            if self.paged and not self._ensure_pages(slot, req.pos, end):
                 # not even the draft-free step fits: defer, not drop
                 drafts[slot] = []
                 if not self._ensure_pages(slot, req.pos, req.pos + 1):
@@ -1049,12 +1199,7 @@ class ServeEngine:
                 sps[slot * (k + 1) + j] = req.sampling or GREEDY
                 sidx[slot * (k + 1) + j] = len(req.generated) + j
         lanes = self._lanes(sps, sidx)
-        dev = self.device
-        batch = {"tokens": torch.as_tensor(tokens, device=dev),
-                 "index": torch.as_tensor(positions, device=dev),
-                 "nspec": torch.as_tensor(nspec, device=dev),
-                 "pages": torch.as_tensor(self._dispatch_table(),
-                                          device=dev)}
+        batch = self._batch(tokens, positions, nspec=nspec)
         occ = self.scheduler.occupancy
         live = list(self.scheduler.active)
         launches0 = _moa.LAUNCHES
@@ -1112,13 +1257,15 @@ class ServeEngine:
         reqs = {s: self.scheduler.active[s] for s in live}
         done = self.scheduler.on_decode_tokens(emitted)
         for slot in live:
-            # rewind: rejected-draft pages past the accepted frontier
-            self._rollback_pages(slot, new_len[slot])
+            if self.paged:
+                # rewind: rejected-draft pages past the accepted frontier
+                # (dense rows past it are masked until overwritten)
+                self._rollback_pages(slot, new_len[slot])
             if slot not in self.scheduler.active:
                 # snapshot after the rollback: the row maps exactly the
                 # accepted positions
                 self._session_retire(reqs[slot], slot)
-                if not self._row_reusable(slot):
+                if self.paged and not self._row_reusable(slot):
                     self._release_row(slot)
         return done
 
@@ -1154,7 +1301,7 @@ class ServeEngine:
         for slot, req in list(self.scheduler.active.items()):
             u = self._spec_unwritten.get(slot, 1)
             index = req.pos + 1 - u
-            if not self._ensure_pages(slot, index, index + u):
+            if self.paged and not self._ensure_pages(slot, index, index + u):
                 self.evict(slot)
                 self._spec_unwritten.pop(slot, None)
                 self.stats["oom_deferred"] += 1
@@ -1254,15 +1401,8 @@ class ServeEngine:
                 sps[slot * cw + j] = req.sampling or GREEDY
                 sidx[slot * cw + j] = max(base + int(pos_off[slot, j]), 0)
         lanes = self._lanes(sps, sidx)
-        dev = self.device
-        batch = {"tokens": torch.as_tensor(tokens, device=dev),
-                 "index": torch.as_tensor(positions, device=dev),
-                 "parents": torch.as_tensor(parents, device=dev),
-                 "pos_off": torch.as_tensor(pos_off, device=dev),
-                 "nchain": torch.as_tensor(nchain, device=dev),
-                 "nspec": torch.as_tensor(nspec, device=dev),
-                 "pages": torch.as_tensor(self._dispatch_table(),
-                                          device=dev)}
+        batch = self._batch(tokens, positions, parents=parents,
+                            pos_off=pos_off, nchain=nchain, nspec=nspec)
         occ = self.scheduler.occupancy
         live = list(self.scheduler.active)
         launches0 = _moa.LAUNCHES
@@ -1358,7 +1498,7 @@ class ServeEngine:
             if slot not in self.scheduler.active:
                 self._session_retire(reqs[slot], slot)
                 self._head_preds.pop(slot, None)
-                if not self._row_reusable(slot):
+                if self.paged and not self._row_reusable(slot):
                     self._release_row(slot)
         return done
 

@@ -977,9 +977,9 @@ def _reduced_engine_runs(knobs, sps=None, arch="llama3.2-3b"):
     try:
         for dev in ("cpu", "cuda"):
             p = map_tree(lambda t: t.to(dev), params)
-            eng = ServeEngine(cfg, p, config=EngineConfig(
-                max_slots=2, max_seq=64, prefill_chunk=16, page_size=16,
-                **knobs), device=dev)
+            eng = ServeEngine(cfg, p, config=EngineConfig(**dict(dict(
+                max_slots=2, max_seq=64, prefill_chunk=16, page_size=16),
+                **knobs)), device=dev)
             before = moa.LAUNCHES
             counts = _kernel_launches()
             reqs = [eng.submit(q, 12, sampling=sp)
@@ -1024,6 +1024,34 @@ def test_sampled_chain_engine_on_the_card_equals_cpu(cuda_device):
     st = out["cuda"][1]
     assert out["cuda"][2] == 2 * cfg.n_layers * (st["prefill_dispatches"]
                                                  + st["decode_steps"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", ["split-K", "split-K chain", "dense"])
+def test_contiguous_engine_on_the_card_equals_cpu(cuda_device, run):
+    """Contiguous slots (``paged_kv=False``) on the reduced fp32 config:
+    CUDA gives the CPU engine's tokens and counters; split-K over the slot
+    rows read as pages launches moa_reduce twice a layer a dispatch, the
+    page-0 engine (one softmax) never; and the split-K tokens equal the
+    paged engine's on the card."""
+    knobs = {"split-K": dict(paged_kv=False),
+             "split-K chain": dict(paged_kv=False, spec_k=4),
+             "dense": dict(page_size=0)}[run]
+    cfg, out = _reduced_engine_runs(knobs)
+    assert out["cuda"][0] == out["cpu"][0]
+    st, cst = out["cuda"][1], out["cpu"][1]
+    for k in ("decode_steps", "prefill_dispatches", "prefix_hits",
+              "prefix_bytes_copied", "spec_drafted", "spec_accepted",
+              "kv_bytes_per_slot", "pool_bytes", "pages_in_use"):
+        assert st[k] == cst[k], k
+    per = 0 if run == "dense" else 2 * cfg.n_layers
+    assert out["cuda"][2] == st["moa_reduce_launches"] == per * (
+        st["prefill_dispatches"] + st["decode_steps"])
+    assert out["cuda"][2] > 0 or run == "dense"
+    if run != "dense":
+        _, paged = _reduced_engine_runs(
+            {k: v for k, v in knobs.items() if k != "paged_kv"})
+        assert paged["cuda"][0] == out["cuda"][0]
 
 
 #: the MLA engine runs held CUDA against CPU: (knobs, sampled?)

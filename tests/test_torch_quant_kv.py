@@ -493,16 +493,13 @@ def test_dedup_hashes_codes_and_scales(model1, kv_dtype):
 
 
 @pytest.mark.parametrize("bad", [dict(kv_dtype="fp16"),
-                                 dict(kv_dtype="int8", page_size=0)],
+                                 dict(kv_dtype="int8", paged_kv=False)],
                          ids=["membership", "contiguous"])
 def test_kv_dtype_validation_matches_jax(bad):
     msgs = []
-    for cls, extra in ((EngineConfig, {}), (JConfig, {})):
-        kw = dict(bad, **extra)
-        if cls is JConfig and kw.get("page_size") == 0:
-            kw = dict(kv_dtype=kw["kv_dtype"], paged_kv=False)
+    for cls in (EngineConfig, JConfig):
         with pytest.raises(ValueError) as e:
-            cls(**kw).validate()
+            cls(**bad).validate()
         msgs.append(str(e.value))
     assert msgs[0] == msgs[1]
 
