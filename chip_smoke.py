@@ -6,9 +6,11 @@
 Builds every kernel of the serve and training paths from the sources in
 the checkout, holds each against its plain PyTorch version on the card,
 drives the port's serve engine and its trainer at the full width of
-``llama3.2-3b``, and its serve engine at the full width of the MLA model
-``minicpm3-4b`` (random weights from a seed), and times each kernel beside
-its bound, its plain version and a library call.  Raises at the first
+``llama3.2-3b``, its serve engine at the full width of the MLA model
+``minicpm3-4b`` and of the MoE model ``phi3.5-moe-42b-a6.6b`` (16 of its
+32 layers: the whole model does not fit the card; random weights from a
+seed), and times each kernel beside its bound, its plain version and a
+library call.  Raises at the first
 failed check, so any failure exits non-zero; with no CUDA device, or
 outside a checkout of the repository, it exits non-zero before printing
 any result.
@@ -20,7 +22,10 @@ Phases:
   3. moa_reduce against moa_reduce_plain, torch.equal with the signs of
      zero, at the kernel-test shapes and dtypes (N = 2 to 300, so every
      split of the tree across lanes) and at the serve path's own shapes
-     (phase 6's paged geometry and G3's generate over pages of 32)
+     (phase 6's paged geometry and G3's generate over pages of 32), and
+     the MoE top-k combine's columns at N = 1 and 2, bf16 operands and
+     fp32 sums (phi3.5-moe decode, prefill piece and chain verify,
+     llama4-scout decode)
   4. flash attention: the forward kernel against flash_attention_plain
      (2e-5 fp32; bf16 2e-2 and relative norm error 1e-2) and the dq and
      dk/dv kernels against flash_attention_plain_bwd and against autograd
@@ -53,7 +58,15 @@ Phases:
      sequential, prefix-cache warm, chain (spec_k 4), tree, int8 and int4
      pools, sampled (temperature 0.8, top-k 40), and contiguous,
      contiguous prefix warm and contiguous tree: tokens and every counter
-     equal, decode logits within 1e-3, no kernel launched
+     equal, decode logits within 1e-3, no kernel launched; then the
+     reduced fp32 phi3.5-moe and llama4-scout engines, each drop-free
+     and at capacity factor 1.0 (a dispatch's rows compete for expert
+     places), 6 slots for 5 requests: sequential, chain (spec_k 4), int8,
+     sampled and contiguous, CUDA against CPU: tokens and every counter
+     equal, decode logits within 1e-3, moa_reduce launched 3 * layers a
+     dispatch (2 page combines and the expert combine); and one reduced
+     phi3.5-moe train_loss at capacity 1.0, its loss and every gradient
+     CUDA against CPU within 1e-4 (the combine's backward, MoaReduce)
   6. serve, full width: llama3.2-3b, 28 layers, bf16, 8 greedy requests
      of 128 to 1024 prompt tokens and 32 new tokens on 4 slots, prefix
      cache off (what PRs 11-17 measured); every request retires with 32
@@ -139,10 +152,22 @@ Phases:
      request complete, no NaN logit, and moa_reduce, flash_attention,
      bitplane_add and quant_matmul launched 0 times in every run; prefill
      tok/s, decode step p50/p99, decode tok/s and tokens a step printed
+  M. MoE serve: phi3.5-moe-42b-a6.6b at its published width (d 4096,
+     32/8 heads of 128, d_ff 6400, vocab 32064, 16 experts, top-2,
+     capacity factor 1.25) cut to 16 of its 32 layers (21.07 B params,
+     42.1 GB bf16, random from seed 0), after F with the MLA weights
+     freed, on phase 6's geometry: M1 phase 6's traffic, M2 phase D's
+     passages sequential and chain (spec_k 4); the refcount invariant
+     after every step, every request complete, no NaN logit, moa_reduce
+     launched 3 * 16 * dispatches, flash attention, bitplane_add and
+     quant_matmul 0 times; prefill tok/s, decode step p50/p99, decode
+     tok/s, M2's tokens a step and its chain run's agreement with its
+     sequential run, and the kept share of (token, k) assignments at T = 4
+     and T = 256 (the port's router and dispatch on layer 0) printed
   7. moa_reduce timings at the serve path shapes, the verify shapes of a
      chain (C = 5) and a tree (C = 17) and G3's generate (N = 5) among
-     them (CUDA events, median of 50), beside the bound, the plain version
-     and torch.sum
+     them, and the MoE combine's bf16 shapes (CUDA events, median of 50),
+     beside the bound, the plain version and torch.sum
   8. train, reduced-config parity: 3 AdamW steps of the reduced fp32
      config from one state on the CPU (chunked attention) and on CUDA (the
      kernels): losses within 1e-4, kernels launched layers * steps times
@@ -216,7 +241,8 @@ from repro_torch.kernels import bitplane_add as bpa  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moa_reduce as moa  # noqa: E402
 from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
-from repro_torch.models.common import init_params  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.common import init_params, rms_norm  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models.lm import (fit_draft_heads,  # noqa: E402
                                    hidden_states, train_loss)
@@ -258,6 +284,11 @@ KERNELS = {
 
 #: the second served architecture: Multi-head Latent Attention
 MLA_ARCH = "minicpm3-4b"
+#: phase M: the routed MoE FFN at its published width, cut to 16 of its 32
+#: layers (the whole model, 83.7 GB in bf16, does not fit the card); and
+#: the other MoE architecture, held at its reduced config
+MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 16
+MOE_ARCH_TOP1 = "llama4-scout-17b-a16e"
 
 #: the training path's attention shape: llama3.2-3b at batch 2 x seq 2048
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
@@ -339,6 +370,22 @@ def path_shapes(cfg, ecfg):
     return out
 
 
+def moe_shapes(ecfg):
+    """(label, N, M) of the MoE top-k combine, one moa_reduce a layer a
+    dispatch over N = top_k bf16 operands of M = T * d_model columns,
+    summed in fp32: phi3.5-moe's decode over all slots (T = slots), a full
+    prefill piece (T = chunk) and a chain verify (T = slots * (spec_k +
+    1)), and llama4-scout's top-1 decode, at the resolved engine config
+    ``ecfg`` of phase 6's geometry."""
+    phi, scout = get_config(MOE_ARCH), get_config(MOE_ARCH_TOP1)
+    b, c = ecfg.max_slots, ecfg.prefill_chunk
+    rows = verify_rows(ecfg)["chain"]
+    return [("moe_decode", phi.top_k, b * phi.d_model),
+            ("moe_prefill", phi.top_k, c * phi.d_model),
+            ("moe_verify_chain", phi.top_k, b * rows * phi.d_model),
+            ("moe_decode_top1", scout.top_k, b * scout.d_model)]
+
+
 def generate_shapes(cfg):
     """(label, N, M) of phase G3's two moa_reduce calls per layer per
     dispatch: ``generate``'s GEN_ROWS lockstep rows (C = 1) over its dense
@@ -350,9 +397,11 @@ def generate_shapes(cfg):
     return [("generate_l", n, rows), ("generate_o", n, rows * cfg.hd)]
 
 
-def phase_kernel_check(shapes) -> float:
+def phase_kernel_check(shapes, moe_path) -> float:
     """moa_reduce (through ops, as the path calls it) against the plain
-    version on the same CUDA inputs, bit for bit.  Returns the max |diff|."""
+    version on the same CUDA inputs, bit for bit: the kernel-test cases,
+    the page combine's ``shapes`` in fp32, and the MoE combine's
+    ``moe_path`` columns at N = 1 and 2 in bf16.  Returns the max |diff|."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     err = 0.0
@@ -366,6 +415,8 @@ def phase_kernel_check(shapes) -> float:
         for dt in (torch.float32, torch.bfloat16, torch.int32):
             cases.append((n, (rows, cols), dt))
     cases += [(n, (m,), torch.float32) for _, n, m in shapes]
+    cases += [(n, (m,), torch.bfloat16) for _, _, m in moe_path
+              for n in (1, 2)]
     for n, tail, dt in cases:
         if dt == torch.int32:
             x = torch.randint(-1000, 1000, (n, *tail), generator=gen,
@@ -516,6 +567,57 @@ def phase_reduced_parity() -> None:
     table_parity(cfg, REDUCED_CONTIGUOUS_RUNS)
     table_parity(get_config(MLA_ARCH).reduced(dtype=torch.float32),
                  REDUCED_MLA_RUNS)
+    for arch in (MOE_ARCH, MOE_ARCH_TOP1):
+        base = get_config(arch).reduced(dtype=torch.float32)
+        # drop-free (the reduced capacity), then 1.0: rows compete
+        for cf in (base.capacity_factor, 1.0):
+            table_parity(dataclasses.replace(base, capacity_factor=cf),
+                         REDUCED_MOE_RUNS)
+    moe_train_parity()
+
+
+def moe_train_parity() -> None:
+    """One reduced phi3.5-moe ``train_loss`` (capacity 1.0: assignments
+    dropped) and its gradients, CUDA against CPU on one batch, within
+    1e-4: on the card the top-k combine is the moa_reduce kernel (once a
+    layer in the forward) under ``MoaReduce``'s backward, which must hand
+    every expert weight its gradient."""
+    cfg = get_config(MOE_ARCH).reduced(dtype=torch.float32,
+                                       capacity_factor=1.0)
+    cpu_params = init_params(get_api(cfg).param_specs(cfg),
+                             torch.Generator().manual_seed(0),
+                             torch.device("cpu"), cfg.dtype)
+    toks = torch.from_numpy(np.random.default_rng(17).integers(
+        0, cfg.vocab, (4, 33)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = map_tree(lambda t: t.to(dev).requires_grad_(True), cpu_params)
+        batch = {"tokens": toks[:, :-1].to(dev),
+                 "labels": toks[:, 1:].to(dev)}
+        _zero_kernel_counts()
+        loss = train_loss(p, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves(p))
+        _sync()
+        out[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                    moa.LAUNCHES)
+    (closs, cgrads, _), (gloss, ggrads, launched) = out["cpu"], out["cuda"]
+    diff = max(float((a - b).abs().max()) for a, b in zip(cgrads, ggrads))
+    check(abs(closs - gloss) <= 1e-4 and diff <= 1e-4,
+          f"reduced MoE train: CUDA loss {gloss} (CPU {closs}), max "
+          f"|grad diff| {diff} (> 1e-4)")
+    check(launched == cfg.n_layers,
+          f"reduced MoE train: moa_reduce launched {launched} times, "
+          f"expected {cfg.n_layers} (one combine a layer)")
+    ffn = cpu_params["blocks"]["ffn"]
+    expert = [g for g, t in zip(ggrads, leaves(cpu_params))
+              if any(t is ffn[k] for k in ("w1", "w2", "w3"))]
+    check(len(expert) == 3 and all(bool(g.abs().sum() > 0) for g in expert),
+          "reduced MoE train: an expert weight got no gradient on the card")
+    print(f"[parity] reduced {MOE_ARCH} train_loss (fp32, capacity 1.0, "
+          f"batch 4 x seq 32): loss CPU {closs:.6f} CUDA {gloss:.6f}; "
+          f"{len(ggrads)} gradient leaves, max |diff| {diff:.3e} (tol "
+          f"1e-4); moa_reduce launches {launched} (the backward through "
+          f"MoaReduce, no launch)")
 
 
 #: phase 5's MLA runs: (engine knobs, sampled?); a "prefix warm" run
@@ -545,6 +647,23 @@ REDUCED_CONTIGUOUS_RUNS = {
     "dense": (dict(page_size=0), False)}
 
 
+#: phase 5's MoE runs: 6 slots for 5 requests, so a lane is always idle
+#: and its row routes with the live ones
+REDUCED_MOE_RUNS = {
+    "sequential": (dict(max_slots=6, prefix_cache=False), False),
+    "chain": (dict(max_slots=6, prefix_cache=False, spec_k=4), False),
+    "int8": (dict(max_slots=6, prefix_cache=False, kv_dtype="int8"), False),
+    "sampled": (dict(max_slots=6, prefix_cache=False), True),
+    "contiguous": (dict(max_slots=6, paged_kv=False, prefix_cache=False),
+                   False)}
+
+
+def _tag(cfg) -> str:
+    """The arch, and for MoE its capacity factor."""
+    return cfg.arch_id + (f" capacity {cfg.capacity_factor}"
+                          if cfg.n_experts else "")
+
+
 def reduced_table_runs(cfg, params, dev, table):
     """Phase 5's runs of ``table`` (name -> (engine knobs, sampled?)) on
     ``dev``: 2 slots x 64, chunk 16, page 16 under the knobs; every run
@@ -572,10 +691,10 @@ def reduced_table_runs(cfg, params, dev, table):
         def drive():
             while eng.scheduler.has_work:
                 eng.step()
-                refcount_check(eng, f"reduced {cfg.arch_id} {name}")
+                refcount_check(eng, f"reduced {_tag(cfg)} {name}")
 
         launches = _counted_run(eng, drive)
-        _check_launches(eng, launches, f"reduced {cfg.arch_id} {name}")
+        _check_launches(eng, launches, f"reduced {_tag(cfg)} {name}")
         runs[name] = (eng, reqs)
     return runs
 
@@ -596,7 +715,7 @@ def table_parity(cfg, table) -> None:
         if k != "moa_reduce_launches"]
     for name, (ceng, creqs) in cpu_runs.items():
         geng, greqs = gpu_runs[name]
-        what = f"reduced {cfg.arch_id} {name}"
+        what = f"reduced {_tag(cfg)} {name}"
         check(_tokens(creqs) == _tokens(greqs),
               f"{what}: CUDA tokens differ from CPU")
         cst, gst = ceng.stats_summary(), geng.stats_summary()
@@ -1520,6 +1639,110 @@ def phase_mla_serve(cfg, params):
     return rows, launches
 
 
+def moe_params(cfg):
+    """Phase M's weights on the card: random, bf16, from seed 0 (each leaf
+    drawn in fp32, then cast: the largest, one stacked expert leaf, peaks
+    at its fp32 draw beside the bf16 leaves made before it)."""
+    t0 = time.perf_counter()
+    params = init_params(get_api(cfg).param_specs(cfg),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         torch.device("cuda"), cfg.dtype)
+    _sync()
+    n_params = sum(t.numel() for t in leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    print(f"[moe] {cfg.arch_id}, {cfg.n_layers} of "
+          f"{get_config(cfg.arch_id).n_layers} layers: d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, {cfg.n_experts} experts, top-"
+          f"{cfg.top_k}, capacity factor {cfg.capacity_factor}, vocab "
+          f"{cfg.vocab}: {n_params / 1e9:.3f} B params, {nbytes / 1e9:.3f} "
+          f"GB {cfg.dtype}, initialized in {time.perf_counter() - t0:.2f} s;"
+          f" max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    return params
+
+
+def kept_share(cfg, params, tokens, t: int) -> float:
+    """Share of the (token, k) assignments kept at a dispatch of ``t``
+    tokens: the port's router and dispatch on layer 0's FFN weights, over
+    ``tokens`` cut into dispatches of ``t``.  The inputs are the tokens'
+    embeddings under layer 0's FFN norm (the block's attention skipped),
+    so the share describes random weights routing random-like rows."""
+    layer = map_tree(lambda w: w[0], params["blocks"])
+    x = params["embed"][tokens[:len(tokens) // t * t]].to(cfg.dtype)
+    x = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
+    cap = moe._capacity(t, cfg)
+    kept = total = 0
+    for xt in x.split(t):
+        _, idx, _ = moe._router(xt, layer["ffn"]["router"], cfg)
+        _, _, keep = moe._dispatch_indices(idx, cfg.n_experts, cap)
+        kept += int(keep.sum())
+        total += keep.numel()
+    return kept / total
+
+
+def phase_moe_serve(cfg, params):
+    """Phase M: phi3.5-moe at its published width, 16 layers, on phase 6's
+    geometry.  M1: phase 6's traffic (8 greedy requests of 128-1024
+    prompt tokens x 32 new); M2: phase D's repeated passages x 64 new
+    tokens, sequential and chain (spec_k 4), the chain run's agreement
+    with the sequential one printed.  Every run: the refcount invariant
+    after every step, every request complete, no NaN logit, moa_reduce
+    launched 3 * layers a dispatch (2 page combines and the expert
+    combine), flash attention, bitplane_add and quant_matmul never.
+    Returns (summary rows, moa_reduce launches by run)."""
+    rows, launches, toks = {}, {}, {}
+
+    def run(name, knobs, prompts, new):
+        what = f"M {name}"
+        eng, reqs, launched = serve_spec(cfg, params, knobs, prompts, what,
+                                         new=new)
+        st = eng.stats_summary()
+        others = {k: v for k, v in eng.kernel_launches.items()
+                  if k != "moa_reduce"}
+        check(not any(others.values()),
+              f"{what}: a kernel other than moa_reduce launched: {others}")
+        dispatches = st["prefill_dispatches"] + st["decode_steps"]
+        _check_count(eng.device, launched == 3 * cfg.n_layers * dispatches,
+                     f"{what}: moa_reduce launched {launched} times, "
+                     f"expected 3 * {cfg.n_layers} * {dispatches}")
+        rows[name] = dict(_serve_row(st), spec_k=eng.spec_k,
+                          accept_rate=st["spec_accept_rate"],
+                          launches=launched, page=eng.page_size)
+        launches[name] = launched
+        toks[name] = _tokens(reqs)
+        print(f"[moe] {what}: page {eng.page_size}, pool "
+              f"{eng.pool.num_pages} pages; {_serve_line(st)}; "
+              f"{st['tokens_per_step']:.3f} tokens/step (spec_k "
+              f"{eng.spec_k}; accept rate {st['spec_accept_rate']:.4f}); "
+              f"moa_reduce launches {launched} = 3 * {cfg.n_layers} * "
+              f"({st['prefill_dispatches']} + {st['decode_steps']}); "
+              f"max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        _free(eng)
+
+    plain = make_prompts(SPEC_LENS, cfg.vocab, seed=2)
+    torch.cuda.reset_peak_memory_stats()
+    run("M1", {}, plain, QUANT_NEW)
+    passages = spec_prompts(SPEC_LENS, cfg.vocab, seed=23)
+    run("M2 sequential", {}, passages, SPEC_NEW)
+    run("M2 chain", SPEC_RUNS["chain"], passages, SPEC_NEW)
+    same = sum(a == b for a, b in zip(toks["M2 chain"],
+                                      toks["M2 sequential"]))
+    rows["M2 chain"]["equal_to_sequential"] = same
+    tokens = torch.tensor(plain[0], device=params["embed"].device)
+    shares = {t: kept_share(cfg, params, tokens, t) for t in (4, 256)}
+    rows["kept_share"] = shares
+    print(f"[moe] M2 chain: {rows['M2 chain']['tokens_per_step']:.3f} "
+          f"tokens a step, requests with the sequential run's tokens "
+          f"{same} of {len(passages)} (capacity couples a dispatch's rows, "
+          f"and a verify dispatch has other rows than a decode step); "
+          f"kept share of (token, k) assignments at capacity factor "
+          f"{cfg.capacity_factor}: T=4 {shares[4]:.4f} (capacity "
+          f"{moe._capacity(4, cfg)}), T=256 {shares[256]:.4f} (capacity "
+          f"{moe._capacity(256, cfg)})")
+    return rows, launches
+
+
 @dataclasses.dataclass(frozen=True)
 class Traffic:
     """The serve traffic of phases A-C at one scale: the engine geometry,
@@ -1636,20 +1859,28 @@ def _check_count(device: torch.device, ok: bool, msg: str) -> None:
         check(ok, msg)
 
 
+def launches_per_dispatch(cfg, page_size: int) -> int:
+    """moa_reduce launches a dispatch: GQA's page combine twice a layer
+    when its engine resolved a page (paged, or contiguous split-K over
+    slot rows) and never without one (a contiguous engine of page 0 takes
+    one softmax; MLA a plain softmax over the latent view); the MoE top-k
+    combine once a layer."""
+    page = 2 if cfg.attn_kind != "mla" and page_size else 0
+    expert = 1 if cfg.n_experts and cfg.use_moa_reduce else 0
+    return (page + expert) * cfg.n_layers
+
+
 def _check_launches(eng, launches: int, what: str) -> None:
-    """On the card: GQA launches moa_reduce twice a layer a dispatch when
-    its engine resolved a page (paged, or contiguous split-K over slot
-    rows) and never without one (a contiguous engine of page 0 takes one
-    softmax); MLA (a plain softmax over the latent view, no page combine)
-    launches no kernel at all."""
+    """On the card: moa_reduce launched :func:`launches_per_dispatch`
+    times a dispatch; a dense-FFN MLA model launches no kernel at all."""
     st = eng.stats
-    if eng.cfg.attn_kind == "mla":
+    if eng.cfg.attn_kind == "mla" and not eng.cfg.n_experts:
         check(launches == st["moa_reduce_launches"] == 0 and not any(
             eng.kernel_launches.values()),
             f"{what}: an MLA run launched a kernel: "
             f"{eng.kernel_launches}")
         return
-    per = 2 * eng.cfg.n_layers if eng.page_size else 0
+    per = launches_per_dispatch(eng.cfg, eng.page_size)
     want = per * (st["prefill_dispatches"] + st["decode_steps"])
     _check_count(eng.device, launches == want == st["moa_reduce_launches"],
                  f"{what}: moa_reduce launched {launches} times, expected "
@@ -2011,21 +2242,25 @@ def device_ms(fn, reps: int = 50) -> float:
     return float(np.median(times))
 
 
-def phase_timing(shapes):
+def phase_timing(shapes, dtype=torch.float32):
+    """moa_reduce on (N, M) ``dtype`` operands with an fp32 accumulator,
+    at each of ``shapes``: kernel, plain version and torch.sum."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = []
     for label, n, m in shapes:
-        x = torch.randn((n, m), generator=gen, device=dev)
+        x = torch.randn((n, m), generator=gen, device=dev).to(dtype)
         kernel = device_ms(lambda: moa.moa_reduce_cuda(x, torch.float32))
         plain = device_ms(lambda: moa.moa_reduce_plain(x, torch.float32))
-        library = device_ms(lambda: torch.sum(x.float(), 0))
-        nbytes = moa.bound_bytes(n, m, torch.float32, torch.float32)
+        library = device_ms(lambda: torch.sum(x, 0, dtype=torch.float32))
+        nbytes = moa.bound_bytes(n, m, dtype, torch.float32)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        rows.append({"label": label, "shape": [n, m], "ms": kernel,
+        rows.append({"label": label, "shape": [n, m],
+                     "dtype": str(dtype).removeprefix("torch."), "ms": kernel,
                      "plain_ms": plain, "library_ms": library,
                      "bound_ms": bound, "bytes": nbytes})
-        print(f"[time] moa_reduce {label} N={n} M={m} fp32: kernel_ms "
+        print(f"[time] moa_reduce {label} N={n} M={m} {rows[-1]['dtype']}: "
+              f"kernel_ms "
               f"{kernel:.5f} bound_ms {bound:.5f} ({nbytes} B / 3.35 TB/s) "
               f"library_ms {library:.5f} (torch.sum) plain_ms {plain:.5f} "
               f"kernel/bound {kernel / bound:.2f} kernel/library "
@@ -2697,7 +2932,8 @@ def main() -> int:
     full_ecfg = EngineConfig(max_slots=4, max_seq=2048, prefill_chunk=256,
                              spec_k=4).resolve(full_cfg)
     shapes = path_shapes(full_cfg, full_ecfg) + generate_shapes(full_cfg)
-    err = timed("3 moa_reduce check", phase_kernel_check, shapes)
+    moe_path = moe_shapes(full_ecfg)
+    err = timed("3 moa_reduce check", phase_kernel_check, shapes, moe_path)
     flash_err = timed("4 flash check", phase_flash_check)
     timed("5 reduced serve parity", phase_reduced_parity)
     launches, serve_params, chunk_s, step_s, paged_tokens = timed(
@@ -2731,7 +2967,16 @@ def main() -> int:
     del mla_weights
     gc.collect()
     torch.cuda.empty_cache()       # the MLA weights go
-    rows = timed("7 moa_reduce timing", phase_timing, shapes)
+    moe_cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    moe_weights = moe_params(moe_cfg)
+    moe_rows, moe_launches = timed("M phi3.5-moe serve", phase_moe_serve,
+                                   moe_cfg, moe_weights)
+    serve_launches["M"] = moe_launches
+    del moe_weights
+    gc.collect()
+    torch.cuda.empty_cache()       # the MoE weights go
+    rows = timed("7 moa_reduce timing", phase_timing, shapes) + \
+        phase_timing(moe_path, torch.bfloat16)
     timed("8 train parity", phase_train_parity)
     flash_launches = timed("9 train full width", phase_train_full)
     gc.collect()
@@ -2755,7 +3000,8 @@ def main() -> int:
         "library_ms": main_row["library_ms"], "shape": main_row["shape"],
         "checked": "torch.equal vs moa_reduce_plain", "shapes": rows,
         "spec_serve": spec_rows, "quant_serve": quant_rows,
-        "mla_serve": mla_rows, "contiguous_serve": contig_rows,
+        "mla_serve": mla_rows, "moe_serve": moe_rows,
+        "contiguous_serve": contig_rows,
         "launches_by_serve_phase": {
             f"{ph} {run}": n for ph, d in serve_launches.items()
             for run, n in d.items()}}]

@@ -20,6 +20,8 @@ fusing the combine into the split-K attention is the later fix.
   version, which the CPU path and the tests use.
 * :func:`moa_reduce_cuda` — the kernel's wrapper; it adds one to
   :data:`LAUNCHES` each time it launches the kernel.
+* :class:`MoaReduce` — the kernel under autograd: the backward of a sum
+  hands every operand the output's gradient (no kernel needed).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from repro_torch.dist import plan as dist_plan
 from repro_torch.kernels import _build
 
 __all__ = ["LAUNCHES", "MAX_OPERANDS", "radix4_tree_sum", "moa_reduce_plain",
-           "moa_reduce_cuda", "bound_bytes", "split_levels"]
+           "moa_reduce_cuda", "MoaReduce", "bound_bytes", "split_levels"]
 
 #: Number of times :func:`moa_reduce_cuda` has launched the kernel.
 LAUNCHES = 0
@@ -128,3 +130,21 @@ def moa_reduce_cuda(x: torch.Tensor, acc_dtype: torch.dtype = torch.float32
         raise RuntimeError(f"moa_reduce kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out
+
+
+class MoaReduce(torch.autograd.Function):
+    """:func:`moa_reduce_cuda` with its VJP: ``apply(x, acc_dtype)`` on a
+    contiguous ``(N, M)`` CUDA tensor.  The gradient of a sum over axis 0
+    is the output's gradient for every operand, cast to the input dtype:
+    what autograd gives :func:`moa_reduce_plain`, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, acc_dtype: torch.dtype
+                ) -> torch.Tensor:
+        ctx.n, ctx.in_dtype = x.shape[0], x.dtype
+        return moa_reduce_cuda(x, acc_dtype)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        g = grad.to(ctx.in_dtype)
+        return g.expand(ctx.n, *g.shape), None

@@ -24,14 +24,16 @@ def moa_reduce(x: torch.Tensor, acc_dtype: torch.dtype = torch.float32,
 
     Trailing dims are flattened into the kernel's ``(N, M)`` column space
     and restored afterwards; the sum runs in ``acc_dtype`` and is cast to
-    ``out_dtype`` (default: the input dtype)."""
+    ``out_dtype`` (default: the input dtype).  Differentiable on both
+    devices (:class:`~repro_torch.kernels.moa_reduce.MoaReduce` on the
+    card)."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return _moa.moa_reduce_plain(x, acc_dtype, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"moa_reduce runs on cuda or cpu, got {x.device}")
     n = x.shape[0]
-    out = _moa.moa_reduce_cuda(x.reshape(n, -1).contiguous(), acc_dtype)
+    out = _moa.MoaReduce.apply(x.reshape(n, -1).contiguous(), acc_dtype)
     return out.reshape(x.shape[1:]).to(out_dtype)
 
 

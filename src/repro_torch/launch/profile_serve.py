@@ -3,7 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve
 
 Builds ``--arch`` (default ``llama3.2-3b``; ``minicpm3-4b`` serves through
-MLA's latent pools) at full width (random bf16 weights from ``--seed``),
+MLA's latent pools, ``phi3.5-moe-42b-a6.6b`` through the routed MoE FFN)
+at full width (random bf16 weights from ``--seed``; ``--layers N`` cuts the
+depth to N layers, for a model whose published depth does not fit the
+card: ``phi3.5-moe-42b-a6.6b --layers 16`` is ``chip_smoke.py``'s phase M),
 engine knobs as in ``chip_smoke.py``'s phase 6 (4 slots, max_seq 2048,
 prefill chunk 256, page 128, prefix cache off; every
 :class:`~repro_torch.serve.EngineConfig` knob has the serve CLI's flag,
@@ -34,6 +37,7 @@ the dispatch and the read of its tokens, without drafting).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import time
 from collections import defaultdict
@@ -103,6 +107,9 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the "
+                         "published depth)")
     # every engine knob, at phase 6's geometry unless given
     add_cli_args(ap, spec_k_default=0)
     ap.set_defaults(prefill_chunk=256, prefix_cache=False)
@@ -120,13 +127,16 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(get_api(cfg).param_specs(cfg), gen, dev, cfg.dtype)
     ecfg = config_from_args(args)
     eng = ServeEngine(cfg, params, config=ecfg.replace(
         max_seq=args.max_seq or 2048))
-    print(f"[engine] arch {cfg.arch_id}, spec_k {eng.spec_k}, spec_mode "
+    print(f"[engine] arch {cfg.arch_id}, layers {cfg.n_layers}, spec_k "
+          f"{eng.spec_k}, spec_mode "
           f"{eng.spec_mode}, kv_dtype {eng.kv_dtype}, paged_kv {eng.paged}, "
           f"page {eng.page_size}, temperature {args.temperature}")
     rng = np.random.default_rng(args.seed)

@@ -378,20 +378,20 @@ def _gather_view(pool: Pool, pages: torch.Tensor,
     return paging.gather_pages(pool, pages)
 
 
-def _scatter_rows(pool: Pool, pages: torch.Tensor, rows: torch.Tensor,
-                  pos: torch.Tensor, nvalid: Optional[torch.Tensor]) -> None:
-    """Write ``rows`` into ``pool`` in place; a quantized pair takes the
-    rows' codes and scales to the same coordinates (page table and row
-    mask), computed once for both."""
+def _scatter_rows(pool: Pool, rows: torch.Tensor,
+                  plan: paging.ScatterPlan) -> None:
+    """Write ``rows`` into ``pool`` in place where ``plan``
+    (:func:`~repro_torch.models.paging.scatter_plan`) puts them; a
+    quantized pair takes the rows' codes and scales to the same
+    coordinates."""
+    rows = paging.plan_rows(rows, plan)
     if isinstance(pool, tuple):
-        codes, scales = quant_kv.quantize_rows(
-            rows, quant_kv.kv_bits(pool[0]))
-        coords = paging.token_coords(pages, pos, pool[0].shape[1],
-                                     rows.shape[0], nvalid)
-        pool[0].index_put_(coords, codes)
-        pool[1].index_put_(coords, scales)
+        codes, scales = quant_kv.quantize_rows(rows,
+                                               quant_kv.kv_bits(pool[0]))
+        pool[0].index_put_(plan[:2], codes)
+        pool[1].index_put_(plan[:2], scales)
     else:
-        paging.scatter_token_rows(pool, pages, rows, pos, nvalid)
+        pool.index_put_(plan[:2], rows.to(pool.dtype))
 
 
 def _decode_qkv_cache(x: torch.Tensor, p: dict, cfg: ModelConfig,
@@ -493,7 +493,8 @@ def gqa_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
                      tree: Optional[Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]] = None,
                      valid: Optional[torch.Tensor] = None,
-                     write_plan: Optional[Tuple[torch.Tensor, ...]] = None
+                     write_plan: Optional[Tuple[torch.Tensor, ...]] = None,
+                     scatter: Optional[paging.ScatterPlan] = None
                      ) -> Tuple[torch.Tensor, Pool, Pool]:
     """Paged split-K decode of ``C`` new tokens per slot.
 
@@ -518,10 +519,12 @@ def gqa_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
     ``nchain`` rows, so drafted rows land on scratch and a rejected branch
     needs no rollback.
 
-    ``valid`` and ``write_plan``: the attention mask and, with ``nvalid``,
-    the row-masked write's indices, when the caller built them once for
-    every layer (:func:`attend_mask`, :func:`masked_write_plan`); else they
-    are built here.
+    ``valid``, ``write_plan`` and ``scatter``: the attention mask, with
+    ``nvalid`` the row-masked write's indices, and the pool scatter's
+    coordinates, when the caller built them once for every layer
+    (:func:`attend_mask`, :func:`masked_write_plan`,
+    :func:`~repro_torch.models.paging.scatter_plan`); else they are built
+    here.
 
     Quantized pages: ``pool_k`` and ``pool_v`` may each be a ``(codes,
     scales)`` pair (:func:`repro_torch.serve.cache.quant_state_specs`).
@@ -537,7 +540,9 @@ def gqa_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
         x, p, cfg, k_view, v_view, cur_index, nvalid, tree, valid,
         write_plan)
     out = _splitk_attend(q, k_view, v_view, valid, cfg, page)
-    scatter_n = nvalid if tree is None else tree[2]
-    _scatter_rows(pool_k, pages, k_new, pos, scatter_n)
-    _scatter_rows(pool_v, pages, v_new, pos, scatter_n)
+    if scatter is None:
+        scatter = paging.scatter_plan(pages, pos, page, x.shape[0],
+                                      nvalid if tree is None else tree[2])
+    _scatter_rows(pool_k, k_new, scatter)
+    _scatter_rows(pool_v, v_new, scatter)
     return out @ p["wo"].to(out.dtype), pool_k, pool_v

@@ -4,8 +4,8 @@ The counterpart of ``repro/models/common.py`` for the slices the port
 runs: :class:`ParamSpec` declarations, :func:`init_params` from a
 ``torch.Generator``, ``rms_norm`` / ``rope_angles`` / ``apply_rope`` with
 the JAX package's dtype order and its interleaved (even, odd) RoPE pairs,
-and ``cross_entropy_loss``.  Sharding rules have no counterpart yet (one
-card).
+``cross_entropy_loss`` and ``topk_low_index_first`` (``jax.lax.top_k``'s
+order among ties).  Sharding rules have no counterpart yet (one card).
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import torch
 from repro_torch.tree import map_tree
 
 __all__ = ["ParamSpec", "init_params", "rms_norm", "rope_angles",
-           "apply_rope", "cross_entropy_loss"]
+           "apply_rope", "cross_entropy_loss", "topk_low_index_first"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,3 +122,18 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     return torch.mean(nll)
+
+
+def topk_low_index_first(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest entries along the last axis, ranked by
+    value and, among equal values, lower index first (``jax.lax.top_k``'s
+    order; ``torch.topk`` promises none).  fp32 values map to int32 keys
+    of the same order (-0 counted as +0), each made unique by its reversed
+    index in the low 32 bits of an int64 key."""
+    bits = (x.float() + 0.0).contiguous().view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    n = x.shape[-1]
+    rev = (n - 1) - torch.arange(n, device=x.device, dtype=torch.int64)
+    key64 = key.to(torch.int64) * (1 << 32) + rev
+    top = torch.topk(key64, k, dim=-1).values
+    return (n - 1) - (top & 0xFFFFFFFF)

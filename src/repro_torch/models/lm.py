@@ -1,7 +1,9 @@
 """Decoder LM: parameter layout, the training forward and loss, decode.
 
-The counterpart of ``repro/models/lm.py`` for the dense decoders, GQA
-(``llama3.2-3b``) and MLA (``minicpm3-4b``, :mod:`repro_torch.models.mla`).
+The counterpart of ``repro/models/lm.py`` for the decoders: GQA
+(``llama3.2-3b``), MLA (``minicpm3-4b``, :mod:`repro_torch.models.mla`),
+and either with the routed MoE FFN in every block (``phi3.5-moe``,
+``llama4-scout``, :mod:`repro_torch.models.moe`).
 Parameters are a plain dict of tensors in the JAX tree's layout, with
 ``blocks`` stacked on a leading layers axis (or, as the train step passes
 them, a list of per-layer dicts of views: see
@@ -19,8 +21,8 @@ tree (:func:`verify_tree`) in one dispatch; medusa-style draft heads
 (:func:`draft_head_specs`, :func:`fit_draft_heads`) propose the tree's
 nodes from the hidden states that dispatch already computed.
 
-Not in these slices: MoE, the vision and audio frontend stubs
-(``ROADMAP.md``, queue 1).
+Not in these slices: the SSM and hybrid families, the vision and audio
+frontend stubs (``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
@@ -31,8 +33,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, mla, moe
-from repro_torch.models.common import ParamSpec, cross_entropy_loss, rms_norm
+from repro_torch.models import attention, mla, moe, paging
+from repro_torch.models.common import (ParamSpec, cross_entropy_loss,
+                                       rms_norm, topk_low_index_first)
 from repro_torch.tree import index_tree, map_tree
 
 __all__ = ["param_specs", "block_specs", "stack_specs", "forward",
@@ -58,7 +61,8 @@ def block_specs(cfg: ModelConfig) -> Dict[str, Any]:
         "ffn_norm": ParamSpec((d,), ("embed",), init="ones"),
         "attn": (mla.mla_param_specs(cfg) if cfg.attn_kind == "mla"
                  else attention.gqa_param_specs(cfg)),
-        "ffn": moe.dense_ffn_specs(cfg),
+        "ffn": (moe.moe_param_specs(cfg) if cfg.n_experts
+                else moe.dense_ffn_specs(cfg)),
     }
 
 
@@ -109,12 +113,19 @@ def _layer(blocks: Any, i: int) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 
-def _block_train(x: torch.Tensor, bp: dict, cfg: ModelConfig) -> torch.Tensor:
+def _block_train(x: torch.Tensor, bp: dict, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block: (x, the layer's router aux loss; 0 for a dense FFN)."""
     h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
     attend = mla.mla_train if cfg.attn_kind == "mla" else attention.gqa_train
     x = x + attend(h, bp["attn"], cfg)
     h = rms_norm(x, bp["ffn_norm"], cfg.norm_eps)
-    return x + moe.dense_ffn(h, bp["ffn"], cfg)
+    if cfg.n_experts:
+        h, aux = moe.moe_ffn(h, bp["ffn"], cfg)
+    else:
+        h = moe.dense_ffn(h, bp["ffn"], cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, aux
 
 
 def embed_inputs(params: dict, batch: Dict[str, torch.Tensor],
@@ -129,24 +140,27 @@ def embed_inputs(params: dict, batch: Dict[str, torch.Tensor],
 
 def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V) in the compute dtype, aux_loss).
+    """Returns (logits (B, S, V) in the compute dtype, aux_loss): the
+    router losses summed over layers in layer order (0 for dense FFNs).
 
     With ``cfg.remat`` and grad enabled, each layer runs under
     ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint`` with
     ``nothing_saveable``): only its input is kept, and the backward runs
     the layer's forward again."""
     x = embed_inputs(params, batch, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         bp = _layer(params["blocks"], i)
         if remat:
-            x = checkpoint(_block_train, x, bp, cfg, use_reentrant=False)
+            x, aux_l = checkpoint(_block_train, x, bp, cfg,
+                                  use_reentrant=False)
         else:
-            x = _block_train(x, bp, cfg)
+            x, aux_l = _block_train(x, bp, cfg)
+        aux = aux + aux_l
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ params["lm_head"].to(x.dtype)
-    # dense FFNs have no router loss (MoE arrives with queue 1 item 11)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def train_loss(params: dict, batch: Dict[str, torch.Tensor],
@@ -206,11 +220,17 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
     blocks = params["blocks"]
     x = params["embed"][batch["tokens"]].to(cfg.dtype)
     b, c = batch["tokens"].shape
+    scatter = ()
     if pages is not None:
-        smax = pages.shape[1] * state[names[0]].shape[2]
+        page = state[names[0]].shape[2]
+        smax = pages.shape[1] * page
         decode = mla.mla_decode_pages if mla_kind \
             else attention.gqa_decode_pages
         extra = (pages,)
+        # where every layer scatters its new rows into its pools
+        scatter = (paging.scatter_plan(
+            pages, attention.decode_positions(cur, c), page, b,
+            nspec if tree is None else tree[2]),)
     else:
         smax = state[names[0]].shape[2]
         page = cfg.decode_page_size
@@ -233,10 +253,14 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
         caches = [(state[n][i], state[n + "_scale"][i]) if quant
                   else state[n][i] for n in names]
         h, _, _ = decode(h, bp["attn"], cfg, *caches, cur, *extra, nspec,
-                         tree, valid, plan)
+                         tree, valid, plan, *scatter)
         x = x + h
         h = rms_norm(x, bp["ffn_norm"], cfg.norm_eps)
-        x = x + moe.dense_ffn(h, bp["ffn"], cfg)
+        if cfg.n_experts:
+            h, _ = moe.moe_ffn(h, bp["ffn"], cfg)
+        else:
+            h = moe.dense_ffn(h, bp["ffn"], cfg)
+        x = x + h
     return x, state
 
 
@@ -303,21 +327,6 @@ def draft_head_specs(cfg: ModelConfig, n_heads: int,
     }
 
 
-def _topk_low_index_first(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the ``k`` largest entries along the last axis, ranked by
-    value and, among equal values, lower index first (``jax.lax.top_k``'s
-    order; ``torch.topk`` promises none).  fp32 values map to int32 keys
-    of the same order (-0 counted as +0), each made unique by its reversed
-    index in the low 32 bits of an int64 key."""
-    bits = (x.float() + 0.0).contiguous().view(torch.int32)
-    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
-    n = x.shape[-1]
-    rev = (n - 1) - torch.arange(n, device=x.device, dtype=torch.int64)
-    key64 = key.to(torch.int64) * (1 << 32) + rev
-    top = torch.topk(key64, k, dim=-1).values
-    return (n - 1) - (top & 0xFFFFFFFF)
-
-
 def _draft_head_top(params: dict, x: torch.Tensor, head_topk: int
                     ) -> torch.Tensor:
     """Top-``head_topk`` candidates of every draft head at every fed row:
@@ -330,7 +339,7 @@ def _draft_head_top(params: dict, x: torch.Tensor, head_topk: int
     t = F.silu(torch.einsum("bcd,hde->bhce", x, w1))
     xh = x[:, None] + torch.einsum("bhce,hed->bhcd", t, w2)     # (B,H,C,D)
     head_logits = xh @ params["lm_head"].to(x.dtype)            # (B,H,C,V)
-    top = _topk_low_index_first(head_logits, head_topk)
+    top = topk_low_index_first(head_logits, head_topk)
     return top.transpose(1, 2)                                  # (B,C,H,A)
 
 

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention
+from repro_torch.models import attention, paging
 from repro_torch.models.attention import NEG_INF, Pool
 from repro_torch.models.common import (ParamSpec, apply_rope, rms_norm,
                                        rope_angles)
@@ -220,7 +220,8 @@ def mla_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
                      tree: Optional[Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]] = None,
                      valid: Optional[torch.Tensor] = None,
-                     write_plan: Optional[Tuple[torch.Tensor, ...]] = None
+                     write_plan: Optional[Tuple[torch.Tensor, ...]] = None,
+                     scatter: Optional[paging.ScatterPlan] = None
                      ) -> Tuple[torch.Tensor, Pool, Pool]:
     """Paged absorbed decode of ``C`` new tokens per slot (the JAX
     package's ``mla_decode_paged``).
@@ -233,7 +234,7 @@ def mla_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
     scattered into the pools in place.  Returns (out (B, C, D), pool_ckv,
     pool_kr).
 
-    ``nvalid``, ``tree``, ``valid`` and ``write_plan`` as in
+    ``nvalid``, ``tree``, ``valid``, ``write_plan`` and ``scatter`` as in
     :func:`repro_torch.models.attention.gqa_decode_pages`: rows at or past
     ``nvalid`` are dropped from the view and sent to scratch; a tree ropes
     at ``index + pos_off``, attends under the ancestor mask and scatters
@@ -246,7 +247,10 @@ def mla_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
         x, p, cfg, ckv_view, kr_view, cur_index, nvalid, tree, valid,
         write_plan)
     out = _absorbed_attend(p, cfg, q_nope, q_rope, ckv_view, kr_view, valid)
-    scatter_n = nvalid if tree is None else tree[2]
-    attention._scatter_rows(pool_ckv, pages, c_new, pos, scatter_n)
-    attention._scatter_rows(pool_kr, pages, kr_new, pos, scatter_n)
+    if scatter is None:
+        page = ckv_view.shape[1] // pages.shape[1]
+        scatter = paging.scatter_plan(pages, pos, page, x.shape[0],
+                                      nvalid if tree is None else tree[2])
+    attention._scatter_rows(pool_ckv, c_new, scatter)
+    attention._scatter_rows(pool_kr, kr_new, scatter)
     return out @ p["wo"].to(out.dtype), pool_ckv, pool_kr

@@ -6,7 +6,13 @@ has a ``(n_pages,)`` row of page indices (the page table).  Physical page 0
 is the scratch page: idle lanes point their whole row at it, and
 out-of-table rows are written there, and so are the rows a speculative
 verify masks off (``nvalid``: draft padding, idle lanes, a tree's drafted
-rows), so only scratch ever receives duplicate scatter targets.
+rows), so only scratch ever receives duplicate scatter targets.  Those
+rows differ, and later masked rows attend what scratch holds, so a
+verify's duplicates all write the last one's row (:func:`scatter_plan`):
+the bytes a CPU scatter leaves (it applies duplicates in order, so the
+last one wins, as the JAX package's does), whatever order a CUDA scatter
+applies them in.  The plan is the same for every layer and leaf of a
+dispatch, so the decode stack builds it once.
 
 A quantized pool (``kv_dtype`` int8 or int4) is a pair of leaves, integer
 codes and fp32 per-row scales in the same pooled layout:
@@ -27,7 +33,10 @@ import torch
 from repro_torch.models.quant_kv import dequantize_rows
 
 __all__ = ["gather_pages", "gather_pages_dequant", "token_coords",
-           "scatter_token_rows"]
+           "scatter_plan", "plan_rows", "scatter_token_rows"]
+
+#: (phys_page, offset, last writer or None): :func:`scatter_plan`
+ScatterPlan = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
 
 def gather_pages(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
@@ -75,6 +84,34 @@ def token_coords(pages: torch.Tensor, pos: torch.Tensor, page: int,
     return phys, off
 
 
+def scatter_plan(pages: torch.Tensor, pos: torch.Tensor, page: int,
+                 batch: int, nvalid: Optional[torch.Tensor] = None
+                 ) -> ScatterPlan:
+    """Where :func:`scatter_token_rows` writes a block: its
+    :func:`token_coords` and, with ``nvalid`` (the rows it sends to
+    scratch share targets), ``last`` (B, C): the flat index ``b' * C +
+    j'`` of the last row, in row-major order, with row ``(b, j)``'s
+    target, whose value every row of that target writes.  Pairwise over
+    the block's B * C rows."""
+    phys, off = token_coords(pages, pos, page, batch, nvalid)
+    if nvalid is None:
+        return phys, off, None
+    dest = (phys * page + off).reshape(-1)
+    idx = torch.arange(dest.numel(), device=dest.device)
+    same = dest[:, None] == dest[None, :]
+    last = torch.where(same, idx[None], -1).amax(1).reshape(phys.shape)
+    return phys, off, last
+
+
+def plan_rows(rows: torch.Tensor, plan: ScatterPlan) -> torch.Tensor:
+    """``rows`` (B, C, ...) as ``plan`` writes them: each row replaced by
+    its target's last writer (unchanged without one)."""
+    last = plan[2]
+    if last is None:
+        return rows
+    return rows.reshape((-1,) + tuple(rows.shape[2:]))[last]
+
+
 def scatter_token_rows(pool: torch.Tensor, pages: torch.Tensor,
                        rows: torch.Tensor, pos: torch.Tensor,
                        nvalid: Optional[torch.Tensor] = None
@@ -88,7 +125,8 @@ def scatter_token_rows(pool: torch.Tensor, pages: torch.Tensor,
     ``(pages[b, pos // page], pos % page)``.  Rows whose position lies
     past the table go to scratch page 0, and so, with ``nvalid`` (a
     ``(B,)`` per-slot count of valid rows), does every row ``j >=
-    nvalid[b]`` (:func:`token_coords`).  Returns ``pool``."""
-    coords = token_coords(pages, pos, pool.shape[1], rows.shape[0], nvalid)
-    pool.index_put_(coords, rows.to(pool.dtype))
+    nvalid[b]``; with ``nvalid`` the rows that share a target all write
+    the last one's (:func:`scatter_plan`).  Returns ``pool``."""
+    plan = scatter_plan(pages, pos, pool.shape[1], rows.shape[0], nvalid)
+    pool.index_put_(plan[:2], plan_rows(rows, plan).to(pool.dtype))
     return pool

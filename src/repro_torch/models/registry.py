@@ -1,10 +1,10 @@
 """Model API dispatch (counterpart of ``repro/models/registry.py``).
 
-The port serves and trains the dense decoders: ``family`` dense or vlm
+The port serves and trains the decoders: ``family`` dense, moe or vlm
 (the vision stub only feeds training, and raises there until its ROADMAP
-item), ``attn_kind`` ``"gqa"`` or ``"mla"``, no experts.  Every other
-family raises ``NotImplementedError`` naming the ROADMAP.md item that
-brings it.
+item), ``attn_kind`` ``"gqa"`` or ``"mla"``, with a dense or a routed MoE
+FFN.  The SSM and hybrid families raise ``NotImplementedError`` naming
+the ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -55,9 +55,6 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
         raise NotImplementedError(
             f"{cfg.arch_id}: SSM/hybrid families arrive with ROADMAP.md "
             f"queue 1 item 10")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: MoE FFNs arrive with ROADMAP.md queue 1 item 11")
     if cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.arch_id}: attn_kind={cfg.attn_kind!r} is not served by "

@@ -17,7 +17,7 @@ from repro_torch.kernels import moa_reduce as moa
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qmm
 from repro_torch.launch import sass_mix
-from repro_torch.models import attention, lm, quant_kv
+from repro_torch.models import attention, lm, moe, quant_kv
 from repro_torch.models.common import ParamSpec, init_params
 from repro_torch.models.registry import get_api
 from repro_torch.optim.adamw import AdamWConfig
@@ -123,6 +123,75 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
                                         dtype=torch.float16))
     with pytest.raises(ValueError, match="contiguous"):
         moa.moa_reduce_cuda(torch.zeros(4, 8, device=cuda_device)[:, ::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 16])
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)], ids=str)
+def test_ops_moa_reduce_gradient_equals_plain(cuda_device, n, dtype,
+                                              out_dtype):
+    """``ops.moa_reduce`` on the card launches the kernel under
+    ``MoaReduce``: its gradient is the plain version's, bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn((n, 3, 257), generator=gen, device=cuda_device).to(dtype)
+    w = torch.randn((3, 257), generator=gen, device=cuda_device)
+    xk = x.clone().requires_grad_(True)
+    xp = x.clone().requires_grad_(True)
+    before = moa.LAUNCHES
+    out = ops.moa_reduce(xk, torch.float32, out_dtype=out_dtype)
+    assert moa.LAUNCHES == before + 1 and out.grad_fn is not None
+    (gk,) = torch.autograd.grad((out.float() * w).sum(), xk)
+    plain = moa.moa_reduce_plain(xp, torch.float32, out_dtype)
+    (gp,) = torch.autograd.grad((plain.float() * w).sum(), xp)
+    assert moa.LAUNCHES == before + 1          # the backward launches none
+    assert gk.dtype == dtype and torch.equal(gk, gp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2])
+# the MoE top-k combine's columns: phi3.5-moe decode (4 slots), a 256-token
+# prefill piece, a chain verify (4 x 5 rows); llama4-scout decode
+@pytest.mark.parametrize("m", [4 * 4096, 256 * 4096, 4 * 5 * 4096,
+                               4 * 5120])
+def test_kernel_at_the_moe_combine_shapes(cuda_device, n, m):
+    x, acc = _operands(n, m, "bfloat16", cuda_device)
+    got = ops.moa_reduce(x, acc, out_dtype=acc)
+    assert torch.equal(got, moa.moa_reduce_plain(x, acc, acc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [None, 1.0])
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_ffn_cuda_matches_cpu(cuda_device, arch, cf):
+    """The reduced fp32 MoE FFN, drop-free and at capacity 1.0: the card's
+    output, aux loss and expert gradients equal the CPU's within 1e-5,
+    with one combine launch."""
+    over = {} if cf is None else dict(capacity_factor=cf)
+    cfg = get_config(arch).reduced(dtype=torch.float32, **over)
+    params = init_params(moe.moe_param_specs(cfg),
+                         torch.Generator().manual_seed(0),
+                         torch.device("cpu"), torch.float32)
+    x = torch.randn((2, 8, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = map_tree(lambda t: t.to(dev).requires_grad_(True), params)
+        before = moa.LAUNCHES
+        y, aux = moe.moe_ffn(x.to(dev), p, cfg)
+        launched = moa.LAUNCHES - before
+        grads = torch.autograd.grad((y * y).sum() + aux,
+                                    [p["w1"], p["w2"], p["router"]])
+        out[str(dev)] = (y, aux, grads, launched)
+    (y, aux, grads, _), (gy, gaux, ggrads, launched) = out.values()
+    assert launched == 1
+    torch.testing.assert_close(gy.cpu(), y, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(gaux.cpu(), aux, atol=1e-6, rtol=1e-5)
+    for g, gg in zip(grads, ggrads):
+        assert bool(gg.abs().sum() > 0)
+        torch.testing.assert_close(gg.cpu(), g, atol=1e-5, rtol=1e-5)
 
 
 # ---------------------------------------------------------------- flash attention

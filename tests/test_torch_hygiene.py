@@ -54,6 +54,12 @@ def test_port_files_found():
             "src/repro_torch/serve/sampling.py",
             "src/repro_torch/models/quant_kv.py",
             "src/repro_torch/models/mla.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/models/lm.py",
+            "src/repro_torch/models/common.py",
+            "src/repro_torch/models/registry.py",
+            "src/repro_torch/kernels/ops.py",
+            "src/repro_torch/launch/profile_serve.py",
             "chip_smoke.py"} <= rel
 
 
@@ -80,6 +86,11 @@ def test_engine_import_loads_no_jax():
                     "repro_torch.models.mla")
 
 
+def test_moe_import_loads_no_jax():
+    _imports_no_jax("repro_torch.models.moe, repro_torch.models.registry, "
+                    "repro_torch.launch.profile_serve")
+
+
 def test_train_import_loads_no_jax():
     _imports_no_jax("repro_torch.launch.train, repro_torch.train.loop")
 
@@ -94,6 +105,10 @@ def test_engine_defaults_to_the_card():
 
 def test_mla_engine_defaults_to_the_card():
     _defaults_to_the_card("minicpm3-4b")
+
+
+def test_moe_engine_defaults_to_the_card():
+    _defaults_to_the_card("phi3.5-moe-42b-a6.6b")
 
 
 def _defaults_to_the_card(arch):

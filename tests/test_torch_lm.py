@@ -219,11 +219,29 @@ def test_decode_with_fp32_params_under_bf16_matches_jax():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("falcon-mamba-7b", "item 10"), ("zamba2-1.2b", "item 10"),
-    ("phi3.5-moe-42b-a6.6b", "item 11")])
+    ("falcon-mamba-7b", "item 10"), ("zamba2-1.2b", "item 10")])
 def test_unserved_families_raise_with_roadmap_item(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         get_api(tget(arch))
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_families_are_served(arch):
+    """Both MoE architectures get the whole API, with the routed FFN in
+    every block; SSM and hybrid still raise."""
+    cfg = tget(arch)
+    api = get_api(cfg)
+    assert api.verify_chunk is tlm.verify_chunk
+    assert api.verify_tree is tlm.verify_tree
+    ffn = api.param_specs(cfg)["blocks"]["ffn"]
+    assert ffn["router"].shape == (cfg.n_layers, cfg.d_model, cfg.n_experts)
+    assert ffn["w1"].shape == (cfg.n_layers, cfg.n_experts, cfg.d_model,
+                               cfg.d_ff)
+    assert ("shared_w1" in ffn) == bool(cfg.n_shared_experts)
+    for other in ("falcon-mamba-7b", "zamba2-1.2b"):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            get_api(tget(other))
 
 
 def test_encoder_only_has_no_decode_path():

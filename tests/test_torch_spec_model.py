@@ -264,7 +264,7 @@ def test_top_k_ranks_ties_like_jax(seed):
     x[0, 0, :5] = -0.0
     for k in (1, 3, 7):
         want = np.asarray(jax.lax.top_k(jnp.asarray(x), k)[1])
-        got = tlm._topk_low_index_first(torch.from_numpy(x), k).numpy()
+        got = tlm.topk_low_index_first(torch.from_numpy(x), k).numpy()
         np.testing.assert_array_equal(got, want)
     jcfg = jget("llama3.2-3b").reduced(dtype=jnp.float32, n_kv_heads=2)
     heads = jinit(jlm.draft_head_specs(jcfg, n_heads=2, head_dim=8),
