@@ -7,9 +7,10 @@ Builds every kernel of the serve and training paths from the sources in
 the checkout, holds each against its plain PyTorch version on the card,
 drives the port's serve engine and its trainer at the full width of
 ``llama3.2-3b``, its serve engine at the full width of the MLA model
-``minicpm3-4b`` and of the MoE model ``phi3.5-moe-42b-a6.6b`` (16 of its
-32 layers: the whole model does not fit the card; random weights from a
-seed), and times each kernel beside its bound, its plain version and a
+``minicpm3-4b``, of the MoE model ``phi3.5-moe-42b-a6.6b`` (16 of its
+32 layers: the whole model does not fit the card), of the SSM
+``falcon-mamba-7b`` and of the hybrid ``zamba2-1.2b`` (random weights
+from a seed), and times each kernel beside its bound, its plain version and a
 library call.  Raises at the first
 failed check, so any failure exits non-zero; with no CUDA device, or
 outside a checkout of the repository, it exits non-zero before printing
@@ -33,7 +34,8 @@ Phases:
      norm error 1e-2), causal and not, at the kernel-test shapes, bf16
      shapes with a ragged S, and the training path's; two forward calls
      at the path shape give torch.equal o and lse, two backward calls
-     torch.equal dq, delta, dk and dv
+     torch.equal dq, delta, dk and dv; and at zamba2's shared-block shape,
+     (2, 2048, 32, 64) bf16 (32 query and 32 KV heads of 64)
   5. serve, reduced-config parity: the engine on CUDA against the engine
      on CPU, same weights: greedy tokens equal, decode logits within 1e-3;
      then the traffic of phases A-C cut to the reduced fp32 config, CUDA
@@ -66,7 +68,16 @@ Phases:
      equal, decode logits within 1e-3, moa_reduce launched 3 * layers a
      dispatch (2 page combines and the expert combine); and one reduced
      phi3.5-moe train_loss at capacity 1.0, its loss and every gradient
-     CUDA against CPU within 1e-4 (the combine's backward, MoaReduce)
+     CUDA against CPU within 1e-4 (the combine's backward, MoaReduce);
+     then the reduced fp32 falcon-mamba-7b and zamba2-1.2b with a tail (5
+     layers: 2 groups of 2 and 1, a random LoRA lora_b): resolve() turns
+     paging, speculation, the prefix cache and KV quantization off;
+     sequential and sampled engines (2 slots, 5 requests) and generate,
+     CUDA against CPU: tokens and every counter equal, decode logits
+     within 1e-3, no kernel launched; warmup() on a live CUDA engine
+     leaves every state leaf and counter as it was; one train_loss and
+     every gradient CUDA against CPU within 1e-4, the hybrid's shared
+     attention through the flash kernels (each launched once a group)
   6. serve, full width: llama3.2-3b, 28 layers, bf16, 8 greedy requests
      of 128 to 1024 prompt tokens and 32 new tokens on 4 slots, prefix
      cache off (what PRs 11-17 measured); every request retires with 32
@@ -164,6 +175,23 @@ Phases:
      tok/s, M2's tokens a step and its chain run's agreement with its
      sequential run, and the kept share of (token, k) assignments at T = 4
      and T = 256 (the port's router and dispatch on layer 0) printed
+  S. SSM serve: falcon-mamba-7b at its published width (64 Mamba-1
+     layers, d 4096, d_inner 8192, state 16, dt_rank 256, vocab 65024;
+     7,272,665,088 random bf16 parameters, 14.55 GB), after M with the
+     MoE weights freed: 4 contiguous slots x max_seq 2048, chunk 32,
+     warmup() first, 8 greedy requests (4 of 32 prompt tokens, 4 of
+     16-64: their prefill is one host-bound decode step a token) x 32 new
+     tokens: every request retires with 32 tokens, no
+     decode logit is NaN, the state is 36,700,160 B a slot, no kernel is
+     launched, and a second engine repeats the tokens; prefill tok/s,
+     decode step p50/p99, decode tok/s, peak memory, and generate on the
+     four 32-token prompts (its tok/s and token agreement with the
+     engine) printed
+  Z. hybrid serve: zamba2-1.2b at its published width (38 Mamba-2 layers
+     in 6 groups of 6 and a tail of 2, d 2048, 64 heads of 64, state 64,
+     a shared attention block of 32/32 heads of 64, d_ff 8192, vocab
+     32000; 1,172,046,720 parameters), S's traffic, asserts and prints,
+     141,472,256 B of state a slot
   7. moa_reduce timings at the serve path shapes, the verify shapes of a
      chain (C = 5) and a tree (C = 17) and G3's generate (N = 5) among
      them, and the MoE combine's bf16 shapes (CUDA events, median of 50),
@@ -183,7 +211,8 @@ Phases:
  10. flash attention timings at the training path shape (median of 20)
      beside the bound, the plain version and PyTorch's
      scaled_dot_product_attention; the forward's and the backward's
-     TFLOP/s and share of the bf16 peak beside SDPA's
+     TFLOP/s and share of the bf16 peak beside SDPA's; then the same at
+     zamba2's shared-block shape
  11. bitplane_add and quant_matmul against bitplane_add_plain and
      quant_matmul_plain, torch.equal, at the kernel-test shapes (Fig 12
      lanes, ragged and unaligned lanes, N = 1 to 64, M = 1 to 31, the all
@@ -290,11 +319,31 @@ MLA_ARCH = "minicpm3-4b"
 MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 16
 MOE_ARCH_TOP1 = "llama4-scout-17b-a16e"
 
+#: phases S and Z: the SSM (Mamba-1) and hybrid (Mamba-2 + shared
+#: attention) families at their published widths, and phase 5's reduced
+#: hybrid with a tail (5 = 2 groups of 2 + 1, as 38 = 6 x 6 + 2 has one)
+SSM_ARCH, HYBRID_ARCH, HYBRID_REDUCED_LAYERS = ("falcon-mamba-7b",
+                                                "zamba2-1.2b", 5)
+#: decode state a slot at max_seq 2048: falcon-mamba's fp32 h (64 x 8192 x
+#: 16) and bf16 conv (64 x 3 x 8192); zamba2's 38 h (64 x 64 x 64) and conv
+#: (3 x 4224) and 6 groups' bf16 k and v (2048 x 32 x 64)
+SSM_SLOT_BYTES = {SSM_ARCH: 36_700_160, HYBRID_ARCH: 141_472_256}
+#: S and Z traffic: 8 greedy requests x 32 new tokens on 4 slots, prompts
+#: of 16-64 tokens and a prefill chunk of 32 (so warmup() prefills 8 + 16
+#: + 32 tokens): these families prefill one decode step a token, ~54 ms
+#: at full width on an H100 80GB HBM3 at 700 W (host-bound), where
+#: 64-256-token prompts took 160 s a phase; the first four prompts share
+#: one length, so generate() can take them as a batch
+SSM_NEW, SSM_GENERATE_LEN, SSM_PROMPTS, SSM_CHUNK = 32, 32, (16, 64), 32
+
 #: the training path's attention shape: llama3.2-3b at batch 2 x seq 2048
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
 #: the schedule the timed steps sit at the start of: peak lr 3e-4 after a
 #: 100-step linear warm-up, cosine over 1000 steps
 TRAIN_WARMUP, TRAIN_TOTAL = 100, 1000
+#: zamba2-1.2b's shared attention block at batch 2 x seq 2048: 32 query
+#: and 32 KV heads of 64 (its training path's flash shape)
+ZAMBA_FLASH_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 32, 32, 64)
 FLASH_CHECK_SHAPES = [(2, 256, 4, 2, 64, torch.float32),
                       (1, 128, 8, 8, 128, torch.float32),
                       (2, 256, 6, 2, 80, torch.bfloat16),
@@ -304,7 +353,8 @@ FLASH_CHECK_SHAPES = [(2, 256, 4, 2, 64, torch.float32),
                       (2, 100, 6, 2, 128, torch.bfloat16),
                       (1, 200, 4, 1, 64, torch.bfloat16),
                       (2, 37, 4, 4, 80, torch.bfloat16),
-                      (2, TRAIN_SEQ, 24, 8, 128, torch.bfloat16)]
+                      (2, TRAIN_SEQ, 24, 8, 128, torch.bfloat16),
+                      ZAMBA_FLASH_SHAPE + (torch.bfloat16,)]
 
 
 def check(cond: bool, what: str) -> None:
@@ -574,6 +624,8 @@ def phase_reduced_parity() -> None:
             table_parity(dataclasses.replace(base, capacity_factor=cf),
                          REDUCED_MOE_RUNS)
     moe_train_parity()
+    for cfg in ssm_reduced_configs():
+        ssm_reduced_parity(cfg)
 
 
 def moe_train_parity() -> None:
@@ -618,6 +670,112 @@ def moe_train_parity() -> None:
           f"{len(ggrads)} gradient leaves, max |diff| {diff:.3e} (tol "
           f"1e-4); moa_reduce launches {launched} (the backward through "
           f"MoaReduce, no launch)")
+
+
+#: phase 5's SSM and hybrid runs: 2 slots for 5 requests (a slot turns
+#: over, idle lanes run), contiguous as resolve() makes them
+REDUCED_SSM_RUNS = {"sequential": ({}, False), "sampled": ({}, True)}
+
+
+def ssm_reduced_configs():
+    """Phase 5's reduced fp32 falcon-mamba-7b and tailed zamba2-1.2b."""
+    return (get_config(SSM_ARCH).reduced(dtype=torch.float32),
+            get_config(HYBRID_ARCH).reduced(
+                dtype=torch.float32, n_layers=HYBRID_REDUCED_LAYERS))
+
+
+def ssm_cpu_params(cfg):
+    """Seed-0 weights on the CPU; a hybrid's ``lora_b`` (zeros at init)
+    drawn random too, so every group's LoRA delta on ``wq`` matters."""
+    params = init_params(get_api(cfg).param_specs(cfg),
+                         torch.Generator().manual_seed(0),
+                         torch.device("cpu"), cfg.dtype)
+    if "lora_b" in params:
+        params["lora_b"] = 0.2 * torch.randn(
+            params["lora_b"].shape, generator=torch.Generator().manual_seed(1))
+    return params
+
+
+def check_ssm_gates(cfg, what: str) -> None:
+    """resolve() turns paging, speculation, prefix reuse and KV
+    quantization off for a state that is not positional."""
+    r = EngineConfig(max_slots=4, max_seq=2048, spec_k=4, spec_mode="tree",
+                     kv_dtype="int8", page_dedup=True).resolve(cfg)
+    check((r.paged_kv, r.spec_k, r.spec_mode, r.prefix_cache, r.kv_dtype,
+           r.page_dedup) == (False, 0, "chain", False, "fp32", False),
+          f"{what}: resolve() kept a gate on: {r.to_dict()}")
+
+
+def check_warmup_keeps(eng, what: str) -> None:
+    """``warmup()`` on an engine with live requests changes no state leaf
+    and no counter."""
+    before = {k: v.clone() for k, v in eng.state.items()}
+    stats = dict(eng.stats)
+    eng.warmup()
+    check(eng.stats == stats, f"{what}: warmup moved a counter")
+    bad = [k for k, v in eng.state.items() if not torch.equal(v, before[k])]
+    check(not bad, f"{what}: warmup changed the state leaves {bad}")
+
+
+def ssm_reduced_parity(cfg) -> None:
+    """Phase 5 on a reduced SSM or hybrid ``cfg``: the gates; sequential
+    greedy and sampled engines and ``generate``, CUDA against CPU (tokens
+    and every counter equal, decode logits within 1e-3, no kernel
+    launched); ``warmup()`` on a live CUDA engine keeps its state; and one
+    ``train_loss`` and every gradient CUDA against CPU within 1e-4 (the
+    hybrid's shared attention through the flash kernels on the card)."""
+    tag = f"reduced {cfg.arch_id} ({cfg.n_layers} layers)"
+    check_ssm_gates(cfg, tag)
+    cpu_params = ssm_cpu_params(cfg)
+    table_parity(cfg, REDUCED_SSM_RUNS, cpu_params)
+    gpu_params = map_tree(lambda t: t.to("cuda"), cpu_params)
+    prompts = np.random.default_rng(18).integers(0, cfg.vocab, (3, 11))
+    ids = {}
+    for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
+        _zero_kernel_counts()
+        ids[dev] = generate(cfg, p, prompts, 8, device=dev)[0]
+        _sync()
+        check(not any(_kernel_counts().values()),
+              f"{tag} generate on {dev}: a kernel launched")
+    check(np.array_equal(ids["cpu"], ids["cuda"]),
+          f"{tag}: generate tokens differ CPU vs CUDA")
+    eng = ServeEngine(cfg, gpu_params, config=EngineConfig(
+        max_slots=2, max_seq=64, prefill_chunk=16))
+    for q in make_prompts((7, 12, 5), cfg.vocab, seed=19):
+        eng.submit(q, 8)
+    eng.step()
+    eng.step()
+    check_warmup_keeps(eng, tag)
+    eng.run()
+    _free(eng)
+    toks = torch.from_numpy(np.random.default_rng(20).integers(
+        0, cfg.vocab, (2, 33)))
+    out = {}
+    for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+        p = map_tree(lambda t: t.detach().requires_grad_(True), params)
+        batch = {"tokens": toks[:, :-1].to(dev),
+                 "labels": toks[:, 1:].to(dev)}
+        _zero_kernel_counts()
+        loss = get_api(cfg).train_loss(p, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves(p))
+        _sync()
+        out[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                    _kernel_counts())
+    (closs, cgrads, _), (gloss, ggrads, counts) = out["cpu"], out["cuda"]
+    diff = max(float((a - b).abs().max()) for a, b in zip(cgrads, ggrads))
+    check(abs(closs - gloss) <= 1e-4 and diff <= 1e-4,
+          f"{tag} train: CUDA loss {gloss} (CPU {closs}), max |grad diff| "
+          f"{diff} (> 1e-4)")
+    groups = cfg.n_layers // cfg.shared_attn_period \
+        if cfg.family == "hybrid" else 0
+    want = {k: (groups if k.startswith("flash") else 0) for k in counts}
+    check(counts == want, f"{tag} train: kernel launches {counts}, "
+                          f"expected {want}")
+    print(f"[parity] {tag} train_loss (fp32, batch 2 x seq 32): loss CPU "
+          f"{closs:.6f} CUDA {gloss:.6f}; {len(ggrads)} gradient leaves, max "
+          f"|diff| {diff:.3e} (tol 1e-4); kernel launches {counts}; "
+          f"generate tokens equal CPU vs CUDA; gates off; warmup kept the "
+          f"state")
 
 
 #: phase 5's MLA runs: (engine knobs, sampled?); a "prefix warm" run
@@ -699,14 +857,16 @@ def reduced_table_runs(cfg, params, dev, table):
     return runs
 
 
-def table_parity(cfg, table) -> None:
+def table_parity(cfg, table, cpu_params=None) -> None:
     """The runs of ``table`` on the reduced fp32 ``cfg``, CUDA against CPU
-    on the same weights: tokens and every counter equal (the launch count
-    aside: CPU tensors launch nothing; the card's is held by
-    ``_check_launches``), decode logits within 1e-3."""
-    cpu_params = init_params(get_api(cfg).param_specs(cfg),
-                             torch.Generator().manual_seed(0),
-                             torch.device("cpu"), cfg.dtype)
+    on the same weights (``cpu_params``, else drawn from seed 0): tokens
+    and every counter equal (the launch count aside: CPU tensors launch
+    nothing; the card's is held by ``_check_launches``), decode logits
+    within 1e-3."""
+    if cpu_params is None:
+        cpu_params = init_params(get_api(cfg).param_specs(cfg),
+                                 torch.Generator().manual_seed(0),
+                                 torch.device("cpu"), cfg.dtype)
     cpu_runs = reduced_table_runs(cfg, cpu_params, "cpu", table)
     gpu_runs = reduced_table_runs(cfg, map_tree(lambda t: t.to("cuda"),
                                                 cpu_params), "cuda", table)
@@ -1743,6 +1903,105 @@ def phase_moe_serve(cfg, params):
     return rows, launches
 
 
+def ssm_params(cfg):
+    """An SSM or hybrid model's weights on the card at its published width:
+    random, bf16, from seed 0 (each leaf drawn in fp32, then cast)."""
+    t0 = time.perf_counter()
+    params = init_params(get_api(cfg).param_specs(cfg),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         torch.device("cuda"), cfg.dtype)
+    _sync()
+    n_params = sum(t.numel() for t in leaves(params))
+    print(f"[ssm] {cfg.arch_id}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"d_inner {cfg.d_inner}, state {cfg.ssm_state}, "
+          f"{cfg.ssm_variant}, vocab {cfg.vocab}: {n_params} params, "
+          f"{sum(t.numel() * t.element_size() for t in leaves(params))} B "
+          f"{cfg.dtype}, initialized in {time.perf_counter() - t0:.2f} s, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+          f" GB")
+    return params, n_params
+
+
+def phase_ssm_serve(cfg, params, n_params, what):
+    """Phases S and Z: an SSM or hybrid model at its published width on
+    contiguous slots (4 slots x max_seq 2048, chunk ``SSM_CHUNK``;
+    resolve() turns paging, speculation and the prefix cache off), 8
+    greedy requests of ``SSM_PROMPTS`` prompt tokens x 32 new, after
+    warmup(): every request retires
+    with 32 tokens, no decode logit is NaN, the decode state is
+    ``SSM_SLOT_BYTES`` a slot, no kernel is launched (the reference runs
+    no Pallas kernel on this path), and a second engine repeats the
+    tokens.  ``generate`` (one decode_step a position, a 0-d index) on the
+    first four prompts, their token agreement with the engine printed.
+    Returns a summary row."""
+    check_ssm_gates(cfg, what)
+    rng = np.random.default_rng(31)
+    lens = [SSM_GENERATE_LEN] * 4 + rng.integers(
+        SSM_PROMPTS[0], SSM_PROMPTS[1] + 1, 4).tolist()
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    ecfg = EngineConfig(max_slots=4, max_seq=2048, prefill_chunk=SSM_CHUNK)
+    toks, row = [], {}
+    for attempt in range(2):
+        eng = ServeEngine(cfg, params, config=ecfg)
+        check(not eng.paged and eng.prefix is None and eng.spec_k == 0,
+              f"{what}: not a contiguous sequential engine")
+        if attempt == 0:
+            t0 = time.perf_counter()
+            eng.warmup()
+            warm_s = time.perf_counter() - t0
+        eng.trace_logits = True
+        reqs = [eng.submit(q, SSM_NEW) for q in prompts]
+
+        def drive():
+            while eng.scheduler.has_work:
+                eng.step()
+
+        launches = _counted_run(eng, drive)
+        _check_launches(eng, launches, f"{what} run {attempt + 1}")
+        st = eng.stats_summary()
+        check(all(r.slot is None and len(r.generated) == SSM_NEW
+                  for r in reqs),
+              f"{what}: a request did not retire with {SSM_NEW} tokens")
+        check(not any(np.isnan(t).any() for t in eng.logit_trace),
+              f"{what}: a decode logit is NaN")
+        check(st["kv_bytes_per_slot"] == SSM_SLOT_BYTES[cfg.arch_id]
+              and st["pool_bytes"] == 4 * SSM_SLOT_BYTES[cfg.arch_id],
+              f"{what}: state {st['kv_bytes_per_slot']} B a slot, "
+              f"{st['pool_bytes']} B in all")
+        toks.append(_tokens(reqs))
+        if attempt == 0:
+            row = dict(_serve_row(st), warmup_s=warm_s, params=n_params,
+                       launches=eng.kernel_launches)
+            print(f"[ssm] {what} run 1: {_serve_line(st)}; warmup "
+                  f"{warm_s:.2f} s; state {st['kv_bytes_per_slot']} B a "
+                  f"slot; kernel launches {eng.kernel_launches}; "
+                  f"max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        _free(eng)
+    check(toks[0] == toks[1], f"{what}: a second run changed the tokens")
+    batch = np.asarray([q for q in prompts[:4]])
+    _zero_kernel_counts()
+    ids, gst = generate(cfg, params, batch, SSM_NEW)
+    check(not any(_kernel_counts().values()),
+          f"{what} generate: a kernel launched")
+    gen_toks = ids[:, SSM_GENERATE_LEN:].tolist()
+    same = sum(a == b for a, b in zip(gen_toks, toks[0][:4]))
+    agree = float(np.mean([np.mean(np.asarray(a) == np.asarray(b))
+                           for a, b in zip(gen_toks, toks[0][:4])]))
+    row.update(generate_prefill_tok_s=gst["prefill_tok_s"],
+               generate_decode_tok_s=gst["decode_tok_s"],
+               generate_equal_requests=same, generate_token_agreement=agree,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               repeat_equal=True)
+    print(f"[ssm] {what}: a second engine repeated every token; generate "
+          f"(4 x {SSM_GENERATE_LEN} + {SSM_NEW}): prefill "
+          f"{gst['prefill_tok_s']:.1f} tok/s, decode "
+          f"{gst['decode_tok_s']:.1f} tok/s, requests equal to the "
+          f"engine's {same} of 4, token agreement {agree:.4f}; peak "
+          f"max_memory_allocated {row['peak_gb']:.3f} GB")
+    return row
+
+
 @dataclasses.dataclass(frozen=True)
 class Traffic:
     """The serve traffic of phases A-C at one scale: the engine geometry,
@@ -1865,6 +2124,8 @@ def launches_per_dispatch(cfg, page_size: int) -> int:
     slot rows) and never without one (a contiguous engine of page 0 takes
     one softmax; MLA a plain softmax over the latent view); the MoE top-k
     combine once a layer."""
+    if cfg.family in ("ssm", "hybrid"):
+        return 0                       # recurrent state: no page combine
     page = 2 if cfg.attn_kind != "mla" and page_size else 0
     expert = 1 if cfg.n_experts and cfg.use_moa_reduce else 0
     return (page + expert) * cfg.n_layers
@@ -1872,12 +2133,14 @@ def launches_per_dispatch(cfg, page_size: int) -> int:
 
 def _check_launches(eng, launches: int, what: str) -> None:
     """On the card: moa_reduce launched :func:`launches_per_dispatch`
-    times a dispatch; a dense-FFN MLA model launches no kernel at all."""
+    times a dispatch; a dense-FFN MLA model and the SSM and hybrid
+    families launch no kernel at all."""
     st = eng.stats
-    if eng.cfg.attn_kind == "mla" and not eng.cfg.n_experts:
+    if (eng.cfg.attn_kind == "mla" and not eng.cfg.n_experts) or \
+            eng.cfg.family in ("ssm", "hybrid"):
         check(launches == st["moa_reduce_launches"] == 0 and not any(
             eng.kernel_launches.values()),
-            f"{what}: an MLA run launched a kernel: "
+            f"{what}: a run with no kernel on its path launched one: "
             f"{eng.kernel_launches}")
         return
     per = launches_per_dispatch(eng.cfg, eng.page_size)
@@ -2279,8 +2542,8 @@ def phase_flash_check():
     cases and at the training path shape (bf16, causal)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
-    errs = {k: {"fp32": 0.0, "path": 0.0} for k in ("fwd", "bwd_dq",
-                                                     "bwd_dkv")}
+    errs = {k: {"fp32": 0.0, "path": 0.0, "zamba2": 0.0}
+            for k in ("fwd", "bwd_dq", "bwd_dkv")}
     n = repeats = 0
     for b, s, hq, hkv, hd, dt in FLASH_CHECK_SHAPES:
         for causal in (True, False):
@@ -2336,6 +2599,8 @@ def phase_flash_check():
             key = "fp32" if dt == torch.float32 else None
             if (b, s, hq) == (TRAIN_BATCH, TRAIN_SEQ, 24) and causal:
                 key = "path"
+            if (b, s, hq, hkv, hd) == ZAMBA_FLASH_SHAPE and causal:
+                key = "zamba2"
             for name, e in found.items():
                 if key:
                     errs[name][key] = max(errs[name][key], float(e))
@@ -2347,8 +2612,11 @@ def phase_flash_check():
           f"{errs['bwd_dq']['fp32']:.3e} dkv {errs['bwd_dkv']['fp32']:.3e}; "
           f"at the path shape (bf16) fwd {errs['fwd']['path']:.3e} dq "
           f"{errs['bwd_dq']['path']:.3e} dkv {errs['bwd_dkv']['path']:.3e}; "
-          f"two forward and two backward calls torch.equal at the path "
-          f"shape ({repeats} cases)")
+          f"at zamba2's shared-block shape {ZAMBA_FLASH_SHAPE} (bf16, "
+          f"causal) fwd {errs['fwd']['zamba2']:.3e} dq "
+          f"{errs['bwd_dq']['zamba2']:.3e} dkv "
+          f"{errs['bwd_dkv']['zamba2']:.3e}; two forward and two backward "
+          f"calls torch.equal at the path shape ({repeats} cases)")
     check(repeats == 2, "flash: the path shape was not repeated")
     return errs
 
@@ -2498,11 +2766,12 @@ def phase_train_full():
     return counts
 
 
-def phase_flash_timing():
-    """Device times at the training path shape (bf16, causal)."""
+def phase_flash_timing(shape=(TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128)):
+    """Device times at ``shape`` (B, S, Hq, Hkv, hd), bf16, causal: the
+    llama training path's by default."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
-    b, s, hq, hkv, hd = TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128
+    b, s, hq, hkv, hd = shape
     dt = torch.bfloat16
     q, do = (torch.randn((b, s, hq, hd), generator=gen, device=dev).to(dt)
              for _ in range(2))
@@ -2975,6 +3244,16 @@ def main() -> int:
     del moe_weights
     gc.collect()
     torch.cuda.empty_cache()       # the MoE weights go
+    ssm_rows = {}
+    for label, arch in (("S", SSM_ARCH), ("Z", HYBRID_ARCH)):
+        torch.cuda.reset_peak_memory_stats()
+        ssm_cfg = get_config(arch)
+        weights, n_params = ssm_params(ssm_cfg)
+        ssm_rows[label] = timed(f"{label} {arch} serve", phase_ssm_serve,
+                                ssm_cfg, weights, n_params, label)
+        del weights
+        gc.collect()
+        torch.cuda.empty_cache()   # its weights go
     rows = timed("7 moa_reduce timing", phase_timing, shapes) + \
         phase_timing(moe_path, torch.bfloat16)
     timed("8 train parity", phase_train_parity)
@@ -2982,6 +3261,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()       # the train state goes
     flash_rows = timed("10 flash timing", phase_flash_timing)
+    zamba_flash_rows = timed("10 flash timing, zamba2 shape",
+                             phase_flash_timing, ZAMBA_FLASH_SHAPE)
     bitplane, matmul = adder_shapes(full_cfg)
     adder_err = timed("11 adder check", phase_adder_check, bitplane, matmul)
     adder_launches = timed("12 adder path", phase_adder_path, full_cfg,
@@ -3001,6 +3282,7 @@ def main() -> int:
         "checked": "torch.equal vs moa_reduce_plain", "shapes": rows,
         "spec_serve": spec_rows, "quant_serve": quant_rows,
         "mla_serve": mla_rows, "moe_serve": moe_rows,
+        "ssm_serve": ssm_rows,
         "contiguous_serve": contig_rows,
         "launches_by_serve_phase": {
             f"{ph} {run}": n for ph, d in serve_launches.items()
@@ -3031,7 +3313,13 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "shape": [TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128], "dtype": "bf16",
             "plain": plain[part], "library": library[part],
-            "bound": bound[part]})
+            "bound": bound[part],
+            "zamba2_shape": dict(
+                {k: zamba_flash_rows[part][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                shape=list(ZAMBA_FLASH_SHAPE), dtype="bf16",
+                max_abs_err=flash_err[part]["zamba2"])})
     checked = {"bitplane_add": "torch.equal vs bitplane_add_plain",
                "quant_matmul": "torch.equal vs quant_matmul_plain"}
     for name in ("bitplane_add", "quant_matmul"):

@@ -3,7 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve
 
 Builds ``--arch`` (default ``llama3.2-3b``; ``minicpm3-4b`` serves through
-MLA's latent pools, ``phi3.5-moe-42b-a6.6b`` through the routed MoE FFN)
+MLA's latent pools, ``phi3.5-moe-42b-a6.6b`` through the routed MoE FFN,
+``falcon-mamba-7b`` and ``zamba2-1.2b`` through their recurrent state on
+contiguous slots, whose prefill is one decode step a token: give them a
+short ``--context`` and ``--prompt-len``)
 at full width (random bf16 weights from ``--seed``; ``--layers N`` cuts the
 depth to N layers, for a model whose published depth does not fit the
 card: ``phi3.5-moe-42b-a6.6b --layers 16`` is ``chip_smoke.py``'s phase M),
@@ -13,8 +16,8 @@ prefill chunk 256, page 128, prefix cache off; every
 e.g. ``--no-paged-kv`` for contiguous slots), and traces two windows
 after a warm-up:
 
-* decode: ``--steps`` engine steps with all 4 slots live and nothing to
-  admit (pure batched decode; with ``--spec-k`` and the other speculative
+* decode: ``--steps`` engine steps with all 4 slots live (admitted with
+  ``--context``-token prompts, untraced) and nothing to admit (pure batched decode; with ``--spec-k`` and the other speculative
   flags of the serve CLI, each step is one verify dispatch instead — the
   default stays sequential, as in phase 6);
 * prefill: the admission of one ``--prompt-len``-token prompt (its chunked
@@ -104,7 +107,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="llama3.2-3b", choices=list_archs())
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--prompt-len", type=int, default=1024)
+    ap.add_argument("--prompt-len", type=int, default=1024,
+                    help="the traced admission's prompt tokens")
+    ap.add_argument("--context", type=int, default=512,
+                    help="prompt tokens of the decode window's requests")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=0,
@@ -155,7 +161,8 @@ def main(argv=None) -> int:
 
     # decode window: 4 live slots, nothing pending
     for _ in range(eng.max_slots):
-        eng.submit(prompt(512), 2 * args.steps + 8, sampling=sampling())
+        eng.submit(prompt(args.context), 2 * args.steps + 8,
+                   sampling=sampling())
     eng.step()                                        # admits all four
     eng.reset_stats()
     torch.cuda.synchronize()

@@ -41,6 +41,7 @@ from repro_torch.models.registry import get_api
 from repro_torch.serve import (EngineConfig, SamplingParams, ServeEngine,
                                add_cli_args, config_from_args, prng,
                                state_zeros)
+from repro_torch.tree import leaves
 
 __all__ = ["main", "generate", "serve_batch", "batch_config"]
 
@@ -79,10 +80,12 @@ def generate(cfg, params, prompts: np.ndarray, gen: int,
                                {"tokens": tok, "index": torch.tensor(
                                    i, device=dev)}, cfg)[0]
 
-    # warm up outside the timed region (first kernel use, cuBLAS handles):
-    # the call writes position 0, which the first timed step rewrites with
-    # the same rows
+    # warm up outside the timed region (first kernel use, cuBLAS handles),
+    # then zero the state again: a recurrent family's step advances its
+    # whole state, not only position 0
     step(toks[:, :1], 0)
+    for t in leaves(state):
+        t.zero_()
     _sync(dev)
     out = [toks]
     key = prng.prng_key(torch.tensor(seed, device=dev))

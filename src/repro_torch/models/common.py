@@ -28,7 +28,7 @@ class ParamSpec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
     dtype: torch.dtype = torch.float32
-    init: str = "normal"        # "normal" | "zeros" | "ones"
+    init: str = "normal"        # "normal" | "zeros" | "ones" | "ssm_dt" | "ssm_a"
     scale: Optional[float] = None  # override fan-in scale
 
     def __post_init__(self):
@@ -43,10 +43,21 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ssm_a":
+        # Mamba A init: -[1..state] broadcast, stored as log (taken in
+        # float64, so every entry is log(n) correctly rounded, on any
+        # device)
+        a = torch.arange(1, spec.shape[-1] + 1, dtype=torch.float64,
+                         device=device)
+        return torch.log(a).float().expand(spec.shape).contiguous().to(dtype)
+    if spec.init == "ssm_dt":
+        # dt bias ~ log-uniform in [1e-3, 1e-1]
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32,
+                       device=device)
+        return torch.exp(u * (hi - lo) + lo).to(dtype)
     if spec.init != "normal":
-        raise NotImplementedError(
-            f"init {spec.init!r} belongs to the SSM families, which arrive "
-            f"with ROADMAP.md queue 1 item 10")
+        raise ValueError(f"unknown init {spec.init!r}")
     scale = spec.scale
     if scale is None:
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
@@ -61,7 +72,9 @@ def init_params(specs: Any, generator: torch.Generator,
                 ) -> Any:
     """Initialize a nested dict of tensors from a :class:`ParamSpec` tree:
     fan-in scaled normals (drawn in fp32 from ``generator``, which must
-    live on ``device``), zeros or ones.  Every leaf is stored in ``dtype``
+    live on ``device``), zeros, ones, the Mamba ``A_log`` table
+    (``"ssm_a"``: ``log(1..state)`` on the last axis) or log-uniform ``dt``
+    biases in [1e-3, 1e-1] (``"ssm_dt"``).  Every leaf is stored in ``dtype``
     when given (the model's compute dtype: the JAX package keeps fp32
     params and casts them at every use, which gives the same values), else
     in its spec's dtype.  The JAX package draws from ``jax.random``, so the

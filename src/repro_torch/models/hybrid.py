@@ -1,0 +1,351 @@
+"""SSM LM (falcon-mamba) and the Mamba-2 + shared-attention hybrid (zamba2).
+
+The counterpart of ``repro/models/hybrid.py`` on one card.
+
+* **SSM LM** (``family="ssm"``): pre-norm residual Mamba blocks
+  (:mod:`repro_torch.models.ssm`, Mamba-1 or Mamba-2 by
+  ``cfg.ssm_variant``), ``blocks`` stacked on a leading layers axis (or, as
+  the train step passes them, a list of per-layer dicts).
+* **zamba2 hybrid** (``family="hybrid"``): groups of
+  ``shared_attn_period`` Mamba-2 layers, each group followed by ONE call of
+  a weight-shared attention + SwiGLU block whose query projection gets
+  that group's LoRA delta, ``wq + lora_a[g] @ lora_b[g]``, built as a new
+  tensor at every call (the shared weights are never written).  Layers
+  past the last full group form a tail (``hybrid_layout``).  The shared
+  block trains through :func:`repro_torch.models.attention.gqa_train`, so
+  on the card through the flash attention kernels.
+
+Decode state is O(1) in the sequence for the Mamba layers: per layer an
+fp32 ``h`` and a ``conv`` window (:func:`ssm_decode_state_specs`); the
+hybrid adds one dense ``k`` / ``v`` cache per group, attended with one
+softmax (:func:`repro_torch.models.attention.gqa_decode`).  The decode
+steps write the new state into the given tensors in place (a contiguous
+engine passes its slot rows as views) and return the same dict.  Chunked
+prefill (:func:`_scan_prefill`) is the decode step repeated over the
+chunk's valid tokens, so it equals the per-token loop exactly.  These
+families cannot rewind state position by position, so they have no
+speculative verification, and their state is neither paged nor shared by
+prefix (``EngineConfig.resolve``).
+
+Not in this slice: the mesh's split-K decode of the shared attention
+(``gqa_decode_splitk``, ``ROADMAP.md`` queue 1 step 6).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, moe, ssm
+from repro_torch.models.common import (ParamSpec, cross_entropy_loss,
+                                       rms_norm)
+from repro_torch.models.lm import _layer, embed_inputs, stack_specs
+from repro_torch.tree import index_tree
+
+__all__ = [
+    "ssm_param_specs", "ssm_train_loss", "ssm_decode_state_specs",
+    "ssm_decode_step", "ssm_forward", "ssm_prefill_chunk",
+    "hybrid_param_specs", "hybrid_train_loss", "hybrid_decode_state_specs",
+    "hybrid_decode_step", "hybrid_forward", "hybrid_layout",
+    "hybrid_prefill_chunk",
+]
+
+
+# ---------------------------------------------------------------------------
+# pure SSM LM (mamba1 / mamba2 backbone)
+# ---------------------------------------------------------------------------
+
+def _ssm_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    sp = (ssm.mamba1_param_specs if cfg.ssm_variant == "mamba1"
+          else ssm.mamba2_param_specs)(cfg)
+    return {"norm": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+            "ssm": sp}
+
+
+def ssm_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                           scale=0.02),
+        "blocks": stack_specs(_ssm_block_specs(cfg), cfg.n_layers),
+        "final_norm": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+        "lm_head": ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab")),
+    }
+
+
+def _ssm_apply(x: torch.Tensor, bp: dict, cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, bp["norm"], cfg.norm_eps)
+    train = (ssm.mamba1_train if cfg.ssm_variant == "mamba1"
+             else ssm.mamba2_train)
+    return x + train(h, bp["ssm"], cfg)
+
+
+def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` and grad
+    are on (``jax.checkpoint`` with ``nothing_saveable``: only the input is
+    kept, the backward runs ``fn`` again), else ``fn``."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
+def _logits(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["lm_head"].to(x.dtype)
+
+
+def ssm_forward(params: dict, batch: Dict[str, torch.Tensor],
+                cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V) in the compute dtype, a zero aux loss)."""
+    x = embed_inputs(params, batch, cfg)
+    layer = _maybe_remat(lambda x, bp: _ssm_apply(x, bp, cfg), cfg)
+    for i in range(cfg.n_layers):
+        x = layer(x, _layer(params["blocks"], i))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(x, params, cfg), aux
+
+
+def ssm_train_loss(params: dict, batch: Dict[str, torch.Tensor],
+                   cfg: ModelConfig) -> torch.Tensor:
+    logits, _ = ssm_forward(params, batch, cfg)
+    return cross_entropy_loss(logits, batch["labels"],
+                              batch.get("loss_mask"))
+
+
+def ssm_decode_state_specs(cfg: ModelConfig, batch: int, max_seq: int
+                           ) -> Dict[str, ParamSpec]:
+    """O(1)-in-sequence decode state: an SSM's "KV cache" is a fixed
+    (d_inner, N) summary and a (K-1)-row conv window a layer, whatever the
+    context length."""
+    del max_seq
+    l = cfg.n_layers
+    if cfg.ssm_variant == "mamba1":
+        return {
+            "h": ParamSpec((l, batch, cfg.d_inner, cfg.ssm_state),
+                           ("layers", "batch", "ssm_inner", "ssm_state"),
+                           dtype=torch.float32, init="zeros"),
+            "conv": ParamSpec((l, batch, cfg.ssm_conv - 1, cfg.d_inner),
+                              ("layers", "batch", None, "ssm_inner"),
+                              dtype=cfg.dtype, init="zeros"),
+        }
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    return {
+        "h": ParamSpec((l, batch, cfg.ssm_heads, cfg.ssm_state,
+                        cfg.ssm_head_dim),
+                       ("layers", "batch", "ssm_heads", "ssm_state", None),
+                       dtype=torch.float32, init="zeros"),
+        "conv": ParamSpec((l, batch, cfg.ssm_conv - 1, conv_dim),
+                          ("layers", "batch", None, "ssm_inner"),
+                          dtype=cfg.dtype, init="zeros"),
+    }
+
+
+def _mamba_decode_layer(x: torch.Tensor, bp: dict, cfg: ModelConfig,
+                        state: Dict[str, torch.Tensor], i: int
+                        ) -> torch.Tensor:
+    """One residual Mamba block at layer ``i`` of ``state``; the layer's
+    new ``h`` and ``conv`` are written into ``state`` in place."""
+    step = (ssm.mamba1_decode if cfg.ssm_variant == "mamba1"
+            else ssm.mamba2_decode)
+    hin = rms_norm(x, bp["norm"], cfg.norm_eps)
+    out, new = step(hin, bp["ssm"], cfg,
+                    {"h": state["h"][i], "conv": state["conv"][i]})
+    state["h"][i].copy_(new["h"])
+    state["conv"][i].copy_(new["conv"])
+    return x + out
+
+
+def _decode_logits(x: torch.Tensor, params: dict, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    return _logits(x, params, cfg)[:, 0].float()
+
+
+def ssm_decode_step(params: dict, state: Dict[str, torch.Tensor],
+                    batch: Dict[str, torch.Tensor], cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token a slot: batch {"tokens": (B, 1), "index": 0-d or (B,)
+    (unused: the state carries the position)}.  Returns (logits (B, V)
+    float32, state updated in place)."""
+    x = params["embed"][batch["tokens"]].to(cfg.dtype)
+    for i in range(cfg.n_layers):
+        x = _mamba_decode_layer(x, _layer(params["blocks"], i), cfg, state, i)
+    return _decode_logits(x, params, cfg), state
+
+
+def _scan_prefill(decode_step_fn: Callable, params: dict,
+                  state: Dict[str, torch.Tensor],
+                  batch: Dict[str, torch.Tensor], cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Chunked prefill for recurrent-state families: the single-token
+    decode step over the chunk's first ``nvalid`` tokens, so it equals the
+    per-token loop exactly; bucket padding past ``nvalid`` is never fed
+    (the reference masks it out of the state and the logits).
+
+    batch: {"tokens": (B, C), "index": 0-d chunk start, "nvalid": count of
+    real tokens (<= C)}.  Returns (logits (B, V) float32 at row ``nvalid -
+    1``, zeros when ``nvalid`` is 0; state, updated in place)."""
+    tokens = batch["tokens"]
+    b, c = tokens.shape
+    start = torch.as_tensor(batch["index"], device=tokens.device)
+    nvalid = min(int(batch.get("nvalid", c)), c)
+    logits = torch.zeros((b, cfg.vocab), dtype=torch.float32,
+                         device=tokens.device)
+    for t in range(nvalid):
+        logits, state = decode_step_fn(
+            params, state, {"tokens": tokens[:, t:t + 1], "index": start + t},
+            cfg)
+    return logits, state
+
+
+def ssm_prefill_chunk(params: dict, state: Dict[str, torch.Tensor],
+                      batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    return _scan_prefill(ssm_decode_step, params, state, batch, cfg)
+
+
+# ---------------------------------------------------------------------------
+# zamba2 hybrid
+# ---------------------------------------------------------------------------
+
+def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(n_groups, tail): full groups of `period` mamba layers + tail."""
+    period = cfg.shared_attn_period
+    return cfg.n_layers // period, cfg.n_layers % period
+
+
+def hybrid_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    groups, tail = hybrid_layout(cfg)
+    period = cfg.shared_attn_period
+    mamba = _ssm_block_specs(cfg)
+    specs: Dict[str, Any] = {
+        "embed": ParamSpec((cfg.vocab, d), ("vocab", "embed"), scale=0.02),
+        "mamba_groups": stack_specs(stack_specs(mamba, period), groups),
+        "shared": {
+            "attn_norm": ParamSpec((d,), ("embed",), init="ones"),
+            "attn": attention.gqa_param_specs(cfg),
+            "ffn_norm": ParamSpec((d,), ("embed",), init="ones"),
+            "ffn": moe.dense_ffn_specs(cfg),
+        },
+        "lora_a": ParamSpec((groups, d, cfg.shared_lora_rank),
+                            ("layers", "embed", None), scale=0.02),
+        "lora_b": ParamSpec((groups, cfg.shared_lora_rank,
+                             cfg.n_heads * cfg.hd),
+                            ("layers", None, "q_heads"), init="zeros"),
+        "final_norm": ParamSpec((d,), ("embed",), init="ones"),
+        "lm_head": ParamSpec((d, cfg.vocab), ("embed", "vocab")),
+    }
+    if tail:
+        specs["mamba_tail"] = stack_specs(mamba, tail)
+    return specs
+
+
+def _lora_attn(params: dict, g: int) -> dict:
+    """The shared attention's params for group ``g``: ``wq`` plus the
+    group's LoRA delta, a new tensor (fp32 sum, stored in ``wq``'s dtype,
+    as the reference adds it to its fp32 masters)."""
+    ap = dict(params["shared"]["attn"])
+    wq = ap["wq"]
+    delta = params["lora_a"][g].float() @ params["lora_b"][g].float()
+    ap["wq"] = (wq.float() + delta).to(wq.dtype)
+    return ap
+
+
+def _shared_ffn(x: torch.Tensor, sp: dict, cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, sp["ffn_norm"], cfg.norm_eps)
+    return x + moe.dense_ffn(h, sp["ffn"], cfg)
+
+
+def _shared_block_train(x: torch.Tensor, params: dict, g: int,
+                        cfg: ModelConfig) -> torch.Tensor:
+    sp = params["shared"]
+    h = rms_norm(x, sp["attn_norm"], cfg.norm_eps)
+    x = x + attention.gqa_train(h, _lora_attn(params, g), cfg)
+    return _shared_ffn(x, sp, cfg)
+
+
+def _mamba_layer(params: dict, layer: int, cfg: ModelConfig) -> dict:
+    """Mamba layer ``layer``'s params: (group, position) of
+    ``mamba_groups``, or an entry of ``mamba_tail``."""
+    period = cfg.shared_attn_period
+    groups, _ = hybrid_layout(cfg)
+    if layer < groups * period:
+        return index_tree(index_tree(params["mamba_groups"],
+                                     layer // period), layer % period)
+    return index_tree(params["mamba_tail"], layer - groups * period)
+
+
+def hybrid_forward(params: dict, batch: Dict[str, torch.Tensor],
+                   cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V) in the compute dtype, a zero aux loss)."""
+    groups, tail = hybrid_layout(cfg)
+    period = cfg.shared_attn_period
+    x = embed_inputs(params, batch, cfg)
+
+    def group(x, g):
+        for j in range(period):
+            x = _ssm_apply(x, _mamba_layer(params, g * period + j, cfg), cfg)
+        return _shared_block_train(x, params, g, cfg)
+
+    group = _maybe_remat(group, cfg)
+    for g in range(groups):
+        x = group(x, g)
+    for t in range(tail):
+        x = _ssm_apply(x, _mamba_layer(params, groups * period + t, cfg), cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(x, params, cfg), aux
+
+
+def hybrid_train_loss(params: dict, batch: Dict[str, torch.Tensor],
+                      cfg: ModelConfig) -> torch.Tensor:
+    logits, _ = hybrid_forward(params, batch, cfg)
+    return cross_entropy_loss(logits, batch["labels"],
+                              batch.get("loss_mask"))
+
+
+def hybrid_decode_state_specs(cfg: ModelConfig, batch: int, max_seq: int
+                              ) -> Dict[str, ParamSpec]:
+    """Per-layer Mamba-2 ``h`` / ``conv`` (``n_layers``, tail included) and
+    one dense KV cache per group for the shared attention."""
+    groups, _ = hybrid_layout(cfg)
+    specs = ssm_decode_state_specs(cfg, batch, max_seq)
+    for name in ("k", "v"):
+        specs[name] = ParamSpec(
+            (groups, batch, max_seq, cfg.n_kv_heads, cfg.hd),
+            ("layers", "batch", "kv_seq", None, None),
+            dtype=cfg.dtype, init="zeros")
+    return specs
+
+
+def hybrid_decode_step(params: dict, state: Dict[str, torch.Tensor],
+                       batch: Dict[str, torch.Tensor], cfg: ModelConfig
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token a slot: batch {"tokens": (B, 1), "index": 0-d lockstep
+    position or (B,) per-slot lengths (the shared attention's write
+    position)}.  Returns (logits (B, V) float32, state updated in place:
+    layer ``l``'s ``h`` / ``conv`` at row ``l``, group ``g``'s ``k`` / ``v``
+    at row ``g``)."""
+    cur = batch["index"]
+    groups, tail = hybrid_layout(cfg)
+    period = cfg.shared_attn_period
+    sp = params["shared"]
+    x = params["embed"][batch["tokens"]].to(cfg.dtype)
+    for g in range(groups):
+        for j in range(period):
+            layer = g * period + j
+            x = _mamba_decode_layer(x, _mamba_layer(params, layer, cfg), cfg,
+                                    state, layer)
+        hin = rms_norm(x, sp["attn_norm"], cfg.norm_eps)
+        out, _, _ = attention.gqa_decode(hin, _lora_attn(params, g), cfg,
+                                         state["k"][g], state["v"][g], cur)
+        x = _shared_ffn(x + out, sp, cfg)
+    for t in range(tail):
+        layer = groups * period + t
+        x = _mamba_decode_layer(x, _mamba_layer(params, layer, cfg), cfg,
+                                state, layer)
+    return _decode_logits(x, params, cfg), state
+
+
+def hybrid_prefill_chunk(params: dict, state: Dict[str, torch.Tensor],
+                         batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    return _scan_prefill(hybrid_decode_step, params, state, batch, cfg)

@@ -1,10 +1,13 @@
 """Model API dispatch (counterpart of ``repro/models/registry.py``).
 
-The port serves and trains the decoders: ``family`` dense, moe or vlm
-(the vision stub only feeds training, and raises there until its ROADMAP
-item), ``attn_kind`` ``"gqa"`` or ``"mla"``, with a dense or a routed MoE
-FFN.  The SSM and hybrid families raise ``NotImplementedError`` naming
-the ROADMAP.md item that brings them.
+The port serves and trains every decoder family of the JAX package:
+``family`` dense, moe or vlm (the vision stub only feeds training, and
+raises there until its ROADMAP item), ``attn_kind`` ``"gqa"`` or
+``"mla"``, with a dense or a routed MoE FFN, through
+:mod:`repro_torch.models.lm`; and ``family`` ssm (``falcon-mamba-7b``)
+and hybrid (``zamba2-1.2b``) through :mod:`repro_torch.models.hybrid`,
+whose O(1) recurrent state cannot be rewound position by position, so
+they have no speculative verification and no draft heads.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import hybrid, lm
 
 __all__ = ["ModelAPI", "get_api"]
 
@@ -51,10 +54,20 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
     if cfg.encoder_only:
         raise ValueError(f"{cfg.arch_id} is encoder-only: it has no decode "
                          f"path")
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: SSM/hybrid families arrive with ROADMAP.md "
-            f"queue 1 item 10")
+    if cfg.family == "ssm":
+        return ModelAPI(param_specs=hybrid.ssm_param_specs,
+                        train_loss=hybrid.ssm_train_loss,
+                        forward=hybrid.ssm_forward,
+                        decode_state_specs=hybrid.ssm_decode_state_specs,
+                        decode_step=hybrid.ssm_decode_step,
+                        prefill_chunk=hybrid.ssm_prefill_chunk)
+    if cfg.family == "hybrid":
+        return ModelAPI(param_specs=hybrid.hybrid_param_specs,
+                        train_loss=hybrid.hybrid_train_loss,
+                        forward=hybrid.hybrid_forward,
+                        decode_state_specs=hybrid.hybrid_decode_state_specs,
+                        decode_step=hybrid.hybrid_decode_step,
+                        prefill_chunk=hybrid.hybrid_prefill_chunk)
     if cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.arch_id}: attn_kind={cfg.attn_kind!r} is not served by "

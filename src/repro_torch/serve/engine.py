@@ -702,7 +702,9 @@ class ServeEngine:
         A paged engine runs them on all-scratch page tables, and re-zeroes
         scratch after.  A contiguous engine runs the verifies with ``nspec
         = 0`` (every write masked) and the rest on the first positions of
-        every slot, saved before and put back as they were.  The state
+        every slot, saved before and put back as they were; a leaf with no
+        sequence axis (an SSM layer's ``h`` and ``conv``) is saved and put
+        back whole.  The state
         (a paged engine's scratch page aside) and every counter are left
         as they were."""
         b, dev = self.max_slots, self.device
@@ -720,9 +722,13 @@ class ServeEngine:
                 cache.copy_page(self.state, self.pspecs, 0, 0)
         else:
             for name, t in self.state.items():
-                first = t.narrow(self.specs[name].axes.index("kv_seq"), 0,
-                                 buckets[-1])
-                saved[name] = (first, first.clone())
+                axes = self.specs[name].axes
+                # a positional leaf: the rows the warm-up can reach; a
+                # recurrent one (SSM h / conv): whole, since every
+                # dispatch rewrites every slot's
+                if "kv_seq" in axes:
+                    t = t.narrow(axes.index("kv_seq"), 0, buckets[-1])
+                saved[name] = (t, t.clone())
             slot_state = cache.slot_slice(self.state, self.specs, 0)
             if self.prefix is not None:
                 cache.copy_slot(self.state, self.specs, 0, 0)

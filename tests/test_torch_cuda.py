@@ -24,7 +24,7 @@ from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.serve import (EngineConfig, SamplingParams, ServeEngine,
                                 cache, prng, sampling)
 from repro_torch.train.state import build_train_step, init_train_state
-from repro_torch.tree import map_tree
+from repro_torch.tree import leaves, map_tree
 
 DTYPES = {"float32": (torch.float32, torch.float32),
           "bfloat16": (torch.bfloat16, torch.float32),
@@ -1187,3 +1187,69 @@ def test_mla_train_loss_on_the_card_equals_cpu(cuda_device):
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert abs(a - b) <= 1e-4 * max(1.0, b)
     assert out["cuda"][2] == (0,) * 6
+
+
+#: the SSM and hybrid families at their reduced fp32 configs
+SSM_ARCHS = ["falcon-mamba-7b", "zamba2-1.2b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+@pytest.mark.parametrize("sampled", [False, True])
+def test_ssm_engine_on_the_card_equals_cpu(cuda_device, arch, sampled):
+    """The reduced SSM and hybrid configs on contiguous slots: CUDA gives
+    the CPU engine's tokens and counters, and launches no hand-written
+    kernel (no page combine; the hybrid decodes through the dense
+    ``gqa_decode``)."""
+    sps = ([SamplingParams(temperature=0.8, top_k=40, seed=i)
+            for i in range(4)] if sampled else None)
+    _, out = _reduced_engine_runs({}, sps, arch=arch)
+    assert out["cuda"][0] == out["cpu"][0]
+    st, cst = out["cuda"][1], out["cpu"][1]
+    assert st["pool_pages"] == 0 and st["spec_k"] == 0
+    for k in ("decode_steps", "prefill_dispatches", "prefill_tokens",
+              "admissions", "kv_bytes_per_slot", "pool_bytes",
+              "moa_reduce_launches"):
+        assert st[k] == cst[k], k
+    assert st["decode_steps"] > 0
+    assert out["cuda"][3] == (0,) * 6 == out["cpu"][3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_train_loss_on_the_card_equals_cpu(cuda_device, arch):
+    """The reduced SSM and hybrid losses and gradients, CUDA against CPU
+    within 1e-4; the hybrid's shared attention runs the flash kernels,
+    forward, dq and dk/dv once a group each."""
+    cfg = get_config(arch).reduced(dtype=torch.float32)
+    api = get_api(cfg)
+    params = init_params(api.param_specs(cfg),
+                         torch.Generator().manual_seed(0),
+                         torch.device("cpu"), torch.float32)
+    toks = torch.randint(0, cfg.vocab, (2, 33),
+                         generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            p = map_tree(lambda t: t.detach().to(dev).requires_grad_(),
+                         params)
+            flat = leaves(p)
+            counts = _kernel_launches()
+            loss = api.train_loss(p, {"tokens": toks[:, :-1].to(dev),
+                                      "labels": toks[:, 1:].to(dev)}, cfg)
+            grads = torch.autograd.grad(loss, flat)
+            torch.cuda.synchronize()
+            out[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                        tuple(a - b for a, b in zip(_kernel_launches(),
+                                                    counts)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    groups = (cfg.n_layers // cfg.shared_attn_period
+              if cfg.family == "hybrid" else 0)
+    assert out["cuda"][2] == (0, groups, groups, groups, 0, 0)
+    assert out["cpu"][2] == (0,) * 6

@@ -55,6 +55,8 @@ def test_port_files_found():
             "src/repro_torch/models/quant_kv.py",
             "src/repro_torch/models/mla.py",
             "src/repro_torch/models/moe.py",
+            "src/repro_torch/models/ssm.py",
+            "src/repro_torch/models/hybrid.py",
             "src/repro_torch/models/lm.py",
             "src/repro_torch/models/common.py",
             "src/repro_torch/models/registry.py",

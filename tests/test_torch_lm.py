@@ -218,18 +218,45 @@ def test_decode_with_fp32_params_under_bf16_matches_jax():
         assert _rel_l2(tstate[k].float().numpy(), j.numpy()) <= 2e-2
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("falcon-mamba-7b", "item 10"), ("zamba2-1.2b", "item 10")])
-def test_unserved_families_raise_with_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        get_api(tget(arch))
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
+def test_ssm_families_are_served(arch):
+    """The SSM and hybrid families get forward, train_loss, decode and
+    chunked prefill from ``models.hybrid``, and no speculative entry
+    point (their recurrent state cannot be rewound); the published specs
+    have the JAX package's shapes."""
+    cfg = tget(arch)
+    api = get_api(cfg)
+    pre = "ssm" if cfg.family == "ssm" else "hybrid"
+    for field in ("param_specs", "train_loss", "forward",
+                  "decode_state_specs", "decode_step", "prefill_chunk"):
+        fn = getattr(api, field)
+        assert fn.__module__ == "repro_torch.models.hybrid"
+        assert fn.__name__.startswith(pre + "_"), (field, fn.__name__)
+    assert api.verify_chunk is None and api.verify_tree is None
+    assert api.draft_head_specs is None
+    specs = api.param_specs(cfg)
+    state = api.decode_state_specs(cfg, 4, 2048)
+    di = cfg.d_inner
+    if pre == "ssm":
+        assert specs["blocks"]["ssm"]["in_proj"].shape == (64, 4096, 16384)
+        assert specs["blocks"]["ssm"]["A_log"].init == "ssm_a"
+        assert state["h"].shape == (64, 4, di, 16)
+        assert state["conv"].shape == (64, 4, 3, di)
+    else:
+        assert specs["mamba_groups"]["ssm"]["in_proj"].shape == (
+            6, 6, 2048, 2 * di + 2 * 64 + 64)
+        assert specs["mamba_tail"]["norm"].shape == (2, 2048)
+        assert specs["lora_a"].shape == (6, 2048, 64)
+        assert state["h"].shape == (38, 4, 64, 64, 64)
+        assert state["k"].shape == (6, 4, 2048, 32, 64)
+    assert "kv_seq" not in state["h"].axes
 
 
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
                                   "llama4-scout-17b-a16e"])
 def test_moe_families_are_served(arch):
     """Both MoE architectures get the whole API, with the routed FFN in
-    every block; SSM and hybrid still raise."""
+    every block."""
     cfg = tget(arch)
     api = get_api(cfg)
     assert api.verify_chunk is tlm.verify_chunk
@@ -239,9 +266,6 @@ def test_moe_families_are_served(arch):
     assert ffn["w1"].shape == (cfg.n_layers, cfg.n_experts, cfg.d_model,
                                cfg.d_ff)
     assert ("shared_w1" in ffn) == bool(cfg.n_shared_experts)
-    for other in ("falcon-mamba-7b", "zamba2-1.2b"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            get_api(tget(other))
 
 
 def test_encoder_only_has_no_decode_path():
