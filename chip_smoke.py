@@ -6,7 +6,9 @@
 Builds every kernel of the serve and training paths from the sources in
 the checkout, holds each against its plain PyTorch version on the card,
 drives the port's serve engine and its trainer at the full width of
-``llama3.2-3b``, its serve engine at the full width of the MLA model
+``llama3.2-3b``, its trainer at that of the encoder-only
+``hubert-xlarge`` (with checkpoint and exact resume) and of
+``internvl2-26b`` (4 of its 48 layers), its serve engine at the full width of the MLA model
 ``minicpm3-4b``, of the MoE model ``phi3.5-moe-42b-a6.6b`` (16 of its
 32 layers: the whole model does not fit the card), of the SSM
 ``falcon-mamba-7b`` and of the hybrid ``zamba2-1.2b`` (random weights
@@ -35,7 +37,9 @@ Phases:
      shapes with a ragged S, and the training path's; two forward calls
      at the path shape give torch.equal o and lse, two backward calls
      torch.equal dq, delta, dk and dv; and at zamba2's shared-block shape,
-     (2, 2048, 32, 64) bf16 (32 query and 32 KV heads of 64)
+     (2, 2048, 32, 64) bf16 (32 query and 32 KV heads of 64), at
+     hubert-xlarge's (2, 2048, 16, 16, 80) bf16 (head dim 80, zero-padded
+     to 128 by the wrappers) and at internvl2-26b's (2, 2048, 48, 8, 128)
   5. serve, reduced-config parity: the engine on CUDA against the engine
      on CPU, same weights: greedy tokens equal, decode logits within 1e-3;
      then the traffic of phases A-C cut to the reduced fp32 config, CUDA
@@ -198,7 +202,10 @@ Phases:
      beside the bound, the plain version and torch.sum
   8. train, reduced-config parity: 3 AdamW steps of the reduced fp32
      config from one state on the CPU (chunked attention) and on CUDA (the
-     kernels): losses within 1e-4, kernels launched layers * steps times
+     kernels): losses within 1e-4, kernels launched layers * steps times;
+     the same for the reduced hubert-xlarge (audio frames, non-causal) and
+     internvl2-26b (8 vision-stub tokens before the text, the loss on the
+     text)
   9. train, full width: llama3.2-3b, fp32 masters, bf16 compute, remat,
      batch 2 x seq 2048: loss and gradient norm through the kernels
      against the chunked attention (use_flash_attn off: no flash launch)
@@ -208,11 +215,33 @@ Phases:
      ln(vocab), the forward kernel launched 2 * layers
      * steps times (remat runs each layer's forward again in the backward)
      and each backward kernel layers * steps times
+  H. hubert-xlarge at its published width and depth (48 layers, d 1280,
+     16/16 heads of 80, d_ff 5120, vocab 504, non-causal, audio stub of
+     512; 1.26 B parameters), fp32 masters, bf16 compute, remat, batch 2 x
+     2048 frames, after phase 9 with its state freed.  H1, as phase 9: the
+     kernel path against the chunked one, 1 warm-up and 3 timed steps,
+     the first loss within 1.0 of ln(504), the flash launches.  H2,
+     checkpoint and resume: from one seeded state a TrainLoop with
+     ckpt_every 2 runs 4 steps into a temporary directory; a fresh loop on
+     a state from another seed restores step 2 from a directory that holds
+     only that checkpoint and runs steps 3-4: its losses equal the first
+     run's, and its params, m, v and step torch.equal the first run's
+     step-4 checkpoint read back; GB a checkpoint, the save's host copy and file-write seconds and the
+     restore seconds printed; the directory is deleted.  With less free
+     disk than 3 checkpoints, H2 alone runs at a depth that fits
+  V. internvl2-26b at its published width (d 6144, 48/8 heads of 128,
+     d_ff 16384, vocab 92553, vision stub 3200 -> 256 tokens) cut to 4 of
+     48 layers (2.72 B parameters; the whole model's train state is ~320
+     GB), batch 2 x (256 stub + 1792 text) positions: as H1 with 2 timed
+     steps, the loss on the text positions, the first loss within 1.0 of
+     ln(92553)
  10. flash attention timings at the training path shape (median of 20)
      beside the bound, the plain version and PyTorch's
      scaled_dot_product_attention; the forward's and the backward's
      TFLOP/s and share of the bf16 peak beside SDPA's; then the same at
-     zamba2's shared-block shape
+     zamba2's shared-block shape, hubert-xlarge's (non-causal; the bound
+     counts the real head dim 80, and the padded-work ratio 128 / 80 is
+     printed beside it) and internvl2-26b's
  11. bitplane_add and quant_matmul against bitplane_add_plain and
      quant_matmul_plain, torch.equal, at the kernel-test shapes (Fig 12
      lanes, ragged and unaligned lanes, N = 1 to 64, M = 1 to 31, the all
@@ -237,8 +266,10 @@ Phases:
      share of the int8 peak, and the mma.sync route's parts (the parent's
      design): the pre-pass, the mma.sync product and the parent's PyTorch
      copy of w to K-major
- 14. the kernels line, then the card line, then the result line; each
-     phase's wall time is printed as it ends ("[wall]")
+ 14. the kernels line (the flash rows at each shape; H's and V's train
+     and resume figures once, in the forward's row), then the card line,
+     then the result line; each phase's wall time is printed as it ends
+     ("[wall]")
 """
 from __future__ import annotations
 
@@ -246,8 +277,11 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -260,6 +294,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # noqa: E402 below: these need the path
+from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import lut, planner, reconfig  # noqa: E402
@@ -344,6 +379,26 @@ TRAIN_WARMUP, TRAIN_TOTAL = 100, 1000
 #: zamba2-1.2b's shared attention block at batch 2 x seq 2048: 32 query
 #: and 32 KV heads of 64 (its training path's flash shape)
 ZAMBA_FLASH_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 32, 32, 64)
+#: phases H and V: the modality-frontend families' training at their
+#: published widths.  hubert-xlarge (encoder-only, audio frames) at its
+#: full depth; internvl2-26b (a vision stub of 256 tokens before the text)
+#: cut to 4 of its 48 layers: its whole train state (~320 GB of fp32
+#: params, m, v and grads) does not fit the card.  Their flash shapes at
+#: batch 2 x 2048 positions: hubert 16/16 heads of 80, non-causal (the
+#: bf16 kernels take 64 or 128: the wrappers zero-pad 80 to 128);
+#: internvl2 48/8 heads of 128, causal
+AUDIO_ARCH, VLM_ARCH, VLM_LAYERS = "hubert-xlarge", "internvl2-26b", 4
+AUDIO_STEPS, VLM_STEPS = 3, 2
+HUBERT_FLASH_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 80)
+INTERNVL_FLASH_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 48, 8, 128)
+#: phase 4's named bf16 shapes, each with the causal flag its path runs
+FLASH_NAMED = {"path": ((TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128), True),
+               "zamba2": (ZAMBA_FLASH_SHAPE, True),
+               "hubert": (HUBERT_FLASH_SHAPE, False),
+               "internvl2": (INTERNVL_FLASH_SHAPE, True)}
+#: phase H2: steps, save period and the two seeds (the first run's state
+#: and the resumed loop's state before it restores)
+RESUME_STEPS, RESUME_EVERY, RESUME_SEEDS = 4, 2, (1, 2)
 FLASH_CHECK_SHAPES = [(2, 256, 4, 2, 64, torch.float32),
                       (1, 128, 8, 8, 128, torch.float32),
                       (2, 256, 6, 2, 80, torch.bfloat16),
@@ -354,7 +409,9 @@ FLASH_CHECK_SHAPES = [(2, 256, 4, 2, 64, torch.float32),
                       (1, 200, 4, 1, 64, torch.bfloat16),
                       (2, 37, 4, 4, 80, torch.bfloat16),
                       (2, TRAIN_SEQ, 24, 8, 128, torch.bfloat16),
-                      ZAMBA_FLASH_SHAPE + (torch.bfloat16,)]
+                      ZAMBA_FLASH_SHAPE + (torch.bfloat16,),
+                      HUBERT_FLASH_SHAPE + (torch.bfloat16,),
+                      INTERNVL_FLASH_SHAPE + (torch.bfloat16,)]
 
 
 def check(cond: bool, what: str) -> None:
@@ -2539,10 +2596,11 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
 def phase_flash_check():
     """The forward, dq and dk/dv kernels against the plain versions on the
     same CUDA inputs.  Returns, per kernel, the max |diff| over the fp32
-    cases and at the training path shape (bf16, causal)."""
+    cases and at each of FLASH_NAMED's shapes (bf16, at its path's causal
+    flag)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
-    errs = {k: {"fp32": 0.0, "path": 0.0, "zamba2": 0.0}
+    errs = {k: dict.fromkeys(("fp32",) + tuple(FLASH_NAMED), 0.0)
             for k in ("fwd", "bwd_dq", "bwd_dkv")}
     n = repeats = 0
     for b, s, hq, hkv, hd, dt in FLASH_CHECK_SHAPES:
@@ -2596,11 +2654,9 @@ def phase_flash_check():
                      "bwd_dkv": max((dk.float() - plain[1].float()).abs()
                                     .max(), (dv.float() - plain[2].float())
                                     .abs().max())}
-            key = "fp32" if dt == torch.float32 else None
-            if (b, s, hq) == (TRAIN_BATCH, TRAIN_SEQ, 24) and causal:
-                key = "path"
-            if (b, s, hq, hkv, hd) == ZAMBA_FLASH_SHAPE and causal:
-                key = "zamba2"
+            key = "fp32" if dt == torch.float32 else next(
+                (name for name, named in FLASH_NAMED.items()
+                 if named == ((b, s, hq, hkv, hd), causal)), None)
             for name, e in found.items():
                 if key:
                     errs[name][key] = max(errs[name][key], float(e))
@@ -2617,6 +2673,11 @@ def phase_flash_check():
           f"{errs['bwd_dq']['zamba2']:.3e} dkv "
           f"{errs['bwd_dkv']['zamba2']:.3e}; two forward and two backward "
           f"calls torch.equal at the path shape ({repeats} cases)")
+    for name in ("hubert", "internvl2"):
+        shape, causal = FLASH_NAMED[name]
+        print(f"[check] flash at {name}'s shape {shape} (bf16, causal="
+              f"{causal}): max |diff| fwd {errs['fwd'][name]:.3e} dq "
+              f"{errs['bwd_dq'][name]:.3e} dkv {errs['bwd_dkv'][name]:.3e}")
     check(repeats == 2, "flash: the path shape was not repeated")
     return errs
 
@@ -2637,10 +2698,19 @@ def _expected_counts(cfg, steps):
 
 
 def phase_train_parity():
-    """Three AdamW steps of the reduced config from one state, on the CPU
-    (chunked attention) and on CUDA (the flash kernels)."""
-    cfg = get_config("llama3.2-3b").reduced(dtype=torch.float32,
-                                            n_kv_heads=2)
+    """Three AdamW steps of each reduced fp32 config from one state, on
+    the CPU (chunked attention) and on CUDA (the flash kernels): llama3.2-3b
+    with kv_heads=2, then the frontend families."""
+    train_parity(get_config("llama3.2-3b").reduced(dtype=torch.float32,
+                                                   n_kv_heads=2),
+                 "kv_heads=2, ")
+    train_parity(get_config(AUDIO_ARCH).reduced(dtype=torch.float32),
+                 "audio frames, non-causal, ")
+    train_parity(get_config(VLM_ARCH).reduced(dtype=torch.float32),
+                 "8 vision-stub + 56 text positions, ")
+
+
+def train_parity(cfg, what: str) -> None:
     shape = ShapeConfig("parity", seq_len=64, global_batch=4,
                               kind="train")
     state = init_train_state(cfg, torch.Generator().manual_seed(0))
@@ -2659,31 +2729,33 @@ def phase_train_parity():
         losses[dev] = [m["loss"] for m in loop.metrics_log]
     diff = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
     check(len(losses["cuda"]) == 3 and diff <= 1e-4,
-          f"reduced train: CUDA losses {losses['cuda']} differ from CPU "
-          f"{losses['cpu']} by {diff} (> 1e-4)")
+          f"reduced {cfg.arch_id} train: CUDA losses {losses['cuda']} "
+          f"differ from CPU {losses['cpu']} by {diff} (> 1e-4)")
     want = _expected_counts(cfg, 3)
-    check(counts == want, f"reduced train: flash launches {counts}, "
-                          f"expected {want}")
-    print(f"[parity] reduced llama3.2-3b train (fp32, kv_heads=2, batch 4 x "
+    check(counts == want, f"reduced {cfg.arch_id} train: flash launches "
+                          f"{counts}, expected {want}")
+    print(f"[parity] reduced {cfg.arch_id} train (fp32, {what}batch 4 x "
           f"seq 64): losses CPU {['%.6f' % x for x in losses['cpu']]} CUDA "
           f"{['%.6f' % x for x in losses['cuda']]}, max |diff| {diff:.3e} "
           f"(tol 1e-4); flash launches {counts}")
 
 
-def phase_train_full():
-    """llama3.2-3b at full width: 1 untimed warm-up step, then the timed
-    steps through TrainLoop with the launch counts read around them."""
-    cfg = get_config("llama3.2-3b")
+def train_full_width(cfg, steps: int):
+    """``cfg`` (bf16 compute, remat) from a seeded fp32-master state at
+    batch TRAIN_BATCH x TRAIN_SEQ positions: the loss and gradient norm
+    through the kernels against the chunked attention on one state and
+    batch, then 1 untimed warm-up step and ``steps`` timed steps through
+    TrainLoop.  Returns (flash launches of the timed steps, a summary)."""
     check(cfg.remat and cfg.dtype == torch.bfloat16,
-          "full-width train config must be bf16 with remat")
+          f"full-width {cfg.arch_id} train config must be bf16 with remat")
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     state = init_train_state(
         cfg, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(state["params"]))
-    print(f"[train] llama3.2-3b train state: {n_params / 1e9:.3f} B fp32 "
-          f"params + fp32 m, v, initialized in "
+    print(f"[train] {cfg.arch_id} train state ({cfg.n_layers} layers): "
+          f"{n_params / 1e9:.3f} B fp32 params + fp32 m, v, initialized in "
           f"{time.perf_counter() - t0:.2f} s")
     shape = ShapeConfig("train", seq_len=TRAIN_SEQ,
                               global_batch=TRAIN_BATCH, kind="train")
@@ -2703,6 +2775,7 @@ def phase_train_full():
         got[flash] = (float(loss), float(global_norm(grads)),
                       _flash_counts()["fwd"])
         del grads
+    del batch0
     check(got[True][2] > 0 and got[False][2] == 0,
           f"full train: flash forward launches {got[True][2]} through the "
           f"kernels, {got[False][2]} through the chunked attention")
@@ -2715,7 +2788,7 @@ def phase_train_full():
           f"{got[True][0]:.5f} vs {got[False][0]:.5f} (|diff| {dl:.3e}, tol "
           f"2e-3), grad norm {got[True][1]:.4f} vs {got[False][1]:.4f} "
           f"(rel {dn:.3e}, tol 1e-3)")
-    total = 1 + TRAIN_STEPS
+    total = 1 + steps
     step_fn = build_train_step(
         cfg, AdamWConfig(lr=3e-4, grad_clip=1.0),
         lr_schedule=warmup_cosine(3e-4, TRAIN_WARMUP, TRAIN_TOTAL))
@@ -2729,6 +2802,7 @@ def phase_train_full():
     loop = TrainLoop(cfg, shape, LoopConfig(
         total_steps=total, log_every=1, seed=0), step_fn, state,
         data_cfg=data)
+    del state
     torch.cuda.synchronize()
     _zero_flash_counts()
     t0 = time.perf_counter()
@@ -2740,35 +2814,186 @@ def phase_train_full():
     log = loop.metrics_log
     losses = [first_loss] + [m["loss"] for m in log]
     norms = [float(warm["grad_norm"])] + [m["grad_norm"] for m in log]
-    check(len(log) == TRAIN_STEPS, f"full train: {len(log)} timed steps")
+    check(len(log) == steps, f"full train: {len(log)} timed steps")
     check(all(math.isfinite(x) for x in losses + norms),
           f"full train: a loss or grad norm is not finite: {losses} {norms}")
     ln_v = math.log(cfg.vocab)
     check(abs(first_loss - ln_v) <= 1.0,
           f"full train: first loss {first_loss} not within 1.0 of "
           f"ln({cfg.vocab}) = {ln_v:.4f}")
-    want = _expected_counts(cfg, TRAIN_STEPS)
+    want = _expected_counts(cfg, steps)
     check(counts == want, f"full train: flash launches {counts}, expected "
                           f"{want} (fwd 2 * layers * steps under remat)")
     ms = [m["time_s"] * 1e3 for m in log]
-    toks = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    toks = steps * TRAIN_BATCH * TRAIN_SEQ
     for m in log:
         print(f"[train] step {m['step']}: loss {m['loss']:.4f} grad_norm "
               f"{m['grad_norm']:.4f} lr {m['lr']:.3e} "
               f"{m['time_s'] * 1e3:.1f} ms")
-    print(f"[train] llama3.2-3b, 28 layers, fp32 masters / bf16 compute, "
-          f"remat, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: {TRAIN_STEPS} "
-          f"timed steps, {toks} tokens in {wall:.3f} s = "
+    print(f"[train] {cfg.arch_id}, {cfg.n_layers} layers, fp32 masters / "
+          f"bf16 compute, remat, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: "
+          f"{steps} timed steps, {toks} tokens in {wall:.3f} s = "
           f"{toks / wall:.1f} train tok/s; ms per step {['%.1f' % x for x in ms]}"
           f" (median {float(np.median(ms)):.1f}); first loss "
           f"{first_loss:.4f} vs ln(vocab) {ln_v:.4f}; flash launches "
           f"{counts}; max_memory_allocated {peak / 1e9:.3f} GB")
-    return counts
+    summary = {"params": n_params, "layers": cfg.n_layers,
+               "tok_s": toks / wall, "ms": ms, "first_loss": first_loss,
+               "peak_gb": peak / 1e9, "launches": counts,
+               "loss_kernel_vs_chunked": dl, "grad_norm_rel": dn}
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, summary
 
 
-def phase_flash_timing(shape=(TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128)):
-    """Device times at ``shape`` (B, S, Hq, Hkv, hd), bf16, causal: the
-    llama training path's by default."""
+def phase_train_audio():
+    """H1 at hubert-xlarge's published width and depth, then H2."""
+    cfg = get_config(AUDIO_ARCH)
+    check(not cfg.causal and cfg.encoder_only and
+          cfg.frontend == "audio_stub", f"{AUDIO_ARCH}: not the audio stub")
+    counts, summary = train_full_width(cfg, AUDIO_STEPS)
+    summary["resume"] = checkpoint_resume(cfg)
+    return counts, summary
+
+
+def phase_train_vlm():
+    """internvl2-26b at its published width, VLM_LAYERS of its layers."""
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    shape = ShapeConfig("train", seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH, kind="train")
+    batch = host_batch(cfg, shape, HostDataConfig(0, 1, 0), 0)
+    check(batch["vision_embeds"].shape == (TRAIN_BATCH,
+                                           cfg.n_frontend_tokens,
+                                           cfg.frontend_dim) and
+          batch["labels"].shape == (TRAIN_BATCH,
+                                    TRAIN_SEQ - cfg.n_frontend_tokens),
+          f"{VLM_ARCH}: batch shapes {[v.shape for v in batch.values()]}")
+    print(f"[train] {VLM_ARCH}: {cfg.n_frontend_tokens} vision-stub "
+          f"positions + {TRAIN_SEQ - cfg.n_frontend_tokens} text positions "
+          f"a row; the loss on the text positions")
+    return train_full_width(cfg, VLM_STEPS)
+
+
+def _ckpt_bytes(d: str) -> int:
+    return sum(e.stat().st_size for e in os.scandir(d))
+
+
+def checkpoint_resume(cfg):
+    """H2: a TrainLoop saving every RESUME_EVERY steps runs RESUME_STEPS
+    steps from a seeded state; a fresh loop on a state from another seed
+    restores step RESUME_EVERY from a directory holding only that
+    checkpoint and runs the rest.  Its losses equal the first run's, and
+    its params, m, v and step torch.equal the first run's last checkpoint
+    read back: the same kernels on the same shapes, and no op of the step
+    accumulates in a data-dependent order."""
+    dev = torch.device("cuda")
+    shape = ShapeConfig("train", seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH, kind="train")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        def state_bytes(n):    # fp32 params, m and v, and the int32 step
+            specs = get_api(cfg).param_specs(
+                dataclasses.replace(cfg, n_layers=n))
+            return 12 * sum(math.prod(sp.shape) for sp in leaves(specs)) + 4
+
+        free = shutil.disk_usage(root).free
+        layers = cfg.n_layers
+        while layers > 1 and 3 * state_bytes(layers) > free:
+            layers -= 1
+        if layers != cfg.n_layers:
+            print(f"[resume] {free / 1e9:.1f} GB free under {root}: less "
+                  f"than 3 checkpoints of {state_bytes(cfg.n_layers) / 1e9:.2f}"
+                  f" GB; H2 alone runs at {layers} of {cfg.n_layers} layers")
+        run_cfg = dataclasses.replace(cfg, n_layers=layers)
+        step_fn = build_train_step(
+            run_cfg, AdamWConfig(lr=3e-4, grad_clip=1.0),
+            lr_schedule=warmup_cosine(3e-4, TRAIN_WARMUP, TRAIN_TOTAL))
+
+        def loop_for(seed, d):
+            return TrainLoop(run_cfg, shape, LoopConfig(
+                total_steps=RESUME_STEPS, ckpt_dir=d,
+                ckpt_every=RESUME_EVERY, log_every=1, seed=0),
+                step_fn, init_train_state(
+                    run_cfg, torch.Generator(device=dev).manual_seed(seed)),
+                data_cfg=HostDataConfig(0, 1, 0))
+
+        first_dir, resume_dir = (os.path.join(root, n) for n in ("a", "b"))
+        first = loop_for(RESUME_SEEDS[0], first_dir)
+        t0 = time.perf_counter()
+        first.run()
+        first_s = time.perf_counter() - t0
+        first_losses = [m["loss"] for m in first.metrics_log]
+        saves = list(first.ckpt.timings)
+        first.ckpt.close()
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        last = os.path.join(first_dir, f"step_{RESUME_STEPS:08d}")
+        nbytes = _ckpt_bytes(last)
+        mid = f"step_{RESUME_EVERY:08d}"
+        os.makedirs(resume_dir)
+        os.replace(os.path.join(first_dir, mid),
+                   os.path.join(resume_dir, mid))
+        check(ckpt.latest_step(resume_dir) == RESUME_EVERY,
+              f"H2: {resume_dir} does not hold step {RESUME_EVERY} alone")
+        resumed = loop_for(RESUME_SEEDS[1], resume_dir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = resumed.maybe_restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(start == RESUME_EVERY, f"H2: restored step {start}")
+        resumed.run(start_step=start)
+        resumed.ckpt.close()
+        saves += resumed.ckpt.timings
+        losses = [m["loss"] for m in resumed.metrics_log]
+        check(losses == first_losses[RESUME_EVERY:],
+              f"H2: resumed losses {losses} != the first run's "
+              f"{first_losses[RESUME_EVERY:]}")
+        t0 = time.perf_counter()
+        want = ckpt.restore_checkpoint(first_dir, RESUME_STEPS,
+                                       resumed.state)
+        torch.cuda.synchronize()
+        readback_s = time.perf_counter() - t0
+        check(int(want["step"]) == int(resumed.state["step"]) ==
+              RESUME_STEPS, "H2: the step counters differ")
+        differ = [p for (p, x), (_, y) in zip(
+            ckpt.flatten_with_paths(resumed.state),
+            ckpt.flatten_with_paths(want)) if not torch.equal(x, y)]
+        check(not differ, f"H2: the resumed state differs from the first "
+                          f"run's step-{RESUME_STEPS} checkpoint at {differ}")
+        del resumed, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        snap = [t["snapshot_s"] for t in saves]
+        write = [t["write_s"] for t in saves]
+        print(f"[resume] {run_cfg.arch_id} at {layers} layers: "
+              f"{RESUME_STEPS} steps saving every {RESUME_EVERY} in "
+              f"{first_s:.2f} s, then a fresh loop (seed {RESUME_SEEDS[1]}) "
+              f"restored step {RESUME_EVERY} in {restore_s:.2f} s and ran "
+              f"steps {RESUME_EVERY + 1}-{RESUME_STEPS}: losses {losses} == "
+              f"the first run's; params, m, v and step torch.equal to its "
+              f"step-{RESUME_STEPS} checkpoint (read back in "
+              f"{readback_s:.2f} s)")
+        print(f"[resume] a checkpoint: {nbytes / 1e9:.3f} GB on disk; "
+              f"{len(saves)} saves: host copy (D2H, pinned) s "
+              f"{['%.3f' % x for x in snap]}, file writes s "
+              f"{['%.3f' % x for x in write]}; disk free at start "
+              f"{free / 1e9:.1f} GB ({root})")
+        return {"layers": layers, "ckpt_gb": nbytes / 1e9,
+                "snapshot_s": snap, "write_s": write,
+                "restore_s": restore_s, "readback_s": readback_s}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_flash_timing(shape=(TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128),
+                       causal=True):
+    """Device times at ``shape`` (B, S, Hq, Hkv, hd), bf16: the llama
+    training path's by default.  The bounds count the head dim given (a
+    head dim the bf16 kernels are not built for is zero-padded; the
+    padded-work ratio is printed)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     b, s, hq, hkv, hd = shape
@@ -2777,25 +3002,26 @@ def phase_flash_timing(shape=(TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128)):
              for _ in range(2))
     k, v = (torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(dt)
             for _ in range(2))
-    o, lse = fa.flash_attention_fwd_cuda(q, k, v, True)
-    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, True)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, causal)
     reps = 20
     ms = {
-        "fwd": device_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, True),
-                         reps),
+        "fwd": device_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v,
+                                                             causal), reps),
         "bwd_dq": device_ms(lambda: fa.flash_attention_bwd_dq_cuda(
-            q, k, v, o, lse, do, True), reps),
+            q, k, v, o, lse, do, causal), reps),
         "bwd_dkv": device_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
-            q, k, v, lse, delta, do, True), reps),
+            q, k, v, lse, delta, do, causal), reps),
     }
-    plain_fwd = device_ms(lambda: fa.flash_attention_plain(q, k, v, True),
+    plain_fwd = device_ms(lambda: fa.flash_attention_plain(q, k, v, causal),
                           reps)
     plain_bwd = device_ms(lambda: fa.flash_attention_plain_bwd(
-        q, k, v, o, lse, do, True), reps)
+        q, k, v, o, lse, do, causal), reps)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     dot = do.transpose(1, 2)
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal,
                                                   enable_gqa=True)
     with torch.no_grad():
         lib_fwd = device_ms(sdpa, reps)
@@ -2811,7 +3037,7 @@ def phase_flash_timing(shape=(TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128)):
                                    ("bwd_dq", plain_bwd, lib_bwd),
                                    ("bwd_dkv", plain_bwd, lib_bwd),
                                    ("bwd", plain_bwd, lib_bwd)):
-        flops = fa.bound_flops(b, s, hq, hd, True, part)
+        flops = fa.bound_flops(b, s, hq, hd, causal, part)
         nbytes = fa.bound_bytes(b, s, hq, hkv, hd, dt, part)
         t_ops = flops / BF16_FLOP_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2821,7 +3047,7 @@ def phase_flash_timing(shape=(TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128)):
                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                       "flops": flops, "bytes": nbytes}
         print(f"[time] flash {part} (B,S,Hq,Hkv,hd)={(b, s, hq, hkv, hd)} "
-              f"bf16 causal: kernel_ms {kernel:.4f} bound_ms "
+              f"bf16 causal={causal}: kernel_ms {kernel:.4f} bound_ms "
               f"{rows[part]['bound_ms']:.4f} ({flops:.4e} flop / 989 "
               f"TFLOP/s; {nbytes} B / 3.35 TB/s) plain_ms {plain_ms:.4f} "
               f"library_ms {lib_ms:.4f} kernel/bound "
@@ -2838,7 +3064,7 @@ def phase_flash_timing(shape=(TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128)):
           f"{rows['fwd']['flops'] / lib_fwd / 1e9:.1f} TFLOP/s = "
           f"{rows['fwd']['library_bf16_peak_share']:.3f}")
     bwd_ms = ms["bwd_dq"] + ms["bwd_dkv"]
-    built = fa.bound_flops(b, s, hq, hd, True, "bwd") * 7 // 5
+    built = fa.bound_flops(b, s, hq, hd, causal, "bwd") * 7 // 5
     print(f"[time] flash backward (dq + dk/dv): {bwd_ms:.4f} ms; the "
           f"function's 5 matmuls at {rows['bwd']['flops'] / bwd_ms / 1e9:.1f}"
           f" TFLOP/s = {rows['bwd']['bf16_peak_share']:.3f} of the 989 "
@@ -2847,7 +3073,13 @@ def phase_flash_timing(shape=(TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128)):
           f"{built / (bwd_ms * 1e-3) / BF16_FLOP_PER_S:.3f}; SDPA backward "
           f"{rows['bwd']['flops'] / lib_bwd / 1e9:.1f} TFLOP/s = "
           f"{rows['bwd']['library_bf16_peak_share']:.3f}")
-    print(f"[time] scaled_dot_product_attention (is_causal, enable_gqa) at "
+    padded = fa._pad_bf16(q)[0].shape[-1]   # the head dim the kernels ran
+    if padded != hd:
+        print(f"[time] head dim {hd} runs padded to {padded}: the kernels do "
+              f"{padded / hd:.3f}x the bound's work (padded-work ratio "
+              f"{padded} / {hd})")
+    print(f"[time] scaled_dot_product_attention (is_causal={causal}, "
+          f"enable_gqa) at "
           f"the same shape: fwd {lib_fwd:.4f} ms, fwd+bwd {lib_fwdbwd:.4f} "
           f"ms, bwd {lib_bwd:.4f} ms; kernel fwd+bwd "
           f"{ms['fwd'] + ms['bwd_dq'] + ms['bwd_dkv']:.4f} ms; max |o - "
@@ -3257,12 +3489,20 @@ def main() -> int:
     rows = timed("7 moa_reduce timing", phase_timing, shapes) + \
         phase_timing(moe_path, torch.bfloat16)
     timed("8 train parity", phase_train_parity)
-    flash_launches = timed("9 train full width", phase_train_full)
+    flash_launches, _ = timed("9 train full width", train_full_width,
+                              full_cfg, TRAIN_STEPS)
     gc.collect()
     torch.cuda.empty_cache()       # the train state goes
+    frontend = {"hubert": timed(f"H {AUDIO_ARCH} train and resume",
+                                phase_train_audio),
+                "internvl2": timed(f"V {VLM_ARCH} train ({VLM_LAYERS} "
+                                   f"layers)", phase_train_vlm)}
     flash_rows = timed("10 flash timing", phase_flash_timing)
     zamba_flash_rows = timed("10 flash timing, zamba2 shape",
                              phase_flash_timing, ZAMBA_FLASH_SHAPE)
+    frontend_flash_rows = {
+        name: timed(f"10 flash timing, {name} shape", phase_flash_timing,
+                    *FLASH_NAMED[name]) for name in frontend}
     bitplane, matmul = adder_shapes(full_cfg)
     adder_err = timed("11 adder check", phase_adder_check, bitplane, matmul)
     adder_launches = timed("12 adder path", phase_adder_path, full_cfg,
@@ -3319,7 +3559,17 @@ def main() -> int:
                     "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")},
                 shape=list(ZAMBA_FLASH_SHAPE), dtype="bf16",
-                max_abs_err=flash_err[part]["zamba2"])})
+                max_abs_err=flash_err[part]["zamba2"]),
+            **{f"{name}_shape": dict(
+                {k: frontend_flash_rows[name][part][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                shape=list(FLASH_NAMED[name][0]), dtype="bf16",
+                causal=FLASH_NAMED[name][1],
+                max_abs_err=flash_err[part][name],
+                launches=frontend[name][0][part]) for name in frontend}})
+    kernels[-3]["frontend_train"] = {name: summary for name, (_, summary)
+                                     in frontend.items()}
     checked = {"bitplane_add": "torch.equal vs bitplane_add_plain",
                "quant_matmul": "torch.equal vs quant_matmul_plain"}
     for name in ("bitplane_add", "quant_matmul"):

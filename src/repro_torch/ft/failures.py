@@ -8,8 +8,8 @@ train loop feeds it step timings.
 * **Straggler detection**: per-step durations in a rolling window; hosts
   slower than ``straggler_factor`` x the median are flagged.
 
-The elastic resize planner (``plan_elastic_mesh``) waits for the port's
-mesh work (``ROADMAP.md``, queue 1 item 11).
+* **Elastic resize planning** (``plan_elastic_mesh``): the mesh shape to
+  restart on after a failure, pure arithmetic.
 """
 from __future__ import annotations
 
@@ -17,9 +17,10 @@ import dataclasses
 import statistics
 import time
 from collections import defaultdict, deque
-from typing import Callable, Deque, Dict, List
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
-__all__ = ["FailureEvent", "HeartbeatMonitor", "StragglerDetector"]
+__all__ = ["FailureEvent", "HeartbeatMonitor", "StragglerDetector",
+           "plan_elastic_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,3 +85,27 @@ class StragglerDetector:
                              f"{m / global_median:.2f}x median")
                 for h, m in medians.items()
                 if m > self.factor * global_median]
+
+
+def plan_elastic_mesh(devices: int, model_parallel: int, global_batch: int,
+                      pods: int = 1) -> Optional[Tuple[int, ...]]:
+    """Largest (pod, data, model) mesh fitting ``devices`` after a failure.
+
+    model_parallel is preserved (weights shard layout unchanged -> cheapest
+    restore); the data axis shrinks to the largest divisor of global_batch
+    that fits. Returns None if even data=1 doesn't fit.
+    """
+    if devices < model_parallel * pods:
+        pods = max(1, devices // model_parallel)
+    per_pod = devices // pods
+    max_data = per_pod // model_parallel
+    if max_data < 1:
+        return None
+    data = max_data
+    while data >= 1:
+        if global_batch % (data * pods) == 0:
+            break
+        data -= 1
+    if data < 1:
+        return None
+    return (pods, data, model_parallel) if pods > 1 else (data, model_parallel)

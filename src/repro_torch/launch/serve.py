@@ -37,7 +37,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.models.common import init_params
-from repro_torch.models.registry import get_api
+from repro_torch.models.registry import serve_api
 from repro_torch.serve import (EngineConfig, SamplingParams, ServeEngine,
                                add_cli_args, config_from_args, prng,
                                state_zeros)
@@ -68,7 +68,7 @@ def generate(cfg, params, prompts: np.ndarray, gen: int,
     threefry, :mod:`repro_torch.serve.prng`).  ``device``: ``None`` is the
     card (raises without one); ``params`` must live there."""
     dev = resolve_device(device)
-    api = get_api(cfg)
+    api = serve_api(cfg)
     b, p = prompts.shape
     max_seq = p + gen
     state = state_zeros(api.decode_state_specs(cfg, b, max_seq), dev)
@@ -226,11 +226,14 @@ def main(argv=None) -> int:
     add_cli_args(ap)
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    try:
+        api = serve_api(cfg)
+    except ValueError as e:         # encoder-only: no decode step
+        raise SystemExit(str(e)) from None
+    device = resolve_device(args.device)
     if args.reduced:
         cfg = cfg.reduced(dtype=torch.float32)
-    api = get_api(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(api.param_specs(cfg), gen, device, cfg.dtype)
     rng = np.random.default_rng(args.seed)

@@ -1,7 +1,8 @@
 """Training entry point of the port.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
-        --reduced --steps 20 --seq 64 --batch 8 --device cpu
+        --reduced --steps 20 --seq 64 --batch 8 --device cpu \\
+        --ckpt-dir /path/to/ckpt --ckpt-every 5
 
 Builds a random fp32-master train state from ``--seed``, then runs AdamW
 steps with a warm-up + cosine schedule on deterministic synthetic batches
@@ -10,6 +11,11 @@ train tokens per second.  Runs on the card unless ``--device cpu`` is
 given; without a CUDA device it raises.  ``--reduced`` trains the tiny
 same-family config in fp32 (as the JAX CLI does); the full config keeps
 fp32 masters and computes in bf16 with per-layer rematerialisation.
+Every architecture trains, the encoder-only ``hubert-xlarge`` (audio
+frames) and ``internvl2-26b`` (vision embeddings before the text) too.
+With ``--ckpt-dir`` the loop saves the train state every ``--ckpt-every``
+steps and at the end, and a second run with the same directory resumes
+from its newest committed step.
 """
 from __future__ import annotations
 
@@ -41,6 +47,13 @@ def main(argv=None) -> int:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--pod-compressed", action="store_true",
+                    help="int8 radix-4 tree gradient reduction over the "
+                         "pod axis (needs the mesh: raises)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory; resumes from its newest "
+                         "committed step")
+    ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--seed", type=int, default=17)
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--d-model", type=int, default=None,
@@ -66,20 +79,27 @@ def main(argv=None) -> int:
     step_fn = build_train_step(
         cfg, AdamWConfig(lr=args.lr, grad_clip=1.0),
         lr_schedule=warmup_cosine(args.lr, args.warmup, args.steps),
-        grad_accum=args.grad_accum)
-    loop_cfg = LoopConfig(total_steps=args.steps, log_every=args.log_every,
+        grad_accum=args.grad_accum, pod_compressed=args.pod_compressed)
+    loop_cfg = LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                          ckpt_every=args.ckpt_every,
+                          log_every=args.log_every,
                           grad_accum=args.grad_accum, seed=args.seed)
     loop = TrainLoop(cfg, shape, loop_cfg, step_fn, state,
                      data_cfg=HostDataConfig(args.seed, 1, 0))
+    start = loop.maybe_restore()
+    if start:
+        print(f"resumed from step {start} in {args.ckpt_dir}")
     t0 = time.monotonic()
-    loop.run()
+    loop.run(start_step=start)
     dt = time.monotonic() - t0
     for m in loop.metrics_log:
         print(f"step {m['step']:5d}  loss {m['loss']:.4f}  "
               f"{m['time_s'] * 1e3:9.2f} ms/step")
-    toks = args.steps * args.batch * args.seq * args.grad_accum
-    print(f"\ntrained {args.steps} steps ({toks} tokens) on {device} in "
-          f"{dt:.2f}s ({toks / dt:.1f} tok/s); events: {len(loop.events)}")
+    steps = max(0, args.steps - start)
+    toks = steps * args.batch * args.seq * args.grad_accum
+    print(f"\ntrained {steps} steps ({toks} tokens) on {device} in "
+          f"{dt:.2f}s ({toks / max(dt, 1e-9):.1f} tok/s); events: "
+          f"{len(loop.events)}")
     return 0
 
 

@@ -1,9 +1,10 @@
-"""Decoder LM: parameter layout, the training forward and loss, decode.
+"""Unified LM: parameter layout, the training forward and loss, decode.
 
-The counterpart of ``repro/models/lm.py`` for the decoders: GQA
+The counterpart of ``repro/models/lm.py``: the decoders, GQA
 (``llama3.2-3b``), MLA (``minicpm3-4b``, :mod:`repro_torch.models.mla`),
 and either with the routed MoE FFN in every block (``phi3.5-moe``,
-``llama4-scout``, :mod:`repro_torch.models.moe`).
+``llama4-scout``, :mod:`repro_torch.models.moe`); the encoder-only audio
+model and the VLM backbone.
 Parameters are a plain dict of tensors in the JAX tree's layout, with
 ``blocks`` stacked on a leading layers axis (or, as the train step passes
 them, a list of per-layer dicts of views: see
@@ -21,8 +22,13 @@ tree (:func:`verify_tree`) in one dispatch; medusa-style draft heads
 (:func:`draft_head_specs`, :func:`fit_draft_heads`) propose the tree's
 nodes from the hidden states that dispatch already computed.
 
-Not in these slices: the SSM and hybrid families, the vision and audio
-frontend stubs (``ROADMAP.md``, queue 1).
+The modality frontends are stubs, as in the JAX package: a ``vision_stub``
+model (``internvl2-26b``) projects precomputed patch embeddings through
+``frontend_proj`` and prepends them to the token embeddings, and takes its
+loss on the text positions only; an ``audio_stub`` encoder
+(``hubert-xlarge``, non-causal, train-only) projects precomputed frames
+and has no token embedding.  The SSM and hybrid families run through
+:mod:`repro_torch.models.hybrid`.
 """
 from __future__ import annotations
 
@@ -130,12 +136,19 @@ def _block_train(x: torch.Tensor, bp: dict, cfg: ModelConfig
 
 def embed_inputs(params: dict, batch: Dict[str, torch.Tensor],
                  cfg: ModelConfig) -> torch.Tensor:
-    """Token embedding (B, S) -> (B, S, D) in the compute dtype."""
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.frontend} frontend arrives with "
-            f"ROADMAP.md queue 1 item 12")
-    return params["embed"][batch["tokens"].long()].to(cfg.dtype)
+    """(B, S, D) inputs of the block stack in the compute dtype: the token
+    embedding, after the projected ``vision_embeds`` (B, n_frontend_tokens,
+    frontend_dim) of a vision stub; for an audio stub, the projected
+    ``frames`` (B, S, frontend_dim) alone."""
+    parts = []
+    if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
+        ve = batch["vision_embeds"].to(cfg.dtype)
+        parts.append(ve @ params["frontend_proj"].to(cfg.dtype))
+    if cfg.frontend == "audio_stub":
+        frames = batch["frames"].to(cfg.dtype)
+        return frames @ params["frontend_proj"].to(cfg.dtype)
+    parts.append(params["embed"][batch["tokens"].long()].to(cfg.dtype))
+    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
 def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
@@ -165,10 +178,14 @@ def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
 
 def train_loss(params: dict, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig) -> torch.Tensor:
-    """Mean next-token NLL of ``batch["labels"]`` (+ the aux loss)."""
+    """Mean next-token NLL of ``batch["labels"]`` (+ the aux loss); with
+    stub tokens prepended, over the last ``labels.shape[1]`` (text)
+    positions only."""
     logits, aux = forward(params, batch, cfg)
-    return cross_entropy_loss(logits, batch["labels"],
-                              batch.get("loss_mask")) + aux
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    return cross_entropy_loss(logits, labels, batch.get("loss_mask")) + aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,14 @@
 """Model API dispatch (counterpart of ``repro/models/registry.py``).
 
 The port serves and trains every decoder family of the JAX package:
-``family`` dense, moe or vlm (the vision stub only feeds training, and
-raises there until its ROADMAP item), ``attn_kind`` ``"gqa"`` or
-``"mla"``, with a dense or a routed MoE FFN, through
-:mod:`repro_torch.models.lm`; and ``family`` ssm (``falcon-mamba-7b``)
-and hybrid (``zamba2-1.2b``) through :mod:`repro_torch.models.hybrid`,
-whose O(1) recurrent state cannot be rewound position by position, so
-they have no speculative verification and no draft heads.
+``family`` dense, moe or vlm (the vision stub only feeds training),
+``attn_kind`` ``"gqa"`` or ``"mla"``, with a dense or a routed MoE FFN,
+through :mod:`repro_torch.models.lm`; and ``family`` ssm
+(``falcon-mamba-7b``) and hybrid (``zamba2-1.2b``) through
+:mod:`repro_torch.models.hybrid`, whose O(1) recurrent state cannot be
+rewound position by position, so they have no speculative verification and
+no draft heads.  An encoder-only config (``hubert-xlarge``) gets the train
+API with every decode entry ``None``; :func:`serve_api` refuses it.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Any, Callable, Optional
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid, lm
 
-__all__ = ["ModelAPI", "get_api"]
+__all__ = ["ModelAPI", "get_api", "serve_api"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,12 +30,13 @@ class ModelAPI:
     train_loss: Callable[..., Any]
     #: (params, batch, cfg) -> (logits (B, S, V), aux_loss)
     forward: Callable[..., Any]
-    decode_state_specs: Callable[..., Any]
+    #: the decode entries are None for an encoder-only config
+    decode_state_specs: Optional[Callable[..., Any]]
     #: one token per slot: batch {tokens (B, 1), index (B,), pages}
-    decode_step: Callable[..., Any]
+    decode_step: Optional[Callable[..., Any]]
     #: a (B, C) prompt chunk in one dispatch: batch {tokens, index, nvalid,
     #: pages}; returns the logits at the last valid row
-    prefill_chunk: Callable[..., Any]
+    prefill_chunk: Optional[Callable[..., Any]]
     #: speculative verification of a (B, K+1) drafted block in one
     #: dispatch: batch {tokens, index, nspec, pages}; returns the logits at
     #: every fed row.  None keeps speculative decode off for a family.
@@ -49,11 +51,8 @@ class ModelAPI:
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:
-    """The API for ``cfg``; raises for families the port does not run
-    yet."""
-    if cfg.encoder_only:
-        raise ValueError(f"{cfg.arch_id} is encoder-only: it has no decode "
-                         f"path")
+    """The API for ``cfg``; raises for an attention kind the port does not
+    run."""
     if cfg.family == "ssm":
         return ModelAPI(param_specs=hybrid.ssm_param_specs,
                         train_loss=hybrid.ssm_train_loss,
@@ -72,6 +71,10 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
         raise NotImplementedError(
             f"{cfg.arch_id}: attn_kind={cfg.attn_kind!r} is not served by "
             f"the port")
+    if cfg.encoder_only:
+        return ModelAPI(param_specs=lm.param_specs, train_loss=lm.train_loss,
+                        forward=lm.forward, decode_state_specs=None,
+                        decode_step=None, prefill_chunk=None)
     return ModelAPI(param_specs=lm.param_specs, train_loss=lm.train_loss,
                     forward=lm.forward,
                     decode_state_specs=lm.decode_state_specs,
@@ -80,3 +83,12 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
                     verify_chunk=lm.verify_chunk,
                     verify_tree=lm.verify_tree,
                     draft_head_specs=lm.draft_head_specs)
+
+
+def serve_api(cfg: ModelConfig) -> ModelAPI:
+    """:func:`get_api` for the serve entry points: raises ``ValueError`` for
+    an encoder-only config, which has no decode step."""
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.arch_id} is encoder-only: it has no decode "
+                         f"step, so it cannot be served")
+    return get_api(cfg)

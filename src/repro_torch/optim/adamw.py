@@ -17,7 +17,7 @@ from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.tree import leaves, map_tree
+from repro_torch.tree import leaves, map_tree, sorted_leaves
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
            "global_norm", "clip_by_global_norm"]
@@ -48,8 +48,10 @@ def adamw_init(params: Any) -> AdamWState:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's sum of squares (fp32)."""
-    parts = [torch.sum(torch.square(g.float())) for g in leaves(tree)]
+    """sqrt of the sum over leaves of each leaf's sum of squares (fp32),
+    summed in the JAX package's leaf order (dict keys sorted), so the norm
+    does not depend on the order in which a tree's dicts were built."""
+    parts = [torch.sum(torch.square(g.float())) for g in sorted_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(parts)))
 
 

@@ -102,7 +102,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import moa_reduce as _moa
 from repro_torch.models import quant_kv
-from repro_torch.models.registry import get_api
+from repro_torch.models.registry import serve_api
 from repro_torch.serve import cache
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.sampling import (GREEDY, SamplingParams,
@@ -184,10 +184,10 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: dict, *,
                  config: Optional[EngineConfig] = None,
                  device: Optional[Union[str, torch.device]] = None):
+        self.api = serve_api(cfg)
         self.device = resolve_device(device)
         ecfg = (config or EngineConfig()).resolve(cfg)
         self.config = ecfg
-        self.api = get_api(cfg)
         # a contiguous engine's GQA decode reads its slot rows as pages of
         # this size (0: one softmax over the whole cache)
         self.cfg = dataclasses.replace(cfg, decode_page_size=ecfg.page_size)

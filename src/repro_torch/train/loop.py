@@ -1,10 +1,11 @@
-"""Training loop (counterpart of ``repro/train/loop.py``).
+"""Fault-tolerant training loop (counterpart of ``repro/train/loop.py``).
 
-Wires together the deterministic data pipeline, the train step and the
-heartbeat/straggler monitors.  Pure Python around the step, so every
-policy here is unit-testable without a card.  Checkpointing
-(``checkpoint/ckpt.py``) and restart from a checkpoint arrive with
-``ROADMAP.md`` queue 1 item 11.
+Wires together the deterministic data pipeline, the train step, async
+checkpointing, the heartbeat/straggler monitors and restart from the
+newest committed checkpoint.  Pure Python around the step, so every
+policy here is unit-testable without a card.  Data is keyed by ``(seed,
+step)``, so a run restored at step ``n`` sees the batches the run that
+never stopped saw from step ``n`` on.
 """
 from __future__ import annotations
 
@@ -15,18 +16,22 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import (AsyncCheckpointer, latest_step,
+                                         restore_checkpoint)
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.pipeline import HostDataConfig, host_batch
 from repro_torch.ft.failures import (FailureEvent, HeartbeatMonitor,
                                      StragglerDetector)
 
-__all__ = ["LoopConfig", "TrainLoop"]
+__all__ = ["LoopConfig", "TrainLoop", "run_training"]
 
 
 @dataclasses.dataclass
 class LoopConfig:
     total_steps: int
     ckpt_dir: Optional[str] = None
+    ckpt_every: int = 50
+    keep_ckpts: int = 3
     heartbeat_timeout: float = 300.0
     straggler_factor: float = 1.5
     log_every: int = 10
@@ -46,22 +51,32 @@ class TrainLoop:
                  loop_cfg: LoopConfig, step_fn: Callable,
                  state: Dict[str, Any],
                  data_cfg: Optional[HostDataConfig] = None):
-        if loop_cfg.ckpt_dir:
-            raise NotImplementedError(
-                "checkpointing (checkpoint/ckpt.py) arrives with ROADMAP.md "
-                "queue 1 item 11")
         self.cfg = cfg
         self.shape = shape
         self.loop_cfg = loop_cfg
         self.step_fn = step_fn
         self.state = state
         self.data_cfg = data_cfg or HostDataConfig(loop_cfg.seed, 1, 0)
+        self.ckpt = (AsyncCheckpointer(loop_cfg.ckpt_dir, loop_cfg.keep_ckpts)
+                     if loop_cfg.ckpt_dir else None)
         self.hb = HeartbeatMonitor(self.data_cfg.num_hosts,
                                    loop_cfg.heartbeat_timeout)
         self.straggle = StragglerDetector(
             straggler_factor=loop_cfg.straggler_factor)
         self.metrics_log: List[Dict[str, float]] = []
         self.events: List[FailureEvent] = []
+
+    # -- restart support ------------------------------------------------------
+    def maybe_restore(self) -> int:
+        """Resume from the newest committed checkpoint; returns start step."""
+        if not self.loop_cfg.ckpt_dir:
+            return 0
+        step = latest_step(self.loop_cfg.ckpt_dir)
+        if step is None:
+            return 0
+        self.state = restore_checkpoint(self.loop_cfg.ckpt_dir, step,
+                                        self.state)
+        return step
 
     def _batch_for(self, step: int) -> Dict[str, np.ndarray]:
         g = self.loop_cfg.grad_accum
@@ -71,8 +86,14 @@ class TrainLoop:
             return {k: np.stack([m[k] for m in micros]) for k in micros[0]}
         return host_batch(self.cfg, self.shape, self.data_cfg, step)
 
-    def run(self, start_step: int = 0) -> Dict[str, Any]:
-        step = start_step
+    # -- main -----------------------------------------------------------------
+    def run(self, start_step: Optional[int] = None) -> Dict[str, Any]:
+        """Steps from ``start_step`` (default: the restored step, or 0) to
+        ``total_steps``; with a ``ckpt_dir``, a save every ``ckpt_every``
+        steps and at the end (unless the last step was just saved), then
+        ``wait()``."""
+        step = self.maybe_restore() if start_step is None else start_step
+        saved = None
         while step < self.loop_cfg.total_steps:
             t0 = time.monotonic()
             batch = self._batch_for(step)
@@ -89,4 +110,16 @@ class TrainLoop:
                 self.metrics_log.append(
                     {"step": step, "time_s": dt,
                      **{k: float(v) for k, v in metrics.items()}})
+            if self.ckpt and step % self.loop_cfg.ckpt_every == 0:
+                self.ckpt.save(step, dict(self.state))
+                saved = step
+        if self.ckpt:
+            if saved != self.loop_cfg.total_steps:
+                self.ckpt.save(self.loop_cfg.total_steps, dict(self.state))
+            self.ckpt.wait()
         return self.state
+
+
+def run_training(cfg: ModelConfig, shape: ShapeConfig, loop_cfg: LoopConfig,
+                 step_fn: Callable, state: Dict[str, Any], **kw):
+    return TrainLoop(cfg, shape, loop_cfg, step_fn, state, **kw).run()

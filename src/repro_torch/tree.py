@@ -3,13 +3,14 @@
 Parameter, optimizer and batch trees are plain dicts (and, once split per
 layer by :func:`repro_torch.train.state.split_layers`, lists) of tensors.
 Leaves are visited in container order: dict insertion order, then list
-order.
+order; :func:`sorted_leaves` visits them in ``jax.tree.leaves``' order
+(dict keys sorted), for what must not depend on how a dict was built.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, List
 
-__all__ = ["leaves", "map_tree", "index_tree"]
+__all__ = ["leaves", "sorted_leaves", "map_tree", "index_tree"]
 
 
 def leaves(tree: Any) -> List[Any]:
@@ -18,6 +19,15 @@ def leaves(tree: Any) -> List[Any]:
         return [x for v in tree.values() for x in leaves(v)]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def sorted_leaves(tree: Any) -> List[Any]:
+    """The leaves of ``tree`` with dict keys sorted, then list order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in sorted_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in sorted_leaves(v)]
     return [tree]
 
 

@@ -8,6 +8,7 @@ import dataclasses
 import pytest
 import torch
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import HostDataConfig, host_batch
@@ -23,6 +24,7 @@ from repro_torch.models.registry import get_api
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.serve import (EngineConfig, SamplingParams, ServeEngine,
                                 cache, prng, sampling)
+from repro_torch.train.loop import LoopConfig, TrainLoop
 from repro_torch.train.state import build_train_step, init_train_state
 from repro_torch.tree import leaves, map_tree
 
@@ -1253,3 +1255,134 @@ def test_ssm_train_loss_on_the_card_equals_cpu(cuda_device, arch):
               if cfg.family == "hybrid" else 0)
     assert out["cuda"][2] == (0, groups, groups, groups, 0, 0)
     assert out["cpu"][2] == (0,) * 6
+
+
+# ------------------------------------------------ modality frontends, ckpt
+# the frontend families' heads at a short S: hubert-xlarge 16/16 heads of
+# 80, non-causal; internvl2-26b 48/8 heads of 128 over 8 stub + 256 text
+# positions, causal
+FRONTEND_FLASH = [((2, 256, 16, 16, 80), False), ((1, 264, 48, 8, 128), True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", FRONTEND_FLASH, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_at_the_frontend_shapes(cuda_device, shape, causal, dtype):
+    """Forward and backward kernels against the plain versions, at the
+    tolerances of the flash tests above."""
+    q, k, v, do = _flash_inputs(*shape, dtype, cuda_device)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, causal)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, do, causal)
+    torch.cuda.synchronize()
+    po, plse = fa.flash_attention_plain(q, k, v, causal)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), po.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    for got, want in zip((dq, dk, dv), fa.flash_attention_plain_bwd(
+            q, k, v, o, lse, do, causal)):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        else:
+            assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "internvl2-26b"])
+def test_frontend_train_step_cuda_matches_cpu(cuda_device, arch):
+    """One train step of the reduced fp32 frontend model: the attention
+    (non-causal for hubert) through the kernels, the CPU step's loss."""
+    cfg = get_config(arch).reduced(dtype=torch.float32)
+    state = init_train_state(cfg, torch.Generator().manual_seed(0))
+    batch = host_batch(cfg, ShapeConfig("t", seq_len=64, global_batch=2,
+                                        kind="train"),
+                       HostDataConfig(0, 1, 0), 0)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        st = map_tree(lambda t: t.to(dev, copy=True), state)
+        step = build_train_step(cfg, AdamWConfig(lr=1e-3))
+        before = (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+        _, metrics = step(st, batch)
+        losses[dev] = float(metrics["loss"])
+        launched = tuple(a - b for a, b in zip(
+            (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV),
+            before))
+    assert launched == (cfg.n_layers,) * 3
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_cuda(cuda_device, tmp_path):
+    """A CUDA train state with a bf16 leaf saves and restores onto cuda,
+    equal leaf for leaf; a CPU target restores onto cuda with device=."""
+    cfg = get_config("hubert-xlarge").reduced(dtype=torch.float32)
+    state = init_train_state(cfg, torch.Generator(device=cuda_device)
+                             .manual_seed(0))
+    state["params"]["frontend_proj"] = \
+        state["params"]["frontend_proj"].to(torch.bfloat16)
+    ckpt.save_checkpoint(str(tmp_path), 4, state)
+    target = map_tree(torch.zeros_like, state)
+    got = ckpt.restore_checkpoint(str(tmp_path), 4, target)
+    cpu_target = map_tree(lambda t: t.cpu(), target)
+    moved = ckpt.restore_checkpoint(str(tmp_path), 4, cpu_target,
+                                    device=cuda_device)
+    for tree in (got, moved):
+        for (_, a), (_, b) in zip(ckpt.flatten_with_paths(tree),
+                                  ckpt.flatten_with_paths(state)):
+            assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_async_checkpointer_refills_its_pinned_buffer(cuda_device, tmp_path):
+    """A CUDA state is copied into a pinned host buffer, which the next
+    save refills once the first save's files are written; each step on
+    disk holds the values of its save."""
+    ck = ckpt.AsyncCheckpointer(str(tmp_path), keep=3)
+    state = {"a": torch.arange(6, dtype=torch.float32, device=cuda_device),
+             "b": torch.ones((2, 3), dtype=torch.bfloat16,
+                             device=cuda_device)}
+    ck.save(1, state)
+    ck.wait()
+    first, = ck._free
+    assert first.is_pinned()
+    with torch.no_grad():
+        for t in state.values():
+            t.add_(1)
+    ck.save(2, state)
+    assert not ck._free
+    ck.wait()
+    assert ck._free[0] is first
+    ck.close()
+    for step in (1, 2):
+        got = ckpt.restore_checkpoint(str(tmp_path), step,
+                                      map_tree(torch.zeros_like, state))
+        for name, t in state.items():
+            assert torch.equal(got[name], t - (2 - step)), (step, name)
+
+
+@pytest.mark.cuda
+def test_train_loop_restart_is_exact_on_cuda(cuda_device, tmp_path):
+    """4 straight steps of the reduced hubert on the card == 2 steps +
+    restore (onto a state from another seed) + 2, bit for bit."""
+    cfg = get_config("hubert-xlarge").reduced(dtype=torch.float32)
+    shape = ShapeConfig("t", seq_len=64, global_batch=2, kind="train")
+    step = build_train_step(cfg, AdamWConfig(lr=1e-3))
+
+    def loop(seed, total, d):
+        st = init_train_state(cfg, torch.Generator(device=cuda_device)
+                              .manual_seed(seed))
+        return TrainLoop(cfg, shape, LoopConfig(
+            total_steps=total, ckpt_dir=str(d), ckpt_every=2, log_every=1,
+            seed=3), step, st)
+
+    straight = loop(0, 4, tmp_path / "a")
+    final_a = straight.run()
+    loop(0, 2, tmp_path / "b").run()
+    resumed = loop(1, 4, tmp_path / "b")
+    final_b = resumed.run()
+    assert [m["step"] for m in resumed.metrics_log] == [3, 4]
+    assert [m["loss"] for m in resumed.metrics_log] == \
+        [m["loss"] for m in straight.metrics_log[2:]]
+    for (_, a), (_, b) in zip(ckpt.flatten_with_paths(final_a),
+                              ckpt.flatten_with_paths(final_b)):
+        assert torch.equal(a, b)

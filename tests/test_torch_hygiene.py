@@ -21,7 +21,7 @@ from repro_torch.serve import ServeEngine
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "msgpack"}
 
 
 def _imported_roots(path):
@@ -62,6 +62,7 @@ def test_port_files_found():
             "src/repro_torch/models/registry.py",
             "src/repro_torch/kernels/ops.py",
             "src/repro_torch/launch/profile_serve.py",
+            "src/repro_torch/checkpoint/ckpt.py",
             "chip_smoke.py"} <= rel
 
 
@@ -75,7 +76,7 @@ def test_no_jax_or_repro_import(path):
 def _imports_no_jax(modules):
     code = (f"import sys, {modules}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]\n"
+            "('jax', 'jaxlib', 'repro', 'msgpack')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -94,7 +95,8 @@ def test_moe_import_loads_no_jax():
 
 
 def test_train_import_loads_no_jax():
-    _imports_no_jax("repro_torch.launch.train, repro_torch.train.loop")
+    _imports_no_jax("repro_torch.launch.train, repro_torch.train.loop, "
+                    "repro_torch.checkpoint.ckpt, repro_torch.data.pipeline")
 
 
 def test_adder_import_loads_no_jax():

@@ -19,7 +19,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.models import attention
 from repro_torch.models import lm as tlm
 from repro_torch.models.common import init_params as tinit
-from repro_torch.models.registry import get_api
+from repro_torch.models.registry import get_api, serve_api
 
 PAGE, NUM_PAGES = 16, 10
 
@@ -269,5 +269,11 @@ def test_moe_families_are_served(arch):
 
 
 def test_encoder_only_has_no_decode_path():
+    cfg = tget("hubert-xlarge")
+    api = get_api(cfg)
+    assert api.train_loss is tlm.train_loss and api.forward is tlm.forward
+    assert all(getattr(api, name) is None for name in (
+        "decode_state_specs", "decode_step", "prefill_chunk",
+        "verify_chunk", "verify_tree", "draft_head_specs"))
     with pytest.raises(ValueError, match="encoder-only"):
-        get_api(tget("hubert-xlarge"))
+        serve_api(cfg)

@@ -336,13 +336,8 @@ def test_unported_modes_raise_with_roadmap_item():
         tstate.build_train_step(tcfg, tadamw.AdamWConfig(),
                                 pod_compressed=True)
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        tloop.TrainLoop(tcfg, TShape("t", 8, 2, "train"),
-                        tloop.LoopConfig(total_steps=1, ckpt_dir="ckpt"),
-                        lambda s, b: (s, {}), {})
-    vcfg = tget("internvl2-26b").reduced(dtype=torch.float32)
-    p = tstate.init_train_state(vcfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tlm.forward(p["params"], {"tokens": torch.zeros(1, 4)}, vcfg)
+        tlaunch.main(["--reduced", "--device", "cpu", "--steps", "1",
+                      "--pod-compressed"])
 
 
 def test_train_cli_on_cpu(capsys):
