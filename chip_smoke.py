@@ -11,9 +11,12 @@ drives the port's serve engine and its trainer at the full width of
 ``internvl2-26b`` (4 of its 48 layers), its serve engine at the full width of the MLA model
 ``minicpm3-4b``, of the MoE model ``phi3.5-moe-42b-a6.6b`` (16 of its
 32 layers: the whole model does not fit the card), of the SSM
-``falcon-mamba-7b`` and of the hybrid ``zamba2-1.2b`` (random weights
-from a seed), and times each kernel beside its bound, its plain version and a
-library call.  Raises at the first
+``falcon-mamba-7b``, of the hybrid ``zamba2-1.2b`` and of the QKV-bias
+``glm4-9b`` (random weights from a seed), drives the autotune tier
+(``repro_torch.tune``: the serve CLI's ``--burst-smoke``, the
+virtual-clock replay and the knob sweep) at ``llama3.2-3b``'s width, and
+times each kernel beside its bound, its plain version and a library
+call.  Raises at the first
 failed check, so any failure exits non-zero; with no CUDA device, or
 outside a checkout of the repository, it exits non-zero before printing
 any result.
@@ -28,7 +31,9 @@ Phases:
      (phase 6's paged geometry and G3's generate over pages of 32), and
      the MoE top-k combine's columns at N = 1 and 2, bf16 operands and
      fp32 sums (phi3.5-moe decode, prefill piece and chain verify,
-     llama4-scout decode)
+     llama4-scout decode), and at glm4-9b's serve shapes under phase 6's
+     geometry (32 query heads: prefill o (16, 1048576), decode o (16,
+     16384), and the chain and tree verify shapes)
   4. flash attention: the forward kernel against flash_attention_plain
      (2e-5 fp32; bf16 2e-2 and relative norm error 1e-2) and the dq and
      dk/dv kernels against flash_attention_plain_bwd and against autograd
@@ -39,7 +44,10 @@ Phases:
      torch.equal dq, delta, dk and dv; and at zamba2's shared-block shape,
      (2, 2048, 32, 64) bf16 (32 query and 32 KV heads of 64), at
      hubert-xlarge's (2, 2048, 16, 16, 80) bf16 (head dim 80, zero-padded
-     to 128 by the wrappers) and at internvl2-26b's (2, 2048, 48, 8, 128)
+     to 128 by the wrappers), at internvl2-26b's (2, 2048, 48, 8, 128),
+     at glm4-9b's (2, 2048, 32, 2, 128) bf16 (a GQA group of 16), at
+     qwen2.5-14b's (2, 2048, 40, 8, 128) bf16 (a group of 5) and at one
+     small fp32 shape of group 16
   5. serve, reduced-config parity: the engine on CUDA against the engine
      on CPU, same weights: greedy tokens equal, decode logits within 1e-3;
      then the traffic of phases A-C cut to the reduced fp32 config, CUDA
@@ -81,7 +89,16 @@ Phases:
      within 1e-3, no kernel launched; warmup() on a live CUDA engine
      leaves every state leaf and counter as it was; one train_loss and
      every gradient CUDA against CPU within 1e-4, the hybrid's shared
-     attention through the flash kernels (each launched once a group)
+     attention through the flash kernels (each launched once a group);
+     then the reduced fp32 glm4-9b (32/2 heads) and qwen2.5-14b (20/4
+     heads) with QKV biases drawn N(0, 0.5): sequential, prefix warm,
+     chain (spec_k 4) and contiguous, CUDA against CPU: tokens and every
+     counter equal, decode logits within 1e-3, moa_reduce launched 2 *
+     layers a dispatch; then the port's replay_open_loop on the reduced
+     llama, CUDA against CPU: the JAX package's canned burst (18
+     arrivals, seed 11, spec_k 3) with the degrade ladder, and 2
+     conversations x 3 turns: outputs, the whole trajectory (virtual
+     time, steps, SLO, shed and goodput tallies) and every counter equal
   6. serve, full width: llama3.2-3b, 28 layers, bf16, 8 greedy requests
      of 128 to 1024 prompt tokens and 32 new tokens on 4 slots, prefix
      cache off (what PRs 11-17 measured); every request retires with 32
@@ -155,10 +172,29 @@ Phases:
      Gumbel noise of (seed, index) by rank; each run's winning rank and
      margin, and how many of the top-k ranks hold another token in the
      two rows
+  T. the autotune tier on phase 6's weights, after E: T1 the serve CLI's
+     --burst-smoke --requests 24 at full width (its own weights) returns
+     0; T2 replay_open_loop of a 24-arrival bursty_trace (rate 1, bursts
+     of 16 a second, 256-token mean prompts, 24 new) on C's geometry with
+     spec_k 4, priced at phase 6's chunk and step times and D's chain
+     step (VirtualCosts), the SLO twice a mean request's service time,
+     ladder off, on and on again: the two ladder-on replays have equal
+     outputs, virtual time and shed, every shed request a reason and no
+     tokens, every served request complete, moa_reduce launched 2 *
+     layers a replayed dispatch (counted after the driver's warmup);
+     both goodputs printed, no order asserted; T3 4 conversations x 3
+     turns of 256 tokens + 16 on 2 slots: a session hit for each of the 8
+     returning turns; T4 run_sweep over prefill_chunk {128, 256} x spec_k
+     {0, 4} around phase 6's engine config plus page_size 96 (resolve
+     rejects it) on sweep_workload (8 requests, 512 shared + 64 tokens,
+     32 new), the (256, 0) point under torch.profiler: 4 records with
+     metrics, one with its error, no profile_error, a non-empty Chrome
+     trace (deleted after); each point and the Pareto front under
+     (decode tok/s max, pool bytes min, p99 step min) printed
   F. MLA serve: minicpm3-4b at its published width (62 layers, d 2560, 40
      heads, q_lora_rank 768, kv_lora_rank 256, nope 64, rope 32, v 64,
      d_ff 6400, vocab 73448; 4.26 B params, bf16, random from seed 0),
-     after E with the llama weights freed, on phase 6's geometry: phase
+     after T with the llama weights freed, on phase 6's geometry: phase
      6's traffic over bf16, int8 and int4 latent pools (35,712 / 18,352 /
      9,424 bytes a token asserted), phase A's shared-prefix traffic cold
      and warm (tokens equal, 7 hits), chain (spec_k 4) and tree (12 nodes,
@@ -196,16 +232,30 @@ Phases:
      a shared attention block of 32/32 heads of 64, d_ff 8192, vocab
      32000; 1,172,046,720 parameters), S's traffic, asserts and prints,
      141,472,256 B of state a slot
+  Q. QKV-bias serve: glm4-9b at its published width (40 layers, d 4096,
+     32/2 heads of 128, d_ff 13696, vocab 151552; its exact parameter
+     count printed, bf16, random from seed 0, the biases N(0, 0.5) from
+     seed 1), after Z: phase 6's traffic over bf16 and int8 pages, chain
+     (spec_k 4) on D's passages; the refcount invariant after every
+     step, every request complete, no NaN logit, moa_reduce launched 2 *
+     40 a dispatch, pool bytes a token exactly kv_token_bytes (40,960 in
+     bf16); the bias check: the bf16 engine's last decode logits row of
+     its 128-token request lies at least 10x nearer forward's row (the
+     flash kernels) with the biases than with them zeroed; prefill and
+     decode tok/s, step p50 and p99 and peak GB printed
   7. moa_reduce timings at the serve path shapes, the verify shapes of a
      chain (C = 5) and a tree (C = 17) and G3's generate (N = 5) among
-     them, and the MoE combine's bf16 shapes (CUDA events, median of 50),
-     beside the bound, the plain version and torch.sum
+     them, the MoE combine's bf16 shapes and glm4-9b's prefill o and
+     decode o (CUDA events, median of 50), beside the bound, the plain
+     version and torch.sum
   8. train, reduced-config parity: 3 AdamW steps of the reduced fp32
      config from one state on the CPU (chunked attention) and on CUDA (the
      kernels): losses within 1e-4, kernels launched layers * steps times;
      the same for the reduced hubert-xlarge (audio frames, non-causal) and
      internvl2-26b (8 vision-stub tokens before the text, the loss on the
-     text)
+     text); then one reduced glm4-9b train_loss (32/2 heads, nonzero QKV
+     biases), CUDA against CPU: the loss and the bq, bk and bv gradients
+     within 1e-4, each flash kernel launched once a layer
   9. train, full width: llama3.2-3b, fp32 masters, bf16 compute, remat,
      batch 2 x seq 2048: loss and gradient norm through the kernels
      against the chunked attention (use_flash_attn off: no flash launch)
@@ -241,7 +291,7 @@ Phases:
      TFLOP/s and share of the bf16 peak beside SDPA's; then the same at
      zamba2's shared-block shape, hubert-xlarge's (non-causal; the bound
      counts the real head dim 80, and the padded-work ratio 128 / 80 is
-     printed beside it) and internvl2-26b's
+     printed beside it), internvl2-26b's and glm4-9b's
  11. bitplane_add and quant_matmul against bitplane_add_plain and
      quant_matmul_plain, torch.equal, at the kernel-test shapes (Fig 12
      lanes, ragged and unaligned lanes, N = 1 to 64, M = 1 to 31, the all
@@ -308,8 +358,9 @@ from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.common import init_params, rms_norm  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models.lm import (fit_draft_heads,  # noqa: E402
-                                   hidden_states, train_loss)
+                                   forward, hidden_states, train_loss)
 from repro_torch.models.registry import get_api  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, global_norm  # noqa: E402
 from repro_torch.optim.grad_accum import value_and_grad  # noqa: E402
@@ -324,6 +375,11 @@ from repro_torch.train.loop import LoopConfig, TrainLoop  # noqa: E402
 from repro_torch.train.state import (build_train_step,  # noqa: E402
                                      init_train_state, split_layers)
 from repro_torch.tree import leaves, map_tree  # noqa: E402
+from repro_torch.tune import (Arrival, SweepSpec,  # noqa: E402
+                              VirtualCosts, bursty_trace, multi_turn_trace,
+                              pareto_front, replay_open_loop, run_sweep,
+                              sweep_workload)
+from repro_torch.tune.sweep import TRACE_FILE  # noqa: E402
 
 #: H100 SXM memory rate and dense bf16 and int8 tensor-core rates (NVIDIA
 #: data sheet) for the bounds
@@ -391,11 +447,22 @@ AUDIO_ARCH, VLM_ARCH, VLM_LAYERS = "hubert-xlarge", "internvl2-26b", 4
 AUDIO_STEPS, VLM_STEPS = 3, 2
 HUBERT_FLASH_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 80)
 INTERNVL_FLASH_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 48, 8, 128)
+#: phase Q and the QKV-bias parity: glm4-9b (32 query heads over 2 KV
+#: heads, a GQA group of 16) and qwen2.5-14b (40 over 8, a group of 5);
+#: their reduced configs keep the group at narrow widths
+QKV_ARCH, QWEN_ARCH = "glm4-9b", "qwen2.5-14b"
+QKV_BIAS_HEADS = {QKV_ARCH: dict(n_heads=32, n_kv_heads=2),
+                  QWEN_ARCH: dict(n_heads=20, n_kv_heads=4)}
+#: their training shapes at batch 2 x seq 2048 (phases 4 and 10)
+GLM4_FLASH_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 32, 2, 128)
+QWEN_FLASH_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 40, 8, 128)
 #: phase 4's named bf16 shapes, each with the causal flag its path runs
 FLASH_NAMED = {"path": ((TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128), True),
                "zamba2": (ZAMBA_FLASH_SHAPE, True),
                "hubert": (HUBERT_FLASH_SHAPE, False),
-               "internvl2": (INTERNVL_FLASH_SHAPE, True)}
+               "internvl2": (INTERNVL_FLASH_SHAPE, True),
+               "glm4": (GLM4_FLASH_SHAPE, True),
+               "qwen": (QWEN_FLASH_SHAPE, True)}
 #: phase H2: steps, save period and the two seeds (the first run's state
 #: and the resumed loop's state before it restores)
 RESUME_STEPS, RESUME_EVERY, RESUME_SEEDS = 4, 2, (1, 2)
@@ -411,7 +478,10 @@ FLASH_CHECK_SHAPES = [(2, 256, 4, 2, 64, torch.float32),
                       (2, TRAIN_SEQ, 24, 8, 128, torch.bfloat16),
                       ZAMBA_FLASH_SHAPE + (torch.bfloat16,),
                       HUBERT_FLASH_SHAPE + (torch.bfloat16,),
-                      INTERNVL_FLASH_SHAPE + (torch.bfloat16,)]
+                      INTERNVL_FLASH_SHAPE + (torch.bfloat16,),
+                      (1, 128, 16, 1, 64, torch.float32),
+                      GLM4_FLASH_SHAPE + (torch.bfloat16,),
+                      QWEN_FLASH_SHAPE + (torch.bfloat16,)]
 
 
 def check(cond: bool, what: str) -> None:
@@ -683,6 +753,133 @@ def phase_reduced_parity() -> None:
     moe_train_parity()
     for cfg in ssm_reduced_configs():
         ssm_reduced_parity(cfg)
+    for arch in (QKV_ARCH, QWEN_ARCH):
+        qcfg = reduced_qkv(arch)
+        table_parity(qcfg, REDUCED_BIAS_RUNS,
+                     with_biases(seed_params(qcfg), seed=1))
+    replay_parity()
+
+
+#: the QKV-bias parameters a layer, drawn nonzero by :func:`with_biases`
+QKV_BIASES = ("bq", "bk", "bv")
+#: phase 5's runs of the reduced QKV-bias archs
+REDUCED_BIAS_RUNS = {
+    "sequential": (dict(prefix_cache=False), False),
+    "prefix warm": ({}, False),
+    "chain": (dict(spec_k=4), False),
+    "contiguous": (dict(paged_kv=False), False)}
+
+
+def reduced_qkv(arch):
+    """The reduced fp32 QKV-bias ``arch`` at its published GQA group."""
+    return get_config(arch).reduced(dtype=torch.float32,
+                                    **QKV_BIAS_HEADS[arch])
+
+
+def seed_params(cfg):
+    """Seed-0 params of ``cfg`` on the CPU."""
+    return init_params(get_api(cfg).param_specs(cfg),
+                       torch.Generator().manual_seed(0),
+                       torch.device("cpu"), cfg.dtype)
+
+
+def with_biases(params, seed: int):
+    """``params`` with ``bq``, ``bk`` and ``bv`` drawn N(0, 0.5) from
+    ``seed`` on their device, in their dtype (their init is zeros, which
+    would hide a dropped or misplaced bias add).  Returns ``params``."""
+    attn = params["blocks"]["attn"]
+    dev = attn["bq"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for k in QKV_BIASES:
+        attn[k] = (0.5 * torch.randn(attn[k].shape, generator=gen,
+                                     device=dev)).to(attn[k].dtype)
+    return params
+
+
+def zeroed_biases(params):
+    """A shallow copy of ``params`` whose QKV biases are zeros."""
+    attn = params["blocks"]["attn"]
+    return dict(params, blocks=dict(params["blocks"], attn=dict(
+        attn, **{k: torch.zeros_like(attn[k]) for k in QKV_BIASES})))
+
+
+#: the virtual prices of the reduced replays (the JAX package's defaults)
+REDUCED_COSTS = VirtualCosts(0.010, 0.020, 0.032)
+#: what a replay's trajectory is: the fields of replay_open_loop's result
+#: held equal between two runs
+TRAJECTORY = ("outputs", "elapsed_s", "steps", "served_tokens",
+              "goodput_tokens", "slo_met", "slo_missed", "shed")
+
+
+def counted_replay(eng, trace, costs, what):
+    """``replay_open_loop`` of ``trace`` on ``eng`` at ``costs``: every
+    kernel count zeroed again after the driver's ``warmup()`` (which moves
+    no engine counter), so the launches held by :func:`_check_launches`
+    are those of the replayed steps; the scheduler's clock restored.
+    Returns (result, moa_reduce launches)."""
+    warm, clock = eng.warmup, eng.scheduler.clock
+
+    def warmup():
+        warm()
+        _sync()
+        _zero_kernel_counts()
+
+    eng.warmup = warmup
+    res = {}
+    launches = _counted_run(eng, lambda: res.update(
+        replay_open_loop(eng, trace, costs)))
+    check(eng.scheduler.clock is clock,
+          f"{what}: the scheduler's clock was not restored")
+    _check_launches(eng, launches, what)
+    refcount_check(eng, what)
+    return res, launches
+
+
+def replay_parity() -> None:
+    """The port's ``replay_open_loop`` on the reduced fp32 llama, CUDA
+    against CPU on the same weights: the JAX package's canned burst (18
+    arrivals, seed 11, spec_k 3) with the degrade ladder, and 2
+    conversations x 3 turns; outputs, the whole trajectory and every
+    counter equal."""
+    cfg = get_config("llama3.2-3b").reduced(dtype=torch.float32,
+                                            n_kv_heads=2)
+    cpu_params = seed_params(cfg)
+    runs = {
+        "burst, ladder on": (bursty_trace(
+            18, rate=2.0, burst_rate=30.0, mean_prompt=16, mean_gen=8,
+            max_prompt=40, max_gen=16, vocab=cfg.vocab, slo_ms=800.0,
+            seed=11), dict(spec_k=3, degrade=True)),
+        "multi-turn": (multi_turn_trace(2, 3, turn_tokens=8, gen=4,
+                                        think_s=0.2, vocab=cfg.vocab,
+                                        seed=2), {})}
+    keys = [k for k in SERVE_COUNTERS + SPEC_COUNTERS
+            if k != "moa_reduce_launches"]
+    for name, (trace, knobs) in runs.items():
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = (cpu_params if dev == "cpu"
+                      else map_tree(lambda t: t.to(dev), cpu_params))
+            eng = ServeEngine(cfg, params, config=EngineConfig(
+                max_slots=2, max_seq=96, prefill_chunk=16, **knobs),
+                device=dev)
+            out[dev] = counted_replay(eng, trace, REDUCED_COSTS,
+                                      f"reduced replay {name} {dev}")
+            _free(eng)
+        (cres, _), (gres, launched) = out["cpu"], out["cuda"]
+        bad = [k for k in TRAJECTORY if cres[k] != gres[k]] + [
+            k for k in keys if cres["stats"][k] != gres["stats"][k]]
+        check(not bad, f"reduced replay {name}: CUDA differs from CPU in "
+                       f"{bad}")
+        st = gres["stats"]
+        print(f"[parity] reduced replay_open_loop, {name}: outputs, "
+              f"{len(TRAJECTORY) - 1} trajectory fields and {len(keys)} "
+              f"counters equal CPU vs CUDA over {len(trace)} arrivals "
+              f"({gres['steps']} steps over {gres['elapsed_s']:.4f} "
+              f"virtual s, SLO met {gres['slo_met']} / missed "
+              f"{gres['slo_missed']}, shed {gres['shed']}, ladder "
+              f"transitions {st['degrade_transitions']}, spec steps "
+              f"{st['spec_steps']}, session hits {st['session_hits']}); "
+              f"moa_reduce launches {launched}")
 
 
 def moe_train_parity() -> None:
@@ -2059,6 +2256,290 @@ def phase_ssm_serve(cfg, params, n_params, what):
     return row
 
 
+#: phase Q: glm4-9b's KV bytes a token in bf16 (40 layers x K and V x 2
+#: heads x 128 x 2 B)
+QKV_TOKEN_BYTES = 40_960
+
+
+def qkv_params(cfg):
+    """glm4-9b's weights on the card: random bf16 from seed 0, the QKV
+    biases N(0, 0.5) from seed 1.  Returns (params, parameter count)."""
+    t0 = time.perf_counter()
+    params = with_biases(init_params(
+        get_api(cfg).param_specs(cfg),
+        torch.Generator(device="cuda").manual_seed(0),
+        torch.device("cuda"), cfg.dtype), seed=1)
+    _sync()
+    n_params = sum(t.numel() for t in leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    print(f"[qkv] {cfg.arch_id}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd} (GQA group "
+          f"{cfg.n_heads // cfg.n_kv_heads}), QKV bias, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}: {n_params:,} params, {nbytes / 1e9:.3f} GB "
+          f"{cfg.dtype}, initialized in {time.perf_counter() - t0:.2f} s")
+    return params, n_params
+
+
+def bias_check(cfg, params, req, row) -> dict:
+    """The engine's logits row ``row`` that drew ``req``'s last token,
+    against ``forward`` over the same context with the biases and with
+    them zeroed (bf16 logits, the flash kernels): the row must lie nearer
+    the biased forward's, by at least 10x in L2 distance."""
+    i = len(req.generated) - 1
+    ctx = torch.tensor([list(req.prompt) + req.generated[:i]],
+                       device=params["embed"].device)
+    _zero_flash_counts()
+    with torch.no_grad():
+        rows = [forward(p, {"tokens": ctx}, cfg)[0][0, -1].float()
+                for p in (params, zeroed_biases(params))]
+    _sync()
+    counts = _flash_counts()
+    d_bias, d_zero = (float((row.float() - r).norm()) for r in rows)
+    check(d_zero >= 10 * d_bias,
+          f"Q bias check: the engine's row is {d_bias:.4f} from forward "
+          f"with the biases and {d_zero:.4f} without (under 10x)")
+    check(counts["fwd"] == 2 * cfg.n_layers,
+          f"Q bias check: flash forward launched {counts['fwd']} times")
+    print(f"[qkv] bias check on a request of {len(req.prompt)} prompt "
+          f"tokens, its last decode row (index {i}): L2 distance to forward "
+          f"with the biases {d_bias:.4f}, with them zeroed {d_zero:.4f} "
+          f"({d_zero / max(d_bias, 1e-30):.1f}x, >= 10x asserted); flash "
+          f"launches {counts}")
+    return {"to_biased": d_bias, "to_zeroed": d_zero,
+            "flash_launches": counts}
+
+
+def phase_qkv_serve(cfg, params):
+    """Phase Q: glm4-9b at its published width (``params`` from
+    :func:`qkv_params`) on phase 6's geometry: phase 6's traffic over bf16
+    and int8 pages, and chain (spec_k 4) on phase D's passages.  Every
+    run: the refcount invariant after every step, every request complete,
+    no NaN logit, moa_reduce launched 2 * 40 a dispatch, pool bytes a
+    token exactly ``kv_token_bytes``; the bias check on the bf16 run.
+    Returns (summary rows, moa_reduce launches by run)."""
+    torch.cuda.reset_peak_memory_stats()
+    rows, launches = {}, {}
+    plain = make_prompts(SPEC_LENS, cfg.vocab, seed=2)
+    passages = spec_prompts(SPEC_LENS, cfg.vocab, seed=23)
+    check(kv_token_bytes(cfg, "fp32") == QKV_TOKEN_BYTES,
+          f"Q: {kv_token_bytes(cfg, 'fp32')} KV bytes a token")
+    for name, knobs, prompts, new in (
+            ("bf16", dict(kv_dtype="fp32"), plain, QUANT_NEW),
+            ("int8", dict(kv_dtype="int8"), plain, QUANT_NEW),
+            ("chain", SPEC_RUNS["chain"], passages, SPEC_NEW)):
+        what = f"Q {name}"
+        record = [] if name == "bf16" else None
+        eng, reqs, launched = serve_spec(cfg, params, knobs, prompts, what,
+                                         new=new, record=record)
+        st = eng.stats_summary()
+        per_token = kv_token_bytes(cfg, eng.kv_dtype)
+        check(st["pool_bytes"] == per_token * eng.pool.num_pages
+              * eng.page_size and st["kv_bytes_per_slot"]
+              == per_token * eng.max_seq,
+              f"{what}: pool bytes {st['pool_bytes']} (slot "
+              f"{st['kv_bytes_per_slot']}), expected {per_token} a token")
+        rows[name] = dict(_serve_row(st), kv_dtype=eng.kv_dtype,
+                          bytes_per_token=per_token, launches=launched,
+                          accept_rate=st["spec_accept_rate"])
+        launches[name] = launched
+        print(f"[qkv] {what}: pool {eng.pool.num_pages} pages x "
+              f"{eng.page_size} = {st['pool_bytes']} bytes ({per_token} a "
+              f"token); {_serve_line(st)}; {st['tokens_per_step']:.3f} "
+              f"tokens/step (accept rate {st['spec_accept_rate']:.4f}); "
+              f"moa_reduce launches {launched} = 2 * {cfg.n_layers} * "
+              f"({st['prefill_dispatches']} + {st['decode_steps']})")
+        if record is not None:
+            r = SPEC_LENS.index(min(SPEC_LENS))
+            row = drawn_rows(record, reqs)[(r, len(reqs[r].generated) - 1)]
+            del record
+            rows["bias_check"] = bias_check(cfg, params, reqs[r], row)
+        _free(eng)
+    rows["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[qkv] peak memory {rows['peak_gb']:.3f} GB")
+    return rows, launches
+
+
+#: phase T: the autotune tier at full width on phase 6's weights: the
+#: burst's arrivals, mean prompt and new tokens; the conversations
+TUNE_ARRIVALS, TUNE_PROMPT, TUNE_GEN = 24, 256, 24
+TUNE_USERS, TUNE_TURNS, TUNE_TURN_TOKENS, TUNE_REPLY = 4, 3, 256, 16
+#: the sweep's objectives for its Pareto front
+SWEEP_OBJECTIVES = (("decode_tok_s", "max"), ("pool_bytes", "min"),
+                    ("decode_step_p99_s", "min"))
+
+
+def phase_tune(cfg, params, chunk_s, step_s, chain_step_s):
+    """Phase T at full width on phase 6's weights and prices.  T1: the
+    serve CLI's ``--burst-smoke`` (its own weights, drawn from seed 0).
+    T2: ``replay_open_loop`` of a 24-arrival ``bursty_trace`` on phase C's
+    geometry with spec_k 4, priced at phase 6's chunk and step and phase
+    D's chain step: ladder off, on, and on again (equal outputs, virtual
+    time and shed asserted; goodputs printed).  T3: 4 conversations x 3
+    turns on 2 slots, a session hit for each of the 8 returning turns.  T4:
+    ``run_sweep`` over prefill_chunk {128, 256} x spec_k {0, 4} on phase
+    6's engine config, plus a point ``resolve`` rejects, one point under
+    ``torch.profiler``; the Pareto front printed.  Returns (summary rows,
+    moa_reduce launches by run)."""
+    rows, launches = {}, {}
+    t0 = time.perf_counter()
+    _zero_kernel_counts()
+    rc = serve_main(["--burst-smoke", "--requests", str(TUNE_ARRIVALS)])
+    _sync()
+    launches["T1 --burst-smoke"] = moa.LAUNCHES
+    check(rc == 0 and moa.LAUNCHES > 0,
+          f"T1: --burst-smoke returned {rc}, moa_reduce launches "
+          f"{moa.LAUNCHES}")
+    gc.collect()
+    torch.cuda.empty_cache()       # the CLI's weights go
+    print(f"[tune] T1 --burst-smoke --requests {TUNE_ARRIVALS} at full "
+          f"width: rc 0 in {time.perf_counter() - t0:.1f} s; moa_reduce "
+          f"launches {launches['T1 --burst-smoke']} (its warm-up included)")
+
+    costs = VirtualCosts(chunk_s, step_s, chain_step_s)
+    # an SLO of twice a mean request's service time alone: the burst's
+    # queue misses it, so the ladder climbs to shedding
+    slo_ms = 2e3 * (chunk_s + TUNE_GEN * chain_step_s)
+    trace = bursty_trace(TUNE_ARRIVALS, rate=1.0, burst_rate=16.0,
+                         mean_prompt=TUNE_PROMPT, mean_gen=TUNE_GEN,
+                         max_prompt=1024, max_gen=64, vocab=cfg.vocab,
+                         slo_ms=slo_ms, seed=24)
+    res = {}
+    for name, degrade in (("ladder off", False), ("ladder on", True),
+                          ("ladder on again", True)):
+        what = f"T2 {name}"
+        eng = ServeEngine(cfg, params, config=FULL_TRAFFIC.engine(
+            spec_k=4, degrade=degrade))
+        r, launches[what] = counted_replay(eng, trace, costs, what)
+        shed = [q for q in r["finished"] if q.shed_reason is not None]
+        check(len(shed) == r["shed"] and all(
+            q.shed_reason and not q.generated for q in shed),
+              f"{what}: a shed request has tokens or no reason")
+        served = [q for q in r["finished"] if q.shed_reason is None]
+        check(len(served) + len(shed) == len(trace) and all(
+            len(q.generated) == q.max_new for q in served),
+              f"{what}: a served request is incomplete")
+        st = r["stats"]
+        res[name] = r
+        rows[what] = {k: r[k] for k in TRAJECTORY if k != "outputs"}
+        rows[what].update(goodput_tok_s=r["goodput_tok_s"],
+                          degrade_transitions=st["degrade_transitions"],
+                          spec_steps=st["spec_steps"],
+                          preemptions=st["preemptions"])
+        print(f"[tune] {what}: {len(trace)} arrivals (SLO "
+              f"{slo_ms:.1f} ms) over {r['elapsed_s']:.4f} virtual s in "
+              f"{r['steps']} steps; SLO met {r['slo_met']} / missed "
+              f"{r['slo_missed']}, shed {r['shed']}"
+              + (f" (first reason {shed[0].shed_reason!r})" if shed else "")
+              + f"; goodput {r['goodput_tokens']} tokens = "
+              f"{r['goodput_tok_s']:.2f} tok/s (virtual); ladder "
+              f"transitions {st['degrade_transitions']}, spec steps "
+              f"{st['spec_steps']}, preemptions {st['preemptions']}; "
+              f"moa_reduce launches {launches[what]}")
+        _free(eng)
+    on, again = res["ladder on"], res["ladder on again"]
+    check(on["outputs"] == again["outputs"]
+          and on["elapsed_s"] == again["elapsed_s"]
+          and on["shed"] == again["shed"],
+          "T2: the two ladder-on replays differ")
+    print(f"[tune] T2: the ladder-on replay repeated its outputs, virtual "
+          f"time and shed (asserted); goodput ladder on "
+          f"{on['goodput_tok_s']:.2f} tok/s, off "
+          f"{res['ladder off']['goodput_tok_s']:.2f} (reported)")
+
+    turns = multi_turn_trace(TUNE_USERS, TUNE_TURNS,
+                             turn_tokens=TUNE_TURN_TOKENS, gen=TUNE_REPLY,
+                             think_s=0.5, vocab=cfg.vocab, seed=25)
+    # 2 slots for 4 conversations: slots turn over between turns, so a
+    # returning turn finds its history in its snapshot, not in the trie
+    eng = ServeEngine(cfg, params, config=EngineConfig(
+        max_slots=2, max_seq=2048, prefill_chunk=256, page_size=128,
+        pool_pages=64))
+    r, launches["T3 multi-turn"] = counted_replay(eng, turns, costs,
+                                                  "T3 multi-turn")
+    st = r["stats"]
+    returning = TUNE_USERS * (TUNE_TURNS - 1)
+    check(st["session_hits"] == returning and all(
+        len(o) == TUNE_REPLY for o in r["outputs"]),
+          f"T3: session hits {st['session_hits']} (expected {returning}), "
+          f"replies {[len(o) for o in r['outputs']]}")
+    rows["T3 multi-turn"] = {k: r[k] for k in TRAJECTORY if k != "outputs"}
+    rows["T3 multi-turn"].update(session_hits=st["session_hits"],
+                                 session_reused_tokens=st[
+                                     "session_reused_tokens"])
+    print(f"[tune] T3 multi-turn: {TUNE_USERS} conversations x "
+          f"{TUNE_TURNS} turns of {TUNE_TURN_TOKENS} tokens + "
+          f"{TUNE_REPLY} replied; {r['steps']} steps over "
+          f"{r['elapsed_s']:.4f} virtual s; session hits "
+          f"{st['session_hits']} = the {returning} returning turns "
+          f"(asserted), {st['session_reused_tokens']} tokens reused; "
+          f"moa_reduce launches {launches['T3 multi-turn']}")
+    _free(eng)
+
+    base = EngineConfig(max_slots=4, max_seq=2048, prefill_chunk=256,
+                        prefix_cache=False)
+    points = SweepSpec(base, {"prefill_chunk": [128, 256],
+                              "spec_k": [0, 4]}).points()
+    bad = base.replace(page_size=96)
+    prompts, gens = sweep_workload(cfg.vocab, requests=8,
+                                   shared_prefix=512, tail=64, gen=32)
+    root = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    try:
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        recs = run_sweep(cfg, params, points[:2], prompts, gens)
+        t1 = time.perf_counter()
+        recs += run_sweep(cfg, params, points[2:3], prompts, gens,
+                          profile_dir=root)
+        t2 = time.perf_counter()
+        recs += run_sweep(cfg, params, points[3:] + [bad], prompts, gens)
+        _sync()
+        t3 = time.perf_counter()
+        launches["T4 sweep"] = moa.LAUNCHES
+        trace_file = os.path.join(recs[2].get("trace_dir", root),
+                                  TRACE_FILE)
+        trace_bytes = (os.path.getsize(trace_file)
+                       if os.path.exists(trace_file) else 0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    valid = [r for r in recs if "metrics" in r]
+    check(len(valid) == 4 and "error" in recs[-1]
+          and "metrics" not in recs[-1]
+          and not any("profile_error" in r for r in recs)
+          and trace_bytes > 0 and launches["T4 sweep"] > 0,
+          f"T4: {len(valid)} records with metrics, last record "
+          f"{recs[-1]}, profile errors "
+          f"{[r.get('profile_error') for r in recs]}, trace {trace_bytes} "
+          f"bytes")
+    front = pareto_front([r["metrics"] for r in valid], SWEEP_OBJECTIVES)
+    rows["T4 sweep"] = {
+        "points": [dict(prefill_chunk=r["config"]["prefill_chunk"],
+                        spec_k=r["config"]["spec_k"], **r["metrics"])
+                   for r in valid],
+        "error": recs[-1]["error"], "front": front,
+        "trace_bytes": trace_bytes,
+        "seconds": {"two points": t1 - t0, "one profiled point": t2 - t1,
+                    "one point and the rejected one": t3 - t2}}
+    for i, r in enumerate(valid):
+        m = r["metrics"]
+        print(f"[tune] T4 point prefill_chunk {r['config']['prefill_chunk']}"
+              f" spec_k {r['config']['spec_k']}: decode "
+              f"{m['decode_tok_s']:.1f} tok/s, prefill "
+              f"{m['prefill_tok_s']:.1f} tok/s, step p50 "
+              f"{1e3 * m['decode_step_p50_s']:.3f} ms p99 "
+              f"{1e3 * m['decode_step_p99_s']:.3f} ms, pool "
+              f"{m['pool_bytes']} bytes, {m['tokens_per_step']:.3f} "
+              f"tokens/step, occupancy {m['mean_occupancy']:.3f}"
+              + (" (profiled)" if "trace_dir" in r else "")
+              + (" [front]" if i in front else ""))
+    print(f"[tune] T4: 4 points with metrics, the rejected one's error "
+          f"{recs[-1]['error'][:60]!r}...; the profiled point's Chrome "
+          f"trace {trace_bytes} bytes; sweep seconds "
+          f"{rows['T4 sweep']['seconds']}; Pareto front under "
+          f"{SWEEP_OBJECTIVES}: points {front}; moa_reduce launches "
+          f"{launches['T4 sweep']} (engine warm-ups included)")
+    return rows, launches
+
+
 @dataclasses.dataclass(frozen=True)
 class Traffic:
     """The serve traffic of phases A-C at one scale: the engine geometry,
@@ -2277,14 +2758,6 @@ def serve_sessions(cfg, params, dev, tr: Traffic, turns, pool_pages):
                 and ((before - eng.pool.refcount) == snap).all())
     refcount_check(eng, f"sessions pool {pool_pages} after end_session")
     return eng, reqs, launches, released
-
-
-@dataclasses.dataclass
-class Arrival:
-    t: float
-    prompt: list
-    max_new: int
-    slo_ms: float = None
 
 
 def overload_trace(tr: Traffic, vocab: int, chunk_s: float, step_s: float,
@@ -2673,7 +3146,7 @@ def phase_flash_check():
           f"{errs['bwd_dq']['zamba2']:.3e} dkv "
           f"{errs['bwd_dkv']['zamba2']:.3e}; two forward and two backward "
           f"calls torch.equal at the path shape ({repeats} cases)")
-    for name in ("hubert", "internvl2"):
+    for name in ("hubert", "internvl2", "glm4", "qwen"):
         shape, causal = FLASH_NAMED[name]
         print(f"[check] flash at {name}'s shape {shape} (bf16, causal="
               f"{causal}): max |diff| fwd {errs['fwd'][name]:.3e} dq "
@@ -2700,7 +3173,8 @@ def _expected_counts(cfg, steps):
 def phase_train_parity():
     """Three AdamW steps of each reduced fp32 config from one state, on
     the CPU (chunked attention) and on CUDA (the flash kernels): llama3.2-3b
-    with kv_heads=2, then the frontend families."""
+    with kv_heads=2, then the frontend families; then the reduced glm4-9b's
+    loss and bias gradients.  Returns glm4's flash launches."""
     train_parity(get_config("llama3.2-3b").reduced(dtype=torch.float32,
                                                    n_kv_heads=2),
                  "kv_heads=2, ")
@@ -2708,6 +3182,44 @@ def phase_train_parity():
                  "audio frames, non-causal, ")
     train_parity(get_config(VLM_ARCH).reduced(dtype=torch.float32),
                  "8 vision-stub + 56 text positions, ")
+    return qkv_train_parity()
+
+
+def qkv_train_parity() -> dict:
+    """One reduced glm4-9b ``train_loss`` (group 16, nonzero biases) and
+    its bias gradients, CUDA (the flash kernels) against CPU on one
+    batch, within 1e-4; on the card each flash kernel runs once a
+    layer."""
+    cfg = reduced_qkv(QKV_ARCH)
+    cpu_params = with_biases(seed_params(cfg), seed=1)
+    toks = torch.from_numpy(np.random.default_rng(18).integers(
+        0, cfg.vocab, (4, 65)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = map_tree(lambda t: t.to(dev).requires_grad_(True), cpu_params)
+        _zero_kernel_counts()
+        loss = train_loss(p, {"tokens": toks[:, :-1].to(dev),
+                              "labels": toks[:, 1:].to(dev)}, cfg)
+        grads = torch.autograd.grad(
+            loss, [p["blocks"]["attn"][k] for k in QKV_BIASES])
+        _sync()
+        out[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                    _flash_counts())
+    (closs, cgrads, _), (gloss, ggrads, counts) = out["cpu"], out["cuda"]
+    diff = max(float((a - b).abs().max()) for a, b in zip(cgrads, ggrads))
+    check(abs(closs - gloss) <= 1e-4 and diff <= 1e-4,
+          f"reduced {QKV_ARCH} train: CUDA loss {gloss} (CPU {closs}), max "
+          f"|bias grad diff| {diff} (> 1e-4)")
+    check(all(bool(g.abs().sum() > 0) for g in ggrads),
+          f"reduced {QKV_ARCH} train: a bias got no gradient on the card")
+    want = dict.fromkeys(("fwd", "bwd_dq", "bwd_dkv"), cfg.n_layers)
+    check(counts == want, f"reduced {QKV_ARCH} train: flash launches "
+                          f"{counts}, expected {want}")
+    print(f"[parity] reduced {QKV_ARCH} train_loss (fp32, 32/2 heads, "
+          f"nonzero QKV biases, batch 4 x seq 64): loss CPU {closs:.6f} "
+          f"CUDA {gloss:.6f}; bq, bk, bv gradients max |diff| {diff:.3e} "
+          f"(tol 1e-4); flash launches {counts}")
+    return counts
 
 
 def train_parity(cfg, what: str) -> None:
@@ -3434,7 +3946,12 @@ def main() -> int:
                              spec_k=4).resolve(full_cfg)
     shapes = path_shapes(full_cfg, full_ecfg) + generate_shapes(full_cfg)
     moe_path = moe_shapes(full_ecfg)
-    err = timed("3 moa_reduce check", phase_kernel_check, shapes, moe_path)
+    qkv_cfg = get_config(QKV_ARCH)
+    qkv_shapes = [(f"glm4_{label}", n, m) for label, n, m in path_shapes(
+        qkv_cfg, EngineConfig(max_slots=4, max_seq=2048, prefill_chunk=256,
+                              spec_k=4).resolve(qkv_cfg))]
+    err = timed("3 moa_reduce check", phase_kernel_check,
+                shapes + qkv_shapes, moe_path)
     flash_err = timed("4 flash check", phase_flash_check)
     timed("5 reduced serve parity", phase_reduced_parity)
     launches, serve_params, chunk_s, step_s, paged_tokens = timed(
@@ -3457,6 +3974,9 @@ def main() -> int:
     quant_rows, serve_launches["E"] = timed(
         "E quantized KV and sampling", phase_quant_serve, full_cfg,
         serve_params)
+    tune_rows, serve_launches["T"] = timed(
+        "T autotune tier", phase_tune, full_cfg, serve_params, chunk_s,
+        step_s, chain_step_s)
     del serve_params
     gc.collect()
     torch.cuda.empty_cache()       # the llama serve weights go
@@ -3486,9 +4006,19 @@ def main() -> int:
         del weights
         gc.collect()
         torch.cuda.empty_cache()   # its weights go
+    qkv_weights, qkv_n = qkv_params(qkv_cfg)
+    qkv_rows, serve_launches["Q"] = timed(f"Q {QKV_ARCH} serve",
+                                          phase_qkv_serve, qkv_cfg,
+                                          qkv_weights)
+    qkv_rows["params"] = qkv_n
+    del qkv_weights
+    gc.collect()
+    torch.cuda.empty_cache()       # the glm4 weights go
     rows = timed("7 moa_reduce timing", phase_timing, shapes) + \
-        phase_timing(moe_path, torch.bfloat16)
-    timed("8 train parity", phase_train_parity)
+        phase_timing(moe_path, torch.bfloat16) + \
+        phase_timing([r for r in qkv_shapes
+                      if r[0] in ("glm4_prefill_o", "glm4_decode_o")])
+    qkv_train_counts = timed("8 train parity", phase_train_parity)
     flash_launches, _ = timed("9 train full width", train_full_width,
                               full_cfg, TRAIN_STEPS)
     gc.collect()
@@ -3503,6 +4033,8 @@ def main() -> int:
     frontend_flash_rows = {
         name: timed(f"10 flash timing, {name} shape", phase_flash_timing,
                     *FLASH_NAMED[name]) for name in frontend}
+    glm4_flash_rows = timed("10 flash timing, glm4 shape",
+                            phase_flash_timing, *FLASH_NAMED["glm4"])
     bitplane, matmul = adder_shapes(full_cfg)
     adder_err = timed("11 adder check", phase_adder_check, bitplane, matmul)
     adder_launches = timed("12 adder path", phase_adder_path, full_cfg,
@@ -3522,7 +4054,7 @@ def main() -> int:
         "checked": "torch.equal vs moa_reduce_plain", "shapes": rows,
         "spec_serve": spec_rows, "quant_serve": quant_rows,
         "mla_serve": mla_rows, "moe_serve": moe_rows,
-        "ssm_serve": ssm_rows,
+        "ssm_serve": ssm_rows, "qkv_serve": qkv_rows, "tune": tune_rows,
         "contiguous_serve": contig_rows,
         "launches_by_serve_phase": {
             f"{ph} {run}": n for ph, d in serve_launches.items()
@@ -3567,7 +4099,16 @@ def main() -> int:
                 shape=list(FLASH_NAMED[name][0]), dtype="bf16",
                 causal=FLASH_NAMED[name][1],
                 max_abs_err=flash_err[part][name],
-                launches=frontend[name][0][part]) for name in frontend}})
+                launches=frontend[name][0][part]) for name in frontend},
+            "glm4_shape": dict(
+                {k: glm4_flash_rows[part][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                shape=list(GLM4_FLASH_SHAPE), dtype="bf16", causal=True,
+                max_abs_err=flash_err[part]["glm4"],
+                launches_reduced_train=qkv_train_counts[part],
+                launches_phase_q=(qkv_rows["bias_check"]["flash_launches"]
+                                  [part]))})
     kernels[-3]["frontend_train"] = {name: summary for name, (_, summary)
                                      in frontend.items()}
     checked = {"bitplane_add": "torch.equal vs bitplane_add_plain",

@@ -22,8 +22,16 @@ K+1-wide dispatch; ``--no-spec`` decodes one token a step; ``--spec-mode
 tree`` / ``auto`` verify token trees), ``--kv-dtype`` picks the page
 element type and ``--no-paged-kv`` serves contiguous slots.
 ``--per-token`` instead runs :func:`generate`, the one-dispatch-per-token
-loop kept as the measurement baseline.  The flags are the JAX CLI's
-(``repro/launch/serve.py``) for what the port has.
+loop kept as the measurement baseline.  ``--burst-smoke`` instead replays
+a seeded bursty open-loop trace (:func:`repro_torch.tune.bursty_trace`,
+``--requests`` arrivals, SLO ``--slo-ms`` or 900 ms) through
+:func:`repro_torch.tune.replay_open_loop` on a virtual clock, with the
+degrade ladder on and ``max_seq`` ``--max-seq`` or 128:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --burst-smoke \
+        --requests 24
+
+The flags are the JAX CLI's (``repro/launch/serve.py``).
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ from repro_torch.serve import (EngineConfig, SamplingParams, ServeEngine,
                                add_cli_args, config_from_args, prng,
                                state_zeros)
 from repro_torch.tree import leaves
+from repro_torch.tune.workloads import bursty_trace, replay_open_loop
 
 __all__ = ["main", "generate", "serve_batch", "batch_config"]
 
@@ -207,6 +216,10 @@ def main(argv=None) -> int:
     ap.add_argument("--per-token", action="store_true",
                     help="run the per-token baseline loop (generate) "
                          "instead")
+    ap.add_argument("--burst-smoke", action="store_true",
+                    help="replay a seeded bursty open-loop trace on the "
+                         "virtual clock instead (exercises SLO pressure, "
+                         "the degrade ladder and shedding end to end)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy argmax)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -237,6 +250,35 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(api.param_specs(cfg), gen, device, cfg.dtype)
     rng = np.random.default_rng(args.seed)
+
+    if args.burst_smoke:
+        # open-loop burst replay: arrivals do not wait for completions,
+        # time is virtual (deterministic given --seed), tokens are real.
+        # Degrade + SLOs are forced on: the smoke drives the ladder
+        # through shed and back.
+        ecfg = config_from_args(args).replace(
+            max_seq=(args.max_seq or 128), degrade=True)
+        trace = bursty_trace(args.requests, rate=2.0, burst_rate=30.0,
+                             mean_prompt=float(args.prompt_len),
+                             mean_gen=float(args.gen),
+                             max_prompt=ecfg.max_seq // 2,
+                             max_gen=ecfg.max_seq // 4, vocab=cfg.vocab,
+                             slo_ms=args.slo_ms or 900.0, seed=args.seed)
+        eng = ServeEngine(cfg, params, config=ecfg, device=device)
+        res = replay_open_loop(eng, trace)
+        st = res["stats"]
+        print(f"[burst] arch={cfg.arch_id} device={device} "
+              f"arrivals={len(trace)} slots={ecfg.max_slots} virtual "
+              f"{res['elapsed_s']:.2f}s in {res['steps']} engine steps")
+        print(f"goodput {res['goodput_tok_s']:.1f} tok/s (virtual)  "
+              f"SLO {res['slo_met']} met / {res['slo_missed']} missed  "
+              f"shed {res['shed']}  degrade transitions "
+              f"{st['degrade_transitions']:.0f} "
+              f"(final level {st['degrade_level']:.0f})")
+        shed = [r for r in res["finished"] if r.shed_reason is not None]
+        if shed:
+            print(f"first shed reason: {shed[0].shed_reason!r}")
+        return 0
 
     if args.per_token:
         prompts = rng.integers(0, cfg.vocab,

@@ -4,6 +4,7 @@ Tests marked ``cuda`` skip without a CUDA device (a CUDA kernel has no CPU
 mode); on the card run ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 This file imports no JAX, so it runs where only PyTorch is installed."""
 import dataclasses
+from pathlib import Path
 
 import pytest
 import torch
@@ -27,6 +28,9 @@ from repro_torch.serve import (EngineConfig, SamplingParams, ServeEngine,
 from repro_torch.train.loop import LoopConfig, TrainLoop
 from repro_torch.train.state import build_train_step, init_train_state
 from repro_torch.tree import leaves, map_tree
+from repro_torch.tune import (VirtualCosts, bursty_trace, multi_turn_trace,
+                              replay_open_loop, run_sweep, sweep_workload)
+from repro_torch.tune.sweep import TRACE_FILE
 
 DTYPES = {"float32": (torch.float32, torch.float32),
           "bfloat16": (torch.bfloat16, torch.float32),
@@ -1027,15 +1031,35 @@ def _kernel_launches():
             fa.LAUNCHES_BWD_DKV, bpa.LAUNCHES, qmm.LAUNCHES)
 
 
-def _reduced_engine_runs(knobs, sps=None, arch="llama3.2-3b"):
-    """The reduced fp32 ``arch`` (TF32 off; llama with ``n_kv_heads=2``)
-    on the CPU and on CUDA with ``knobs``: (tokens, stats, moa_reduce
-    launches, every kernel's launches) by device."""
-    over = {"n_kv_heads": 2} if arch == "llama3.2-3b" else {}
-    cfg = get_config(arch).reduced(dtype=torch.float32, **over)
+#: the QKV-bias archs at their published GQA groups (16 and 5), narrow
+QKV_BIAS_HEADS = {"glm4-9b": dict(n_heads=32, n_kv_heads=2),
+                  "qwen2.5-14b": dict(n_heads=20, n_kv_heads=4)}
+
+
+def _reduced_params(cfg):
+    """Seed-0 params of the reduced ``cfg`` on the CPU; with a QKV bias,
+    ``bq``, ``bk`` and ``bv`` drawn N(0, 0.5) (their init is zeros, which
+    would hide a dropped bias)."""
     params = init_params(get_api(cfg).param_specs(cfg),
                          torch.Generator().manual_seed(0),
                          torch.device("cpu"), torch.float32)
+    if cfg.qkv_bias:
+        gen = torch.Generator().manual_seed(1)
+        attn = params["blocks"]["attn"]
+        for k in ("bq", "bk", "bv"):
+            attn[k] = 0.5 * torch.randn(attn[k].shape, generator=gen)
+    return params
+
+
+def _reduced_engine_runs(knobs, sps=None, arch="llama3.2-3b"):
+    """The reduced fp32 ``arch`` (TF32 off; llama with ``n_kv_heads=2``,
+    the QKV-bias archs at ``QKV_BIAS_HEADS`` with nonzero biases) on the
+    CPU and on CUDA with ``knobs``: (tokens, stats, moa_reduce launches,
+    every kernel's launches) by device."""
+    over = ({"n_kv_heads": 2} if arch == "llama3.2-3b"
+            else QKV_BIAS_HEADS.get(arch, {}))
+    cfg = get_config(arch).reduced(dtype=torch.float32, **over)
+    params = _reduced_params(cfg)
     gen = torch.Generator().manual_seed(3)
     pat = torch.randint(0, cfg.vocab, (5,), generator=gen).tolist()
     prompts = [pat * 4, torch.randint(0, cfg.vocab, (13,),
@@ -1386,3 +1410,123 @@ def test_train_loop_restart_is_exact_on_cuda(cuda_device, tmp_path):
     for (_, a), (_, b) in zip(ckpt.flatten_with_paths(final_a),
                               ckpt.flatten_with_paths(final_b)):
         assert torch.equal(a, b)
+
+
+# ------------------------------------- the QKV-bias archs, the autotune tier
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(QKV_BIAS_HEADS))
+@pytest.mark.parametrize("run", ["sequential", "chain", "contiguous"])
+def test_qkv_bias_engine_on_the_card_equals_cpu(cuda_device, arch, run):
+    """The reduced glm4-9b (group 16) and qwen2.5-14b (group 5) with
+    nonzero biases: CUDA gives the CPU engine's tokens and counters and
+    launches moa_reduce twice a layer a dispatch."""
+    knobs = {"sequential": dict(prefix_cache=False),
+             "chain": dict(spec_k=4),
+             "contiguous": dict(paged_kv=False)}[run]
+    cfg, out = _reduced_engine_runs(knobs, arch=arch)
+    assert out["cuda"][0] == out["cpu"][0]
+    st, cst = out["cuda"][1], out["cpu"][1]
+    for k in ("decode_steps", "prefill_dispatches", "prefix_hits",
+              "spec_drafted", "spec_accepted", "kv_bytes_per_slot",
+              "pool_bytes", "pages_in_use"):
+        assert st[k] == cst[k], k
+    assert out["cuda"][2] == st["moa_reduce_launches"] == \
+        2 * cfg.n_layers * (st["prefill_dispatches"] + st["decode_steps"]) > 0
+
+
+@pytest.mark.cuda
+def test_qkv_bias_train_loss_on_the_card_equals_cpu(cuda_device):
+    """The reduced glm4-9b's loss and its bias gradients, CUDA (the flash
+    kernels, once a layer each) against CPU within 1e-4."""
+    cfg = get_config("glm4-9b").reduced(dtype=torch.float32,
+                                        **QKV_BIAS_HEADS["glm4-9b"])
+    params = _reduced_params(cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 33),
+                         generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            p = map_tree(lambda t: t.detach().to(dev).requires_grad_(),
+                         params)
+            counts = _kernel_launches()
+            loss = lm.train_loss(p, {"tokens": toks[:, :-1].to(dev),
+                                     "labels": toks[:, 1:].to(dev)}, cfg)
+            grads = torch.autograd.grad(
+                loss, [p["blocks"]["attn"][k] for k in ("bq", "bk", "bv")])
+            torch.cuda.synchronize()
+            out[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                        tuple(a - b for a, b in zip(_kernel_launches(),
+                                                    counts)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    n = cfg.n_layers
+    assert out["cuda"][2] == (0, n, n, n, 0, 0)
+
+
+def _llama1(device):
+    cfg = get_config("llama3.2-3b").reduced(dtype=torch.float32,
+                                            n_kv_heads=2, n_layers=1)
+    return cfg, map_tree(lambda t: t.to(device), _reduced_params(cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("traffic", ["burst", "multi-turn"])
+def test_replay_open_loop_on_the_card_equals_cpu(cuda_device, traffic):
+    """The virtual-clock replay (the ladder on a burst, or sessions over
+    conversations): the CUDA engine's outputs and whole trajectory equal
+    the CPU engine's, and the scheduler's clock is restored."""
+    knobs = dict(max_slots=2, max_seq=96, prefill_chunk=16)
+    if traffic == "burst":
+        knobs.update(spec_k=3, degrade=True)
+        trace = bursty_trace(18, rate=2.0, burst_rate=30.0, mean_prompt=16,
+                             mean_gen=8, max_prompt=40, max_gen=16,
+                             vocab=97, slo_ms=800.0, seed=11)
+    else:
+        trace = multi_turn_trace(2, 3, turn_tokens=8, gen=4, think_s=0.2,
+                                 seed=2)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            cfg, params = _llama1(dev)
+            eng = ServeEngine(cfg, params, config=EngineConfig(**knobs),
+                              device=dev)
+            clock = eng.scheduler.clock
+            out[dev] = replay_open_loop(eng, trace,
+                                        VirtualCosts(0.01, 0.02, 0.03))
+            assert eng.scheduler.clock is clock
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    got, want = out["cuda"], out["cpu"]
+    for key in ("outputs", "elapsed_s", "steps", "served_tokens",
+                "goodput_tokens", "slo_met", "slo_missed", "shed"):
+        assert got[key] == want[key], key
+    for key in ("decode_steps", "prefill_dispatches", "spec_steps",
+                "preemptions", "degrade_transitions", "session_hits"):
+        assert got["stats"][key] == want["stats"][key], key
+    assert got["stats"]["moa_reduce_launches"] > 0
+
+
+@pytest.mark.cuda
+def test_run_sweep_profiles_the_card(cuda_device, tmp_path):
+    """run_sweep on the card with profile_dir: every valid point carries
+    metrics and a non-empty Chrome trace with CUDA kernel events, the
+    rejected point its error."""
+    cfg, params = _llama1("cuda")
+    base = EngineConfig(max_slots=2, max_seq=64, prefill_chunk=16)
+    points = [base, base.replace(spec_k=3), base.replace(page_size=24)]
+    prompts, gens = sweep_workload(cfg.vocab, requests=3, shared_prefix=16,
+                                   tail=4, gen=6)
+    recs = run_sweep(cfg, params, points, prompts, gens,
+                     profile_dir=str(tmp_path))
+    assert "error" in recs[2] and "metrics" not in recs[2]
+    for rec in recs[:2]:
+        assert "profile_error" not in rec and rec["metrics"]["pool_bytes"]
+        text = (Path(rec["trace_dir"]) / TRACE_FILE).read_text()
+        assert '"cat": "kernel"' in text

@@ -63,6 +63,10 @@ def test_port_files_found():
             "src/repro_torch/kernels/ops.py",
             "src/repro_torch/launch/profile_serve.py",
             "src/repro_torch/checkpoint/ckpt.py",
+            "src/repro_torch/tune/__init__.py",
+            "src/repro_torch/tune/pareto.py",
+            "src/repro_torch/tune/workloads.py",
+            "src/repro_torch/tune/sweep.py",
             "chip_smoke.py"} <= rel
 
 
@@ -97,6 +101,10 @@ def test_moe_import_loads_no_jax():
 def test_train_import_loads_no_jax():
     _imports_no_jax("repro_torch.launch.train, repro_torch.train.loop, "
                     "repro_torch.checkpoint.ckpt, repro_torch.data.pipeline")
+
+
+def test_tune_import_loads_no_jax():
+    _imports_no_jax("repro_torch.tune, repro_torch.tune.sweep")
 
 
 def test_adder_import_loads_no_jax():
