@@ -191,12 +191,13 @@ Phases:
      metrics, one with its error, no profile_error, a non-empty Chrome
      trace (deleted after); each point and the Pareto front under
      (decode tok/s max, pool bytes min, p99 step min) printed
-  F. MLA serve: minicpm3-4b at its published width (62 layers, d 2560, 40
-     heads, q_lora_rank 768, kv_lora_rank 256, nope 64, rope 32, v 64,
-     d_ff 6400, vocab 73448; 4.26 B params, bf16, random from seed 0),
-     after T with the llama weights freed, on phase 6's geometry: phase
-     6's traffic over bf16, int8 and int4 latent pools (35,712 / 18,352 /
-     9,424 bytes a token asserted), phase A's shared-prefix traffic cold
+  F. MLA serve: minicpm3-4b at its published width (d 2560, 40 heads,
+     q_lora_rank 768, kv_lora_rank 256, nope 64, rope 32, v 64, d_ff
+     6400, vocab 73448) cut to 31 of its 62 layers (2.32 B params, bf16,
+     random from seed 0), after T with the llama weights freed, on phase
+     6's geometry: phase 6's traffic over bf16, int8 and int4 latent pools
+     (17,856 / 9,176 / 4,712 bytes a token asserted: half the whole
+     model's 35,712 / 18,352 / 9,424), phase A's shared-prefix traffic cold
      and warm (tokens equal, 7 hits), chain (spec_k 4) and tree (12 nodes,
      branch 3) on phase D's passages, and E3's sampling over int8 twice
      (tokens equal); the refcount invariant after every step, every
@@ -316,6 +317,16 @@ Phases:
      share of the int8 peak, and the mma.sync route's parts (the parent's
      design): the pre-pass, the mma.sync product and the parent's PyTorch
      copy of w to K-major
+  R. roofline, after 13: the dry run (repro_torch.launch.dryrun) traces
+     each step the phases above time on meta tensors, on the CPU, at that
+     step's own batch, sequence or cache depth and depth (6's decode step
+     over 4 slots x 2048 and its 256-token prefill chunk, Q's, M1's (16
+     layers), S's and Z's decode steps with bf16 params as they were
+     served; 9's, H1's and V's (4 layers) train steps at 2 x 2048 with
+     fp32 masters): one line a step with the measured ms, the record's
+     bound and dominant term, the resident bytes over 3.35 TB/s (the
+     weight-and-state read floor) and measured over bound; the card's
+     total_memory beside the H100 entry's 80 GB.  No kernel launches
  14. the kernels line (the flash rows at each shape; H's and V's train
      and resume figures once, in the forward's row), then the card line,
      then the result line; each phase's wall time is printed as it ends
@@ -327,13 +338,14 @@ import dataclasses
 import gc
 import json
 import math
+import multiprocessing as mp
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -357,6 +369,7 @@ from repro_torch.kernels import moa_reduce as moa  # noqa: E402
 from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.common import init_params, rms_norm  # noqa: E402
+from repro_torch.launch.dryrun import run_cell  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models.lm import (fit_draft_heads,  # noqa: E402
@@ -365,6 +378,7 @@ from repro_torch.models.registry import get_api  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, global_norm  # noqa: E402
 from repro_torch.optim.grad_accum import value_and_grad  # noqa: E402
 from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
+from repro_torch.roofline.analysis import H100, fmt_seconds  # noqa: E402
 from repro_torch.models.quant_kv import KV_DTYPES  # noqa: E402
 from repro_torch.serve import (EngineConfig, SamplingParams,  # noqa: E402
                                ServeEngine, auto_page_size, prng)
@@ -383,8 +397,8 @@ from repro_torch.tune.sweep import TRACE_FILE  # noqa: E402
 
 #: H100 SXM memory rate and dense bf16 and int8 tensor-core rates (NVIDIA
 #: data sheet) for the bounds
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
+HBM_BYTES_PER_S = H100.hbm_bw
+BF16_FLOP_PER_S = H100.peak_flops
 INT8_OPS_PER_S = 1979e12
 #: INT32 operations of the CUDA cores: 132 SMs x 64 INT32 lanes x 1.98 GHz,
 #: the clock of the data sheet's 67 TFLOP/s fp32 (132 x 128 x 2 x 1.98 GHz)
@@ -402,8 +416,11 @@ KERNELS = {
                      "src/repro/kernels/quant_matmul.py:61"),
 }
 
-#: the second served architecture: Multi-head Latent Attention
-MLA_ARCH = "minicpm3-4b"
+#: the second served architecture: Multi-head Latent Attention; phase F
+#: serves it at its published width cut to 31 of its 62 layers (at 62 F
+#: took 165-209 s, the smoke's longest phase, and the smoke neared its
+#: 1200 s limit)
+MLA_ARCH, MLA_LAYERS = "minicpm3-4b", 31
 #: phase M: the routed MoE FFN at its published width, cut to 16 of its 32
 #: layers (the whole model, 83.7 GB in bf16, does not fit the card); and
 #: the other MoE architecture, held at its reduced config
@@ -1983,8 +2000,9 @@ def mla_params(cfg):
 
 
 def phase_mla_serve(cfg, params):
-    """Phase F: minicpm3-4b at its published width (``params`` from
-    :func:`mla_params`) on phase 6's geometry.  Phase 6's traffic over
+    """Phase F: minicpm3-4b at its published width and ``MLA_LAYERS`` of
+    its layers (``params`` from :func:`mla_params`) on phase 6's
+    geometry.  Phase 6's traffic over
     bf16, int8 and int4 latent pools (pool bytes a token asserted exactly);
     phase A's shared-prefix traffic cold and warm (tokens equal); chain and
     tree on phase D's repeated passages; E3's sampling over int8,
@@ -3920,6 +3938,91 @@ def phase_adder_timing(bitplane, matmul):
     return rows
 
 
+#: phase R: the dry-run cell of each timed step, (label, arch, shape,
+#: layers it ran at or None for all, params' dtype or None for the specs'
+#: fp32 masters).  Serve steps: phase 6's geometry (4 slots x max_seq 2048,
+#: a prefill dispatch is one slot's 256-token chunk), bf16 weights; train
+#: steps: batch 2 x 2048 positions
+SERVE_DECODE = ShapeConfig("decode_4x2048", 2048, 4, "decode")
+SERVE_PREFILL = ShapeConfig("prefill_1x256", 256, 1, "prefill")
+TRAIN_CELL = ShapeConfig("train_2x2048", TRAIN_SEQ, TRAIN_BATCH, "train")
+ROOFLINE_STEPS = (
+    ("6 decode step (mean)", "llama3.2-3b", SERVE_DECODE, None,
+     torch.bfloat16),
+    ("6 prefill chunk (mean)", "llama3.2-3b", SERVE_PREFILL, None,
+     torch.bfloat16),
+    ("Q bf16 decode step (p50)", QKV_ARCH, SERVE_DECODE, None,
+     torch.bfloat16),
+    ("M1 decode step (p50)", MOE_ARCH, SERVE_DECODE, MOE_LAYERS,
+     torch.bfloat16),
+    ("S decode step (p50)", SSM_ARCH, SERVE_DECODE, None, torch.bfloat16),
+    ("Z decode step (p50)", HYBRID_ARCH, SERVE_DECODE, None,
+     torch.bfloat16),
+    ("9 train step (median)", "llama3.2-3b", TRAIN_CELL, None, None),
+    ("H1 train step (median)", AUDIO_ARCH, TRAIN_CELL, None, None),
+    ("V train step (median)", VLM_ARCH, TRAIN_CELL, VLM_LAYERS, None),
+)
+
+
+#: phase R's worker processes beside this one: the meta traces are
+#: host-bound Python, and a process's first trace pays ~8 s of imports on
+#: the card's host, so the serve steps' short traces (~1 s each) run in
+#: workers while this process, already warm, takes the train steps' long
+#: ones (5-15 s each)
+ROOFLINE_WORKERS = 3
+
+
+def phase_roofline(measured_ms: dict) -> None:
+    """Phase R: each step of ``ROOFLINE_STEPS`` traced on meta tensors by
+    the dry run's ``run_cell`` (nothing runs on the card): the train
+    steps here, the serve steps in ``ROOFLINE_WORKERS`` spawned processes
+    meanwhile; printed beside ``measured_ms[label]``."""
+    cells = []
+    for label, arch, shape, layers, param_dtype in ROOFLINE_STEPS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        cells.append((label, arch, shape, cfg, param_dtype))
+
+    def trace(i):
+        _, arch, shape, cfg, param_dtype = cells[i]
+        return dict(arch_id=arch, shape=shape, cfg=cfg,
+                    param_dtype=param_dtype, verbose=False)
+
+    train = [i for i, c in enumerate(cells) if c[2].kind == "train"]
+    with ProcessPoolExecutor(ROOFLINE_WORKERS,
+                             mp_context=mp.get_context("spawn")) as ex:
+        futures = {i: ex.submit(run_cell, **trace(i))
+                   for i in range(len(cells)) if i not in train}
+        records = {i: run_cell(**trace(i)) for i in train}
+        records.update({i: f.result() for i, f in futures.items()})
+    records = [records[i] for i in range(len(cells))]
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[roofline] card total_memory {total / 1e9:.3f} GB "
+          f"({total} B, torch.cuda.get_device_properties) against the "
+          f"{H100.name} entry's hbm_per_chip {H100.hbm_per_chip / 1e9:.0f} "
+          f"GB; bounds at {H100.peak_flops / 1e12:.0f} TFLOP/s bf16 and "
+          f"{H100.hbm_bw / 1e12:.2f} TB/s")
+    for (label, arch, shape, cfg, _), rec in zip(cells, records):
+        ro = rec["roofline"]
+        ms = measured_ms[label]
+        resident = rec["resident_bytes_per_device"]
+        check(ro["bound_s"] > 0 and math.isfinite(ro["bound_s"])
+              and ms > 0 and resident < total,
+              f"R {label}: bound {ro['bound_s']} s, measured {ms} ms, "
+              f"resident {resident} B")
+        print(f"[roofline] {label}: {arch}, {cfg.n_layers} layers, "
+              f"{shape.kind} {shape.global_batch} x {shape.seq_len}, params "
+              f"{rec['param_dtype'] or 'fp32'}: measured {ms:.3f} ms; bound "
+              f"{fmt_seconds(ro['bound_s'])} ({ro['dominant']}; compute "
+              f"{fmt_seconds(ro['compute_s'])}, memory "
+              f"{fmt_seconds(ro['memory_s'])}); resident "
+              f"{resident / 1e9:.3f} GB / 3.35 TB/s = "
+              f"{1e3 * resident / H100.hbm_bw:.3f} ms; measured / bound "
+              f"{ms / (1e3 * ro['bound_s']):.2f}; traced in "
+              f"{rec['trace_s']:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3980,7 +4083,7 @@ def main() -> int:
     del serve_params
     gc.collect()
     torch.cuda.empty_cache()       # the llama serve weights go
-    mla_cfg = get_config(MLA_ARCH)
+    mla_cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
     mla_weights = mla_params(mla_cfg)
     mla_rows, serve_launches["F"] = timed("F minicpm3-4b serve",
                                           phase_mla_serve, mla_cfg,
@@ -4019,8 +4122,8 @@ def main() -> int:
         phase_timing([r for r in qkv_shapes
                       if r[0] in ("glm4_prefill_o", "glm4_decode_o")])
     qkv_train_counts = timed("8 train parity", phase_train_parity)
-    flash_launches, _ = timed("9 train full width", train_full_width,
-                              full_cfg, TRAIN_STEPS)
+    flash_launches, train_summary = timed(
+        "9 train full width", train_full_width, full_cfg, TRAIN_STEPS)
     gc.collect()
     torch.cuda.empty_cache()       # the train state goes
     frontend = {"hubert": timed(f"H {AUDIO_ARCH} train and resume",
@@ -4041,7 +4144,21 @@ def main() -> int:
                            bitplane, matmul)
     adder_rows = timed("13 adder timing", phase_adder_timing, bitplane,
                        matmul)
-    print(f"[wall] phases 2-13: {time.perf_counter() - t_start:.1f} s")
+
+    def median_ms(summary):
+        return float(np.median(summary["ms"]))
+
+    timed("R roofline", phase_roofline, {
+        "6 decode step (mean)": 1e3 * step_s,
+        "6 prefill chunk (mean)": 1e3 * chunk_s,
+        "Q bf16 decode step (p50)": qkv_rows["bf16"]["step_p50_ms"],
+        "M1 decode step (p50)": moe_rows["M1"]["step_p50_ms"],
+        "S decode step (p50)": ssm_rows["S"]["step_p50_ms"],
+        "Z decode step (p50)": ssm_rows["Z"]["step_p50_ms"],
+        "9 train step (median)": median_ms(train_summary),
+        "H1 train step (median)": median_ms(frontend["hubert"][1]),
+        "V train step (median)": median_ms(frontend["internvl2"][1])})
+    print(f"[wall] phases 2-13 and R: {time.perf_counter() - t_start:.1f} s")
 
     main_row = next(r for r in rows if r["label"] == "prefill_o")
     source, replaces = KERNELS["moa_reduce"]

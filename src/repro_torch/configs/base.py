@@ -5,15 +5,17 @@ that ``dtype`` holds a ``torch.dtype`` (the JAX config holds a ``jnp`` one);
 ``tests/test_torch_config.py`` holds the two equal for every arch and its
 ``reduced()`` form.  Fields the port does not read yet (MoE, SSM, MLA,
 training knobs) are kept so one config describes one model in both
-packages.
+packages.  :data:`SHAPES` and :func:`cells_for` are the dry run's shape
+cells, as in the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
-__all__ = ["ModelConfig", "ShapeConfig"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "cells_for"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,3 +134,28 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                      # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+#: archs with O(S^2)-only attention: their long_500k decode is skipped
+_FULL_ATTENTION = {
+    "internvl2-26b", "glm4-9b", "minicpm3-4b", "qwen2.5-14b", "llama3.2-3b",
+    "hubert-xlarge", "llama4-scout-17b-a16e", "phi3.5-moe-42b-a6.6b",
+}
+
+
+def cells_for(arch_id: str, encoder_only: bool) -> Tuple[str, ...]:
+    """The runnable shape cells for an architecture: an encoder has no
+    decode cell, and a full-attention arch no 500k-token decode."""
+    names = ["train_4k", "prefill_32k"]
+    if not encoder_only:
+        names.append("decode_32k")
+        if arch_id not in _FULL_ATTENTION:
+            names.append("long_500k")
+    return tuple(names)

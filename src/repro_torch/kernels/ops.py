@@ -2,13 +2,19 @@
 
 The counterpart of ``repro/kernels/ops.py``, which dispatched on
 ``on_tpu()``: here a CUDA tensor goes to the hand-written kernel and a CPU
-tensor to its plain PyTorch version.  There is no fallback: a CUDA call
-launches the kernel or raises."""
+tensor to its plain PyTorch version.  A meta tensor (the dry run's: a
+shape with no storage, never on the card) takes the plain version too,
+which then only propagates shapes; it reaches no build, no launch counter
+and no kernel wrapper.  There is no fallback: a CUDA call launches the
+kernel or raises, and any other device raises."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+#: devices whose tensors take the plain versions
+_PLAIN = ("cpu", "meta")
 
 from repro_torch.kernels import bitplane_add as _bpa
 from repro_torch.kernels import flash_attention as _fa
@@ -28,10 +34,11 @@ def moa_reduce(x: torch.Tensor, acc_dtype: torch.dtype = torch.float32,
     devices (:class:`~repro_torch.kernels.moa_reduce.MoaReduce` on the
     card)."""
     out_dtype = out_dtype or x.dtype
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN:
         return _moa.moa_reduce_plain(x, acc_dtype, out_dtype)
     if x.device.type != "cuda":
-        raise ValueError(f"moa_reduce runs on cuda or cpu, got {x.device}")
+        raise ValueError(f"moa_reduce runs on cuda, cpu or meta, got "
+                         f"{x.device}")
     n = x.shape[0]
     out = _moa.MoaReduce.apply(x.reshape(n, -1).contiguous(), acc_dtype)
     return out.reshape(x.shape[1:]).to(out_dtype)
@@ -43,10 +50,11 @@ def bitplane_add(x: torch.Tensor, m_bits: int) -> torch.Tensor:
     the ``(B,)`` int32 sums.  Raises ``ValueError`` when a sum could need
     more than 31 bits."""
     x = x.to(torch.int32)
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN:
         return _bpa.bitplane_add_plain(x, m_bits)
     if x.device.type != "cuda":
-        raise ValueError(f"bitplane_add runs on cuda or cpu, got {x.device}")
+        raise ValueError(f"bitplane_add runs on cuda, cpu or meta, got "
+                         f"{x.device}")
     return _bpa.bitplane_add_cuda(x.contiguous(), m_bits)
 
 
@@ -56,10 +64,11 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor, acc_bits: int = 32
     ``astype(int8)``) as int32, with the K blocking that the Theorem plans
     for an ``acc_bits`` accumulator."""
     x, w = x.to(torch.int8), w.to(torch.int8)
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN:
         return _qmm.quant_matmul_plain(x, w, acc_bits)
     if x.device.type != "cuda":
-        raise ValueError(f"quant_matmul runs on cuda or cpu, got {x.device}")
+        raise ValueError(f"quant_matmul runs on cuda, cpu or meta, got "
+                         f"{x.device}")
     return _qmm.quant_matmul_cuda(x.contiguous(), w.contiguous(), acc_bits)
 
 
@@ -74,9 +83,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors run the plain versions through the same autograd shape."""
     if scale is None:
         scale = _fa.default_scale(q.shape[-1])
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN:
         return _fa.FlashAttentionPlain.apply(q, k, v, causal, scale)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, got "
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, got "
                          f"{q.device}")
     return _fa.FlashAttention.apply(q, k, v, causal, scale)

@@ -5,20 +5,29 @@ runs: :class:`ParamSpec` declarations, :func:`init_params` from a
 ``torch.Generator``, ``rms_norm`` / ``rope_angles`` / ``apply_rope`` with
 the JAX package's dtype order and its interleaved (even, odd) RoPE pairs,
 ``cross_entropy_loss`` and ``topk_low_index_first`` (``jax.lax.top_k``'s
-order among ties).  Sharding rules have no counterpart yet (one card).
+order among ties).  The dry run's pieces: :func:`param_count`,
+:func:`shape_structs` (meta tensors, no allocation) and the logical-axis
+sharding rules (:data:`DEFAULT_RULES`, :func:`logical_to_pspec`,
+:func:`make_shardings`), which map a spec onto a mesh given as an ordered
+mapping of axis name to size and return plain tuples where the JAX
+package returns ``PartitionSpec``s.  Nothing shards a tensor yet:
+``constrain`` and ``shardmap_mesh`` wait for the mesh (``ROADMAP.md``
+step 6).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.tree import map_tree
+from repro_torch.tree import leaves, map_tree
 
-__all__ = ["ParamSpec", "init_params", "rms_norm", "rope_angles",
-           "apply_rope", "cross_entropy_loss", "topk_low_index_first"]
+__all__ = ["ParamSpec", "init_params", "shape_structs", "param_count",
+           "DEFAULT_RULES", "logical_to_pspec", "make_shardings",
+           "rms_norm", "rope_angles", "apply_rope", "cross_entropy_loss",
+           "topk_low_index_first"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +91,102 @@ def init_params(specs: Any, generator: torch.Generator,
     weights with :func:`repro_torch.convert.params_from_numpy`."""
     return map_tree(
         lambda s: _init_leaf(s, generator, device, dtype or s.dtype), specs)
+
+
+def shape_structs(specs: Any, dtype: Optional[torch.dtype] = None) -> Any:
+    """A tree of meta tensors (shapes and dtypes, no storage) for a
+    :class:`ParamSpec` tree; every leaf in ``dtype`` when given, else in
+    its spec's dtype."""
+    return map_tree(lambda s: torch.empty(s.shape, dtype=dtype or s.dtype,
+                                          device="meta"), specs)
+
+
+def param_count(specs: Any) -> int:
+    """Total elements of a :class:`ParamSpec` tree."""
+    return int(sum(math.prod(s.shape) for s in leaves(specs)))
+
+
+#: Default logical-axis -> mesh-axis rules, as in the JAX package.
+DEFAULT_RULES: Dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "fsdp": ("pod", "data"),       # ZeRO-3 weight shard axis
+    "embed": "fsdp",               # indirection: embed dims shard via fsdp
+    "vocab": "model",
+    "q_heads": "model",
+    "kv_heads": "model",
+    "heads": "model",
+    "mlp": "model",
+    "experts": "model",
+    "ssm_inner": "model",
+    "ssm_heads": "model",
+    "seq_sp": "model",             # sequence parallelism for activations
+    "kv_seq": "model",             # decode KV-cache sequence shard
+    "layers": None,
+    "head_dim": None,
+    "ssm_state": None,
+    "conv": None,
+    "latent": None,
+    "moe_mlp": None,               # expert-internal dim (EP already shards)
+}
+
+
+def _resolve_axis(rule_val, rules):
+    """Follow one level of indirection (e.g. embed -> fsdp -> (pod, data))."""
+    if isinstance(rule_val, str) and rule_val in rules:
+        return rules[rule_val]
+    return rule_val
+
+
+def _mesh_axis_size(mesh: Mapping[str, int], axis) -> int:
+    if axis is None:
+        return 1
+    if isinstance(axis, tuple):
+        return math.prod(mesh[a] for a in axis)
+    return mesh[axis]
+
+
+def logical_to_pspec(axes: Sequence[Optional[str]], mesh: Mapping[str, int],
+                     rules: Optional[Dict[str, Any]] = None,
+                     shape: Optional[Sequence[int]] = None,
+                     exclude: Optional[set] = None) -> Tuple[Any, ...]:
+    """Translate logical axis names to a partition spec under ``mesh``
+    (axis name -> size): one entry a dim, ``None`` (replicated), a mesh
+    axis name, or a tuple of them.
+
+    Rules whose mesh axes are absent from the mesh, or whose mesh size does
+    not divide the dim, fall back to replication.  A mesh axis is never
+    assigned twice in one spec (first dim wins); ``exclude`` drops mesh
+    axes.  Trailing ``None``s are dropped, as ``PartitionSpec`` prints."""
+    rules = rules or DEFAULT_RULES
+    used: set = set(exclude or ())
+    out = []
+    for i, name in enumerate(axes):
+        assignment = None
+        if name is not None and name in rules:
+            cand = _resolve_axis(rules[name], rules)
+            if cand is not None:
+                cand_t = cand if isinstance(cand, tuple) else (cand,)
+                # keep only axes present in this mesh (e.g. "pod" is absent
+                # on the single-pod mesh) and not already used in this spec
+                cand_t = tuple(a for a in cand_t
+                               if a in mesh and a not in used)
+                if cand_t:
+                    size = _mesh_axis_size(mesh, cand_t)
+                    if shape is None or shape[i] % size == 0:
+                        assignment = cand_t if len(cand_t) > 1 else cand_t[0]
+                        used.update(cand_t)
+        out.append(assignment)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def make_shardings(specs: Any, mesh: Mapping[str, int],
+                   rules: Optional[Dict[str, Any]] = None) -> Any:
+    """A tree of partition specs (:func:`logical_to_pspec`) for a
+    :class:`ParamSpec` tree."""
+    return map_tree(lambda s: logical_to_pspec(s.axes, mesh, rules, s.shape),
+                    specs)
 
 
 # ---------------------------------------------------------------------------

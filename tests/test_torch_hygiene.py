@@ -67,6 +67,11 @@ def test_port_files_found():
             "src/repro_torch/tune/pareto.py",
             "src/repro_torch/tune/workloads.py",
             "src/repro_torch/tune/sweep.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/inputs.py",
+            "src/repro_torch/roofline/analysis.py",
+            "src/repro_torch/roofline/report.py",
             "chip_smoke.py"} <= rel
 
 
@@ -105,6 +110,10 @@ def test_train_import_loads_no_jax():
 
 def test_tune_import_loads_no_jax():
     _imports_no_jax("repro_torch.tune, repro_torch.tune.sweep")
+
+
+def test_dryrun_import_loads_no_jax():
+    _imports_no_jax("repro_torch.launch.dryrun, repro_torch.roofline.report")
 
 
 def test_adder_import_loads_no_jax():
