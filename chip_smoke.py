@@ -5,7 +5,8 @@
 
 Builds every kernel of the serve and training paths from the sources in
 the checkout, holds each against its plain PyTorch version on the card,
-drives the port's serve engine and its trainer at the full width of
+drives the port's serve engine (on one shard, and on a slots mesh of two
+shards of the one card) and its trainer at the full width of
 ``llama3.2-3b``, its trainer at that of the encoder-only
 ``hubert-xlarge`` (with checkpoint and exact resume) and of
 ``internvl2-26b`` (4 of its 48 layers), its serve engine at the full width of the MLA model
@@ -115,6 +116,21 @@ Phases:
      (auto_page_size(160)), moa_reduce launched 2 * layers * 160
      dispatches, and an engine on the same prompts: prefill and decode
      tok/s and the token agreement printed
+  K. mesh-sharded serve on phase 6's weights, two shards on the one card
+     (devices [cuda:0, cuda:0]): K1, phase 6's traffic and geometry on 2
+     shards of 2 slots (prefix cache off): every request retires, no
+     page left, no row ever maps a page outside its shard's block (held
+     after every step), moa_reduce launched 2 * layers * (prefill
+     dispatches + the shards' decode dispatches), and the tokens equal
+     phase 6's or part from them only at a near tie (within 2 bf16 ulp
+     in divergence's teacher-forced pass: a shard's dispatch has 2 lanes
+     where phase 6's has 4); lane steps a shard, ms a step and peak
+     memory printed; K2, the prefix cache on over two shared prefixes,
+     one placed on each shard: both re-admissions hit on their own shard,
+     and a third request whose prefix is resident only on the other
+     shard misses (the one-shard trie would have matched it); K3, the
+     reduced fp32 llama (TF32 off) on the card, 2 shards against 1,
+     sequential and chain (spec_k 3): tokens equal
   A. shared prefix, full width on phase 6's weights: 8 requests of a
      1024-token system prompt and a 64-448-token tail, served cold (prefix
      cache off), warm (the default) and with page dedup (prefix cache
@@ -1332,6 +1348,165 @@ def phase_contiguous(cfg, params, paged_tokens):
           f"page 128): {_serve_line(est)}; launches {n_eng}; generate's "
           f"tokens equal the engine's in {same} of {len(gp)} requests "
           f"(reported: other prefill cuts)")
+    return rows, launches
+
+
+#: phase K: the shards' devices (both shards on the one card) and the
+#: near-tie rule a differing token must meet (bf16 ulp of its logit)
+MESH_DEVICES = ("cuda:0", "cuda:0")
+MESH_TIE_ULPS = 2
+
+
+def mesh_engine(cfg, params, **knobs):
+    return ServeEngine(cfg, params, config=EngineConfig(**dict(dict(
+        max_slots=4, max_seq=2048, prefill_chunk=256, prefix_cache=False,
+        mesh_shards=2), **knobs)), devices=list(MESH_DEVICES))
+
+
+def phase_mesh_serve(cfg, params, paged_tokens, step_s):
+    """Phase K at full width on phase 6's weights: two shards on the one
+    card.  K1 phase 6's traffic (its tokens ``paged_tokens``, its mean
+    step ``step_s`` seconds), K2 shared prefixes on each shard, K3 the
+    reduced config, two shards against one.  Returns (summary rows,
+    launches by run)."""
+    rows, launches = {}, {}
+    # ---- K1: phase 6's traffic on two shards
+    prompts = make_prompts(SPEC_LENS, cfg.vocab, seed=2)
+    eng = mesh_engine(cfg, params)
+    eng.warmup()
+    check(all(v == 0 for v in eng.stats.values()),
+          "K1: warmup moved a counter")
+    eng.trace_logits = True
+    reqs = [eng.submit(p, 32) for p in prompts]
+    torch.cuda.reset_peak_memory_stats()
+
+    def drive():
+        while eng.scheduler.has_work:
+            eng.step()
+            refcount_check(eng, "K1")
+
+    n = _counted_run(eng, drive)
+    st = eng.stats_summary()
+    check(all(r.slot is None and len(r.generated) == 32 for r in reqs),
+          "K1: a request did not retire with 32 tokens")
+    check(all(np.isfinite(t).all() for t in eng.logit_trace),
+          "K1: a decode logit is not finite")
+    check(st["pages_in_use"] == 0, "K1: pages left allocated")
+    dispatches = st["prefill_dispatches"] + st["decode_dispatches"]
+    _check_launches(eng, n, "K1")
+    toks = _tokens(reqs)
+    where = divergence(cfg, params, prompts, paged_tokens, toks)
+    check(all(abs(w["gap"]) <= MESH_TIE_ULPS * w["ulp"] for w in where),
+          f"K1: a token parts from phase 6's at more than {MESH_TIE_ULPS}"
+          f" bf16 ulp: {where}")
+    step_ms = 1e3 * st["decode_s"] / st["decode_steps"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    same = sum(a == b for a, b in zip(toks, paged_tokens))
+    rows["K1"] = dict(_serve_row(st), launches=n, step_ms=step_ms,
+                      phase6_step_ms=1e3 * step_s,
+                      decode_dispatches=st["decode_dispatches"],
+                      shard_lane_steps=st["shard_lane_steps"],
+                      skew=st["shard_occupancy_skew"], peak_gb=peak,
+                      equal_to_phase6=same, divergence=where)
+    launches["K1"] = n
+    print(f"[mesh] K1 2 shards x 2 slots on {list(MESH_DEVICES)}: "
+          f"{_serve_line(st)}; {step_ms:.3f} ms a step (phase 6: "
+          f"{1e3 * step_s:.3f}, x{step_ms / (1e3 * step_s):.3f}); decode "
+          f"dispatches "
+          f"{st['decode_dispatches']} over {st['decode_steps']} steps; "
+          f"lane steps a shard {st['shard_lane_steps']} (skew "
+          f"{st['shard_occupancy_skew']:.3f}); moa_reduce launches {n} = "
+          f"2 * {cfg.n_layers} * ({st['prefill_dispatches']} + "
+          f"{st['decode_dispatches']}) = 2 * {cfg.n_layers} * {dispatches}"
+          f"; max_memory_allocated {peak:.3f} GB; requests with phase 6's "
+          f"tokens {same} of {len(toks)}")
+    if where:
+        print(f"[mesh] K1 first token unlike phase 6's (request, index, "
+              f"logit gap, bf16 ulp): "
+              f"{[(w['request'], w['index'], round(w['gap'], 4), w['ulp']) for w in where]}")
+    _free(eng)
+
+    # ---- K2: a shared prefix placed on each shard
+    rng = np.random.default_rng(40)
+    pre = [rng.integers(0, cfg.vocab, 512).tolist() for _ in range(2)]
+
+    def tail(k):
+        return rng.integers(0, cfg.vocab, k).tolist()
+
+    eng = mesh_engine(cfg, params, prefix_cache=True)
+    eng.warmup()
+
+    def wave(prompts_):
+        rs = [eng.submit(p, 8) for p in prompts_]
+        eng.run()
+        refcount_check(eng, "K2")
+        return rs
+
+    def drive2():
+        # free slots fill 0 (shard 0), 2 (shard 1), 1, 3 on idle shards
+        first = wave([pre[0] + tail(64), pre[1] + tail(96)])
+        hits0 = eng.stats["prefix_hits"]
+        second = wave([pre[0] + tail(80), pre[1] + tail(48)])
+        hits = eng.stats["prefix_hits"] - hits0
+        ctx = pre[1] + tail(72)
+        n_any, src = eng.prefix.longest_match(ctx, touch=False)
+        misses0 = eng.stats["prefix_misses"]
+        third = wave([ctx])
+        return (first, second, third, hits, n_any, src,
+                eng.stats["prefix_misses"] - misses0)
+
+    out = {}
+    n2 = _counted_run(eng, lambda: out.update(r=drive2()))
+    first, second, third, hits, n_any, src, missed = out["r"]
+    st = eng.stats_summary()
+    check(hits == 2, f"K2: the re-admissions hit {hits} times, expected 2 "
+                     f"(one on each shard)")
+    check(n_any >= 512 and eng._slot_shard(src) == 1 and missed == 1
+          and third[0].slot is None,
+          f"K2: the third request (shard 0) should miss its prefix, "
+          f"resident only on shard 1: longest match {n_any} at slot {src}, "
+          f"misses {missed}")
+    _check_launches(eng, n2, "K2")
+    rows["K2"] = dict(_serve_row(st), launches=n2,
+                      prefix_hits=st["prefix_hits"],
+                      prefix_misses=st["prefix_misses"],
+                      prefix_reused_tokens=st["prefix_reused_tokens"],
+                      shard_lane_steps=st["shard_lane_steps"])
+    launches["K2"] = n2
+    print(f"[mesh] K2 prefix cache on: {st['prefix_hits']} hits (both "
+          f"same-shard) / {st['prefix_misses']} misses, "
+          f"{st['prefix_reused_tokens']} tokens reused; a 512-token prefix "
+          f"resident on shard 1 (slot {src}) refused to a shard-0 admission"
+          f"; moa_reduce launches {n2}")
+    _free(eng)
+
+    # ---- K3: the reduced fp32 config on the card, two shards against one
+    rcfg = get_config("llama3.2-3b").reduced(dtype=torch.float32,
+                                             n_kv_heads=2)
+    dev = params["embed"].device
+    rparams = init_params(get_api(rcfg).param_specs(rcfg),
+                          torch.Generator(device=dev).manual_seed(0), dev,
+                          torch.float32)
+    rp = spec_prompts((40, 24, 56, 32, 48, 16), rcfg.vocab, seed=41,
+                      passage=8)
+    for knobs in (dict(), dict(spec_k=3)):
+        got = {}
+        for shards in (1, 2):
+            e = ServeEngine(rcfg, rparams, config=EngineConfig(**dict(dict(
+                max_slots=4, max_seq=128, prefill_chunk=16, page_size=16,
+                mesh_shards=shards), **knobs)),
+                devices=list(MESH_DEVICES) if shards > 1 else None)
+            e.warmup()
+            rs = [e.submit(p, 12) for p in rp]
+            nk = _counted_run(e, e.run)
+            _check_launches(e, nk, "K3")
+            got[shards] = _tokens(rs)
+            name = f"K3 {'chain' if knobs else 'sequential'} {shards} shard"
+            launches[name] = nk
+        check(got[1] == got[2], f"K3 {knobs}: two shards' tokens differ "
+                                f"from one shard's")
+    print(f"[mesh] K3 reduced fp32 llama (TF32 off), sequential and chain "
+          f"(spec_k 3): 2-shard tokens == 1-shard tokens (asserted)")
     return rows, launches
 
 
@@ -2623,9 +2798,12 @@ def _sync() -> None:
 
 def refcount_check(eng, what: str) -> None:
     """Every page's refcount equals its occurrences across table rows and
-    session snapshots; scratch is pinned; the free list and the used pages
-    partition the pool; no dedup entry sits on a freed page.  A
-    contiguous engine has no pool: nothing to hold."""
+    session snapshots; every shard's scratch page (page 0 of a one-shard
+    pool) is pinned and mapped by nothing; the free lists and the used
+    pages partition the pool, each free list inside its shard's block; no
+    row maps a page outside its slot's shard block; no dedup entry sits
+    on a freed page.  A contiguous engine has no pool: nothing to
+    hold."""
     if not eng.paged:
         return
     pool = eng.pool
@@ -2633,11 +2811,18 @@ def refcount_check(eng, what: str) -> None:
                          minlength=pool.num_pages)
     counts += np.bincount(np.asarray(eng.sessions.snapshot_pages(),
                                      np.int64), minlength=pool.num_pages)
-    free = set(pool._free)
-    check(int(pool.refcount[0]) == 1 and counts[0] == 0
-          and (pool.refcount[1:] == counts[1:]).all()
+    free = {p for block in pool._free for p in block}
+    scratch = np.arange(pool.shards) * pool.block
+    rest = np.setdiff1d(np.arange(pool.num_pages), scratch)
+    check((pool.refcount[scratch] == 1).all() and not counts[scratch].any()
+          and (pool.refcount[rest] == counts[rest]).all()
           and len(free) == pool.free_count
-          and free == set(np.flatnonzero(counts == 0)) - {0}
+          and free == set(np.flatnonzero(counts == 0)) - set(scratch)
+          and all(pool.shard_of(p) == sh
+                  for sh, block in enumerate(pool._free) for p in block)
+          and all(pool.shard_of(p) == eng._slot_shard(slot)
+                  for slot in range(eng.max_slots)
+                  for p in eng.table[slot] if p)
           and all(pool.refcount[p] > 0 for p in (eng.dedup.pages()
                                                   if eng.dedup else ())),
           f"{what}: the refcount invariant does not hold")
@@ -2700,11 +2885,12 @@ def _check_launches(eng, launches: int, what: str) -> None:
             f"{eng.kernel_launches}")
         return
     per = launches_per_dispatch(eng.cfg, eng.page_size)
-    want = per * (st["prefill_dispatches"] + st["decode_steps"])
+    want = per * (st["prefill_dispatches"] + st["decode_dispatches"])
     _check_count(eng.device, launches == want == st["moa_reduce_launches"],
                  f"{what}: moa_reduce launched {launches} times, expected "
                  f"{per} * ({st['prefill_dispatches']} + "
-                 f"{st['decode_steps']}) = {want} (page {eng.page_size})")
+                 f"{st['decode_dispatches']}) = {want} (page "
+                 f"{eng.page_size})")
 
 
 def shared_prefix_prompts(tr: Traffic, vocab: int, seed: int):
@@ -4059,10 +4245,14 @@ def main() -> int:
     timed("5 reduced serve parity", phase_reduced_parity)
     launches, serve_params, chunk_s, step_s, paged_tokens = timed(
         "6 full width", phase_full_width)
+    mesh_rows, mesh_launches = timed(
+        "K mesh-sharded serve", phase_mesh_serve, full_cfg, serve_params,
+        paged_tokens, step_s)
     contig_rows, contig_launches = timed(
         "G contiguous slots", phase_contiguous, full_cfg, serve_params,
         paged_tokens)
     serve_launches = {
+        "K": mesh_launches,
         "G": contig_launches,
         "A": timed("A shared prefix", phase_shared_prefix, full_cfg,
                    serve_params),
@@ -4172,7 +4362,7 @@ def main() -> int:
         "spec_serve": spec_rows, "quant_serve": quant_rows,
         "mla_serve": mla_rows, "moe_serve": moe_rows,
         "ssm_serve": ssm_rows, "qkv_serve": qkv_rows, "tune": tune_rows,
-        "contiguous_serve": contig_rows,
+        "contiguous_serve": contig_rows, "mesh_serve": mesh_rows,
         "launches_by_serve_phase": {
             f"{ph} {run}": n for ph, d in serve_launches.items()
             for run, n in d.items()}}]

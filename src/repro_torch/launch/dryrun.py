@@ -27,7 +27,7 @@ counterpart.  Where it differs:
 - ``collectives`` and ``collective_bytes_per_device`` are ``{}`` and 0 on
   the card and ``None`` on a production mesh, where the JAX package reads
   them from the partitioned HLO and the port has no partitioner before
-  ``ROADMAP.md`` step 6; the dominant term is then taken over compute and
+  ``ROADMAP.md`` step 6b; the dominant term is then taken over compute and
   memory;
 - ``param_dtype`` names the dtype a serve cell's params are held in when
   the caller sets one (the JAX cells keep the specs' fp32), and

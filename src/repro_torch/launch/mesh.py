@@ -3,7 +3,7 @@
 A mesh here is an ordered mapping of axis name to size: all that the
 sharding arithmetic (:func:`repro_torch.models.common.logical_to_pspec`)
 and the dry run read.  There is no device mesh and no test mesh yet: those
-need processes (``ROADMAP.md`` step 6).
+need processes (``ROADMAP.md`` step 6b).
 """
 from __future__ import annotations
 

@@ -21,6 +21,11 @@ speculative by default (``--spec-k`` prompt-lookup drafts verified in one
 K+1-wide dispatch; ``--no-spec`` decodes one token a step; ``--spec-mode
 tree`` / ``auto`` verify token trees), ``--kv-dtype`` picks the page
 element type and ``--no-paged-kv`` serves contiguous slots.
+``--mesh-shards N`` splits a paged engine's slot batch and page pool into N
+shards, each decoding its own lanes over its own block of pages on its own
+device: by default the first N CUDA devices, or the comma-separated
+``--mesh-devices`` list, where a device may repeat (two shards on one card:
+``--mesh-shards 2 --mesh-devices cuda:0,cuda:0``).
 ``--per-token`` instead runs :func:`generate`, the one-dispatch-per-token
 loop kept as the measurement baseline.  ``--burst-smoke`` instead replays
 a seeded bursty open-loop trace (:func:`repro_torch.tune.bursty_trace`,
@@ -37,7 +42,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -165,7 +170,9 @@ def batch_config(prompts, gens, *, config=None, slots=None, max_seq=None,
 
 def serve_batch(cfg, params, prompts, gens, *, config=None, slots=None,
                 max_seq=None, sampling=None, slo_ms=None,
-                device: Optional[Union[str, torch.device]] = None, **knobs):
+                device: Optional[Union[str, torch.device]] = None,
+                devices: Optional[Sequence[Union[str, torch.device]]] = None,
+                **knobs):
     """Run a list of requests through one engine; returns (outputs, stats).
 
     Args:
@@ -180,6 +187,8 @@ def serve_batch(cfg, params, prompts, gens, *, config=None, slots=None,
         None = no SLO).
       device: ``None`` is the card (raises without one); ``"cpu"`` the
         plain PyTorch path.
+      devices: each shard's device when the knobs shard the engine
+        (``mesh_shards > 1``; :class:`~repro_torch.serve.mesh.MeshPlan`).
 
     Returns:
       (outputs, stats): per-request generated-token lists in submission
@@ -196,7 +205,8 @@ def serve_batch(cfg, params, prompts, gens, *, config=None, slots=None,
         slo_ms = [slo_ms] * n
     ecfg = batch_config(prompts, gens, config=config, slots=slots,
                         max_seq=max_seq, **knobs)
-    eng = ServeEngine(cfg, params, config=ecfg, device=device)
+    eng = ServeEngine(cfg, params, config=ecfg, device=device,
+                      devices=devices)
     eng.warmup()
     reqs = [eng.submit(list(p), g, sampling=sp, slo_ms=sl)
             for p, g, sp, sl in zip(prompts, gens, sampling, slo_ms)]
@@ -232,6 +242,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card, cuda)")
+    ap.add_argument("--mesh-devices", default=None,
+                    help="comma-separated device of each --mesh-shards "
+                         "shard, a device may repeat (default: the first "
+                         "--mesh-shards CUDA devices)")
     # every engine knob: --slots, --max-seq, --prefill-chunk, --page,
     # --no-prefix-cache, --min-prefix, --no-paged-kv, --pool-pages,
     # --trie-capacity, --spec-k / --no-spec and the spec flags,
@@ -245,6 +259,8 @@ def main(argv=None) -> int:
     except ValueError as e:         # encoder-only: no decode step
         raise SystemExit(str(e)) from None
     device = resolve_device(args.device)
+    devices = (args.mesh_devices.split(",") if args.mesh_devices
+               else None)
     if args.reduced:
         cfg = cfg.reduced(dtype=torch.float32)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -264,7 +280,8 @@ def main(argv=None) -> int:
                              max_prompt=ecfg.max_seq // 2,
                              max_gen=ecfg.max_seq // 4, vocab=cfg.vocab,
                              slo_ms=args.slo_ms or 900.0, seed=args.seed)
-        eng = ServeEngine(cfg, params, config=ecfg, device=device)
+        eng = ServeEngine(cfg, params, config=ecfg, device=device,
+                          devices=devices)
         res = replay_open_loop(eng, trace)
         st = res["stats"]
         print(f"[burst] arch={cfg.arch_id} device={device} "
@@ -308,7 +325,7 @@ def main(argv=None) -> int:
     resolved = ecfg.resolve(cfg)
     outs, st = serve_batch(cfg, params, prompts, args.gen, config=ecfg,
                            sampling=sampling, slo_ms=args.slo_ms,
-                           device=device)
+                           device=device, devices=devices)
     print(f"[engine] arch={cfg.arch_id} device={device} "
           f"requests={args.requests} slots={resolved.max_slots} "
           f"gen={args.gen} prompt_lens={lens} page={resolved.page_size} "
@@ -343,6 +360,10 @@ def main(argv=None) -> int:
               f"p99 {st['spec_accept_p99']:.2f}, "
               f"shape picks chain={st['spec_shape_chain']} "
               f"tree={st['spec_shape_tree']}")
+    if st["mesh_shards"] > 1:
+        print(f"mesh: {st['mesh_shards']} shards, lane steps "
+              f"{st['shard_lane_steps']}, occupancy skew "
+              f"{st['shard_occupancy_skew']:.2f}")
     if args.slo_ms is not None:
         print(f"SLO {args.slo_ms:.0f}ms: {st['slo_met']} met / "
               f"{st['slo_missed']} missed  (preemptions "

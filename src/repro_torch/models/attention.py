@@ -33,7 +33,7 @@ Layouts match the JAX functions: activations ``(B, S, H, hd)``, pools
 dtype at use, as in the JAX package (fp32 masters, bf16 compute).
 
 Not in these slices: the mesh's split-K decode and tensor-parallel head
-padding (``ROADMAP.md``, queue 1 step 6).
+padding (``ROADMAP.md``, queue 1 step 6b).
 """
 from __future__ import annotations
 

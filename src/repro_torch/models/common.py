@@ -12,7 +12,7 @@ sharding rules (:data:`DEFAULT_RULES`, :func:`logical_to_pspec`,
 mapping of axis name to size and return plain tuples where the JAX
 package returns ``PartitionSpec``s.  Nothing shards a tensor yet:
 ``constrain`` and ``shardmap_mesh`` wait for the mesh (``ROADMAP.md``
-step 6).
+step 6b).
 """
 from __future__ import annotations
 

@@ -28,7 +28,7 @@ speculative verification, and their state is neither paged nor shared by
 prefix (``EngineConfig.resolve``).
 
 Not in this slice: the mesh's split-K decode of the shared attention
-(``gqa_decode_splitk``, ``ROADMAP.md`` queue 1 step 6).
+(``gqa_decode_splitk``, ``ROADMAP.md`` queue 1 step 6b).
 """
 from __future__ import annotations
 

@@ -14,7 +14,7 @@ summed by :func:`repro_torch.kernels.ops.moa_reduce`, the paper's
 k-operand accumulation (on the card, the hand-written kernel).
 
 Not here: the expert-parallel paths ``moe_ffn_ep`` and ``moe_ffn_ep_psum``
-(``ROADMAP.md`` queue 1 step 6).
+(``ROADMAP.md`` queue 1 step 6b).
 """
 from __future__ import annotations
 

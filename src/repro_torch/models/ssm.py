@@ -23,7 +23,7 @@ training forward.
 
 Plain PyTorch: the reference runs no Pallas kernel here.  Not in this
 slice: the mesh's tensor-parallel ``d_inner`` / head sharding
-(``ROADMAP.md`` queue 1 step 6).
+(``ROADMAP.md`` queue 1 step 6b).
 """
 from __future__ import annotations
 

@@ -33,8 +33,6 @@ A quantized pool (``kv_dtype`` int8 or int4, :func:`quant_state_specs`)
 turns each leaf into integer codes plus an fp32 ``<name>_scale`` sibling
 in the same pooled layout, so every page operation here (zeroing,
 copy-on-write, the bytes dedup hashes) moves codes and scales together.
-
-Not in these slices: sharded pools (``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
@@ -256,60 +254,105 @@ class PagePool:
     sharer adds one.  A page returns to the free list only when its count
     reaches zero, which is how a shared page outlives the slot that first
     wrote it; :meth:`deref` raises instead of letting a count go negative.
-    (The JAX pool's shard blocks arrive with mesh serving.)"""
 
-    def __init__(self, num_pages: int):
-        """Create a pool of ``num_pages`` physical pages, page 0 scratch."""
-        if num_pages < 2:
-            raise ValueError(f"need >= 2 pages (one is scratch), "
-                             f"got {num_pages}")
+    **Sharded pools** (``shards > 1``, mesh serving): the pool splits into
+    ``shards`` equal blocks of ``num_pages // shards`` contiguous pages.
+    Block ``s`` is shard ``s``'s state, and the first page of every block
+    is that shard's scratch page (pinned, never allocated; global page 0
+    stays the "unallocated" page-table sentinel).  Each block keeps its own
+    free list, so an admission on shard ``s`` draws only from block ``s``.
+    Page ids stay global on the host; a dispatch turns them into
+    shard-local offsets with one ``% block``
+    (:meth:`repro_torch.serve.mesh.MeshPlan.local_pages`).  ``shards=1`` is
+    the one-device pool."""
+
+    def __init__(self, num_pages: int, shards: int = 1):
+        """Create a pool of ``num_pages`` physical pages split into
+        ``shards`` equal blocks, the first page of each block its scratch
+        page (so at least 2 pages a shard; ``num_pages`` must divide
+        evenly)."""
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        if num_pages % shards:
+            raise ValueError(f"num_pages={num_pages} must split into "
+                             f"{shards} equal per-shard blocks")
+        block = num_pages // shards
+        if block < 2:
+            raise ValueError(f"need >= 2 pages per shard (one is scratch), "
+                             f"got {num_pages} over {shards} shard(s)")
         self.num_pages = num_pages
+        self.shards = shards
+        #: pages per shard block (including the block's scratch page)
+        self.block = block
         self.refcount = np.zeros(num_pages, np.int32)
-        self.refcount[0] = 1                   # scratch: pinned forever
-        self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        self._free: List[List[int]] = []
+        for s in range(shards):
+            base = s * block
+            self.refcount[base] = 1            # shard scratch: pinned
+            # pop() -> base + 1, base + 2, ...
+            self._free.append(list(range(base + block - 1, base, -1)))
         self.allocs = 0
         self.oom_events = 0
 
+    def shard_of(self, page: int) -> int:
+        """The shard whose block holds physical ``page``."""
+        return int(page) // self.block
+
+    def is_scratch(self, page) -> Any:
+        """Scratch predicate (scalar or vectorized): the first page of
+        every shard block, global page 0 included."""
+        return page % self.block == 0
+
     @property
     def free_count(self) -> int:
-        """Number of allocatable pages currently free."""
-        return len(self._free)
+        """Number of allocatable pages free across all shards
+        (:meth:`free_count_in` gives one shard's)."""
+        return sum(len(f) for f in self._free)
+
+    def free_count_in(self, shard: int = 0) -> int:
+        """Number of allocatable pages free in ``shard``'s block (what
+        gates an admission on that shard)."""
+        return len(self._free[shard])
 
     @property
     def used_count(self) -> int:
         """Number of non-scratch pages currently allocated."""
-        return self.num_pages - 1 - self.free_count
+        return self.num_pages - self.shards - self.free_count
 
-    def alloc(self) -> int:
-        """Take one free page (refcount 1).  Returns its index, or ``-1``
-        when the pool is exhausted (counted in ``oom_events``; the caller
-        reclaims or defers)."""
-        if not self._free:
+    def alloc(self, shard: int = 0) -> int:
+        """Take one free page from ``shard``'s block (refcount 1).  Returns
+        its global index, or ``-1`` when that block is exhausted (counted
+        in ``oom_events``; the caller reclaims or defers)."""
+        free = self._free[shard]
+        if not free:
             self.oom_events += 1
             return -1
-        p = self._free.pop()
+        p = free.pop()
         self.refcount[p] = 1
         self.allocs += 1
         return p
 
-    def alloc_many(self, n: int) -> Optional[np.ndarray]:
-        """Take ``n`` free pages at once (each refcount 1), all-or-nothing:
-        an ``(n,)`` int32 array, or ``None`` (nothing allocated, one OOM
-        event counted) when fewer than ``n`` are free."""
-        if n > len(self._free):
+    def alloc_many(self, n: int, shard: int = 0) -> Optional[np.ndarray]:
+        """Take ``n`` free pages from ``shard``'s block at once (each
+        refcount 1), all-or-nothing: an ``(n,)`` int32 array of global
+        indices, or ``None`` (nothing allocated, one OOM event counted)
+        when fewer than ``n`` are free there."""
+        free = self._free[shard]
+        if n > len(free):
             self.oom_events += 1
             return None
         if n == 0:
             return np.empty(0, np.int32)
-        pages = np.asarray(self._free[len(self._free) - n:][::-1], np.int32)
-        del self._free[len(self._free) - n:]
+        pages = np.asarray(free[len(free) - n:][::-1], np.int32)
+        del free[len(free) - n:]
         self.refcount[pages] = 1
         self.allocs += n
         return pages
 
     def ref(self, page: int) -> None:
         """Add one reference to an allocated ``page`` (prefix sharing)."""
-        if page <= 0 or page >= self.num_pages or self.refcount[page] <= 0:
+        if page <= 0 or page >= self.num_pages or self.is_scratch(page) \
+                or self.refcount[page] <= 0:
             raise ValueError(f"ref of unallocated/scratch page {page}")
         self.refcount[page] += 1
 
@@ -321,38 +364,43 @@ class PagePool:
         if pages.size == 0:
             return
         if (pages <= 0).any() or (pages >= self.num_pages).any() or \
+                self.is_scratch(pages).any() or \
                 (self.refcount[pages] <= 0).any():
             bad = [int(p) for p in pages
-                   if p <= 0 or p >= self.num_pages or self.refcount[p] <= 0]
+                   if p <= 0 or p >= self.num_pages
+                   or self.is_scratch(p) or self.refcount[p] <= 0]
             raise ValueError(f"ref of unallocated/scratch page(s) {bad}")
         np.add.at(self.refcount, pages, 1)
 
     def deref(self, page: int) -> bool:
-        """Drop one reference to ``page``; frees it at zero.  Returns True
-        when the page was freed.  Raises on scratch, an out-of-range page,
-        or a page whose count is already zero (underflow)."""
-        if page <= 0 or page >= self.num_pages:
+        """Drop one reference to ``page``; frees it at zero, back to its
+        own shard's free list.  Returns True when the page was freed.
+        Raises on scratch, an out-of-range page, or a page whose count is
+        already zero (underflow)."""
+        if page <= 0 or page >= self.num_pages or self.is_scratch(page):
             raise ValueError(f"deref of scratch/out-of-range page {page}")
         if self.refcount[page] <= 0:
             raise ValueError(f"refcount underflow on page {page}")
         self.refcount[page] -= 1
         if self.refcount[page] == 0:
-            self._free.append(int(page))
+            self._free[self.shard_of(page)].append(int(page))
             return True
         return False
 
     def deref_many(self, pages: np.ndarray) -> int:
         """Drop one reference from each of ``pages`` (a whole row at once;
-        duplicates count as several derefs); frees those that reach zero
-        and returns how many.  Validates before mutating: a scratch or
-        out-of-range page, or an underflow, raises with every count
-        untouched."""
+        duplicates count as several derefs); frees those that reach zero,
+        each back to its own shard's free list, and returns how many.
+        Validates before mutating: a scratch or out-of-range page, or an
+        underflow, raises with every count untouched."""
         pages = np.asarray(pages, np.int64)
         if pages.size == 0:
             return 0
-        if (pages <= 0).any() or (pages >= self.num_pages).any():
-            raise ValueError(f"deref of scratch/out-of-range page(s) "
-                             f"{[int(p) for p in pages]}")
+        if (pages <= 0).any() or (pages >= self.num_pages).any() or \
+                self.is_scratch(pages).any():
+            raise ValueError(
+                f"deref of scratch/out-of-range page(s) "
+                f"{[int(p) for p in pages if p <= 0 or p >= self.num_pages or self.is_scratch(p)]}")
         drops = np.bincount(pages, minlength=self.num_pages)
         if (self.refcount < drops).any():
             bad = np.flatnonzero(self.refcount < drops)
@@ -360,7 +408,8 @@ class PagePool:
                              f"{[int(p) for p in bad]}")
         self.refcount -= drops.astype(self.refcount.dtype)
         freed = np.flatnonzero((drops > 0) & (self.refcount == 0))
-        self._free.extend(int(p) for p in freed)
+        for p in freed:
+            self._free[self.shard_of(p)].append(int(p))
         return int(freed.size)
 
 

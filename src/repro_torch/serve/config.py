@@ -17,8 +17,9 @@ validation messages, so one value describes an engine in either package:
   binding of every serve CLI;
 * :func:`knob_table_md` — the knob table, generated from the field docs.
 
-``mesh_shards`` above 1 is validated like the JAX config's and then
-refused: mesh sharding arrives with ``ROADMAP.md`` queue 1 step 6.
+``mesh_shards`` above 1 shards a paged engine's slot batch and page pool
+(:class:`~repro_torch.serve.mesh.MeshPlan`); a contiguous engine is
+refused at resolution, as in the JAX config.
 """
 from __future__ import annotations
 
@@ -141,8 +142,7 @@ class EngineConfig:
         membership in :data:`KV_DTYPES`, quantization's conflict with an
         explicit ``paged_kv=False``, ``mesh_shards`` divisibility of
         ``max_slots`` / ``pool_pages``, and explicit-``page_size``
-        divisibility of ``max_seq``.  Then ``mesh_shards > 1`` raises
-        ``NotImplementedError`` (``ROADMAP.md`` queue 1 step 6)."""
+        divisibility of ``max_seq``."""
         if self.max_slots < 1:
             raise ValueError("need at least one slot")
         if self.max_seq < 1:
@@ -208,11 +208,6 @@ class EngineConfig:
                 f"max_seq={self.max_seq} (the cache is allocated in whole "
                 f"pages; pick a page size that divides the capacity, or "
                 f"pass page_size=None to let auto_page_size choose one)")
-        if self.mesh_shards > 1:
-            raise NotImplementedError(
-                f"mesh_shards={self.mesh_shards}: the port serves on one "
-                f"device; mesh sharding arrives with ROADMAP.md queue 1 "
-                f"step 6")
         return self
 
     def resolve(self, model_cfg) -> "EngineConfig":
@@ -230,6 +225,8 @@ class EngineConfig:
         * ``paged_kv`` ``None`` -> on iff the state tree is pageable at the
           resolved page size; an explicit ``True`` raises when
           ``page_size`` resolved to 0 or the family is not pageable;
+        * ``mesh_shards > 1`` raises on a contiguous engine (the page pool
+          is what shards), so the SSM and hybrid families serve on one;
         * ``kv_dtype`` falls back to ``"fp32"`` and ``page_dedup`` to off
           on a contiguous engine (both are paged-only);
         * ``pool_pages`` ``None`` -> one full page row per slot (paged);
@@ -282,6 +279,13 @@ class EngineConfig:
                     f"leaf needs an adjacent (batch, kv_seq) axis pair — "
                     f"SSM/hybrid families are not)")
         paged = bool(paged)
+        if self.mesh_shards > 1 and not paged:
+            raise ValueError(
+                f"mesh_shards={self.mesh_shards} shards the slot batch and "
+                f"the physical page pool across devices, which requires "
+                f"the paged engine — {model_cfg.arch_id}'s decode state "
+                f"resolved to paged_kv=False (contiguous allocation); "
+                f"serve this family single-device (mesh_shards=1)")
         kv_dtype = self.kv_dtype
         if kv_dtype != "fp32" and not paged:
             # same silent auto-gate as paged_kv: SSM/hybrid state (or a
@@ -412,9 +416,11 @@ def add_cli_args(parser, spec_k_default: int = 4) -> None:
     parser.add_argument("--mesh-shards", dest="mesh_shards", type=int,
                         default=1,
                         help="shard the slot batch + page pool across this "
-                             "many devices (must divide --slots; the port "
-                             "serves on one device until ROADMAP.md queue 1 "
-                             "step 6)")
+                             "many devices with shard-local decode (must "
+                             "divide --slots; paged engines only; by "
+                             "default the first that many CUDA devices, "
+                             "or name them with the serve CLI's "
+                             "--mesh-devices, where a device may repeat)")
 
 
 def config_from_args(args) -> EngineConfig:

@@ -81,11 +81,20 @@ The counterpart of ``repro/serve/engine.py`` for one device:
 * **Warm-up** (:meth:`ServeEngine.warmup`) — every dispatch shape once
   before any request, so first-use costs stay out of timed regions and
   SLO clocks.
+* **Mesh sharding** (``mesh_shards > 1``, paged engines only) — a
+  :class:`~repro_torch.serve.mesh.MeshPlan` splits the slot batch and the
+  page pool into shards, each with its own pooled state on its own device
+  (``devices=``; shards may share one).  Each shard's lanes decode in a
+  dispatch of their own over that shard's block of pages, with the page
+  table localised by ``% block``; every shard's launches are queued before
+  the host reads a token.  Admission balances the shards' loads, a slot
+  allocates only from its shard's block, and no page is shared across
+  blocks (prefix hits, session snapshots and dedup stay inside one).  The
+  greedy tokens equal those of the one-shard engine.
 
 Dispatch is eager PyTorch (the JAX engine compiles ahead of time); the
 state tensors are updated in place, and every dispatch samples on the
-device and moves only the token ids to the host.  Mesh sharding is still
-to port (``ROADMAP.md``, queue 1 step 6).
+device and moves only the token ids to the host.
 """
 from __future__ import annotations
 
@@ -105,6 +114,7 @@ from repro_torch.models import quant_kv
 from repro_torch.models.registry import serve_api
 from repro_torch.serve import cache
 from repro_torch.serve.config import EngineConfig
+from repro_torch.serve.mesh import MeshPlan
 from repro_torch.serve.sampling import (GREEDY, SamplingParams,
                                         greedy_tokens, sample_tokens,
                                         sampling_lanes)
@@ -117,6 +127,7 @@ from repro_torch.serve.spec import (DraftHeadDrafter, NGramTreeDrafter,
                                     expected_tokens_chain,
                                     expected_tokens_tree,
                                     per_candidate_accept, pick_shape)
+from repro_torch.tree import map_tree
 
 __all__ = ["ServeEngine", "tree_width"]
 
@@ -179,15 +190,34 @@ class ServeEngine:
       config: the engine knobs (default :class:`EngineConfig`).
       device: where the model runs; ``None`` is the card, and raises when
         there is no CUDA device.  Pass ``"cpu"`` for the plain PyTorch path.
+      devices: with ``config.mesh_shards > 1``, the device of each shard
+        (:meth:`MeshPlan.build`: by default the first ``mesh_shards`` CUDA
+        devices, and a device may be named more than once, e.g.
+        ``["cuda:0"] * 2`` on one card); the weights are copied once to
+        each distinct device.  Not taken at one shard.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, *,
                  config: Optional[EngineConfig] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 devices: Optional[Sequence[Union[str, torch.device]]]
+                 = None):
         self.api = serve_api(cfg)
         self.device = resolve_device(device)
         ecfg = (config or EngineConfig()).resolve(cfg)
         self.config = ecfg
+        self.shards = ecfg.mesh_shards
+        if devices is not None and self.shards == 1:
+            raise ValueError(
+                "devices= names the shards' devices of a mesh engine "
+                "(mesh_shards > 1); a one-shard engine takes device=")
+        #: the slots mesh (None at one shard)
+        self.mesh_plan = (MeshPlan.build(ecfg, devices)
+                          if self.shards > 1 else None)
+        #: the device of each shard's state and dispatches
+        self.devices: Tuple[torch.device, ...] = (
+            self.mesh_plan.devices if self.mesh_plan is not None
+            else (self.device,))
         # a contiguous engine's GQA decode reads its slot rows as pages of
         # this size (0: one softmax over the whole cache)
         self.cfg = dataclasses.replace(cfg, decode_page_size=ecfg.page_size)
@@ -205,10 +235,15 @@ class ServeEngine:
         self.kv_dtype = ecfg.kv_dtype
         if self.paged:
             self.max_pages = ecfg.max_seq // ecfg.page_size
-            # one more physical page than allocatable: page 0 is scratch
-            self.pool = cache.PagePool(ecfg.pool_pages + 1)
+            # one scratch page a shard beyond the allocatable pages (the
+            # first page of each shard's block)
+            num_pages = ecfg.pool_pages + self.shards
+            self.pool = cache.PagePool(num_pages, shards=self.shards)
             self.pspecs = cache.paged_state_specs(self.specs, ecfg.page_size,
-                                                  ecfg.pool_pages + 1)
+                                                  num_pages)
+            # each shard's state holds its own block of the pool
+            block_specs = cache.paged_state_specs(
+                self.specs, ecfg.page_size, self.pool.block)
             if self.kv_dtype != "fp32":
                 # page_size int{bits} magnitudes must sum exactly inside
                 # the int32 carrier (the paper's carry math)
@@ -216,15 +251,21 @@ class ServeEngine:
                     ecfg.page_size, 8 if self.kv_dtype == "int8" else 4)
                 self.pspecs = cache.quant_state_specs(self.pspecs,
                                                       self.kv_dtype)
-            self.state = cache.state_zeros(self.pspecs, self.device)
+                block_specs = cache.quant_state_specs(block_specs,
+                                                      self.kv_dtype)
+            #: the pooled state of each shard, on its device
+            self.states: List[Dict[str, torch.Tensor]] = [
+                cache.state_zeros(block_specs, dev) for dev in self.devices]
             #: bytes of one physical page across every leaf
-            self.page_bytes = cache.state_bytes(self.pspecs) // (
-                ecfg.pool_pages + 1)
-            # per-slot page tables; 0 = the scratch page (unallocated)
+            self.page_bytes = cache.state_bytes(self.pspecs) // num_pages
+            # per-slot page tables of global page ids; 0 = the scratch
+            # page (unallocated)
             self.table = np.zeros((ecfg.max_slots, self.max_pages),
                                   np.int64)
         else:
-            self.state = cache.state_zeros(self.specs, self.device)
+            self.states = [cache.state_zeros(self.specs, self.device)]
+        #: the weights on each distinct device (one copy a device)
+        self._params_by_device: Dict[torch.device, dict] = {}
         #: bytes one contiguous copy_slot moves (its prefix hit's cost)
         self.slot_bytes = cache.state_bytes(self.specs) // ecfg.max_slots
         # resolve() already gated prefix_cache on supports_prefix
@@ -295,6 +336,52 @@ class ServeEngine:
         n = min(n, max(0, len(ctx) - 1))
         return n if n >= self.min_prefix else 0
 
+    # -------------------------------------------------- mesh-sharded layout
+    @property
+    def state(self) -> Dict[str, torch.Tensor]:
+        """The state tree of a one-shard engine (a mesh engine keeps one a
+        shard in :attr:`states`).  Setting it replaces every shard's state
+        with the one value (``None`` frees them)."""
+        if len(self.states) != 1:
+            raise AttributeError(
+                f"a {len(self.states)}-shard engine keeps one state a "
+                f"shard: read engine.states[shard]")
+        return self.states[0]
+
+    @state.setter
+    def state(self, value) -> None:
+        self.states = [value]
+
+    def _slot_shard(self, slot: int) -> int:
+        """The mesh shard owning ``slot`` (always 0 at one shard)."""
+        if self.mesh_plan is None:
+            return 0
+        return self.mesh_plan.shard_of_slot(slot)
+
+    def _shard_lanes(self, shard: int) -> slice:
+        """The slot lanes of ``shard``'s dispatches (all slots at one
+        shard)."""
+        n = self.max_slots // self.shards
+        return slice(shard * n, (shard + 1) * n)
+
+    def _local(self, pages: np.ndarray) -> np.ndarray:
+        """Global page ids -> offsets into their shard's block (identity at
+        one shard, where the block is the whole pool)."""
+        if self.mesh_plan is None:
+            return pages
+        return self.mesh_plan.local_pages(pages)
+
+    def _params_on(self, dev: torch.device) -> dict:
+        """The weights on ``dev``: ``params`` itself at one shard; on a
+        mesh, one copy a distinct device, made at first use (no copy
+        where ``params`` already lives on ``dev``)."""
+        if self.mesh_plan is None:
+            return self.params
+        if dev not in self._params_by_device:
+            self._params_by_device[dev] = map_tree(lambda t: t.to(dev),
+                                                   self.params)
+        return self._params_by_device[dev]
+
     # ------------------------------------------------------------ stats
     def reset_stats(self) -> None:
         """Zero the engine counters and timers (the scheduler's SLO tallies
@@ -326,8 +413,13 @@ class ServeEngine:
             "session_turns": 0, "session_hits": 0,
             "session_reused_tokens": 0, "session_snapshot_drops": 0,
             "degrade_steps": 0, "prefill_dispatches": 0,
+            # decode and verify dispatches the shards ran (decode_steps
+            # at one shard; a shard with no live lane runs none)
+            "decode_dispatches": 0,
             "moa_reduce_launches": 0,
         }
+        #: decode lane-steps each mesh shard advanced (index = shard)
+        self._shard_lane_steps = np.zeros(self.shards, np.int64)
         #: recent reconfigurator decisions (slot, accept estimates, shape)
         self._spec_decisions: Deque[Dict[str, Any]] = deque(
             maxlen=_DECISION_TRACE)
@@ -345,7 +437,8 @@ class ServeEngine:
         percentiles, pool usage, trie evictions, SLO and goodput tallies,
         the ladder's level, the dedup and session figures, and the
         speculative accept and draft-hit rates, accept-rate percentiles
-        over the slots' EWMAs and the reconfigurator's decision trace."""
+        over the slots' EWMAs, the reconfigurator's decision trace, and the
+        mesh's shard count, decode lane-steps a shard and their skew."""
         s = dict(self.stats)
         s["prefill_tok_s"] = s["prefill_tokens"] / max(s["prefill_s"], 1e-9)
         s["decode_tok_s"] = s["decode_tokens"] / max(s["decode_s"], 1e-9)
@@ -390,7 +483,8 @@ class ServeEngine:
         s["trie_evictions"] = (self.prefix.evictions
                                if self.prefix is not None else 0)
         s["pages_in_use"] = self.pool.used_count if self.paged else 0
-        s["pool_pages"] = self.pool.num_pages - 1 if self.paged else 0
+        s["pool_pages"] = (self.pool.num_pages - self.pool.shards
+                           if self.paged else 0)
         # capacity under the kv_dtype knob: the bytes of one slot's full
         # row of pages (or its contiguous slot), and of the whole state
         s["kv_dtype"] = self.kv_dtype
@@ -416,6 +510,14 @@ class ServeEngine:
         s["dedup_indexed_pages"] = (len(self.dedup)
                                     if self.dedup is not None else 0)
         s["sessions_live"] = len(self.sessions)
+        # mesh shards: decode lanes each advanced, and the spread between
+        # the busiest and the idlest over the busiest (0.0 = balanced)
+        s["mesh_shards"] = self.shards
+        lane_steps = self._shard_lane_steps
+        s["shard_lane_steps"] = [int(x) for x in lane_steps]
+        peak = int(lane_steps.max())
+        s["shard_occupancy_skew"] = (
+            float((peak - int(lane_steps.min())) / peak) if peak else 0.0)
         return s
 
     # ----------------------------------------------------------- submit
@@ -554,25 +656,30 @@ class ServeEngine:
             if s not in self.scheduler.active:
                 self._release_row(s)
 
-    def _reclaim_pages(self, needed: int) -> None:
-        """Free pages under pool pressure until ``needed`` are free (or
-        nothing reclaimable remains): first retired trie entries,
-        least-recently-used first, with entries whose release frees no
-        page (every page still shared) last; then session snapshots,
-        least-recently-used first (the next turn re-prefills).  Live slots
+    def _reclaim_pages(self, needed: int, shard: int = 0) -> None:
+        """Free pages under pool pressure until ``needed`` are free in
+        ``shard``'s block (or nothing reclaimable remains): first retired
+        trie entries, least-recently-used first, with entries whose
+        release frees no page (every page still shared) last; then session
+        snapshots, least-recently-used first (the next turn re-prefills).
+        Only victims whose pages live in ``shard``'s block are released:
+        another block's pages cannot serve this allocation.  Live slots
         are never touched."""
         if self.prefix is not None:
             victims = [s for s in self.prefix.lru_slots()
-                       if s not in self.scheduler.active]
+                       if s not in self.scheduler.active
+                       and self._slot_shard(s) == shard]
             victims.sort(key=lambda s: self._freed_pages(s) == 0)
             for s in victims:
-                if self.pool.free_count >= needed:
+                if self.pool.free_count_in(shard) >= needed:
                     return
                 self._release_row(s)
                 self.prefix.evictions += 1
         for sess in self.sessions.lru_snapshots():
-            if self.pool.free_count >= needed:
+            if self.pool.free_count_in(shard) >= needed:
                 return
+            if self.pool.shard_of(int(sess.row[0])) != shard:
+                continue
             row = self.sessions.take_snapshot(sess)
             self._deref_row_pages(row[row != 0])
             self.sessions.drops += 1
@@ -580,26 +687,28 @@ class ServeEngine:
 
     def _ensure_pages(self, slot: int, start: int, end: int) -> bool:
         """Allocate physical pages covering positions ``[start, end)`` of
-        ``slot``'s row, all or nothing, reclaiming under pressure; False
-        when the pool is still exhausted."""
+        ``slot``'s row from the slot's own shard block, all or nothing,
+        reclaiming under pressure; False when the block is still
+        exhausted."""
         first = start // self.page_size
         last = min(-(-end // self.page_size), self.max_pages)
         need = first + np.flatnonzero(self.table[slot, first:last] == 0)
-        if need.size > self.pool.free_count:
-            self._reclaim_pages(int(need.size))
+        sh = self._slot_shard(slot)
+        if need.size > self.pool.free_count_in(sh):
+            self._reclaim_pages(int(need.size), sh)
         if need.size:
-            pages = self.pool.alloc_many(int(need.size))
+            pages = self.pool.alloc_many(int(need.size), sh)
             if pages is None:
                 return False
             self.table[slot, need] = pages
         return True
 
-    def _alloc_one(self) -> int:
-        """One fresh page, reclaiming first when the pool is empty; -1 when
-        nothing can be freed."""
-        if self.pool.free_count < 1:
-            self._reclaim_pages(1)
-        return self.pool.alloc()
+    def _alloc_one(self, shard: int) -> int:
+        """One fresh page of ``shard``'s block, reclaiming first when the
+        block is empty; -1 when nothing can be freed."""
+        if self.pool.free_count_in(shard) < 1:
+            self._reclaim_pages(1, shard)
+        return self.pool.alloc(shard)
 
     def _rollback_pages(self, slot: int, length: int) -> None:
         """Rewind ``slot``'s row after a chain step's rejection: release
@@ -635,6 +744,7 @@ class ServeEngine:
         ``ok`` is False when the pool is exhausted (the row is released and
         the admission should be deferred)."""
         ps = self.page_size
+        sh = self._slot_shard(slot)
         cow = None
         nfull = 0
         if reuse and not in_place:
@@ -648,7 +758,7 @@ class ServeEngine:
                 # src's row; its bytes stay intact until the copy (the
                 # first device write of this admission) has read them
                 src_b = int(src_row[nfull])
-                p = self._alloc_one()
+                p = self._alloc_one(sh)
                 if p < 0:
                     self._release_row(slot)
                     return False, None
@@ -664,7 +774,7 @@ class ServeEngine:
                 if p == 0:
                     continue
                 if self.pool.refcount[p] > 1:
-                    fresh = self._alloc_one()
+                    fresh = self._alloc_one(sh)
                     if fresh < 0:
                         self._release_row(slot)
                         return False, None
@@ -684,10 +794,12 @@ class ServeEngine:
         return True, cow
 
     def _scrub_scratch(self) -> None:
-        """Re-zero scratch page 0: an admission's bucket-padding and idle
-        lanes' writes land there, and a masked lane reads it as ``0 * v``,
-        which a NaN or inf would poison."""
-        cache.zero_page(self.state, self.pspecs, 0)
+        """Re-zero every shard's scratch page (local page 0): an
+        admission's bucket-padding and idle lanes' writes land there, and
+        a masked lane reads it as ``0 * v``, which a NaN or inf would
+        poison."""
+        for state in self.states:
+            cache.zero_page(state, self.pspecs, 0)
 
     # ----------------------------------------------------------- warm-up
     def warmup(self) -> None:
@@ -699,28 +811,17 @@ class ServeEngine:
         the allocator's first blocks then never reach a timed region or an
         SLO clock.
 
-        A paged engine runs them on all-scratch page tables, and re-zeroes
-        scratch after.  A contiguous engine runs the verifies with ``nspec
-        = 0`` (every write masked) and the rest on the first positions of
-        every slot, saved before and put back as they were; a leaf with no
-        sequence axis (an SSM layer's ``h`` and ``conv``) is saved and put
-        back whole.  The state
-        (a paged engine's scratch page aside) and every counter are left
-        as they were."""
-        b, dev = self.max_slots, self.device
-
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=torch.int64, device=dev)
-
+        A paged engine runs them on all-scratch page tables, on every
+        shard of a mesh, and re-zeroes scratch after.  A contiguous engine
+        runs the verifies with ``nspec = 0`` (every write masked) and the
+        rest on the first positions of every slot, saved before and put
+        back as they were; a leaf with no sequence axis (an SSM layer's
+        ``h`` and ``conv``) is saved and put back whole.  The state (a
+        paged engine's scratch pages aside) and every counter are left as
+        they were."""
         buckets = sorted({min(cb, self.max_seq) for cb in self.chunk_buckets})
-        saved, tables, table1 = {}, {}, {}
-        slot_state = self.state
-        if self.paged:
-            tables = {"pages": zeros(b, self.max_pages)}
-            table1 = {"pages": zeros(1, self.max_pages)}
-            if self.prefix is not None:
-                cache.copy_page(self.state, self.pspecs, 0, 0)
-        else:
+        saved = {}
+        if not self.paged:
             for name, t in self.state.items():
                 axes = self.specs[name].axes
                 # a positional leaf: the rows the warm-up can reach; a
@@ -729,16 +830,44 @@ class ServeEngine:
                 if "kv_seq" in axes:
                     t = t.narrow(axes.index("kv_seq"), 0, buckets[-1])
                 saved[name] = (t, t.clone())
-            slot_state = cache.slot_slice(self.state, self.specs, 0)
+        for shard, dev in enumerate(self.devices):
+            self._warm_shard(shard, dev, buckets)
+        if self.paged:
+            self._scrub_scratch()
+        for view, before in saved.values():
+            view.copy_(before)
+        for dev in set(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def _warm_shard(self, shard: int, dev: torch.device,
+                    buckets: Sequence[int]) -> None:
+        """:meth:`warmup`'s dispatches on one shard: its lanes, its state,
+        its device."""
+        b = self.max_slots // self.shards
+        params, state = self._params_on(dev), self.states[shard]
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int64, device=dev)
+
+        tables, table1 = {}, {}
+        slot_state = state
+        if self.paged:
+            tables = {"pages": zeros(b, self.max_pages)}
+            table1 = {"pages": zeros(1, self.max_pages)}
             if self.prefix is not None:
-                cache.copy_slot(self.state, self.specs, 0, 0)
+                cache.copy_page(state, self.pspecs, 0, 0)
+        else:
+            slot_state = cache.slot_slice(state, self.specs, 0)
+            if self.prefix is not None:
+                cache.copy_slot(state, self.specs, 0, 0)
         for cb in buckets:
             self.api.prefill_chunk(
-                self.params, slot_state,
+                params, slot_state,
                 {"tokens": zeros(1, cb), "index": zeros(), "nvalid": cb,
                  **table1}, self.cfg)
         logits, _ = self.api.decode_step(
-            self.params, self.state,
+            params, state,
             {"tokens": zeros(b, 1), "index": zeros(b), **tables}, self.cfg)
         self._draw(logits, None)
         self._draw(logits, sampling_lanes(
@@ -746,7 +875,7 @@ class ServeEngine:
         idle = zeros(b)
         if self.spec_k and self.spec_mode == "chain":
             self.api.verify_chunk(
-                self.params, self.state,
+                params, state,
                 {"tokens": zeros(b, self.spec_k + 1), "index": idle,
                  "nspec": idle, **tables}, self.cfg)
         if self.spec_mode != "chain":
@@ -754,31 +883,30 @@ class ServeEngine:
             # padding rows parent themselves: never anyone's ancestor
             parents = torch.arange(cw, device=dev).expand(b, cw)
             self.api.verify_tree(
-                self.params, self.state,
+                params, state,
                 {"tokens": zeros(b, cw), "index": idle, "parents": parents,
                  "pos_off": zeros(b, cw), "nchain": idle, "nspec": idle,
                  **tables}, self.cfg, head_topk=self.spec_branch)
-        if self.paged:
-            self._scrub_scratch()
-        for view, before in saved.values():
-            view.copy_(before)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
 
     # ---------------------------------------------------- content dedup
+    def _page_views(self, page: int) -> List[torch.Tensor]:
+        """ONE physical page's bytes as ``uint8`` views of every leaf, read
+        from its shard's block at its local offset."""
+        return cache.page_bytes(self.states[self.pool.shard_of(page)],
+                                self.pspecs, page % self.pool.block)
+
     def _page_bytes_of(self, page: int) -> bytes:
         """The raw bytes of ONE physical page across every leaf, on the
         host (only the page leaves the device) — the unit of content
         identity the digest is taken over."""
-        return b"".join(v.cpu().numpy().tobytes() for v in
-                        cache.page_bytes(self.state, self.pspecs, page))
+        return b"".join(v.cpu().numpy().tobytes()
+                        for v in self._page_views(page))
 
     def _same_bytes(self, a: int, b: int) -> bool:
-        """Byte identity of physical pages ``a`` and ``b``, compared on the
-        pool's device through integer views."""
+        """Byte identity of physical pages ``a`` and ``b`` (of one shard),
+        compared on the pool's device through integer views."""
         return all(torch.equal(x, y) for x, y in zip(
-            cache.page_bytes(self.state, self.pspecs, a),
-            cache.page_bytes(self.state, self.pspecs, b)))
+            self._page_views(a), self._page_views(b)))
 
     def _dedup_slot(self, slot: int, length: int) -> None:
         """Content-dedup the full pages below ``length`` that this row
@@ -798,6 +926,9 @@ class ServeEngine:
             for c in self.dedup.candidates(digest):
                 if c == p:
                     continue
+                if self.pool.shard_of(c) != self.pool.shard_of(p):
+                    # another block's page cannot sit in this shard's row
+                    continue
                 if self._same_bytes(c, p):
                     match = c
                     break
@@ -814,15 +945,16 @@ class ServeEngine:
             self.stats["dedup_hits"] += 1
 
     # --------------------------------------------------------- sampling
-    def _lanes(self, sps: Sequence[SamplingParams],
-               idxs: Sequence[int]) -> Optional[tuple]:
+    @staticmethod
+    def _lanes(sps: Sequence[SamplingParams], idxs: Sequence[int],
+               dev: torch.device) -> Optional[tuple]:
         """The sampling lanes of a dispatch's rows (one
-        :class:`SamplingParams` and sample index a row) on the device, or
+        :class:`SamplingParams` and sample index a row) on ``dev``, or
         None when every row is greedy: the argmax alone then gives the
         same tokens."""
         if all(sp.is_greedy for sp in sps):
             return None
-        return sampling_lanes(sps, idxs, self.device)
+        return sampling_lanes(sps, idxs, dev)
 
     @staticmethod
     def _draw(logits: torch.Tensor, lanes: Optional[tuple]) -> torch.Tensor:
@@ -889,11 +1021,16 @@ class ServeEngine:
         the pool exhausted even after reclaim is deferred to the head of
         the queue, never dropped."""
         ctx = req.context
+        sh = self._slot_shard(slot)
         # ---- prefix-cache lookup, clamped to keep >= 1 token to prefill
-        # (its logits sample the first token)
+        # (its logits sample the first token); on a mesh only rows of the
+        # slot's own shard match: a page never crosses a block
         reuse, src, removed = 0, -1, False
         if self.prefix is not None:
-            match_len, match_slot = self.prefix.longest_match(ctx)
+            allowed = (None if self.mesh_plan is None
+                       else (lambda s: self._slot_shard(s) == sh))
+            match_len, match_slot = self.prefix.longest_match(
+                ctx, allowed=allowed)
             match_len = min(match_len, len(ctx) - 1)
             if match_len >= self.min_prefix:
                 reuse, src = match_len, match_slot
@@ -907,6 +1044,9 @@ class ServeEngine:
             sess = self.sessions.get(conv)
             if sess is not None and sess.row is not None:
                 s_reuse = min(sess.covered, len(ctx) - 1)
+                if self.pool.shard_of(int(sess.row[0])) != sh:
+                    # the snapshot's pages live in another shard's block
+                    s_reuse = 0
                 if s_reuse >= self.min_prefix and s_reuse > reuse:
                     reuse, src = s_reuse, -1
                     sess_row = sess.row
@@ -927,9 +1067,12 @@ class ServeEngine:
                 self.scheduler.evict(slot)     # head of queue: deferred
                 if not self.scheduler.active and not self.pool.used_count:
                     raise RuntimeError(
-                        f"page pool ({self.pool.num_pages - 1} pages of "
-                        f"{self.page_size} tokens) cannot hold a single "
-                        f"request of {len(ctx)} context tokens")
+                        f"page pool ({self.pool.num_pages - self.pool.shards}"
+                        f" pages of {self.page_size} tokens"
+                        + (f", {self.pool.shards} shard blocks"
+                           if self.pool.shards > 1 else "")
+                        + f") cannot hold a single request of "
+                        f"{len(ctx)} context tokens")
                 return []
         # ---- committed: account the lookup (session reuse is tallied on
         # its own; the trie counters mean "the trie found or missed it")
@@ -945,15 +1088,16 @@ class ServeEngine:
             if removed and src != slot:
                 self.stats["prefix_evictions"] += 1
         # every piece's inputs go to the device before the timer starts; a
-        # contiguous prefill runs on the slot's own rows (views, so its
-        # writes land in the state)
-        dev = self.device
-        extra, state = {}, self.state
+        # prefill runs on the slot's shard alone (its state, its device,
+        # its row localised into its block); a contiguous prefill on the
+        # slot's own rows (views, so its writes land in the state)
+        dev = self.devices[sh]
+        extra, state = {}, self.states[sh]
         if self.paged:
-            extra = {"pages": torch.as_tensor(self.table[slot][None],
-                                              device=dev)}
+            extra = {"pages": torch.as_tensor(
+                self._local(self.table[slot])[None], device=dev)}
         else:
-            state = cache.slot_slice(self.state, self.specs, slot)
+            state = cache.slot_slice(state, self.specs, slot)
         batches = []
         for start, nvalid, cb in pieces:
             toks = np.zeros((1, cb), np.int64)
@@ -963,12 +1107,16 @@ class ServeEngine:
                             "nvalid": nvalid, **extra})
         # the first token continues the request's sample stream (a
         # re-admission draws at the index its tokens so far reach)
-        lanes = self._lanes([req.sampling or GREEDY], [len(req.generated)])
+        lanes = self._lanes([req.sampling or GREEDY], [len(req.generated)],
+                            dev)
+        params = self._params_on(dev)
         launches0 = _moa.LAUNCHES
         t0 = time.perf_counter()
         if cow is not None:
-            # copy-on-write: ONE boundary page, before any prefill write
-            cache.copy_page(self.state, self.pspecs, *cow)
+            # copy-on-write: ONE boundary page, before any prefill write,
+            # inside the shard's block
+            cache.copy_page(self.states[sh], self.pspecs,
+                            *(int(p) for p in self._local(np.asarray(cow))))
             self.stats["prefix_bytes_copied"] += self.page_bytes
             self.stats["pages_cow"] += 1
         elif not self.paged and reuse and src != slot:
@@ -980,7 +1128,7 @@ class ServeEngine:
             cache.reset_slot(self.state, self.specs, slot)
         # (contiguous reuse in the slot itself: the rows are there already)
         for batch in batches:
-            logits, _ = self.api.prefill_chunk(self.params, state, batch,
+            logits, _ = self.api.prefill_chunk(params, state, batch,
                                                self.cfg)
         first = int(self._draw(logits, lanes)[0])
         dt = time.perf_counter() - t0
@@ -1065,18 +1213,11 @@ class ServeEngine:
                     self.stats["prefix_evictions"] += 1
                 else:
                     positions[slot] = n
-        lanes = self._lanes(sps, sidx)
-        batch = self._batch(tokens, positions)
         occ = self.scheduler.occupancy
-        launches0 = _moa.LAUNCHES
-        t0 = time.perf_counter()
-        logits, self.state = self.api.decode_step(self.params, self.state,
-                                                  batch, self.cfg)
-        nxt = self._draw(logits, lanes).cpu().numpy()
-        dt = time.perf_counter() - t0
-        self.stats["moa_reduce_launches"] += _moa.LAUNCHES - launches0
-        if self.trace_logits:
-            self.logit_trace.append(logits[live].cpu().numpy())
+        nxt, _, dt = self._dispatch(
+            lambda params, state, batch: self.api.decode_step(
+                params, state, batch, self.cfg),
+            live, tokens, positions, sps, sidx)
         self.stats["decode_s"] += dt
         self.stats["decode_tokens"] += len(live)
         self.stats["decode_steps"] += 1
@@ -1089,7 +1230,7 @@ class ServeEngine:
             for slot in live:
                 self.prefix.extend(slot, int(tokens[slot, 0]))
         reqs = {s: self.scheduler.active[s] for s in live}
-        done = self.scheduler.on_decode({s: int(nxt[s]) for s in live})
+        done = self.scheduler.on_decode({s: int(nxt[s, 0]) for s in live})
         for slot in live:
             if slot not in self.scheduler.active:
                 # a retiring session turn snapshots its row before any
@@ -1139,23 +1280,79 @@ class ServeEngine:
         self._slot_tps[slot] = r
         self.scheduler.slot_tokens_per_step[slot] = max(1.0, r)
 
-    def _batch(self, tokens: np.ndarray, positions: np.ndarray,
+    def _batch(self, shard: int, tokens: np.ndarray, positions: np.ndarray,
                **rows: np.ndarray) -> Dict[str, torch.Tensor]:
-        """A decode or verify dispatch's inputs on the device: the fed
-        ``tokens``, each slot's ``index``, the per-row ``rows`` (``nspec``,
-        a tree's ``parents`` ...) and, on a paged engine, the page table:
-        live slots' rows, idle lanes all scratch."""
-        dev = self.device
-        batch = {"tokens": torch.as_tensor(tokens, device=dev),
-                 "index": torch.as_tensor(positions, device=dev)}
-        batch.update((k, torch.as_tensor(v, device=dev))
+        """A decode or verify dispatch's inputs for ``shard``'s lanes, on
+        its device: the fed ``tokens``, each slot's ``index``, the per-row
+        ``rows`` (``nspec``, a tree's ``parents`` ...) and, on a paged
+        engine, the page table localised into the shard's block: live
+        slots' rows, idle lanes all scratch."""
+        lanes, dev = self._shard_lanes(shard), self.devices[shard]
+        batch = {"tokens": torch.as_tensor(tokens[lanes], device=dev),
+                 "index": torch.as_tensor(positions[lanes], device=dev)}
+        batch.update((k, torch.as_tensor(v[lanes], device=dev))
                      for k, v in rows.items())
         if self.paged:
-            disp = np.zeros((self.max_slots, self.max_pages), np.int64)
+            disp = np.zeros((lanes.stop - lanes.start, self.max_pages),
+                            np.int64)
             for slot in self.scheduler.active:
-                disp[slot] = self.table[slot]
-            batch["pages"] = torch.as_tensor(disp, device=dev)
+                if lanes.start <= slot < lanes.stop:
+                    disp[slot - lanes.start] = self.table[slot]
+            batch["pages"] = torch.as_tensor(self._local(disp), device=dev)
         return batch
+
+    def _dispatch(self, call, live: List[int], tokens: np.ndarray,
+                  positions: np.ndarray, sps: Sequence[SamplingParams],
+                  sidx: Sequence[int], **rows: np.ndarray
+                  ) -> Tuple[np.ndarray, List[Tuple[slice, tuple]], float]:
+        """One decode or verify dispatch on every shard that holds a live
+        lane (all slots at one shard), timed.
+
+        ``tokens`` is the (B, W) fed block, ``sps`` / ``sidx`` one sampling
+        lane a row (slot-major, B * W), ``rows`` the per-slot extras;
+        ``call(params, state, batch)`` runs the model entry point and
+        returns its outputs, logits first and the state last.  Each
+        shard's inputs reach its device before the timer starts, and every
+        shard's launches are queued before the host reads any token, so
+        shards on distinct devices overlap.  With ``trace_logits`` the
+        live lanes' logits join ``logit_trace`` in ``live`` order.
+
+        Returns (the (B, W) drawn tokens on the host, idle lanes 0; each
+        dispatched shard's lanes and outputs; seconds)."""
+        w = tokens.shape[1]
+        shards = sorted({self._slot_shard(s) for s in live})
+        plans = []
+        for sh in shards:
+            lanes, dev = self._shard_lanes(sh), self.devices[sh]
+            r = slice(lanes.start * w, lanes.stop * w)
+            plans.append((sh, lanes, self._params_on(dev),
+                          self._batch(sh, tokens, positions, **rows),
+                          self._lanes(sps[r], sidx[r], dev)))
+        launches0 = _moa.LAUNCHES
+        t0 = time.perf_counter()
+        outs, drawn = [], []
+        for sh, lanes, params, batch, lanes_s in plans:
+            out = call(params, self.states[sh], batch)
+            self.states[sh] = out[-1]
+            n = lanes.stop - lanes.start
+            drawn.append(self._draw(out[0].reshape(n * w, -1), lanes_s))
+            outs.append((lanes, out))
+        nxt = np.zeros(tokens.shape, np.int64)
+        for (lanes, _), d in zip(outs, drawn):
+            nxt[lanes] = d.reshape(-1, w).cpu().numpy()
+        dt = time.perf_counter() - t0
+        self.stats["moa_reduce_launches"] += _moa.LAUNCHES - launches0
+        self.stats["decode_dispatches"] += len(plans)
+        for slot in live:
+            self._shard_lane_steps[self._slot_shard(slot)] += 1
+        if self.trace_logits:
+            rows_of = {}
+            for lanes, out in outs:
+                mine = [s for s in live if lanes.start <= s < lanes.stop]
+                got = out[0][[s - lanes.start for s in mine]].cpu().numpy()
+                rows_of.update(zip(mine, got))
+            self.logit_trace.append(np.stack([rows_of[s] for s in live]))
+        return nxt, outs, dt
 
     def _spec_decode_once(self) -> List[Request]:
         """One chain speculative step over every live slot: draft up to
@@ -1204,20 +1401,12 @@ class ServeEngine:
             for j in range(k + 1):
                 sps[slot * (k + 1) + j] = req.sampling or GREEDY
                 sidx[slot * (k + 1) + j] = len(req.generated) + j
-        lanes = self._lanes(sps, sidx)
-        batch = self._batch(tokens, positions, nspec=nspec)
         occ = self.scheduler.occupancy
         live = list(self.scheduler.active)
-        launches0 = _moa.LAUNCHES
-        t0 = time.perf_counter()
-        logits, self.state = self.api.verify_chunk(self.params, self.state,
-                                                   batch, self.cfg)
-        nxt = self._draw(logits.reshape(b * (k + 1), -1),
-                         lanes).reshape(b, k + 1).cpu().numpy()
-        dt = time.perf_counter() - t0
-        self.stats["moa_reduce_launches"] += _moa.LAUNCHES - launches0
-        if self.trace_logits:
-            self.logit_trace.append(logits[live].cpu().numpy())
+        nxt, _, dt = self._dispatch(
+            lambda params, state, batch: self.api.verify_chunk(
+                params, state, batch, self.cfg),
+            live, tokens, positions, sps, sidx, nspec=nspec)
 
         emitted: Dict[int, List[int]] = {}
         n_emitted = 0
@@ -1406,22 +1595,21 @@ class ServeEngine:
             for j in range(cw):
                 sps[slot * cw + j] = req.sampling or GREEDY
                 sidx[slot * cw + j] = max(base + int(pos_off[slot, j]), 0)
-        lanes = self._lanes(sps, sidx)
-        batch = self._batch(tokens, positions, parents=parents,
-                            pos_off=pos_off, nchain=nchain, nspec=nspec)
         occ = self.scheduler.occupancy
         live = list(self.scheduler.active)
-        launches0 = _moa.LAUNCHES
-        t0 = time.perf_counter()
-        logits, head_top, self.state = self.api.verify_tree(
-            self.params, self.state, batch, self.cfg, head_topk=branch)
-        nxt = self._draw(logits.reshape(b * cw, -1),
-                         lanes).reshape(b, cw).cpu().numpy()
-        dt = time.perf_counter() - t0
-        head_np = head_top.cpu().numpy() if heads is not None else None
-        self.stats["moa_reduce_launches"] += _moa.LAUNCHES - launches0
-        if self.trace_logits:
-            self.logit_trace.append(logits[live].cpu().numpy())
+        nxt, outs, dt = self._dispatch(
+            lambda params, state, batch: self.api.verify_tree(
+                params, state, batch, self.cfg, head_topk=branch),
+            live, tokens, positions, sps, sidx, parents=parents,
+            pos_off=pos_off, nchain=nchain, nspec=nspec)
+        head_np = None
+        if heads is not None:
+            # each shard's head candidates back in slot order
+            for lanes, (_, head_top, _) in outs:
+                top = head_top.cpu().numpy()
+                if head_np is None:
+                    head_np = np.zeros((b,) + top.shape[1:], top.dtype)
+                head_np[lanes] = top
 
         # ---- the longest accepted root-to-leaf path per slot
         emitted: Dict[int, List[int]] = {}

@@ -24,8 +24,9 @@ its own SLO.  Under overload, ``shed_hopeless()`` retires pending requests
 whose SLO is already unattainable, and :class:`DegradeLadder` decides which
 knob the engine gives up next.  Under speculative decode the engine feeds
 each slot's expected tokens per step (:attr:`Scheduler.slot_tokens_per_step`),
-and a live request's decode is priced at its own rate.  Mesh-shard
-balancing arrives with that feature (``ROADMAP.md``, queue 1).
+and a live request's decode is priced at its own rate.  On a mesh-sharded
+engine (``mesh_shards > 1``) admission fills the shards' free slots
+interleaved, least-loaded shard first (:meth:`Scheduler.free_slots`).
 """
 from __future__ import annotations
 
@@ -103,6 +104,8 @@ class Scheduler:
       max_seq: per-slot cache capacity (context + generated tokens).
       prefill_chunk: the engine's max prefill-dispatch size; the cost model
         prices a (re-)prefill in dispatches of this size.
+      mesh_shards: shards the slot batch splits into (1 = one device);
+        admission balances live load across them.
       clock: monotonic time source (injectable: tests and replays drive a
         virtual clock).
       reuse_probe: optional callable mapping a context to the number of its
@@ -111,12 +114,15 @@ class Scheduler:
     """
 
     def __init__(self, max_slots: int, max_seq: int, *,
-                 prefill_chunk: int = 32,
+                 prefill_chunk: int = 32, mesh_shards: int = 1,
                  clock: Callable[[], float] = time.monotonic,
                  reuse_probe: Optional[Callable[[Sequence[int]], int]] = None):
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.prefill_chunk = max(1, prefill_chunk)
+        #: shards the slot batch splits into (1 = one device)
+        self.mesh_shards = max(1, mesh_shards)
+        self.slots_per_shard = max_slots // self.mesh_shards
         self.clock = clock
         self.reuse_probe = reuse_probe
         self.pending: Deque[Request] = deque()
@@ -150,10 +156,12 @@ class Scheduler:
                     reuse_probe: Optional[Callable[[Sequence[int]], int]]
                     = None) -> "Scheduler":
         """A scheduler from a validated :class:`EngineConfig`
-        (``max_slots``, ``max_seq``, ``prefill_chunk``); ``clock`` and
-        ``reuse_probe`` pass through."""
+        (``max_slots``, ``max_seq``, ``prefill_chunk``, ``mesh_shards``);
+        ``clock`` and ``reuse_probe`` pass through."""
         return cls(config.max_slots, config.max_seq,
-                   prefill_chunk=config.prefill_chunk, clock=clock,
+                   prefill_chunk=config.prefill_chunk,
+                   mesh_shards=getattr(config, "mesh_shards", 1),
+                   clock=clock,
                    reuse_probe=reuse_probe)
 
     # ----------------------------------------------------------- cost model
@@ -231,10 +239,35 @@ class Scheduler:
         return req
 
     # ---------------------------------------------------------- admissions
+    def shard_of_slot(self, slot: int) -> int:
+        """The mesh shard holding ``slot`` (0 on a one-device engine)."""
+        return slot // self.slots_per_shard
+
+    def shard_loads(self) -> List[int]:
+        """Live requests per mesh shard (``[len(active)]`` on a
+        one-device engine)."""
+        loads = [0] * self.mesh_shards
+        for s in self.active:
+            loads[self.shard_of_slot(s)] += 1
+        return loads
+
     def free_slots(self) -> List[int]:
-        """Slots not bound to a live request, ascending (the order
-        admission fills them)."""
-        return [s for s in range(self.max_slots) if s not in self.active]
+        """Slots not bound to a live request, in the order admission
+        fills them: ascending on one device; on a sharded engine the
+        shards interleaved, least-loaded first (every shard's k-th free
+        slot before any shard's (k+1)-th), so consecutive admissions land
+        on different shards and their loads stay balanced."""
+        free = [s for s in range(self.max_slots) if s not in self.active]
+        if self.mesh_shards > 1:
+            loads = self.shard_loads()
+            rank: Dict[int, int] = {}
+            keys = {}
+            for s in free:
+                sh = self.shard_of_slot(s)
+                keys[s] = (rank.get(sh, 0), loads[sh], sh)
+                rank[sh] = rank.get(sh, 0) + 1
+            free.sort(key=lambda s: keys[s])
+        return free
 
     def admission_order(self) -> List[Request]:
         """Pending requests in policy order: earliest deadline first for

@@ -53,7 +53,7 @@ def _assert_invariants(eng):
     assert 0 not in eng.sessions.snapshot_pages()
     bad = np.flatnonzero(np.asarray(pool.refcount[1:]) != counts[1:]) + 1
     assert not bad.size, f"refcount != table + snapshot count on {bad}"
-    free = list(pool._free)
+    free = [p for block in pool._free for p in block]
     used = set(np.flatnonzero(counts[1:]) + 1)
     assert len(free) == len(set(free)) == pool.free_count
     assert set(free).isdisjoint(used)

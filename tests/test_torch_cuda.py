@@ -1106,6 +1106,56 @@ def test_quantized_engine_on_the_card_equals_cpu(cuda_device, kv_dtype):
 
 
 @pytest.mark.cuda
+def test_two_shard_engine_on_the_card(cuda_device):
+    """Two shards on one card (``devices=["cuda:0"] * 2``), greedy and
+    with chain drafts: the tokens of the one-shard engine on the card and
+    of the two-shard engine on the CPU; moa_reduce launched twice a layer
+    a dispatch the shards ran; every row inside its shard's block."""
+    cfg = get_config("llama3.2-3b").reduced(dtype=torch.float32,
+                                            n_kv_heads=2)
+    params = _reduced_params(cfg)
+    gen = torch.Generator().manual_seed(5)
+    pat = torch.randint(0, cfg.vocab, (6,), generator=gen).tolist()
+    prompts = [pat * 3, torch.randint(0, cfg.vocab, (21,),
+                                      generator=gen).tolist(),
+               pat * 2 + [2], torch.randint(0, cfg.vocab, (9,),
+                                            generator=gen).tolist(),
+               pat[::-1] * 3]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for knobs in (dict(prefix_cache=False), dict(spec_k=3)):
+            toks = {}
+            for dev, shards in (("cuda", 1), ("cuda", 2), ("cpu", 2)):
+                p = map_tree(lambda t: t.to(dev), params)
+                eng = ServeEngine(cfg, p, config=EngineConfig(
+                    max_slots=4, max_seq=64, prefill_chunk=16, page_size=16,
+                    mesh_shards=shards, **knobs), device=dev,
+                    devices=[f"{dev}:0" if dev == "cuda" else dev] * shards
+                    if shards > 1 else None)
+                eng.warmup()
+                before = moa.LAUNCHES
+                reqs = [eng.submit(q, 10) for q in prompts]
+                eng.run()
+                torch.cuda.synchronize()
+                st = eng.stats_summary()
+                toks[dev, shards] = [r.generated for r in reqs]
+                if shards > 1:
+                    pool = eng.pool
+                    assert all(pool.shard_of(q) == eng._slot_shard(slot)
+                               for slot in range(eng.max_slots)
+                               for q in eng.table[slot] if q)
+                    assert min(st["shard_lane_steps"]) > 0
+                if dev == "cuda":
+                    assert moa.LAUNCHES - before == 2 * cfg.n_layers * (
+                        st["prefill_dispatches"]
+                        + st["decode_dispatches"]) > 0
+            assert toks["cuda", 2] == toks["cuda", 1] == toks["cpu", 2]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
 def test_sampled_chain_engine_on_the_card_equals_cpu(cuda_device):
     """Sampled requests (temperature 0.8, top-k 40, top-p 0.9, one seed
     each) under chain speculative decode: CUDA draws the CPU's tokens and

@@ -49,6 +49,7 @@ def test_port_files_found():
             "src/repro_torch/kernels/quant_matmul.py",
             "src/repro_torch/core/moa.py",
             "src/repro_torch/serve/sessions.py",
+            "src/repro_torch/serve/mesh.py",
             "src/repro_torch/serve/scheduler.py",
             "src/repro_torch/serve/prng.py",
             "src/repro_torch/serve/sampling.py",

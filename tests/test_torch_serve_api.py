@@ -6,8 +6,8 @@ docs), so ``knob_table_md()`` must equal the JAX one string for string;
 the JAX binding's config on the same command lines; ``batch_config`` must
 give the JAX one's config in every mode of the JAX package's own tests;
 ``validate`` and ``resolve`` must raise the JAX messages and resolve to
-the same values; ``mesh_shards > 1`` must raise, naming its ROADMAP.md
-step.  ``generate`` (the per-token loop) and ``serve_batch`` run the
+the same values; ``mesh_shards > 1`` must raise where the JAX config
+does (a contiguous engine) and resolve as it does elsewhere.  ``generate`` (the per-token loop) and ``serve_batch`` run the
 reduced fp32 config on the JAX weights (``params_from_numpy``): tokens
 equal, greedy and sampled; the serve CLI runs ``--per-token`` and
 ``--no-paged-kv`` on the CPU."""
@@ -156,12 +156,29 @@ def test_resolve_equals_jax(model, knobs):
     assert got.resolve(tcfg) == got
 
 
-def test_mesh_shards_above_one_raise():
+def test_mesh_shards_above_one_raise(model):
+    """``mesh_shards > 1`` raises where the JAX config raises, and only
+    there: a paged config validates and resolves to the JAX values, a
+    contiguous one raises the JAX class and message at resolution."""
+    jcfg, tcfg = model[:2]
     EngineConfig(mesh_shards=1).validate()
-    with pytest.raises(NotImplementedError, match="queue 1 step 6"):
-        EngineConfig(mesh_shards=2).validate()
-    with pytest.raises(NotImplementedError, match="queue 1 step 6"):
-        tserve.batch_config([[1, 2]], 4, mesh_shards=4).validate()
+    for knobs in (dict(mesh_shards=2), dict(mesh_shards=4, max_seq=64),
+                  dict(mesh_shards=2, max_seq=48, page_size=16,
+                       pool_pages=6)):
+        assert EngineConfig(**knobs).validate().to_dict() == \
+            JConfig(**knobs).validate().to_dict()
+        assert EngineConfig(**knobs).resolve(tcfg).to_dict() == \
+            JConfig(**knobs).resolve(jcfg).to_dict()
+    assert tserve.batch_config([[1, 2]], 4, mesh_shards=4).validate() \
+        .to_dict() == jserve.batch_config([[1, 2]], 4,
+                                          mesh_shards=4).validate().to_dict()
+    msgs = []
+    for cls, cfg in ((EngineConfig, tcfg), (JConfig, jcfg)):
+        with pytest.raises(ValueError, match="requires the paged engine") \
+                as e:
+            cls(mesh_shards=2, max_seq=64, paged_kv=False).resolve(cfg)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
 
 
 # ---------------------------------------------------------------------------
