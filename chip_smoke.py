@@ -155,7 +155,7 @@ Phases:
      goodput is reported
   D. speculative serve, full width on phase 6's weights and geometry: 8
      greedy requests of 128-1024 prompt tokens (a seeded 64-token passage
-     per request, repeated with 2 tokens edited in each copy) x 64 new
+     per request, repeated with 2 tokens edited in each copy) x 32 new
      tokens, served sequentially, then chain (spec_k 4), tree and auto
      (12 nodes, branch 3) and draft heads (4 heads of width 64, fitted on
      the card by fit_draft_heads on the sequential histories' last 256
@@ -177,7 +177,7 @@ Phases:
      (max and mean over the aligned decode traces) printed.  E2: int8 on
      8 slots with the pool pages that fit E1's bf16 pool bytes, 16
      requests of the same length mix: decode tok/s and step p50 beside
-     E1's bf16 run.  E3: phase D's repeated passages x 64 new tokens,
+     E1's bf16 run.  E3: phase D's repeated passages x 16 new tokens,
      every request sampled (temperature 0.8, top-k 40, seed 7) over an
      int8 pool: sequential twice (equal tokens asserted: restart
      determinism), chain (spec_k 4) and tree (12 nodes, branch 3); step
@@ -189,8 +189,8 @@ Phases:
      margin, and how many of the top-k ranks hold another token in the
      two rows
   T. the autotune tier on phase 6's weights, after E: T1 the serve CLI's
-     --burst-smoke --requests 24 at full width (its own weights) returns
-     0; T2 replay_open_loop of a 24-arrival bursty_trace (rate 1, bursts
+     --burst-smoke --requests 16 at full width (its own weights) returns
+     0; T2 replay_open_loop of a 16-arrival bursty_trace (rate 1, bursts
      of 16 a second, 256-token mean prompts, 24 new) on C's geometry with
      spec_k 4, priced at phase 6's chunk and step times and D's chain
      step (VirtualCosts), the SLO twice a mean request's service time,
@@ -203,16 +203,16 @@ Phases:
      returning turns; T4 run_sweep over prefill_chunk {128, 256} x spec_k
      {0, 4} around phase 6's engine config plus page_size 96 (resolve
      rejects it) on sweep_workload (8 requests, 512 shared + 64 tokens,
-     32 new), the (256, 0) point under torch.profiler: 4 records with
+     8 new), the (256, 0) point under torch.profiler: 4 records with
      metrics, one with its error, no profile_error, a non-empty Chrome
      trace (deleted after); each point and the Pareto front under
      (decode tok/s max, pool bytes min, p99 step min) printed
   F. MLA serve: minicpm3-4b at its published width (d 2560, 40 heads,
      q_lora_rank 768, kv_lora_rank 256, nope 64, rope 32, v 64, d_ff
-     6400, vocab 73448) cut to 31 of its 62 layers (2.32 B params, bf16,
+     6400, vocab 73448) cut to 16 of its 62 layers (1.38 B params, bf16,
      random from seed 0), after T with the llama weights freed, on phase
      6's geometry: phase 6's traffic over bf16, int8 and int4 latent pools
-     (17,856 / 9,176 / 4,712 bytes a token asserted: half the whole
+     (9,216 / 4,736 / 2,432 bytes a token asserted: 16/62 of the whole
      model's 35,712 / 18,352 / 9,424), phase A's shared-prefix traffic cold
      and warm (tokens equal, 7 hits), chain (spec_k 4) and tree (12 nodes,
      branch 3) on phase D's passages, and E3's sampling over int8 twice
@@ -237,8 +237,8 @@ Phases:
      7,272,665,088 random bf16 parameters, 14.55 GB), after M with the
      MoE weights freed: 4 contiguous slots x max_seq 2048, chunk 32,
      warmup() first, 8 greedy requests (4 of 32 prompt tokens, 4 of
-     16-64: their prefill is one host-bound decode step a token) x 32 new
-     tokens: every request retires with 32 tokens, no
+     16-64: their prefill is one host-bound decode step a token) x 16 new
+     tokens: every request retires with 16 tokens, no
      decode logit is NaN, the state is 36,700,160 B a slot, no kernel is
      launched, and a second engine repeats the tokens; prefill tok/s,
      decode step p50/p99, decode tok/s, peak memory, and generate on the
@@ -295,7 +295,8 @@ Phases:
      run's, and its params, m, v and step torch.equal the first run's
      step-4 checkpoint read back; GB a checkpoint, the save's host copy and file-write seconds and the
      restore seconds printed; the directory is deleted.  With less free
-     disk than 3 checkpoints, H2 alone runs at a depth that fits
+     disk than 3 checkpoints, H2 runs at a depth that fits; it runs at
+     RESUME_LAYERS, 12 of the 48 layers (3.80 GB checkpoints)
   V. internvl2-26b at its published width (d 6144, 48/8 heads of 128,
      d_ff 16384, vocab 92553, vision stub 3200 -> 256 tokens) cut to 4 of
      48 layers (2.72 B parameters; the whole model's train state is ~320
@@ -333,7 +334,43 @@ Phases:
      share of the int8 peak, and the mma.sync route's parts (the parent's
      design): the pre-pass, the mma.sync product and the parent's PyTorch
      copy of w to K-major
-  R. roofline, after 13: the dry run (repro_torch.launch.dryrun) traces
+  X. the mesh's collective half, after 13: ranks spawned as processes
+     that all sit on cuda:0, joined by gloo (NCCL refuses two ranks of
+     one communicator on one device; gloo takes CUDA tensors for every
+     op used, so nothing is staged through host memory), TF32 off.  On
+     2 ranks: X1 llama3.2-3b's gradient leaves at published width (one
+     layer's and the final norm's) through the
+     radix-4 tree: an int32 tree_psum torch.equal to the sum, the int8
+     compressed mean against (g + e - new_err) summed within 1e-6; X2 one
+     phi3.5-moe layer (16 experts of 4096 x 6400, fp32, capacity E/k,
+     drop-free) on 2 expert ranks, 2 x 1024 tokens: moe_ffn_ep and
+     moe_ffn_ep_psum against the dense dispatch within 2e-4, one
+     moa_reduce a call, moa_reduce at the per-rank combine (2, 1024,
+     4096) torch.equal to its plain version; X3 one pod-compressed train
+     step of llama3.2-3b cut to 4 of 28 layers (1.19 B params, ~20 B a
+     param a rank), one sequence of the 2 x 2048 batch a pod, against
+     rank 0's oracle (both pods' gradients on one rank, quantized at one
+     shared scale a leaf, the codes summed and meaned): the loss within
+     rtol 1e-3 of the single-device loss, the grad norm within rtol 1e-5,
+     flash launched as one remat train step; X4 one split-K decode
+     step of llama3.2-3b at full depth, 2 sequences at a cache of 8192
+     split over 2 ranks, against the unsharded decode_step: fp32 logits
+     and cache blocks within 1e-4, bf16 split-K no farther from the fp32
+     logits than the bf16 unsharded step (x 1.5, relative L2).  On 3
+     ranks: X5 qwen2.5-14b's attention (40 q heads padded to 48, 16 a
+     rank, 8 KV, hd 128) at 2 of 48 layers, fp32, one sequence of
+     1024: logits, loss and every
+     gradient against the unsharded forward (1e-4, 1e-5, 5e-4; rank 0's
+     oracle moved to the host first), flash launched as one remat train
+     step and a forward, and flash at the per-rank group
+     (1, 1024, 16, 128) against its plain version.  Each check prints its
+     wall seconds, peak GB a rank, the transport, the bytes it handed the
+     collectives and its kernel launches; its collective times are gloo's
+     through host memory on one card, not NVLink's.  To rehearse on the
+     CPU, import chip_smoke from a script guarded by ``if __name__ ==
+     "__main__"`` and call ``phase_mesh_collectives("cpu", reduced=True)``
+     (the reduced fp32 configs, ~3 min here)
+  R. roofline, after X: the dry run (repro_torch.launch.dryrun) traces
      each step the phases above time on meta tensors, on the CPU, at that
      step's own batch, sequence or cache depth and depth (6's decode step
      over 4 slots x 2048 and its 256-token prefill chunk, Q's, M1's (16
@@ -351,6 +388,7 @@ Phases:
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import gc
 import json
 import math
@@ -366,6 +404,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as torch_mp
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
@@ -378,6 +418,9 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import lut, planner, reconfig  # noqa: E402
 from repro_torch.core import moa as core_moa  # noqa: E402
 from repro_torch.data.pipeline import HostDataConfig, host_batch  # noqa: E402
+from repro_torch.dist.collectives import (make_tree_mesh,  # noqa: E402
+                                          tree_psum)
+from repro_torch.dist.plan import make_reduction_plan  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import bitplane_add as bpa  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -388,10 +431,13 @@ from repro_torch.models.common import init_params, rms_norm  # noqa: E402
 from repro_torch.launch.dryrun import run_cell  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.launch.mesh import device_mesh  # noqa: E402
+from repro_torch.models.attention import tp_head_pad  # noqa: E402
 from repro_torch.models.lm import (fit_draft_heads,  # noqa: E402
                                    forward, hidden_states, train_loss)
 from repro_torch.models.registry import get_api  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, global_norm  # noqa: E402
+from repro_torch.optim.compression import compressed_psum_mean  # noqa: E402
 from repro_torch.optim.grad_accum import value_and_grad  # noqa: E402
 from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
 from repro_torch.roofline.analysis import H100, fmt_seconds  # noqa: E402
@@ -433,10 +479,10 @@ KERNELS = {
 }
 
 #: the second served architecture: Multi-head Latent Attention; phase F
-#: serves it at its published width cut to 31 of its 62 layers (at 62 F
-#: took 165-209 s, the smoke's longest phase, and the smoke neared its
-#: 1200 s limit)
-MLA_ARCH, MLA_LAYERS = "minicpm3-4b", 31
+#: serves it at its published width cut to 16 of its 62 layers (at 62 F
+#: took 165-209 s, the smoke's longest phase; at 31, 104-128 s, and the
+#: smoke took 1331.4 s of phases on a slow host)
+MLA_ARCH, MLA_LAYERS = "minicpm3-4b", 16
 #: phase M: the routed MoE FFN at its published width, cut to 16 of its 32
 #: layers (the whole model, 83.7 GB in bf16, does not fit the card); and
 #: the other MoE architecture, held at its reduced config
@@ -452,13 +498,14 @@ SSM_ARCH, HYBRID_ARCH, HYBRID_REDUCED_LAYERS = ("falcon-mamba-7b",
 #: 16) and bf16 conv (64 x 3 x 8192); zamba2's 38 h (64 x 64 x 64) and conv
 #: (3 x 4224) and 6 groups' bf16 k and v (2048 x 32 x 64)
 SSM_SLOT_BYTES = {SSM_ARCH: 36_700_160, HYBRID_ARCH: 141_472_256}
-#: S and Z traffic: 8 greedy requests x 32 new tokens on 4 slots, prompts
+#: S and Z traffic: 8 greedy requests x 16 new tokens (32 until the smoke
+#: took 1246.4 s of phases on a slow host) on 4 slots, prompts
 #: of 16-64 tokens and a prefill chunk of 32 (so warmup() prefills 8 + 16
 #: + 32 tokens): these families prefill one decode step a token, ~54 ms
 #: at full width on an H100 80GB HBM3 at 700 W (host-bound), where
 #: 64-256-token prompts took 160 s a phase; the first four prompts share
 #: one length, so generate() can take them as a batch
-SSM_NEW, SSM_GENERATE_LEN, SSM_PROMPTS, SSM_CHUNK = 32, 32, (16, 64), 32
+SSM_NEW, SSM_GENERATE_LEN, SSM_PROMPTS, SSM_CHUNK = 16, 32, (16, 64), 32
 
 #: the training path's attention shape: llama3.2-3b at batch 2 x seq 2048
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
@@ -496,9 +543,11 @@ FLASH_NAMED = {"path": ((TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128), True),
                "internvl2": (INTERNVL_FLASH_SHAPE, True),
                "glm4": (GLM4_FLASH_SHAPE, True),
                "qwen": (QWEN_FLASH_SHAPE, True)}
-#: phase H2: steps, save period and the two seeds (the first run's state
-#: and the resumed loop's state before it restores)
-RESUME_STEPS, RESUME_EVERY, RESUME_SEEDS = 4, 2, (1, 2)
+#: phase H2: steps, save period, the two seeds (the first run's state
+#: and the resumed loop's state before it restores) and the depth (at
+#: hubert's 48 layers its 15.1 GB checkpoints took 45-52 s of file
+#: writes a run, and the smoke 1246.4 s of phases on a slow host)
+RESUME_STEPS, RESUME_EVERY, RESUME_SEEDS, RESUME_LAYERS = 4, 2, (1, 2), 12
 FLASH_CHECK_SHAPES = [(2, 256, 4, 2, 64, torch.float32),
                       (1, 128, 8, 8, 128, torch.float32),
                       (2, 256, 6, 2, 80, torch.bfloat16),
@@ -1695,11 +1744,13 @@ def phase_overload(cfg, params, chunk_s, step_s):
     return launches
 
 
-#: phase D: prompt lengths (as phase 6's), new tokens, and the draft-head
-#: fit (4 heads of width 64 on the last FIT_WINDOW tokens of each
-#: sequential history, FIT_STEPS full-batch Adam steps)
+#: phase D: prompt lengths (as phase 6's), new tokens (64 until the smoke
+#: took 1331.4 s of phases on a slow host; also F's, M2's and Q's
+#: speculative runs), and the draft-head fit (4 heads of width 64 on the
+#: last FIT_WINDOW tokens of each sequential history, FIT_STEPS
+#: full-batch Adam steps)
 SPEC_LENS = (1024, 128, 768, 256, 896, 384, 640, 512)
-SPEC_NEW, FIT_WINDOW, FIT_STEPS = 64, 256, 100
+SPEC_NEW, FIT_WINDOW, FIT_STEPS = 32, 256, 100
 
 
 def serve_spec(cfg, params, knobs, prompts, what, new=SPEC_NEW,
@@ -1993,6 +2044,10 @@ def phase_overload_spec(cfg, params, chunk_s, trace_step_s, step_s):
 #: E3 sampling (the stochastic pair of the JAX package's bench_serve)
 QUANT_NEW = 32
 E3_SAMPLING = SamplingParams(temperature=0.8, top_k=40, seed=7)
+#: E3's new tokens a request: at D's 64 phase E took 91.3-97.7 s on an
+#: H100 80GB HBM3 at 700 W, with the smoke near its 1200 s limit; at 32,
+#: 102.3-113.6 s on a slow host
+E3_NEW = 16
 
 
 def kv_token_bytes(cfg, kv_dtype: str) -> int:
@@ -2113,7 +2168,7 @@ def phase_quant_serve(cfg, params):
         record = []
         eng, reqs, launched = serve_spec(cfg, params,
                                          dict(kv_dtype="int8", **knobs),
-                                         prompts, what,
+                                         prompts, what, new=E3_NEW,
                                          sampling=E3_SAMPLING, record=record)
         st = eng.stats_summary()
         toks = _tokens(reqs)
@@ -2290,7 +2345,7 @@ def kept_share(cfg, params, tokens, t: int) -> float:
 def phase_moe_serve(cfg, params):
     """Phase M: phi3.5-moe at its published width, 16 layers, on phase 6's
     geometry.  M1: phase 6's traffic (8 greedy requests of 128-1024
-    prompt tokens x 32 new); M2: phase D's repeated passages x 64 new
+    prompt tokens x 32 new); M2: phase D's repeated passages x 32 new
     tokens, sequential and chain (spec_k 4), the chain run's agreement
     with the sequential one printed.  Every run: the refcount invariant
     after every step, every request complete, no NaN logit, moa_reduce
@@ -2373,9 +2428,9 @@ def phase_ssm_serve(cfg, params, n_params, what):
     """Phases S and Z: an SSM or hybrid model at its published width on
     contiguous slots (4 slots x max_seq 2048, chunk ``SSM_CHUNK``;
     resolve() turns paging, speculation and the prefix cache off), 8
-    greedy requests of ``SSM_PROMPTS`` prompt tokens x 32 new, after
-    warmup(): every request retires
-    with 32 tokens, no decode logit is NaN, the decode state is
+    greedy requests of ``SSM_PROMPTS`` prompt tokens x ``SSM_NEW`` new,
+    after warmup(): every request retires
+    with ``SSM_NEW`` tokens, no decode logit is NaN, the decode state is
     ``SSM_SLOT_BYTES`` a slot, no kernel is launched (the reference runs
     no Pallas kernel on this path), and a second engine repeats the
     tokens.  ``generate`` (one decode_step a position, a 0-d index) on the
@@ -2554,7 +2609,12 @@ def phase_qkv_serve(cfg, params):
 
 #: phase T: the autotune tier at full width on phase 6's weights: the
 #: burst's arrivals, mean prompt and new tokens; the conversations
-TUNE_ARRIVALS, TUNE_PROMPT, TUNE_GEN = 24, 256, 24
+#: T1 and T2 take 16 arrivals and T4 8 new tokens a request: at 24 and 32
+#: phase T took 111.6-119.9 s (its profiled point 31-40 s, a 434-662 MB
+#: trace) on an H100 80GB HBM3 at 700 W, with the smoke near its 1200 s
+#: limit
+TUNE_ARRIVALS, TUNE_PROMPT, TUNE_GEN = 16, 256, 24
+TUNE_SWEEP_GEN = 8
 TUNE_USERS, TUNE_TURNS, TUNE_TURN_TOKENS, TUNE_REPLY = 4, 3, 256, 16
 #: the sweep's objectives for its Pareto front
 SWEEP_OBJECTIVES = (("decode_tok_s", "max"), ("pool_bytes", "min"),
@@ -2674,7 +2734,8 @@ def phase_tune(cfg, params, chunk_s, step_s, chain_step_s):
                               "spec_k": [0, 4]}).points()
     bad = base.replace(page_size=96)
     prompts, gens = sweep_workload(cfg.vocab, requests=8,
-                                   shared_prefix=512, tail=64, gen=32)
+                                   shared_prefix=512, tail=64,
+                                   gen=TUNE_SWEEP_GEN)
     root = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
     try:
         _zero_kernel_counts()
@@ -3614,13 +3675,13 @@ def checkpoint_resume(cfg):
             return 12 * sum(math.prod(sp.shape) for sp in leaves(specs)) + 4
 
         free = shutil.disk_usage(root).free
-        layers = cfg.n_layers
+        layers = min(cfg.n_layers, RESUME_LAYERS)
         while layers > 1 and 3 * state_bytes(layers) > free:
             layers -= 1
-        if layers != cfg.n_layers:
+        if layers < min(cfg.n_layers, RESUME_LAYERS):
             print(f"[resume] {free / 1e9:.1f} GB free under {root}: less "
                   f"than 3 checkpoints of {state_bytes(cfg.n_layers) / 1e9:.2f}"
-                  f" GB; H2 alone runs at {layers} of {cfg.n_layers} layers")
+                  f" GB; H2 runs at {layers} of {cfg.n_layers} layers")
         run_cfg = dataclasses.replace(cfg, n_layers=layers)
         step_fn = build_train_step(
             run_cfg, AdamWConfig(lr=3e-4, grad_clip=1.0),
@@ -4209,6 +4270,461 @@ def phase_roofline(measured_ms: dict) -> None:
               f"{rec['trace_s']:.2f} s")
 
 
+#: phase X: the mesh's collective half on the one card.  Its ranks are
+#: processes that all sit on cuda:0, joined by gloo: NCCL refuses two
+#: ranks of one communicator on one device.  gloo takes CUDA tensors for
+#: every op the mesh uses (repro_torch.dist.gloo_probe on the card's torch
+#: 2.11), so no payload is staged through host memory.  X1-X4 run on one
+#: spawn of 2 ranks, X5 on one of 3.
+X_TRANSPORT = ("gloo, tensors on the ranks' device, no host staging "
+               "(gloo takes CUDA tensors for all_reduce sum/max, all_gather, "
+               "reduce_scatter and all_to_all: python -m "
+               "repro_torch.dist.gloo_probe)")
+X_WORLDS = ((2, ("X1", "X2", "X3", "X4")), (3, ("X5",)))
+#: X3: llama3.2-3b cut to 4 of 28 layers: 1.19 B params, x 20 B (fp32
+#: params, m, v, grads, err) = ~24 GB a rank, ~48 GB for the 2 ranks
+X_TRAIN_LAYERS = 4
+#: X4: one split-K decode step of 2 sequences at cache position X_INDEX of
+#: X_CACHE (model rank 1 owns it and writes the new row)
+X_CACHE, X_DECODE_BATCH, X_INDEX = 8192, 2, 6000
+#: X2: 2 x 1024 tokens; on 2 expert ranks each routes 1024
+X_MOE_TOKENS = (2, 1024)
+#: X5: qwen2.5-14b's attention layout at 2 of its 48 layers, fp32, one
+#: sequence of 1024 (each of the 3 ranks holds the 2.11 B params and their
+#: gradients, 16.9 GB; at 2048 the three ranks and the smoke's own process
+#: ran the card out of memory)
+X_PAD_ARCH, X_PAD_LAYERS, X_PAD_SEQ = "qwen2.5-14b", 2, 1024
+#: seconds a spawn may run, and one collective may wait
+X_SPAWN_TIMEOUT, X_COLLECTIVE_TIMEOUT = 600, 300
+
+
+def x_configs(reduced: bool = False) -> dict:
+    """Phase X's configs: published widths (cut in depth where said), or,
+    to rehearse on the CPU, the reduced fp32 ones."""
+    def cut(arch, **over):
+        cfg = get_config(arch)
+        if reduced:
+            return cfg.reduced(dtype=torch.float32)
+        return dataclasses.replace(cfg, **over)
+    moe_cfg = cut(MOE_ARCH, dtype=torch.float32)
+    moe_cfg = dataclasses.replace(
+        moe_cfg, use_ep=True,
+        capacity_factor=moe_cfg.n_experts / moe_cfg.top_k)  # drop-free
+    return {"X1": cut("llama3.2-3b"), "X2": moe_cfg,
+            "X3": cut("llama3.2-3b", n_layers=X_TRAIN_LAYERS),
+            "X4": cut("llama3.2-3b"),
+            "X5": cut(X_PAD_ARCH, n_layers=X_PAD_LAYERS,
+                      dtype=torch.float32)}
+
+
+def _x_diff(a, b) -> float:
+    """max |a - b|."""
+    return float((a.float() - b.float()).abs().max())
+
+
+def x1_tree_collectives(cfg, dev, mesh):
+    """X1: the gradient leaves of ``cfg`` at its published width (one
+    layer's, the other layers repeat their shapes, and the final norm's)
+    through the radix-4 tree: an int32 ``tree_psum``
+    of int8-range payloads equals the sum on one rank (each rank draws
+    every rank's payload from its seed), and ``compressed_psum_mean``'s
+    mean equals ``(g + e - new_err)`` summed over the ranks and divided by
+    n within 1e-6."""
+    n, rank = mesh.shape["data"], mesh.index("data")
+    tree, sub = make_tree_mesh(mesh, "data")
+    plan = make_reduction_plan(n, payload_bits=8, acc_bits=32)
+    # the train step's gradient leaves of one layer and the final norm (all
+    # 255 leaves took 52.6 s on an H100 80GB HBM3 at 700 W, 43.3 GB a rank
+    # through gloo at 0.82 GB/s; with the embedding and the head, 14-15 s)
+    pspecs = get_api(cfg).param_specs(cfg)
+    shapes = [s.shape[1:] for s in leaves(pspecs["blocks"])]
+    shapes.append(pspecs["final_norm"].shape)
+    worst, elems = 0.0, 0
+    for i, shape in enumerate(shapes):
+        gens = [torch.Generator(device=dev).manual_seed(7919 * i + r)
+                for r in range(n)]
+        ints = [torch.randint(-127, 128, shape, generator=g, device=dev,
+                              dtype=torch.int32) for g in gens]
+        got = tree_psum(ints[rank], sub, plan=plan, mesh=tree)
+        check(torch.equal(got, sum(ints)),
+              f"X1 int32 tree_psum != the sum at leaf {i} {shape}")
+        del ints, got
+        g = torch.randn(shape, generator=gens[rank], device=dev)
+        e = 1e-3 * torch.randn(shape, generator=gens[rank], device=dev)
+        mean, new_err = compressed_psum_mean({"g": g}, {"g": e}, sub, n,
+                                             mesh=tree)
+        recon = tree_psum(g + e - new_err["g"], sub, mesh=tree) / n
+        check(torch.allclose(recon, mean["g"], rtol=1e-6, atol=1e-6),
+              f"X1 compressed mean != (g + e - new_err) meaned at leaf {i}")
+        worst = max(worst, _x_diff(recon, mean["g"]))
+        elems += g.numel()
+        del g, e, mean, new_err, recon
+    return {"leaves": len(shapes), "elements": elems,
+            "max_abs_err": worst}
+
+
+def x2_moe_ep(cfg, dev, mesh):
+    """X2: one MoE layer of ``cfg`` (fp32, drop-free) on the expert ranks:
+    ``moe_ffn_ep`` on each rank's half of the sequence and
+    ``moe_ffn_ep_psum`` on all the tokens match the dense dispatch with the
+    whole weights on one rank within 2e-4; each launches moa_reduce once;
+    and moa_reduce at the per-rank combine shape is torch.equal to its
+    plain version."""
+    ep, m = mesh.shape["model"], mesh.index("model")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    p = init_params(moe.moe_param_specs(cfg), gen, dev)
+    x = torch.randn(X_MOE_TOKENS + (cfg.d_model,), generator=gen, device=dev)
+    y_ref, aux_ref = moe.moe_ffn_dense_dispatch(x, p, cfg)
+    blk = {"router": p["router"].chunk(ep, 1)[m],
+           **{k: p[k].chunk(ep, 0)[m] for k in ("w1", "w3", "w2")}}
+    launches = {}
+    _zero_kernel_counts()
+    y_ep, aux_ep = moe.moe_ffn_ep(x.chunk(ep, 1)[m], blk, cfg, mesh)
+    _sync_if(dev)
+    launches["ep"] = moa.LAUNCHES
+    want = y_ref.chunk(ep, 1)[m]
+    check(torch.allclose(y_ep, want, rtol=2e-4, atol=2e-4),
+          f"X2 moe_ffn_ep != dense dispatch: {_x_diff(y_ep, want)}")
+    _zero_kernel_counts()
+    y_ps, _ = moe.moe_ffn_ep_psum(x, blk, cfg, mesh)
+    _sync_if(dev)
+    launches["psum"] = moa.LAUNCHES
+    check(torch.allclose(y_ps, y_ref, rtol=2e-4, atol=2e-4),
+          f"X2 moe_ffn_ep_psum != dense dispatch: "
+          f"{_x_diff(y_ps, y_ref)}")
+    _check_count(dev, launches == {"ep": 1, "psum": 1},
+                 f"X2 moa_reduce launches {launches}, want 1 a call")
+    t = x.chunk(ep, 1)[m].numel() // cfg.d_model
+    parts = torch.randn((cfg.top_k, t, cfg.d_model), generator=gen,
+                        device=dev)
+    got = ops.moa_reduce(parts, torch.float32, out_dtype=torch.float32)
+    plain = moa.moa_reduce_plain(parts, torch.float32, torch.float32)
+    check(torch.equal(got, plain),
+          f"X2 moa_reduce != plain at the per-rank combine "
+          f"{tuple(parts.shape)}")
+    return {"tokens_a_rank": t, "max_abs_err_ep": _x_diff(y_ep, want),
+            "max_abs_err_psum": _x_diff(y_ps, y_ref),
+            "aux_ep": float(aux_ep), "aux_dense": float(aux_ref),
+            "moa_reduce_launches": launches,
+            "moa_reduce_checked": list(parts.shape)}
+
+
+def _x3_oracle(cfg, params, batch, n: int):
+    """What a pod-compressed step of ``n`` pods must give, on one rank and
+    without a collective: (the pods' mean loss, the norm of the gradient
+    it hands AdamW).  Each pod's gradient of its rows (layer by layer, as
+    the step takes it), a leaf (a stacked one whole) quantized to int8
+    codes at one shared scale (the max |g| over the pods / 127), the codes
+    summed and meaned."""
+    losses, grads = [], []
+    for i in range(n):
+        loss, g = value_and_grad(lambda p, b: train_loss(p, b, cfg))(
+            split_layers(params), {k: v.chunk(n)[i] for k, v in batch.items()})
+        losses.append(float(loss))
+        grads.append({**g, "blocks": map_tree(lambda *xs: torch.stack(xs),
+                                              *g["blocks"])})
+    sq = 0.0
+    for parts in zip(*(leaves(g) for g in grads)):
+        scale = torch.clamp(max(g.abs().max() for g in parts) / 127.0,
+                            min=1e-12)
+        total = sum(torch.clamp(torch.round(g / scale), -127, 127)
+                    for g in parts)
+        sq += float(((total * scale / n) ** 2).sum())
+    return sum(losses) / n, math.sqrt(sq)
+
+
+def x3_pod_compressed(cfg, dev, mesh):
+    """X3: one pod-compressed train step of ``cfg`` on the pod ranks, the
+    2 x TRAIN_SEQ batch one sequence a pod, against what rank 0 computes
+    from both pods' gradients without the mesh (``_x3_oracle``): the loss
+    (meaned over pods) within rtol 1e-3 of the single-device loss of the
+    same state and batch (the pods' mean), the grad norm within rtol 1e-5;
+    flash launched as one remat train step."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = init_train_state(cfg, gen, pod_compressed=True)
+    shape = ShapeConfig("train", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        kind="train")
+    batch = host_batch(cfg, shape, HostDataConfig(0, 1, 0), 0)
+    t0 = time.perf_counter()
+    ref = want_norm = None
+    if mesh.index("pod") == 0:
+        ref, want_norm = _x3_oracle(
+            cfg, state["params"],
+            {k: torch.as_tensor(v).to(dev) for k, v in batch.items()},
+            mesh.shape["pod"])
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier()
+    oracle_s = time.perf_counter() - t0
+    step = build_train_step(cfg, AdamWConfig(lr=3e-4, grad_clip=1.0),
+                            pod_compressed=True, mesh=mesh)
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    _, metrics = step(state, batch)
+    _sync_if(dev)
+    step_s = time.perf_counter() - t0
+    counts = _flash_counts()
+    loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+    if ref is not None:
+        check(abs(loss - ref) <= 1e-3 * abs(ref),
+              f"X3 pod-compressed loss {loss} vs single-device {ref}")
+        check(abs(norm - want_norm) <= 1e-5 * want_norm,
+              f"X3 pod-compressed grad norm {norm} vs the oracle's "
+              f"{want_norm}")
+    _check_count(dev, counts == _expected_counts(cfg, 1),
+                 f"X3 flash launches {counts}, want "
+                 f"{_expected_counts(cfg, 1)}")
+    errs = leaves(state["err"])
+    check(all(bool(torch.isfinite(e).all()) for e in errs)
+          and any(bool((e != 0).any()) for e in errs),
+          "X3 error-feedback residual not finite or all zero")
+    return {"params": sum(p.numel() for p in leaves(state["params"])),
+            "loss": loss, "single_device_loss": ref, "grad_norm": norm,
+            "oracle_grad_norm": want_norm, "oracle_s": oracle_s,
+            "step_s": step_s, "flash_launches": counts}
+
+
+def x4_splitk_decode(cfg, dev, mesh):
+    """X4: one decode step of ``cfg`` with the cache split over the model
+    ranks along the sequence, against the unsharded ``decode_step`` on the
+    whole cache: in fp32 (TF32 off) the logits and each rank's cache block
+    within 1e-4; in bf16, as served, the split-K logits no farther
+    (relative L2) from the fp32 unsharded logits than the bf16 unsharded
+    step's are, times 1.5 (the two round the same sums differently:
+    one softmax in bf16 probabilities against fp32 partials)."""
+    tp, m = mesh.shape["model"], mesh.index("model")
+    api = get_api(cfg)
+    specs = api.decode_state_specs(cfg, X_DECODE_BATCH, X_CACHE)
+    out, logits = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        run = dataclasses.replace(cfg, dtype=dt)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        # the same bf16-rounded weights and cache in both dtypes
+        params = map_tree(lambda t: t.to(dt), init_params(
+            api.param_specs(run), gen, dev, torch.bfloat16))
+        gen = torch.Generator(device=dev).manual_seed(6)
+        state = {k: (0.5 * torch.randn(s.shape, generator=gen, device=dev)
+                     ).to(torch.bfloat16).to(dt) for k, s in specs.items()}
+        blocks = {k: v.chunk(tp, 2)[m].clone() for k, v in state.items()}
+        batch = {"tokens": torch.randint(0, cfg.vocab, (X_DECODE_BATCH, 1),
+                                         generator=gen, device=dev),
+                 "index": torch.tensor(X_INDEX, device=dev)}
+        with torch.no_grad():
+            ref, state = api.decode_step(params, state, batch, run)
+            _zero_kernel_counts()
+            t0 = time.perf_counter()
+            got, blocks = api.decode_step(params, blocks, batch, run, mesh)
+            _sync_if(dev)
+        name = "fp32" if dt == torch.float32 else "bf16"
+        out[f"step_s_{name}"] = time.perf_counter() - t0
+        out[f"max_abs_err_{name}"] = _x_diff(got, ref)
+        logits[name] = (got.float(), ref.float())
+        if dt == torch.float32:
+            check(torch.allclose(got, ref, rtol=1e-4, atol=1e-4),
+                  f"X4 fp32 split-K logits != unsharded: "
+                  f"{out['max_abs_err_fp32']}")
+            for k, v in blocks.items():
+                check(torch.allclose(v, state[k].chunk(tp, 2)[m],
+                                     rtol=1e-4, atol=1e-4),
+                      f"X4 split-K cache block {k} != unsharded")
+        del params, state, blocks
+        gc.collect()
+    exact = logits["fp32"][1]
+    sk, one = (_rel(t, exact) for t in logits["bf16"])
+    out.update(bf16_rel_err_splitk=sk, bf16_rel_err_unsharded=one,
+               launches=_kernel_counts())
+    check(sk <= 1.5 * one,
+          f"X4 bf16 split-K rel err {sk} vs unsharded bf16's {one}")
+    return out
+
+
+def x5_head_pad(cfg, dev, mesh):
+    """X5: ``cfg`` (fp32) on the model ranks with its q heads padded
+    (qwen2.5-14b: 40 -> 48, 16 a rank): logits, loss and every gradient
+    match the unsharded forward (1e-4, 1e-5, 5e-4).  Rank 0 computes the
+    oracle first, moves it to the host and frees it.  Flash launches as
+    one remat train step and a forward, and is held against its plain
+    version at the per-rank padded group."""
+    tp, rank = mesh.shape["model"], mesh.index("model")
+    pad = tp_head_pad(cfg, mesh)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = init_params(get_api(cfg).param_specs(cfg), gen, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 1, X_PAD_SEQ), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks[0], "labels": toks[1]}
+    ref, t0 = None, time.perf_counter()
+    if rank == 0:
+        with torch.no_grad():
+            logits_ref = forward(params, batch, cfg)[0].cpu()
+        loss_ref, grads = value_and_grad(
+            lambda p, b: train_loss(p, b, cfg))(params, batch)
+        # pinned: the 8.4 GB go to the host and back at copy-engine speed
+        ref = (logits_ref, float(loss_ref), map_tree(
+            lambda g: torch.empty(g.shape, dtype=g.dtype,
+                                  pin_memory=dev.type == "cuda").copy_(g),
+            grads))
+        del grads
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier()
+    t1 = time.perf_counter()
+    _zero_kernel_counts()
+    with torch.no_grad():
+        logits = forward(params, batch, cfg, mesh)[0].cpu()
+    loss, grads = value_and_grad(
+        lambda p, b: train_loss(p, b, cfg, mesh))(params, batch)
+    _sync_if(dev)
+    counts = _flash_counts()
+    out = {"pad": pad, "heads_a_rank": (cfg.n_heads + pad) // tp,
+           "flash_launches": counts, "oracle_s": t1 - t0,
+           "sharded_s": time.perf_counter() - t1}
+    if rank == 0:
+        logits_ref, loss_ref, grads_ref = ref
+        check(torch.allclose(logits, logits_ref, rtol=1e-4, atol=1e-4),
+              f"X5 logits != unsharded: {_x_diff(logits, logits_ref)}")
+        check(abs(float(loss) - loss_ref) <= 1e-5 * abs(loss_ref),
+              f"X5 loss {float(loss)} vs unsharded {loss_ref}")
+        worst = 0.0
+        for g, want in zip(leaves(grads), leaves(grads_ref)):
+            want = want.to(dev)
+            check(torch.allclose(g, want, rtol=5e-4, atol=5e-4),
+                  f"X5 gradient != unsharded: {_x_diff(g, want)}")
+            worst = max(worst, _x_diff(g, want))
+        out.update(max_abs_err_logits=_x_diff(logits, logits_ref),
+                   loss=float(loss), loss_ref=loss_ref,
+                   max_abs_err_grads=worst)
+    # one remat train step's launches and the no-grad forward's
+    want = _expected_counts(cfg, 1)
+    want["fwd"] += cfg.n_layers
+    _check_count(dev, pad == 8 and counts == want,
+                 f"X5 pad {pad}, flash launches {counts}, want {want}")
+    # flash at the per-rank padded group, against its plain version
+    if dev.type == "cuda":
+        shape = (1, X_PAD_SEQ, (cfg.n_heads + pad) // tp, cfg.hd)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       for _ in range(4))
+        o, lse = fa.flash_attention_fwd_cuda(q, k, v, True)
+        dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, True)
+        dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, do,
+                                                 True)
+        po, _ = fa.flash_attention_plain(q, k, v, True)
+        pdq, pdk, pdv = fa.flash_attention_plain_bwd(q, k, v, o, lse, do,
+                                                     True)
+        check(torch.allclose(o, po, rtol=2e-5, atol=2e-5),
+              f"X5 flash forward != plain at {shape}")
+        for a, b, what in ((dq, pdq, "dq"), (dk, pdk, "dk"), (dv, pdv, "dv")):
+            check(torch.allclose(a, b, rtol=1e-4, atol=1e-5),
+                  f"X5 flash {what} != plain at {shape}")
+        out["flash_checked"] = list(shape)
+    return out
+
+
+X_CHECKS = {"X1": (x1_tree_collectives, ("data",)),
+            "X2": (x2_moe_ep, ("model",)),
+            "X3": (x3_pod_compressed, ("pod",)),
+            "X4": (x4_splitk_decode, ("model",)),
+            "X5": (x5_head_pad, ("model",))}
+
+
+def _sync_if(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _x_rank(rank, world, store, out, names, device, reduced):
+    """One rank of phase X: runs ``names`` in order, each on a mesh of its
+    own axis over the ``world`` ranks, and writes its figures."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        # the ranks share the card: free blocks go back to it whole
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=X_COLLECTIVE_TIMEOUT))
+    cfgs = x_configs(reduced)
+    results = {}
+    for name in names:
+        fn, axes = X_CHECKS[name]
+        mesh = device_mesh((world,), axes, dev)
+        dist.barrier()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        row = fn(cfgs[name], dev, mesh)
+        _sync_if(dev)
+        row["wall_s"] = time.perf_counter() - t0
+        peak = torch.tensor(torch.cuda.max_memory_allocated() / 1e9
+                            if dev.type == "cuda" else 0.0)
+        dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+        row["peak_gb_a_rank"] = float(peak)
+        sent = torch.tensor(float(sum(mesh.transport.bytes.values())))
+        dist.all_reduce(sent)
+        row["collective_bytes_a_rank"] = dict(mesh.transport.bytes)
+        row["collective_bytes_all_ranks"] = int(sent)
+        row["collective_calls_a_rank"] = dict(mesh.transport.calls)
+        results[name] = row
+        if rank == 0:
+            _x_print(name, row)
+        del mesh
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(results, f)
+    dist.destroy_process_group()
+
+
+def phase_mesh_collectives(device: str = "cuda", reduced: bool = False
+                           ) -> dict:
+    """Phase X: X1-X5 (``X_CHECKS``) on ranks spawned as processes on the
+    one card (``X_WORLDS``), joined by gloo; prints each check's wall
+    seconds, peak GB a rank, transport, collective bytes and kernel
+    launches.  The collective times here are gloo's through the one card
+    and host memory: they say nothing of NVLink."""
+    results = {}
+    for world, names in X_WORLDS:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_x_")
+        try:
+            out = os.path.join(tmp, "results.json")
+            t0 = time.perf_counter()
+            ctx = torch_mp.start_processes(
+                _x_rank, args=(world, os.path.join(tmp, "store"), out, names,
+                               device, reduced),
+                nprocs=world, join=False, start_method="spawn")
+            deadline = time.monotonic() + X_SPAWN_TIMEOUT
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    for p in ctx.processes:
+                        p.kill()
+                    raise RuntimeError(f"phase X: {names} on {world} ranks "
+                                       f"ran past {X_SPAWN_TIMEOUT} s")
+            with open(out) as f:
+                got = json.load(f)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(f"[mesh] {world} ranks on {device} ({X_TRANSPORT}): spawn "
+              f"and checks {time.perf_counter() - t0:.1f} s")
+        results.update(got)
+    return results
+
+
+def _x_print(name: str, row: dict) -> None:
+    print(f"[mesh] {name}: {row['wall_s']:.2f} s, peak "
+          f"{row['peak_gb_a_rank']:.2f} GB a rank, "
+          f"{row['collective_bytes_all_ranks'] / 1e9:.3f} GB through the "
+          f"collectives (all ranks; a rank: {row['collective_bytes_a_rank']}"
+          f"); " + json.dumps({k: v for k, v in row.items() if k not in (
+              "wall_s", "peak_gb_a_rank", "collective_bytes_a_rank",
+              "collective_bytes_all_ranks")}), flush=True)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4334,6 +4850,12 @@ def main() -> int:
                            bitplane, matmul)
     adder_rows = timed("13 adder timing", phase_adder_timing, bitplane,
                        matmul)
+    gc.collect()
+    torch.cuda.empty_cache()       # the ranks of phase X share the card
+    print(f"[mesh] this process holds {torch.cuda.memory_reserved() / 1e9:.3f}"
+          f" GB of the card ({torch.cuda.memory_allocated() / 1e9:.3f} GB "
+          f"allocated) as phase X starts")
+    x_rows = timed("X mesh collectives", phase_mesh_collectives)
 
     def median_ms(summary):
         return float(np.median(summary["ms"]))
@@ -4363,6 +4885,7 @@ def main() -> int:
         "mla_serve": mla_rows, "moe_serve": moe_rows,
         "ssm_serve": ssm_rows, "qkv_serve": qkv_rows, "tune": tune_rows,
         "contiguous_serve": contig_rows, "mesh_serve": mesh_rows,
+        "mesh_collectives": x_rows,
         "launches_by_serve_phase": {
             f"{ph} {run}": n for ph, d in serve_launches.items()
             for run, n in d.items()}}]

@@ -26,9 +26,10 @@ counterpart.  Where it differs:
   and every chunk, so ``unrolled_scans`` has no counterpart;
 - ``collectives`` and ``collective_bytes_per_device`` are ``{}`` and 0 on
   the card and ``None`` on a production mesh, where the JAX package reads
-  them from the partitioned HLO and the port has no partitioner before
-  ``ROADMAP.md`` step 6b; the dominant term is then taken over compute and
-  memory;
+  them from the partitioned HLO; the port runs its mesh over
+  ``torch.distributed`` with no partitioner, so the term waits for a
+  transport that counts the bytes a traced step would move (``ROADMAP.md``
+  step 6c); the dominant term is then taken over compute and memory;
 - ``param_dtype`` names the dtype a serve cell's params are held in when
   the caller sets one (the JAX cells keep the specs' fp32), and
   ``cost_analysis`` adds ``aten_ops``, the ops the trace dispatched.

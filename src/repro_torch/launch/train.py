@@ -16,6 +16,21 @@ frames) and ``internvl2-26b`` (vision embeddings before the text) too.
 With ``--ckpt-dir`` the loop saves the train state every ``--ckpt-every``
 steps and at the end, and a second run with the same directory resumes
 from its newest committed step.
+
+Under ``torchrun`` the ranks form a device mesh
+(:func:`repro_torch.launch.mesh.build_mesh`): each takes its rows of every
+batch, the attention heads and experts split over ``model``, and the
+gradients are meaned over the data ranks; ``--pod-compressed`` adds a
+``pod`` axis of 2 and reduces across it in int8 through the radix-4 tree
+(:mod:`repro_torch.optim.compression`)::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --reduced --device cpu --steps 4 --seq 32 --batch 4 --pod-compressed
+
+Ranks that share a card (more ranks than cards), and CPU ranks, talk
+through gloo; only rank 0 prints.  Without a pod mesh (one process)
+``--pod-compressed`` exits with the JAX CLI's message.  Checkpoints are
+for one process: ``--ckpt-dir`` on a mesh exits.
 """
 from __future__ import annotations
 
@@ -24,10 +39,12 @@ import time
 
 import torch
 
-from repro_torch._device import resolve_device
+import torch.distributed as dist
+
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.data.pipeline import HostDataConfig
+from repro_torch.launch.mesh import build_mesh, maybe_init_distributed
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.train.loop import LoopConfig, TrainLoop
@@ -49,7 +66,8 @@ def main(argv=None) -> int:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--pod-compressed", action="store_true",
                     help="int8 radix-4 tree gradient reduction over the "
-                         "pod axis (needs the mesh: raises)")
+                         "pod axis (needs a multi-pod device mesh: run "
+                         "under torchrun with an even number of ranks)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory; resumes from its newest "
                          "committed step")
@@ -63,7 +81,14 @@ def main(argv=None) -> int:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    device = maybe_init_distributed(args.device)
+    mesh = build_mesh(pods=2 if args.pod_compressed else 1, devices=device)
+    if args.pod_compressed and (mesh is None or "pod" not in mesh.shape):
+        raise SystemExit("--pod-compressed needs a multi-pod device mesh")
+    if mesh is not None and args.ckpt_dir:
+        raise SystemExit("--ckpt-dir is for one process: checkpoints of a "
+                         "device mesh are not ported")
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     cfg = get_config(args.arch)
     if args.reduced:
         over = {}
@@ -75,11 +100,13 @@ def main(argv=None) -> int:
     shape = ShapeConfig("cli", seq_len=args.seq, global_batch=args.batch,
                         kind="train")
     state = init_train_state(
-        cfg, torch.Generator(device=device).manual_seed(args.seed))
+        cfg, torch.Generator(device=device).manual_seed(args.seed),
+        pod_compressed=args.pod_compressed)
     step_fn = build_train_step(
         cfg, AdamWConfig(lr=args.lr, grad_clip=1.0),
         lr_schedule=warmup_cosine(args.lr, args.warmup, args.steps),
-        grad_accum=args.grad_accum, pod_compressed=args.pod_compressed)
+        grad_accum=args.grad_accum, pod_compressed=args.pod_compressed,
+        mesh=mesh)
     loop_cfg = LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                           ckpt_every=args.ckpt_every,
                           log_every=args.log_every,
@@ -92,14 +119,19 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     loop.run(start_step=start)
     dt = time.monotonic() - t0
-    for m in loop.metrics_log:
-        print(f"step {m['step']:5d}  loss {m['loss']:.4f}  "
-              f"{m['time_s'] * 1e3:9.2f} ms/step")
-    steps = max(0, args.steps - start)
-    toks = steps * args.batch * args.seq * args.grad_accum
-    print(f"\ntrained {steps} steps ({toks} tokens) on {device} in "
-          f"{dt:.2f}s ({toks / max(dt, 1e-9):.1f} tok/s); events: "
-          f"{len(loop.events)}")
+    if lead:
+        for m in loop.metrics_log:
+            print(f"step {m['step']:5d}  loss {m['loss']:.4f}  "
+                  f"{m['time_s'] * 1e3:9.2f} ms/step")
+        steps = max(0, args.steps - start)
+        toks = steps * args.batch * args.seq * args.grad_accum
+        where = (device if mesh is None
+                 else f"{mesh!r} over {dist.get_backend()}")
+        print(f"\ntrained {steps} steps ({toks} tokens) on {where} in "
+              f"{dt:.2f}s ({toks / max(dt, 1e-9):.1f} tok/s); events: "
+              f"{len(loop.events)}")
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

@@ -32,16 +32,25 @@ Layouts match the JAX functions: activations ``(B, S, H, hd)``, pools
 ``(num_pages, page, Hkv, hd)``.  Weights are cast to the activations'
 dtype at use, as in the JAX package (fp32 masters, bf16 compute).
 
-Not in these slices: the mesh's split-K decode and tensor-parallel head
-padding (``ROADMAP.md``, queue 1 step 6b).
+* On a device mesh (:class:`repro_torch.launch.mesh.Mesh`) with a
+  ``model`` axis: :func:`gqa_train` shards the q heads over the ``model``
+  ranks, padded within each KV group to a multiple of the axis
+  (:func:`tp_head_pad`), each rank projecting and attending only its own
+  heads (the flash kernel on the card) and the output projection summed
+  over ``model``; :func:`gqa_decode_splitk` attends a cache split over
+  ``model`` along the sequence, the owning rank writing the new row, the
+  partial (max, sum-exp, PV) accumulators combined by a max and two sums
+  over ``model`` (:func:`splitk_ok` says when it applies).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import transport as tx
 from repro_torch.kernels import ops as kops
 from repro_torch.models import paging, quant_kv
 from repro_torch.models.common import ParamSpec, apply_rope, rope_angles
@@ -50,7 +59,8 @@ __all__ = ["gqa_param_specs", "gqa_train", "chunked_attention",
            "gqa_decode", "gqa_decode_paged", "gqa_decode_pages",
            "decode_positions", "batched_cache_write",
            "masked_cache_write", "masked_write_plan", "causal_valid",
-           "ancestor_matrix", "tree_valid", "attend_mask", "NEG_INF"]
+           "ancestor_matrix", "tree_valid", "attend_mask", "NEG_INF",
+           "tp_head_pad", "gqa_decode_splitk", "splitk_ok"]
 
 #: Mask value of the scores; finite, so a masked key enters the split-K sum
 #: as ``exp(NEG_INF - m) * v == 0 * v`` (pools must hold finite values).
@@ -273,11 +283,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       cfg: ModelConfig) -> torch.Tensor:
     """Softmax attention chunked over queries, the JAX package's path off
     the TPU.  q (B, S, Hq, hd), k/v (B, S, Hkv, hd) -> (B, S, Hq, hd)."""
-    # The JAX package pads the q heads to a multiple of the model-axis size
-    # (tp_head_pad) so tensor parallelism can shard them; on one card that
-    # size is 1 and the pad is 0, so the port has no padding.
     s = q.shape[1]
-    n_rep = cfg.n_heads // cfg.n_kv_heads
+    n_rep = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
     chunk = min(cfg.attn_chunk, s)
@@ -287,18 +294,135 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       for i in range(0, s, chunk)], dim=1)
 
 
+def _model_size(mesh) -> int:
+    """The ``model`` axis's size of a :class:`~repro_torch.launch.mesh.Mesh`
+    or of an axis-size mapping (1 without one)."""
+    if mesh is None:
+        return 1
+    return dict(getattr(mesh, "shape", mesh)).get("model", 1)
+
+
+def tp_head_pad(cfg: ModelConfig, mesh=None) -> int:
+    """Heads to ADD so the q-head axis divides the ``model`` axis of
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh` or a mapping of axis
+    sizes).
+
+    40 heads on a 16-way model axis would otherwise fall back to fully
+    replicated attention.  Padding 40 -> 48 costs 20% extra attention
+    FLOPs but shards them 16 ways; padded q heads see zero queries and are
+    sliced off before the output projection, so the math is exact.  The
+    pad goes WITHIN each kv group (rep -> rep_pad), so the real heads keep
+    their kv heads; 0 when the axis is 1, already divides, or no rep_pad
+    below rep + tp does."""
+    tp = _model_size(mesh)
+    if tp <= 1 or cfg.n_heads % tp == 0:
+        return 0
+    hkv = cfg.n_kv_heads
+    rep = cfg.n_heads // hkv
+    rep_pad = rep
+    while (hkv * rep_pad) % tp and rep_pad < rep + tp:
+        rep_pad += 1
+    if (hkv * rep_pad) % tp:
+        return 0
+    return hkv * rep_pad - cfg.n_heads
+
+
+def padded_heads(cfg: ModelConfig, pad: int) -> torch.Tensor:
+    """The padded q-head layout: for each of the ``n_heads + pad`` padded
+    heads, group-major (``hkv`` groups of ``rep_pad``), the real head it
+    holds, or -1 for a pad head (the zeros ``_pad_heads`` appends inside
+    each group in the JAX package)."""
+    hkv = cfg.n_kv_heads
+    rep = cfg.n_heads // hkv
+    rep_pad = (cfg.n_heads + pad) // hkv
+    j = torch.arange(hkv * rep_pad)
+    g, r = j // rep_pad, j % rep_pad
+    return torch.where(r < rep, g * rep + r, -1)
+
+
+def _heads_of(w: torch.Tensor, heads: torch.Tensor, hd: int, dim: int
+              ) -> torch.Tensor:
+    """The columns (``dim`` -1) or rows (``dim`` 0) of ``w`` that belong
+    to ``heads``, in that order."""
+    if dim == 0:
+        return w.reshape(-1, hd, w.shape[-1]).index_select(0, heads).reshape(
+            -1, w.shape[-1])
+    lead = w.shape[:-1]
+    return w.reshape(*lead, -1, hd).index_select(len(lead), heads).reshape(
+        *lead, -1)
+
+
+def _gqa_train_tp(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                  positions: torch.Tensor, mesh) -> torch.Tensor:
+    """:func:`gqa_train` with the padded q heads split over ``model``.
+
+    This rank takes padded heads ``[i * n_loc, (i + 1) * n_loc)`` of
+    :func:`padded_heads`: it projects the real ones among them (a pad head
+    is a zero query), the KV heads their groups read, attends them (KV
+    repeated to one a head), drops the pad heads and multiplies by its
+    heads' rows of ``wo``; the partial outputs are summed over ``model``.
+    ``x`` and the weights are the same on every rank, and so are the
+    gradients this returns (:func:`~repro_torch.dist.transport.copy_to` /
+    :func:`~repro_torch.dist.transport.reduce_from`)."""
+    b, s, _ = x.shape
+    hd, hkv = cfg.hd, cfg.n_kv_heads
+    tp, i = mesh.shape["model"], mesh.index("model")
+    pad = tp_head_pad(cfg, mesh)
+    table = padded_heads(cfg, pad)
+    n_loc = table.numel() // tp
+    rep_pad = table.numel() // hkv
+    mine = torch.arange(i * n_loc, (i + 1) * n_loc)
+    real = table[mine] >= 0
+    q_heads = table[mine][real].to(x.device)            # real heads, in order
+    slots = torch.nonzero(real)[:, 0].to(x.device)       # their local slots
+    first = int(mine[0]) // rep_pad
+    groups = torch.arange(first, int(mine[-1]) // rep_pad + 1,
+                          device=x.device)
+    head_group = (mine // rep_pad - first).to(x.device)  # slot -> groups[.]
+    x = tx.copy_to(x, mesh, "model")
+    w = {k: tx.copy_to(v, mesh, "model") for k, v in p.items()}
+    dt = x.dtype
+    q = x @ _heads_of(w["wq"], q_heads, hd, -1).to(dt)
+    k = x @ _heads_of(w["wk"], groups, hd, -1).to(dt)
+    v = x @ _heads_of(w["wv"], groups, hd, -1).to(dt)
+    if cfg.qkv_bias:
+        q = q + _heads_of(w["bq"], q_heads, hd, -1).to(dt)
+        k = k + _heads_of(w["bk"], groups, hd, -1).to(dt)
+        v = v + _heads_of(w["bv"], groups, hd, -1).to(dt)
+    sin, cos = rope_angles(positions, cfg.hd, cfg.rope_theta)
+    q = apply_rope(q.reshape(b, s, -1, hd), sin, cos)
+    k = apply_rope(k.reshape(b, s, -1, hd), sin, cos)
+    v = v.reshape(b, s, -1, hd)
+    q = q.new_zeros(b, s, n_loc, hd).index_copy(2, slots, q)
+    k = k.index_select(2, head_group)
+    v = v.index_select(2, head_group)
+    if cfg.use_flash_attn and x.is_cuda:
+        out = kops.flash_attention(q, k, v, causal=cfg.causal)
+    else:
+        out = chunked_attention(q, k, v, cfg)
+    out = out.index_select(2, slots).reshape(b, s, -1)
+    part = out @ _heads_of(w["wo"], q_heads, hd, 0).to(dt)
+    return tx.reduce_from(part, mesh, "model")
+
+
 def gqa_train(x: torch.Tensor, p: dict, cfg: ModelConfig,
-              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+              positions: Optional[torch.Tensor] = None, mesh=None
+              ) -> torch.Tensor:
     """Full-sequence attention. x: (B, S, D) -> (B, S, D).
 
     With ``cfg.use_flash_attn`` on a CUDA tensor, the flash attention
     kernels, at every sequence length (they mask a ragged last tile; the
     JAX gate's ``S % min(attn_chunk, 128)`` was the TPU tiling's); else
-    :func:`chunked_attention`."""
+    :func:`chunked_attention`.  On a ``mesh`` whose ``model`` axis has 2
+    or more ranks and divides the (padded) q heads, the heads are split
+    over it (:func:`_gqa_train_tp`)."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(x, p, cfg)
     if positions is None:
         positions = torch.arange(s, device=x.device)
+    tp = _model_size(mesh)
+    if tp > 1 and (cfg.n_heads + tp_head_pad(cfg, mesh)) % tp == 0:
+        return _gqa_train_tp(x, p, cfg, positions, mesh)
+    q, k, v = _project_qkv(x, p, cfg)
     sin, cos = rope_angles(positions, cfg.hd, cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
@@ -546,3 +670,66 @@ def gqa_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
     _scatter_rows(pool_k, k_new, scatter)
     _scatter_rows(pool_v, v_new, scatter)
     return out @ p["wo"].to(out.dtype), pool_k, pool_v
+
+
+def _dp_size(mesh) -> int:
+    shape = dict(getattr(mesh, "shape", mesh))
+    return math.prod(n for a, n in shape.items() if a != "model")
+
+
+def splitk_ok(cfg: ModelConfig, mesh, batch: int, smax: int) -> bool:
+    """Whether :func:`gqa_decode_splitk` applies: a ``model`` axis of 2 or
+    more ranks that divides the cache length ``smax``, and data axes that
+    divide ``batch`` (the whole batch and cache, not a rank's block)."""
+    tp = _model_size(mesh)
+    if tp <= 1:
+        return False
+    return smax % tp == 0 and batch % _dp_size(mesh) == 0
+
+
+def gqa_decode_splitk(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                      cache_k: torch.Tensor, cache_v: torch.Tensor,
+                      cur_index: torch.Tensor, mesh
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Split-K decode of one token a sequence on one rank of ``mesh``; the
+    KV cache never moves.
+
+    ``x`` (B / dp, 1, D) are this rank's batch rows (split over the data
+    axes, the same on every ``model`` rank); ``cache_k`` / ``cache_v``
+    (B / dp, Smax / tp, Hkv, hd) its block of the cache, positions ``[i *
+    Smax / tp, (i + 1) * Smax / tp)`` on ``model`` rank ``i``;
+    ``cur_index`` a 0-d position shared by every sequence.  The rank that
+    owns ``cur_index`` writes the new K/V row into its block, in place;
+    every rank scores the queries against its block with the grouped heads
+    (no repeat of the KV heads); the partial accumulators combine with a
+    max of the row maxima and sums of the sum-exp and PV partials over
+    ``model`` — the paper's reconfigured multi-operand combine applied to
+    attention.  Returns (out (B / dp, 1, D), cache_k, cache_v)."""
+    b = x.shape[0]
+    s_loc = cache_k.shape[1]
+    hkv, rep, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    lo = mesh.index("model") * s_loc
+    q, k_new, v_new, _ = _decode_qkv_new(x, p, cfg, cur_index)
+    # shard-local conditional write: only the owner updates its block
+    pos = cur_index - lo
+    write = (pos >= 0) & (pos < s_loc)
+    at = torch.clamp(pos, 0, s_loc - 1).reshape(1)
+    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+        old = cache.index_select(1, at)
+        cache.index_copy_(1, at, torch.where(write, new.to(cache.dtype), old))
+    qg = q.reshape(b, 1, hkv, rep, hd)
+    scores = torch.einsum("bqgrh,bsgh->bgrqs", qg, cache_k.to(q.dtype))
+    scores = scores.float() / math.sqrt(hd)
+    valid = (lo + torch.arange(s_loc, device=x.device)) <= cur_index
+    scores = torch.where(valid, scores, NEG_INF)
+    t, group = mesh.transport, mesh.group("model")
+    m = t.all_reduce(torch.amax(scores, dim=-1), group, op="max")
+    p_ = torch.exp(scores - m[..., None])
+    o_loc = torch.einsum("bgrqs,bsgh->bgrqh", p_.to(q.dtype),
+                         cache_v.to(q.dtype))
+    # the multi-operand combine: partial (l, o) accumulators summed
+    l = t.all_reduce(p_.sum(-1), group)
+    o = t.all_reduce(o_loc.float(), group)
+    out = (o / l[..., None]).to(q.dtype)                 # (b, g, r, 1, hd)
+    out = out.movedim(3, 1).reshape(b, 1, cfg.n_heads * hd)
+    return out @ p["wo"].to(x.dtype), cache_k, cache_v

@@ -10,9 +10,11 @@ order among ties).  The dry run's pieces: :func:`param_count`,
 sharding rules (:data:`DEFAULT_RULES`, :func:`logical_to_pspec`,
 :func:`make_shardings`), which map a spec onto a mesh given as an ordered
 mapping of axis name to size and return plain tuples where the JAX
-package returns ``PartitionSpec``s.  Nothing shards a tensor yet:
-``constrain`` and ``shardmap_mesh`` wait for the mesh (``ROADMAP.md``
-step 6b).
+package returns ``PartitionSpec``s.  ``constrain`` and ``shardmap_mesh``
+have no counterpart: on the port's device mesh
+(:class:`repro_torch.launch.mesh.Mesh`) each rank holds its own block and
+the functions that split work (``gqa_train``, ``gqa_decode_splitk``,
+``moe_ffn_ep``) cut it and issue their collectives themselves.
 """
 from __future__ import annotations
 

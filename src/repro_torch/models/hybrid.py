@@ -27,8 +27,13 @@ families cannot rewind state position by position, so they have no
 speculative verification, and their state is neither paged nor shared by
 prefix (``EngineConfig.resolve``).
 
-Not in this slice: the mesh's split-K decode of the shared attention
-(``gqa_decode_splitk``, ``ROADMAP.md`` queue 1 step 6b).
+On a device mesh (:class:`repro_torch.launch.mesh.Mesh`) each rank runs
+its own batch rows; the Mamba layers run whole on every ``model`` rank
+(the JAX package shards their inner axis by sharding constraints alone),
+the shared attention trains with its heads split over ``model``
+(:func:`repro_torch.models.attention.gqa_train`) and decodes with split-K
+for a 0-d index (:func:`repro_torch.models.attention.gqa_decode_splitk`,
+each rank holding its stretch of the ``k`` / ``v`` cache).
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, moe, ssm
 from repro_torch.models.common import (ParamSpec, cross_entropy_loss,
                                        rms_norm)
-from repro_torch.models.lm import _layer, embed_inputs, stack_specs
+from repro_torch.models.lm import _layer, _splitk, embed_inputs, stack_specs
 from repro_torch.tree import index_tree
 
 __all__ = [
@@ -96,8 +101,10 @@ def _logits(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def ssm_forward(params: dict, batch: Dict[str, torch.Tensor],
-                cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V) in the compute dtype, a zero aux loss)."""
+                cfg: ModelConfig, mesh=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V) in the compute dtype, a zero aux loss).
+    On a ``mesh`` every rank runs its rows whole (no collective)."""
     x = embed_inputs(params, batch, cfg)
     layer = _maybe_remat(lambda x, bp: _ssm_apply(x, bp, cfg), cfg)
     for i in range(cfg.n_layers):
@@ -107,8 +114,8 @@ def ssm_forward(params: dict, batch: Dict[str, torch.Tensor],
 
 
 def ssm_train_loss(params: dict, batch: Dict[str, torch.Tensor],
-                   cfg: ModelConfig) -> torch.Tensor:
-    logits, _ = ssm_forward(params, batch, cfg)
+                   cfg: ModelConfig, mesh=None) -> torch.Tensor:
+    logits, _ = ssm_forward(params, batch, cfg, mesh)
     return cross_entropy_loss(logits, batch["labels"],
                               batch.get("loss_mask"))
 
@@ -257,10 +264,10 @@ def _shared_ffn(x: torch.Tensor, sp: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _shared_block_train(x: torch.Tensor, params: dict, g: int,
-                        cfg: ModelConfig) -> torch.Tensor:
+                        cfg: ModelConfig, mesh=None) -> torch.Tensor:
     sp = params["shared"]
     h = rms_norm(x, sp["attn_norm"], cfg.norm_eps)
-    x = x + attention.gqa_train(h, _lora_attn(params, g), cfg)
+    x = x + attention.gqa_train(h, _lora_attn(params, g), cfg, mesh=mesh)
     return _shared_ffn(x, sp, cfg)
 
 
@@ -276,8 +283,10 @@ def _mamba_layer(params: dict, layer: int, cfg: ModelConfig) -> dict:
 
 
 def hybrid_forward(params: dict, batch: Dict[str, torch.Tensor],
-                   cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V) in the compute dtype, a zero aux loss)."""
+                   cfg: ModelConfig, mesh=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V) in the compute dtype, a zero aux loss).
+    On a ``mesh``, the shared attention's heads split over ``model``."""
     groups, tail = hybrid_layout(cfg)
     period = cfg.shared_attn_period
     x = embed_inputs(params, batch, cfg)
@@ -285,7 +294,7 @@ def hybrid_forward(params: dict, batch: Dict[str, torch.Tensor],
     def group(x, g):
         for j in range(period):
             x = _ssm_apply(x, _mamba_layer(params, g * period + j, cfg), cfg)
-        return _shared_block_train(x, params, g, cfg)
+        return _shared_block_train(x, params, g, cfg, mesh)
 
     group = _maybe_remat(group, cfg)
     for g in range(groups):
@@ -297,8 +306,8 @@ def hybrid_forward(params: dict, batch: Dict[str, torch.Tensor],
 
 
 def hybrid_train_loss(params: dict, batch: Dict[str, torch.Tensor],
-                      cfg: ModelConfig) -> torch.Tensor:
-    logits, _ = hybrid_forward(params, batch, cfg)
+                      cfg: ModelConfig, mesh=None) -> torch.Tensor:
+    logits, _ = hybrid_forward(params, batch, cfg, mesh)
     return cross_entropy_loss(logits, batch["labels"],
                               batch.get("loss_mask"))
 
@@ -318,14 +327,27 @@ def hybrid_decode_state_specs(cfg: ModelConfig, batch: int, max_seq: int
 
 
 def hybrid_decode_step(params: dict, state: Dict[str, torch.Tensor],
-                       batch: Dict[str, torch.Tensor], cfg: ModelConfig
+                       batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                       mesh=None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token a slot: batch {"tokens": (B, 1), "index": 0-d lockstep
     position or (B,) per-slot lengths (the shared attention's write
     position)}.  Returns (logits (B, V) float32, state updated in place:
     layer ``l``'s ``h`` / ``conv`` at row ``l``, group ``g``'s ``k`` / ``v``
-    at row ``g``)."""
+    at row ``g``).
+
+    On a ``mesh`` the state holds this rank's rows, and with a ``model``
+    axis of 2 or more ranks its stretch of the ``k`` / ``v`` cache: the
+    shared attention takes split-K, which needs a 0-d index (it raises
+    otherwise, as :func:`repro_torch.models.lm.decode_step` does)."""
     cur = batch["index"]
+    b, smax = state["k"].shape[1], state["k"].shape[2]
+    if _splitk(cfg, mesh, False, cur, b, smax):
+        attend = lambda h, ap, ck, cv: attention.gqa_decode_splitk(
+            h, ap, cfg, ck, cv, cur, mesh)
+    else:
+        attend = lambda h, ap, ck, cv: attention.gqa_decode(
+            h, ap, cfg, ck, cv, cur)
     groups, tail = hybrid_layout(cfg)
     period = cfg.shared_attn_period
     sp = params["shared"]
@@ -336,8 +358,8 @@ def hybrid_decode_step(params: dict, state: Dict[str, torch.Tensor],
             x = _mamba_decode_layer(x, _mamba_layer(params, layer, cfg), cfg,
                                     state, layer)
         hin = rms_norm(x, sp["attn_norm"], cfg.norm_eps)
-        out, _, _ = attention.gqa_decode(hin, _lora_attn(params, g), cfg,
-                                         state["k"][g], state["v"][g], cur)
+        out, _, _ = attend(hin, _lora_attn(params, g), state["k"][g],
+                           state["v"][g])
         x = _shared_ffn(x + out, sp, cfg)
     for t in range(tail):
         layer = groups * period + t

@@ -119,15 +119,17 @@ def _layer(blocks: Any, i: int) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 
-def _block_train(x: torch.Tensor, bp: dict, cfg: ModelConfig
+def _block_train(x: torch.Tensor, bp: dict, cfg: ModelConfig, mesh=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block: (x, the layer's router aux loss; 0 for a dense FFN)."""
     h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
-    attend = mla.mla_train if cfg.attn_kind == "mla" else attention.gqa_train
-    x = x + attend(h, bp["attn"], cfg)
+    if cfg.attn_kind == "mla":
+        x = x + mla.mla_train(h, bp["attn"], cfg)
+    else:
+        x = x + attention.gqa_train(h, bp["attn"], cfg, mesh=mesh)
     h = rms_norm(x, bp["ffn_norm"], cfg.norm_eps)
     if cfg.n_experts:
-        h, aux = moe.moe_ffn(h, bp["ffn"], cfg)
+        h, aux = moe.moe_ffn(h, bp["ffn"], cfg, mesh)
     else:
         h = moe.dense_ffn(h, bp["ffn"], cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -151,10 +153,19 @@ def embed_inputs(params: dict, batch: Dict[str, torch.Tensor],
     return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
-def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) in the compute dtype, aux_loss): the
     router losses summed over layers in layer order (0 for dense FFNs).
+
+    On a device ``mesh`` (:class:`repro_torch.launch.mesh.Mesh`) ``batch``
+    holds this rank's rows and the params are whole on every rank: GQA
+    splits its heads over ``model`` and the MoE FFN its experts
+    (:func:`~repro_torch.models.attention.gqa_train`,
+    :func:`~repro_torch.models.moe.moe_ffn`); the rest runs whole on every
+    rank.  The logits are those of the rank's rows, and the ranks'
+    gradients meaned over the data axes (as the train step means them) are
+    those of the mean loss over all the rows.
 
     With ``cfg.remat`` and grad enabled, each layer runs under
     ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint`` with
@@ -166,10 +177,10 @@ def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     for i in range(cfg.n_layers):
         bp = _layer(params["blocks"], i)
         if remat:
-            x, aux_l = checkpoint(_block_train, x, bp, cfg,
+            x, aux_l = checkpoint(_block_train, x, bp, cfg, mesh,
                                   use_reentrant=False)
         else:
-            x, aux_l = _block_train(x, bp, cfg)
+            x, aux_l = _block_train(x, bp, cfg, mesh)
         aux = aux + aux_l
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ params["lm_head"].to(x.dtype)
@@ -177,11 +188,11 @@ def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
 
 
 def train_loss(params: dict, batch: Dict[str, torch.Tensor],
-               cfg: ModelConfig) -> torch.Tensor:
+               cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """Mean next-token NLL of ``batch["labels"]`` (+ the aux loss); with
     stub tokens prepended, over the last ``labels.shape[1]`` (text)
-    positions only."""
-    logits, aux = forward(params, batch, cfg)
+    positions only.  ``mesh`` as in :func:`forward`."""
+    logits, aux = forward(params, batch, cfg, mesh)
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
@@ -193,7 +204,8 @@ def train_loss(params: dict, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
-                   batch: Dict[str, torch.Tensor], cfg: ModelConfig
+                   batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                   mesh=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run the block stack over C new tokens against the KV caches.
 
@@ -221,7 +233,16 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
     ``cfg.decode_page_size`` is set and divides ``Smax``, else one softmax
     (:func:`~repro_torch.models.attention.gqa_decode`); MLA takes
     :func:`repro_torch.models.mla.mla_decode`.  Returns the final hidden
-    states (B, C, D) and the state (the same dict)."""
+    states (B, C, D) and the state (the same dict).
+
+    On a device ``mesh`` with a ``model`` axis of 2 or more ranks, GQA
+    decode takes split-K under the JAX package's condition (dense GQA
+    slots, no ``nspec``, a 0-d index, :func:`~repro_torch.models.attention.
+    splitk_ok`): the state holds this rank's block, its batch rows over
+    the data axes and its stretch of ``Smax`` over ``model``
+    (:func:`~repro_torch.models.attention.gqa_decode_splitk`).  Anything
+    else on such a mesh raises: its cache would have to be whole on every
+    rank.  A mesh of data axes alone runs the rank's rows as above."""
     mla_kind = cfg.attn_kind == "mla"
     names = ("ckv", "kr") if mla_kind else ("k", "v")
     quant = names[0] + "_scale" in state
@@ -237,6 +258,9 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
     blocks = params["blocks"]
     x = params["embed"][batch["tokens"]].to(cfg.dtype)
     b, c = batch["tokens"].shape
+    splitk = _splitk(cfg, mesh, mla_kind or quant or pages is not None
+                     or nspec is not None or tree is not None, cur, b,
+                     state[names[0]].shape[2])
     scatter = ()
     if pages is not None:
         page = state[names[0]].shape[2]
@@ -252,7 +276,10 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
         smax = state[names[0]].shape[2]
         page = cfg.decode_page_size
         extra = ()
-        if mla_kind:
+        if splitk:
+            decode = _splitk_layer
+            extra = (mesh,)
+        elif mla_kind:
             decode = mla.mla_decode
         elif page > 0 and smax % page == 0:
             decode = attention.gqa_decode_paged
@@ -274,20 +301,47 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
         x = x + h
         h = rms_norm(x, bp["ffn_norm"], cfg.norm_eps)
         if cfg.n_experts:
-            h, _ = moe.moe_ffn(h, bp["ffn"], cfg)
+            h, _ = moe.moe_ffn(h, bp["ffn"], cfg, mesh)
         else:
             h = moe.dense_ffn(h, bp["ffn"], cfg)
         x = x + h
     return x, state
 
 
+def _splitk(cfg: ModelConfig, mesh, other_path: bool, cur: torch.Tensor,
+            b: int, smax: int) -> bool:
+    """Whether decode on ``mesh`` takes split-K, from this rank's ``b``
+    rows and ``smax`` cache positions; raises where a ``model`` axis would
+    need a path that is not split-K (``other_path``: MLA, a quantized,
+    paged or speculative state, or a per-slot index)."""
+    if mesh is None or mesh.shape.get("model", 1) <= 1:
+        return False
+    tp = mesh.shape["model"]
+    dp = mesh.size([a for a in mesh.axis_names if a != "model"])
+    if (other_path or cur.dim() != 0
+            or not attention.splitk_ok(cfg, mesh, b * dp, smax * tp)):
+        raise ValueError(
+            f"decode on a mesh with model={tp} runs split-K GQA only: a "
+            f"dense GQA state split over model, no nspec or tree, a 0-d "
+            f"index (got a {cur.dim()}-d index)")
+    return True
+
+
+def _splitk_layer(h, p, cfg, ck, cv, cur, mesh, *_):
+    """:func:`~repro_torch.models.attention.gqa_decode_splitk` in the
+    argument order of the other decode paths."""
+    return attention.gqa_decode_splitk(h, p, cfg, ck, cv, cur, mesh)
+
+
 def decode_step(params: dict, state: Dict[str, torch.Tensor],
-                batch: Dict[str, torch.Tensor], cfg: ModelConfig
+                batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                mesh=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One new token for every slot. batch: {"tokens": (B, 1), "index":
     (B,) per-slot lengths or a 0-d lockstep position, optionally "pages":
-    (B, n_pages)}.  Returns (logits (B, V) float32, state)."""
-    x, state = _decode_blocks(params, state, batch, cfg)
+    (B, n_pages)}.  Returns (logits (B, V) float32, state).  ``mesh``: see
+    :func:`_decode_blocks` (split-K decode on a ``model`` axis)."""
+    x, state = _decode_blocks(params, state, batch, cfg, mesh)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"].to(x.dtype))[:, -1]
     return logits.float(), state

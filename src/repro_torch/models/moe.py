@@ -13,23 +13,36 @@ runs on its whole buffer, and each token's ``top_k`` weighted outputs are
 summed by :func:`repro_torch.kernels.ops.moa_reduce`, the paper's
 k-operand accumulation (on the card, the hand-written kernel).
 
-Not here: the expert-parallel paths ``moe_ffn_ep`` and ``moe_ffn_ep_psum``
-(``ROADMAP.md`` queue 1 step 6b).
+On a device mesh (:class:`repro_torch.launch.mesh.Mesh`) the experts are
+split over the ``model`` ranks.  :func:`moe_ffn_ep` is the production
+layout: each rank routes its own tokens (its batch rows and its stretch of
+the sequence), packs a capacity buffer a destination sized on ITS token
+count, exchanges them in one all-to-all, runs its local experts and
+reverses the exchange; the expert weights arrive split over the data axes
+too and are all-gathered there first (ZeRO-3), but where they are whole
+on every rank, as :func:`moe_ffn` has them, they are split over
+``model`` only and nothing is gathered.  :func:`moe_ffn_ep_psum`,
+the decode shape, keeps the tokens on every ``model`` rank: each rank
+runs only the assignments to its own experts and the partial outputs are
+summed over ``model``.  Either way the top-k combine is the same
+:func:`~repro_torch.kernels.ops.moa_reduce` on every rank.
+:func:`moe_ffn` picks the path as the JAX function does.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import transport as tx
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ParamSpec, topk_low_index_first
 
 __all__ = ["dense_ffn_specs", "dense_ffn", "moe_param_specs", "moe_ffn",
-           "moe_ffn_dense_dispatch"]
+           "moe_ffn_dense_dispatch", "moe_ffn_ep", "moe_ffn_ep_psum"]
 
 
 def dense_ffn_specs(cfg: ModelConfig) -> dict:
@@ -80,7 +93,8 @@ def _topk_combine(gathered: torch.Tensor, weights: torch.Tensor, t: int,
     return parts.sum(1)
 
 
-def _router(xt: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig
+def _router(xt: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig,
+            mesh=None, gather_axis: Optional[str] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(weights (T, k) in ``xt.dtype``, expert ids (T, k), aux loss).
 
@@ -88,7 +102,13 @@ def _router(xt: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig
     by gather, so their gradient reaches the probs as ``lax.top_k``'s
     does, renormalised over the k, then cast.  The aux loss is the
     Switch load-balancing term ``E * sum_e f_e * P_e`` over the top-1
-    picks."""
+    picks.
+
+    ``gather_axis``: on a mesh, ``router_w`` is this rank's (d, e_local)
+    block of experts; the weight (small: d x E) is all-gathered over that
+    axis before the matmul, since the ranks hold different tokens."""
+    if gather_axis is not None:
+        router_w = tx.all_gather(router_w, mesh, gather_axis, -1)
     logits = (xt @ router_w.to(xt.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     idx = topk_low_index_first(probs, cfg.top_k)
@@ -126,6 +146,16 @@ def _local_expert_ffn(tokens: torch.Tensor, w1, w3, w2, dtype
     return torch.bmm(F.silu(h) * g, w2.to(dtype))
 
 
+def _dispatch(xt: torch.Tensor, flat_e: torch.Tensor, pos: torch.Tensor,
+              kept: torch.Tensor, e: int, cap: int, k: int) -> torch.Tensor:
+    """The (e, cap, D) capacity buffers: each kept (token, k) assignment
+    added at (expert, place); a dropped one adds ``x * 0``."""
+    xk = xt.repeat_interleave(k, dim=0)                    # (T*k, D)
+    buf = torch.zeros((e, cap, xt.shape[1]), dtype=xt.dtype,
+                      device=xt.device)
+    return buf.index_put((flat_e, pos), xk * kept, accumulate=True)
+
+
 def moe_ffn_dense_dispatch(x: torch.Tensor, p: dict, cfg: ModelConfig
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-buffered dispatch of all B * S tokens of ``x`` (B, S, D):
@@ -139,19 +169,141 @@ def moe_ffn_dense_dispatch(x: torch.Tensor, p: dict, cfg: ModelConfig
     e = cfg.n_experts
     flat_e, pos, keep = _dispatch_indices(idx, e, cap)
     kept = keep[:, None].to(x.dtype)
-    xk = xt.repeat_interleave(cfg.top_k, dim=0)            # (T*k, D)
-    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((flat_e, pos), xk * kept, accumulate=True)
+    buf = _dispatch(xt, flat_e, pos, kept, e, cap, cfg.top_k)
     out_buf = _local_expert_ffn(buf, p["w1"], p["w3"], p["w2"], x.dtype)
     gathered = out_buf[flat_e, pos] * kept
     combined = _topk_combine(gathered, weights, t, d, cfg)
     return combined.reshape(b, s, d), aux
 
 
-def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig
+def moe_ffn_ep(x: torch.Tensor, p: dict, cfg: ModelConfig, mesh,
+               ep_axis: str = "model") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE FFN on one rank of ``mesh`` (all-to-all).
+
+    Takes this rank's blocks, as the JAX ``shard_map`` splits them: ``x``
+    (B / dp, S / ep, D), its batch rows over the data axes (every axis but
+    ``ep_axis``, row-major) and its stretch of the sequence over
+    ``ep_axis``; ``router`` (D / dp, E / ep); ``w1`` / ``w3`` (E / ep,
+    D / dp, F); ``w2`` (E / ep, F, D / dp).  The weights are all-gathered
+    over the data axes in-region (their gradients reduce-scattered back),
+    then :func:`_moe_ep_local` runs the layer.  Returns (y (B / dp, S / ep,
+    D), aux: the mean of the ranks' router losses).  Gradients are those
+    of the sum of the ranks' losses."""
+    dp_axes = tuple(a for a in mesh.axis_names if a != ep_axis)
+    router_w, w1, w3, w2 = p["router"], p["w1"], p["w3"], p["w2"]
+    if dp_axes:
+        # in-region FSDP: gather the embed dim of the expert weights
+        router_w = tx.all_gather(router_w, mesh, dp_axes, 0)
+        w1 = tx.all_gather(w1, mesh, dp_axes, 1)
+        w3 = tx.all_gather(w3, mesh, dp_axes, 1)
+        w2 = tx.all_gather(w2, mesh, dp_axes, 2)
+    return _moe_ep_local(x, router_w, w1, w3, w2, cfg, mesh, ep_axis)
+
+
+def _moe_ep_local(x: torch.Tensor, router_w: torch.Tensor, w1, w3, w2,
+                  cfg: ModelConfig, mesh, ep_axis: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_ffn_ep` on this rank's experts, their embed dim whole:
+    ``router_w`` (D, E / ep), ``w1`` / ``w3`` (E / ep, D, F), ``w2``
+    (E / ep, F, D).  The router's block is all-gathered over ``ep_axis``;
+    capacity is sized on this rank's token count; the (ep, e_local * cap,
+    D) buffers go out and back in one all-to-all each."""
+    ep = mesh.shape[ep_axis]
+    e = cfg.n_experts
+    if e % ep:
+        raise ValueError(f"{e} experts do not split over {ep} {ep_axis!r} "
+                         f"ranks")
+    e_local = e // ep
+    dp_axes = tuple(a for a in mesh.axis_names if a != ep_axis)
+    bl, sl, d = x.shape
+    xt = x.reshape(-1, d)
+    t = xt.shape[0]                                        # this rank's
+    weights, idx, aux = _router(xt, router_w, cfg, mesh, ep_axis)
+    cap = _capacity(t, cfg)
+    flat_e, pos, keep = _dispatch_indices(idx, e, cap)
+    kept = keep[:, None].to(x.dtype)
+    send = _dispatch(xt, flat_e, pos, kept, e, cap, cfg.top_k)
+    # (E, cap, D) -> (ep, e_local*cap, D) -> exchange -> per-source rows
+    recv = tx.all_to_all(send.reshape(ep, e_local * cap, d), mesh, ep_axis)
+    tokens = recv.reshape(ep, e_local, cap, d).movedim(1, 0)
+    out = _local_expert_ffn(tokens.reshape(e_local, ep * cap, d), w1, w3, w2,
+                            x.dtype)
+    out = out.reshape(e_local, ep, cap, d).movedim(0, 1)
+    back = tx.all_to_all(out.reshape(ep, e_local * cap, d), mesh, ep_axis)
+    gathered = back.reshape(e, cap, d)[flat_e, pos] * kept
+    combined = _topk_combine(gathered, weights, t, d, cfg)
+    aux = tx.all_reduce(aux, mesh, (ep_axis,) + dp_axes) / mesh.size(
+        mesh.axis_names)
+    return combined.reshape(bl, sl, d), aux
+
+
+def moe_ffn_ep_psum(x: torch.Tensor, p: dict, cfg: ModelConfig, mesh,
+                    ep_axis: str = "model"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode-shape expert parallelism on one rank of ``mesh``.
+
+    ``x`` (B, S, D) is the same on every ``ep_axis`` rank; ``router`` (D,
+    E / ep) and ``w1`` / ``w3`` / ``w2`` (E / ep, ...) are this rank's
+    experts.  Each rank buffers and runs only the kept assignments to its
+    own experts (the ``mine`` mask) and the partial top-k combines are
+    summed over ``ep_axis`` — a multi-operand reduction over the model
+    axis.  Returns (y (B, S, D), aux), the same on every rank, with every
+    rank's gradients the whole gradient of the one loss."""
+    ep = mesh.shape[ep_axis]
+    e = cfg.n_experts
+    e_local = e // ep
+    x = tx.copy_to(x, mesh, ep_axis)
+    bl, sl, d = x.shape
+    xt = x.reshape(-1, d)
+    t = xt.shape[0]
+    weights, idx, aux = _router(xt, p["router"], cfg, mesh, ep_axis)
+    lo = mesh.index(ep_axis) * e_local
+    cap = _capacity(t, cfg)
+    flat_e, pos, keep = _dispatch_indices(idx, e, cap)
+    mine = ((flat_e >= lo) & (flat_e < lo + e_local) & keep)[:, None]
+    mine = mine.to(x.dtype)
+    local_idx = torch.clamp(flat_e - lo, 0, e_local - 1)
+    buf = _dispatch(xt, local_idx, pos, mine, e_local, cap, cfg.top_k)
+    out_buf = _local_expert_ffn(buf, p["w1"], p["w3"], p["w2"], x.dtype)
+    gathered = out_buf[local_idx, pos] * mine
+    partial = _topk_combine(gathered, weights, t, d, cfg)
+    y = tx.reduce_from(partial, mesh, ep_axis)
+    # the tokens are the same on every rank, so is aux: the mean only
+    # splits its gradient between the ranks' copies of the router
+    aux = tx.reduce_from(aux, mesh, ep_axis) / ep
+    return y.reshape(bl, sl, d), aux
+
+
+def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, mesh=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The MoE FFN with the optional shared expert: (y, aux)."""
-    y, aux = moe_ffn_dense_dispatch(x, p, cfg)
+    """The MoE FFN with the optional shared expert: (y, aux).
+
+    Without a mesh, or where the JAX function would not take expert
+    parallelism (``use_ep`` off, no ``model`` axis of 2 or more ranks, the
+    experts not divisible over it, or the sequence not), the dense
+    dispatch.  Else expert parallelism: ``x`` here is this rank's batch
+    rows (B / dp, S, D), the same on every ``model`` rank, and ``p`` the
+    whole weights, the same on every rank; each rank takes its stretch of
+    the sequence and its experts (split over ``model`` only: the weights
+    are whole already, so nothing is gathered over the data axes, and the
+    train step's mean over them gives the mean gradient), and the outputs
+    are gathered back over ``model``.  The model ranks hold one loss
+    between them, so every rank's gradients are the whole ones, and aux's
+    is split between them (its forward value is unchanged)."""
+    ep = mesh.shape.get("model", 1) if mesh is not None else 1
+    if (cfg.use_ep and ep > 1 and cfg.n_experts % ep == 0
+            and x.shape[1] % ep == 0):
+        m = mesh.index("model")
+        w = {k: tx.copy_to(p[k], mesh, "model").chunk(ep, 1 if k == "router"
+                                                       else 0)[m]
+             for k in ("router", "w1", "w3", "w2")}
+        x_blk = tx.copy_to(x, mesh, "model").chunk(ep, 1)[m]
+        y, aux = _moe_ep_local(x_blk, w["router"], w["w1"], w["w3"],
+                               w["w2"], cfg, mesh, "model")
+        y = tx.gather_from(y, mesh, "model", 1)
+        aux = aux.detach() + (aux - aux.detach()) / ep
+    else:
+        y, aux = moe_ffn_dense_dispatch(x, p, cfg)
     if cfg.n_shared_experts:
         dt = x.dtype
         h = F.silu(x @ p["shared_w1"].to(dt)) * (x @ p["shared_w3"].to(dt))

@@ -26,9 +26,10 @@ class ModelAPI:
     """Entry points of one family's training and decode paths."""
 
     param_specs: Callable[[ModelConfig], Any]
-    #: scalar loss of (params, batch {tokens, labels[, loss_mask]}, cfg)
+    #: scalar loss of (params, batch {tokens, labels[, loss_mask]}, cfg,
+    #: mesh=None); on a device mesh, of the rank's rows
     train_loss: Callable[..., Any]
-    #: (params, batch, cfg) -> (logits (B, S, V), aux_loss)
+    #: (params, batch, cfg, mesh=None) -> (logits (B, S, V), aux_loss)
     forward: Callable[..., Any]
     #: the decode entries are None for an encoder-only config
     decode_state_specs: Optional[Callable[..., Any]]

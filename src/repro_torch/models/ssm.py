@@ -21,9 +21,10 @@ training forward.
   an O(1) state ``{"h", "conv"}``; both return the new state as new
   tensors (the callers write them into the engine's slots).
 
-Plain PyTorch: the reference runs no Pallas kernel here.  Not in this
-slice: the mesh's tensor-parallel ``d_inner`` / head sharding
-(``ROADMAP.md`` queue 1 step 6b).
+Plain PyTorch: the reference runs no Pallas kernel here.  On a device
+mesh every rank runs its own batch rows whole: the JAX package shards
+``d_inner`` / the heads over ``model`` through sharding constraints alone
+(no collective of its own), which the port has no partitioner for.
 """
 from __future__ import annotations
 

@@ -9,9 +9,11 @@ The counterpart of ``repro/roofline/analysis.py``.  Three terms per
 
 FLOPs and bytes come from :func:`count_cost`, which runs the step once on
 meta tensors (the JAX package reads them from XLA's ``cost_analysis()``).
-The collective term needs a partitioned program, which the port does not
-have before the mesh (``ROADMAP.md`` step 6b): the dry run passes ``None``
-for it off the card, and 0 on one card, which moves nothing.  XLA's HLO
+The collective term needs the bytes a step moves between devices, which
+the JAX package reads from a partitioned program; the port's mesh has no
+partitioner, and counting them off the card waits for a counting
+transport (``ROADMAP.md`` step 6c): the dry run passes ``None`` for it off
+the card, and 0 on one card, which moves nothing.  XLA's HLO
 text parsers (``collective_breakdown``, ``collective_bytes``,
 ``count_hlo_ops``) have no counterpart: there is no HLO text.
 

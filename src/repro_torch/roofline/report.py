@@ -6,7 +6,7 @@ The counterpart of ``repro/roofline/report.py``, with the port's wording:
 a cell is traced on meta tensors (its trace seconds stand where the JAX
 tables print compile seconds), counted bytes are per aten op, and the
 card's HBM is an H100's.  A record with no collective term (``None``, a
-production mesh before ``ROADMAP.md`` step 6b) and no temp size prints
+production mesh until ``ROADMAP.md`` step 6c) and no temp size prints
 ``n/a`` there.
 """
 from __future__ import annotations

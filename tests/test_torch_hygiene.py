@@ -70,6 +70,10 @@ def test_port_files_found():
             "src/repro_torch/tune/sweep.py",
             "src/repro_torch/launch/dryrun.py",
             "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/dist/collectives.py",
+            "src/repro_torch/dist/transport.py",
+            "src/repro_torch/dist/gloo_probe.py",
+            "src/repro_torch/optim/compression.py",
             "src/repro_torch/launch/inputs.py",
             "src/repro_torch/roofline/analysis.py",
             "src/repro_torch/roofline/report.py",
@@ -115,6 +119,11 @@ def test_tune_import_loads_no_jax():
 
 def test_dryrun_import_loads_no_jax():
     _imports_no_jax("repro_torch.launch.dryrun, repro_torch.roofline.report")
+
+
+def test_mesh_import_loads_no_jax():
+    _imports_no_jax("repro_torch.dist.collectives, "
+                    "repro_torch.optim.compression, repro_torch.launch.mesh")
 
 
 def test_adder_import_loads_no_jax():

@@ -331,13 +331,24 @@ def test_train_state_specs_and_init():
 
 
 def test_unported_modes_raise_with_roadmap_item():
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    """Pod compression without a pod mesh is refused, as in the JAX
+    package: the step builder (JAX: an assertion) and, on one process, the
+    CLI with the JAX CLI's own exit message."""
+    jcfg, tcfg = _cfgs()
+    with pytest.raises(AssertionError):
+        jstate.build_train_step(jcfg, jadamw.AdamWConfig(),
+                                pod_compressed=True)
+    with pytest.raises(ValueError, match="needs a mesh with a 'pod' axis"):
         tstate.build_train_step(tcfg, tadamw.AdamWConfig(),
                                 pod_compressed=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    from repro.launch import train as jlaunch
+    with pytest.raises(SystemExit) as jexit:
+        jlaunch.main(["--reduced", "--steps", "1", "--pod-compressed"])
+    with pytest.raises(SystemExit) as texit:
         tlaunch.main(["--reduced", "--device", "cpu", "--steps", "1",
                       "--pod-compressed"])
+    assert str(texit.value) == str(jexit.value) == \
+        "--pod-compressed needs a multi-pod device mesh"
 
 
 def test_train_cli_on_cpu(capsys):
