@@ -168,7 +168,8 @@ Phases:
   C (spec). phase C's trace again with spec_k 4, ladder off and on, the
      virtual step priced at D's chain step p50: goodput and SLOs printed
   E. quantized KV and sampling, full width on phase 6's weights and
-     geometry.  E1: phase 6's 8 greedy requests over an unquantized (bf16),
+     geometry.  E1: phase 6's 8 greedy requests (8 new tokens each)
+     over an unquantized (bf16),
      an int8 and an int4 pool: pool bytes asserted (114,688 / 59,136 /
      30,464 bytes a token over the pool's pages, scratch included), the
      refcount invariant after every step, moa_reduce launched 2 * layers
@@ -177,7 +178,7 @@ Phases:
      (max and mean over the aligned decode traces) printed.  E2: int8 on
      8 slots with the pool pages that fit E1's bf16 pool bytes, 16
      requests of the same length mix: decode tok/s and step p50 beside
-     E1's bf16 run.  E3: phase D's repeated passages x 16 new tokens,
+     E1's bf16 run.  E3: phase D's repeated passages x 8 new tokens,
      every request sampled (temperature 0.8, top-k 40, seed 7) over an
      int8 pool: sequential twice (equal tokens asserted: restart
      determinism), chain (spec_k 4) and tree (12 nodes, branch 3); step
@@ -189,8 +190,8 @@ Phases:
      margin, and how many of the top-k ranks hold another token in the
      two rows
   T. the autotune tier on phase 6's weights, after E: T1 the serve CLI's
-     --burst-smoke --requests 16 at full width (its own weights) returns
-     0; T2 replay_open_loop of a 16-arrival bursty_trace (rate 1, bursts
+     --burst-smoke --requests 8 at full width (its own weights) returns
+     0; T2 replay_open_loop of an 8-arrival bursty_trace (rate 1, bursts
      of 16 a second, 256-token mean prompts, 24 new) on C's geometry with
      spec_k 4, priced at phase 6's chunk and step times and D's chain
      step (VirtualCosts), the SLO twice a mean request's service time,
@@ -202,8 +203,8 @@ Phases:
      turns of 256 tokens + 16 on 2 slots: a session hit for each of the 8
      returning turns; T4 run_sweep over prefill_chunk {128, 256} x spec_k
      {0, 4} around phase 6's engine config plus page_size 96 (resolve
-     rejects it) on sweep_workload (8 requests, 512 shared + 64 tokens,
-     8 new), the (256, 0) point under torch.profiler: 4 records with
+     rejects it) on sweep_workload (4 requests, 512 shared + 64 tokens,
+     4 new), the (256, 0) point under torch.profiler: 4 records with
      metrics, one with its error, no profile_error, a non-empty Chrome
      trace (deleted after); each point and the Pareto front under
      (decode tok/s max, pool bytes min, p99 step min) printed
@@ -347,8 +348,10 @@ Phases:
      moe_ffn_ep_psum against the dense dispatch within 2e-4, one
      moa_reduce a call, moa_reduce at the per-rank combine (2, 1024,
      4096) torch.equal to its plain version; X3 one pod-compressed train
-     step of llama3.2-3b cut to 4 of 28 layers (1.19 B params, ~20 B a
-     param a rank), one sequence of the 2 x 2048 batch a pod, against
+     step of llama3.2-3b cut to 2 of 28 layers (0.99 B params, ~20 B a
+     param a rank: its sharded state keeps params, m and v whole over
+     ``pod``, as the JAX layout does, and ``err`` the pod's block of 1),
+     one sequence of the 2 x 2048 batch a pod, against
      rank 0's oracle (both pods' gradients on one rank, quantized at one
      shared scale a leaf, the codes summed and meaned): the loss within
      rtol 1e-3 of the single-device loss, the grad norm within rtol 1e-5,
@@ -356,10 +359,21 @@ Phases:
      step of llama3.2-3b at full depth, 2 sequences at a cache of 8192
      split over 2 ranks, against the unsharded decode_step: fp32 logits
      and cache blocks within 1e-4, bf16 split-K no farther from the fp32
-     logits than the bf16 unsharded step (x 1.5, relative L2).  On 3
+     logits than the bf16 unsharded step (x 1.5, relative L2); X6 the
+     sharded train state: llama3.2-3b at published width cut to 2 of 28
+     layers (989,346,816 params) on a (data 2, model 1) mesh, each rank
+     holding its half of params, m and v (the dry run's per-device
+     figure, to the byte), gathering a layer at a time: two steps of
+     2 x 2048, a mesh checkpoint after each (each rank writes its rows),
+     then, in the smoke's own process, the first checkpoint restored
+     onto the one device and step 2 taken there: its loss within rtol
+     1e-3 of the 2-rank step 2's, its grad norm within rtol 1e-4, and
+     its m, v and param update within X6_STATE_RTOL (relative L2, each
+     leaf) of the mesh's step 2 read back from the second checkpoint;
+     the bytes handed to each collective beside the shapes' reckoning.  On 3
      ranks: X5 qwen2.5-14b's attention (40 q heads padded to 48, 16 a
-     rank, 8 KV, hd 128) at 2 of 48 layers, fp32, one sequence of
-     1024: logits, loss and every
+     rank, 8 KV, hd 128) at 1 of 48 layers, fp32, one sequence of
+     512: logits, loss and every
      gradient against the unsharded forward (1e-4, 1e-5, 5e-4; rank 0's
      oracle moved to the host first), flash launched as one remat train
      step and a forward, and flash at the per-rank group
@@ -427,8 +441,9 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moa_reduce as moa  # noqa: E402
 from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
-from repro_torch.models.common import init_params, rms_norm  # noqa: E402
-from repro_torch.launch.dryrun import run_cell  # noqa: E402
+from repro_torch.models.common import (init_params, rms_norm,  # noqa: E402
+                                       shape_structs)
+from repro_torch.launch.dryrun import _resident_bytes, run_cell  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.mesh import device_mesh  # noqa: E402
@@ -449,7 +464,9 @@ from repro_torch.serve.sampling import (sample_tokens,  # noqa: E402
 from repro_torch.serve.engine import tree_width  # noqa: E402
 from repro_torch.train.loop import LoopConfig, TrainLoop  # noqa: E402
 from repro_torch.train.state import (build_train_step,  # noqa: E402
-                                     init_train_state, split_layers)
+                                     init_train_state, split_layers,
+                                     train_state_shardings,
+                                     train_state_specs)
 from repro_torch.tree import leaves, map_tree  # noqa: E402
 from repro_torch.tune import (Arrival, SweepSpec,  # noqa: E402
                               VirtualCosts, bursty_trace, multi_turn_trace,
@@ -2043,11 +2060,14 @@ def phase_overload_spec(cfg, params, chunk_s, trace_step_s, step_s):
 #: phase E: phase 6's new tokens (its prompt lengths are SPEC_LENS); the
 #: E3 sampling (the stochastic pair of the JAX package's bench_serve)
 QUANT_NEW = 32
+#: E1's and E2's new tokens a request: at QUANT_NEW phase E took
+#: 62.2-102.3 s, at 16 (E3 too) 44.5-70.8 s, and phase X6 needs the room
+E1_NEW = 8
 E3_SAMPLING = SamplingParams(temperature=0.8, top_k=40, seed=7)
 #: E3's new tokens a request: at D's 64 phase E took 91.3-97.7 s on an
 #: H100 80GB HBM3 at 700 W, with the smoke near its 1200 s limit; at 32,
-#: 102.3-113.6 s on a slow host
-E3_NEW = 16
+#: 102.3-113.6 s on a slow host; at 16, see E1_NEW
+E3_NEW = 8
 
 
 def kv_token_bytes(cfg, kv_dtype: str) -> int:
@@ -2105,7 +2125,7 @@ def phase_quant_serve(cfg, params):
     for kv in KV_DTYPES:
         what = f"E1 {kv}"
         eng, reqs, launched = serve_spec(cfg, params, dict(kv_dtype=kv),
-                                         prompts, what, new=QUANT_NEW,
+                                         prompts, what, new=E1_NEW,
                                          trace=True)
         st = eng.stats_summary()
         per_token = kv_token_bytes(cfg, kv)
@@ -2141,7 +2161,7 @@ def phase_quant_serve(cfg, params):
         cfg, params, dict(kv_dtype="int8", max_slots=8,
                           pool_pages=pool_pages),
         make_prompts(SPEC_LENS * 2, cfg.vocab, seed=4), what,
-        new=QUANT_NEW)
+        new=E1_NEW)
     st = eng.stats_summary()
     check(st["pool_bytes"] <= bf16["pool_bytes"],
           f"{what}: pool {st['pool_bytes']} bytes exceeds the bf16 pool's")
@@ -2609,12 +2629,13 @@ def phase_qkv_serve(cfg, params):
 
 #: phase T: the autotune tier at full width on phase 6's weights: the
 #: burst's arrivals, mean prompt and new tokens; the conversations
-#: T1 and T2 take 16 arrivals and T4 8 new tokens a request: at 24 and 32
+#: T1 and T2 take 8 arrivals, T4 4 requests of 4 new tokens: at 24 and 32
 #: phase T took 111.6-119.9 s (its profiled point 31-40 s, a 434-662 MB
 #: trace) on an H100 80GB HBM3 at 700 W, with the smoke near its 1200 s
-#: limit
-TUNE_ARRIVALS, TUNE_PROMPT, TUNE_GEN = 16, 256, 24
-TUNE_SWEEP_GEN = 8
+#: limit; at 16 and 8, 77.6-112.8 s; at 12 and 8 x 4, 64.7-100.8 s; and
+#: phase X6 needs the room
+TUNE_ARRIVALS, TUNE_PROMPT, TUNE_GEN = 8, 256, 24
+TUNE_SWEEP_REQUESTS, TUNE_SWEEP_GEN = 4, 4
 TUNE_USERS, TUNE_TURNS, TUNE_TURN_TOKENS, TUNE_REPLY = 4, 3, 256, 16
 #: the sweep's objectives for its Pareto front
 SWEEP_OBJECTIVES = (("decode_tok_s", "max"), ("pool_bytes", "min"),
@@ -2624,7 +2645,7 @@ SWEEP_OBJECTIVES = (("decode_tok_s", "max"), ("pool_bytes", "min"),
 def phase_tune(cfg, params, chunk_s, step_s, chain_step_s):
     """Phase T at full width on phase 6's weights and prices.  T1: the
     serve CLI's ``--burst-smoke`` (its own weights, drawn from seed 0).
-    T2: ``replay_open_loop`` of a 24-arrival ``bursty_trace`` on phase C's
+    T2: ``replay_open_loop`` of an 8-arrival ``bursty_trace`` on phase C's
     geometry with spec_k 4, priced at phase 6's chunk and step and phase
     D's chain step: ladder off, on, and on again (equal outputs, virtual
     time and shed asserted; goodputs printed).  T3: 4 conversations x 3
@@ -2733,7 +2754,7 @@ def phase_tune(cfg, params, chunk_s, step_s, chain_step_s):
     points = SweepSpec(base, {"prefill_chunk": [128, 256],
                               "spec_k": [0, 4]}).points()
     bad = base.replace(page_size=96)
-    prompts, gens = sweep_workload(cfg.vocab, requests=8,
+    prompts, gens = sweep_workload(cfg.vocab, requests=TUNE_SWEEP_REQUESTS,
                                    shared_prefix=512, tail=64,
                                    gen=TUNE_SWEEP_GEN)
     root = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
@@ -4280,22 +4301,37 @@ X_TRANSPORT = ("gloo, tensors on the ranks' device, no host staging "
                "(gloo takes CUDA tensors for all_reduce sum/max, all_gather, "
                "reduce_scatter and all_to_all: python -m "
                "repro_torch.dist.gloo_probe)")
-X_WORLDS = ((2, ("X1", "X2", "X3", "X4")), (3, ("X5",)))
-#: X3: llama3.2-3b cut to 4 of 28 layers: 1.19 B params, x 20 B (fp32
-#: params, m, v, grads, err) = ~24 GB a rank, ~48 GB for the 2 ranks
-X_TRAIN_LAYERS = 4
+X_WORLDS = ((2, ("X1", "X2", "X3", "X4", "X6")), (3, ("X5",)))
+#: X3: llama3.2-3b cut to 2 of 28 layers: 0.99 B params, x 20 B (fp32
+#: params, m, v, grads, err) = ~20 GB a rank, ~40 GB for the 2 ranks (at
+#: 4 layers X3 took 32.6 s, its oracle 20.4, and phase X6 needs the room)
+X_TRAIN_LAYERS = 2
 #: X4: one split-K decode step of 2 sequences at cache position X_INDEX of
 #: X_CACHE (model rank 1 owns it and writes the new row)
 X_CACHE, X_DECODE_BATCH, X_INDEX = 8192, 2, 6000
 #: X2: 2 x 1024 tokens; on 2 expert ranks each routes 1024
 X_MOE_TOKENS = (2, 1024)
-#: X5: qwen2.5-14b's attention layout at 2 of its 48 layers, fp32, one
-#: sequence of 1024 (each of the 3 ranks holds the 2.11 B params and their
-#: gradients, 16.9 GB; at 2048 the three ranks and the smoke's own process
-#: ran the card out of memory)
-X_PAD_ARCH, X_PAD_LAYERS, X_PAD_SEQ = "qwen2.5-14b", 2, 1024
+#: X5: qwen2.5-14b's attention layout at 1 of its 48 layers, fp32, one
+#: sequence of 512 (at 2 layers each of the 3 ranks held the 2.11 B params
+#: and their gradients, 16.9 GB; at 2048 the three ranks and the smoke's
+#: own process ran the card out of memory; at 2 layers and 1024 tokens X5
+#: took 28.3-40.3 s, at 2 and 512 25.1-31.9 s)
+X_PAD_ARCH, X_PAD_LAYERS, X_PAD_SEQ = "qwen2.5-14b", 1, 512
+#: X6: llama3.2-3b's sharded train state at 2 of 28 layers, 989,346,816
+#: params: 11.87 GB of fp32 params, m and v, 5.94 GB a rank on
+#: (data 2, model 1); each of its two checkpoints is the whole 11.87 GB
+#: on disk
+X6_LAYERS = 2
+#: X6: the largest relative L2 error of a leaf of m, v or the param update
+#: of the one-device step 2 against the mesh's.  The two take the same
+#: state and batch and differ in the gradient's rounding alone (bf16
+#: compute, a row a rank against both rows at once); a lost moment, a
+#: wrong block of the reduce-scatter or a wrong update is O(1)
+X6_STATE_RTOL = 1e-2
 #: seconds a spawn may run, and one collective may wait
 X_SPAWN_TIMEOUT, X_COLLECTIVE_TIMEOUT = 600, 300
+#: the spawn's scratch directory, in each rank (X6's checkpoint goes there)
+X_DIR = None
 
 
 def x_configs(reduced: bool = False) -> dict:
@@ -4313,6 +4349,7 @@ def x_configs(reduced: bool = False) -> dict:
     return {"X1": cut("llama3.2-3b"), "X2": moe_cfg,
             "X3": cut("llama3.2-3b", n_layers=X_TRAIN_LAYERS),
             "X4": cut("llama3.2-3b"),
+            "X6": cut("llama3.2-3b", n_layers=X6_LAYERS),
             "X5": cut(X_PAD_ARCH, n_layers=X_PAD_LAYERS,
                       dtype=torch.float32)}
 
@@ -4439,9 +4476,12 @@ def x3_pod_compressed(cfg, dev, mesh):
     from both pods' gradients without the mesh (``_x3_oracle``): the loss
     (meaned over pods) within rtol 1e-3 of the single-device loss of the
     same state and batch (the pods' mean), the grad norm within rtol 1e-5;
-    flash launched as one remat train step."""
+    flash launched as one remat train step.  The state is the rank's
+    blocks under ``train_state_shardings(pod_compressed=True)``: on a pod
+    axis alone params, m and v stay whole (replicated over ``pod``) and
+    ``err`` is the pod's block of 1."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    state = init_train_state(cfg, gen, pod_compressed=True)
+    state = init_train_state(cfg, gen, pod_compressed=True, mesh=mesh)
     shape = ShapeConfig("train", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                         kind="train")
     batch = host_batch(cfg, shape, HostDataConfig(0, 1, 0), 0)
@@ -4480,6 +4520,7 @@ def x3_pod_compressed(cfg, dev, mesh):
           and any(bool((e != 0).any()) for e in errs),
           "X3 error-feedback residual not finite or all zero")
     return {"params": sum(p.numel() for p in leaves(state["params"])),
+            "state_bytes_a_rank": _tree_bytes(state),
             "loss": loss, "single_device_loss": ref, "grad_norm": norm,
             "oracle_grad_norm": want_norm, "oracle_s": oracle_s,
             "step_s": step_s, "flash_launches": counts}
@@ -4621,11 +4662,172 @@ def x5_head_pad(cfg, dev, mesh):
     return out
 
 
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def x6_sharded_state(cfg, dev, mesh):
+    """X6: the sharded train state on (data 2, model 1).  Each rank draws
+    its blocks of the seeded state (a leaf whole at a time) and holds
+    exactly the dry run's per-device resident bytes for the mesh; two
+    steps of the 2 x TRAIN_SEQ batch, one row a rank, each gathering a
+    layer's params at a time (twice under remat) and reduce-scattering
+    the gradients: the bytes handed to all_gather and reduce_scatter equal
+    the shapes' reckoning; flash launched as one remat train step a step.
+    After each step a mesh checkpoint into the spawn's directory, each
+    rank writing its rows (step 1's while step 2 runs);
+    ``x6_restore_one_device`` reads them back."""
+    shardings = train_state_shardings(cfg, mesh)
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             mesh=mesh)
+    nbytes = _tree_bytes(state)
+    dry = _resident_bytes(cfg, TRAIN_CELL, mesh.shape, None)
+    check(nbytes == int(dry), f"X6 state {nbytes} B a rank, the dry run's "
+          f"per-device figure {dry}")
+    whole = 4 * sum(math.prod(sp.shape)
+                    for sp in leaves(train_state_specs(cfg)["params"]))
+    reckon = {"all_gather": _tree_bytes(state["params"])
+              + _tree_bytes(state["params"]["blocks"]),
+              "reduce_scatter": whole}
+    step = build_train_step(cfg, AdamWConfig(lr=3e-4, grad_clip=1.0),
+                            mesh=mesh)
+    shape = ShapeConfig("train", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        kind="train")
+    ckpt_dir = os.path.join(X_DIR, "x6_ckpt")
+    steps, save = [], None
+    for i in range(2):
+        batch = host_batch(cfg, shape, HostDataConfig(0, 1, 0), i)
+        mesh.transport.reset()
+        _zero_kernel_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        _sync_if(dev)
+        dt = time.perf_counter() - t0
+        counts = _flash_counts()
+        got = dict(mesh.transport.bytes)
+        steps.append({"step_s": dt, "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "bytes_by_op": got,
+                      "calls_by_op": dict(mesh.transport.calls),
+                      "flash_launches": counts})
+        for op, want in reckon.items():
+            check(got.get(op) == want, f"X6 step {i + 1}: {got.get(op)} B "
+                  f"handed to {op}, the shapes give {want}")
+        _check_count(dev, counts == _expected_counts(cfg, 1),
+                     f"X6 flash launches {counts}, want "
+                     f"{_expected_counts(cfg, 1)}")
+        if i == 0:
+            free = shutil.disk_usage(X_DIR).free
+            check(free > 1.05 * 2 * (3 * whole + 4), f"X6: {free / 1e9:.1f} "
+                  f"GB free under {X_DIR}, less than two checkpoints of "
+                  f"{3 * whole / 1e9:.2f} GB")
+            saver = ckpt.AsyncCheckpointer(ckpt_dir, keep=2, mesh=mesh,
+                                           shardings=shardings)
+            save = {"free_gb": free / 1e9}
+        else:
+            # step 1's files were written while step 2 ran, as a
+            # TrainLoop's; what is left of them, then step 2's buffer is
+            # step 1's
+            t0 = time.perf_counter()
+            saver.wait()
+            save["wait_after_step_2_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        saver.save(i + 1, state)
+        save[f"save_blocks_s_{i + 1}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    saver.close()                  # every rank's rows written, committed
+    save.update(close_s=time.perf_counter() - t0, saves=saver.timings)
+    return {"params": whole // 4, "state_bytes_a_rank": nbytes,
+            "dryrun_bytes_a_device": dry, "reckoned_bytes": reckon,
+            "steps": steps, "save": save, "ckpt_dir": ckpt_dir}
+
+
+def _x6_gap(got, want, base=None):
+    """``(largest relative L2 error of a leaf of got against want, its
+    path)``; with ``base`` (a tree like them) the errors are relative to
+    the leaves' differences from it, ``|got - want| / |want - base|``."""
+    flat = lambda t: ckpt.flatten_with_paths(t)
+    bases = ([b for _, b in flat(base)] if base is not None
+             else [None] * len(flat(got)))
+    worst = (0.0, "")
+    for (path, a), (_, b), c in zip(flat(got), flat(want), bases):
+        ref = b if c is None else b - c
+        err = float((a - b).float().norm()
+                    / ref.float().norm().clamp_min(1e-30))
+        worst = max(worst, (err, path))
+    return worst
+
+
+def x6_restore_one_device(cfg, row, device):
+    """X6's second half, in the smoke's own process once the ranks are
+    gone: their step-1 checkpoint restored onto the one device (a new tree
+    from the manifest's whole leaves), step 2 taken there; its loss within
+    rtol 1e-3 of the 2-rank step 2's (bf16 compute, the gradients summed
+    in another order), its grad norm within rtol 1e-4, and its m, v and
+    param update within ``X6_STATE_RTOL`` of the mesh's step 2 (the
+    step-2 checkpoint, restored onto the device)."""
+    dev = torch.device(device)
+    target = shape_structs(train_state_specs(cfg))
+    t0 = time.perf_counter()
+    state = ckpt.restore_checkpoint(row["ckpt_dir"], 1, target, device=dev)
+    _sync_if(dev)
+    restore_s = time.perf_counter() - t0
+    check(int(state["step"]) == 1, "X6: the restored step is not 1")
+    before = map_tree(torch.clone, state["params"])
+    step = build_train_step(cfg, AdamWConfig(lr=3e-4, grad_clip=1.0))
+    shape = ShapeConfig("train", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        kind="train")
+    batch = host_batch(cfg, shape, HostDataConfig(0, 1, 0), 1)
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    _sync_if(dev)
+    step_s = time.perf_counter() - t0
+    counts = _flash_counts()
+    mesh_step = row["steps"][1]
+    loss, want = float(metrics["loss"]), mesh_step["loss"]
+    check(abs(loss - want) <= 1e-3 * abs(want),
+          f"X6 one-device step 2 loss {loss} vs the 2-rank step 2's {want}")
+    norm, want_norm = float(metrics["grad_norm"]), mesh_step["grad_norm"]
+    check(abs(norm - want_norm) <= 1e-4 * abs(want_norm),
+          f"X6 one-device step 2 grad norm {norm} vs the 2-rank step 2's "
+          f"{want_norm}")
+    _check_count(dev, counts == _expected_counts(cfg, 1),
+                 f"X6 one-device flash launches {counts}")
+    t0 = time.perf_counter()
+    mesh2 = ckpt.restore_checkpoint(row["ckpt_dir"], 2, target, device=dev)
+    _sync_if(dev)
+    restore2_s = time.perf_counter() - t0
+    check(int(mesh2["step"]) == 2 and int(state["step"]) == 2,
+          f"X6: steps {int(mesh2['step'])} (mesh) and {int(state['step'])}"
+          " after step 2")
+    gaps = {"m": _x6_gap(state["m"], mesh2["m"]),
+            "v": _x6_gap(state["v"], mesh2["v"]),
+            "update": _x6_gap(state["params"], mesh2["params"], before)}
+    for k, (err, path) in gaps.items():
+        check(err <= X6_STATE_RTOL, f"X6 one-device step 2's {k} {path} "
+              f"{err:.3e} from the 2-rank step 2's (relative L2), over "
+              f"{X6_STATE_RTOL}")
+    del state, mesh2, before
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"restore_s": restore_s, "one_device_step_s": step_s,
+            "one_device_loss": loss, "loss_gap": loss - want,
+            "one_device_grad_norm": norm, "grad_norm_gap": norm - want_norm,
+            "restore_step_2_s": restore2_s,
+            "state_gap_rel_l2": {k: {"max": e, "leaf": p}
+                                 for k, (e, p) in gaps.items()},
+            "one_device_flash_launches": counts}
+
+
 X_CHECKS = {"X1": (x1_tree_collectives, ("data",)),
             "X2": (x2_moe_ep, ("model",)),
             "X3": (x3_pod_compressed, ("pod",)),
             "X4": (x4_splitk_decode, ("model",)),
-            "X5": (x5_head_pad, ("model",))}
+            "X5": (x5_head_pad, ("model",)),
+            "X6": (x6_sharded_state, ("data", "model"))}
 
 
 def _sync_if(dev) -> None:
@@ -4635,7 +4837,10 @@ def _sync_if(dev) -> None:
 
 def _x_rank(rank, world, store, out, names, device, reduced):
     """One rank of phase X: runs ``names`` in order, each on a mesh of its
-    own axis over the ``world`` ranks, and writes its figures."""
+    own axes over the ``world`` ranks (the first of them all the ranks,
+    the others of one), and writes its figures."""
+    global X_DIR
+    X_DIR = os.path.dirname(out)
     dev = torch.device(device)
     if dev.type == "cuda":
         # the ranks share the card: free blocks go back to it whole
@@ -4650,7 +4855,7 @@ def _x_rank(rank, world, store, out, names, device, reduced):
     results = {}
     for name in names:
         fn, axes = X_CHECKS[name]
-        mesh = device_mesh((world,), axes, dev)
+        mesh = device_mesh((world,) + (1,) * (len(axes) - 1), axes, dev)
         dist.barrier()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -4706,6 +4911,12 @@ def phase_mesh_collectives(device: str = "cuda", reduced: bool = False
                                        f"ran past {X_SPAWN_TIMEOUT} s")
             with open(out) as f:
                 got = json.load(f)
+            if "X6" in got:
+                one = x6_restore_one_device(x_configs(reduced)["X6"],
+                                            got["X6"], device)
+                got["X6"].update(one)
+                print(f"[mesh] X6 restored onto the one device: "
+                      + json.dumps(one), flush=True)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         print(f"[mesh] {world} ranks on {device} ({X_TRANSPORT}): spawn "

@@ -18,19 +18,22 @@ steps and at the end, and a second run with the same directory resumes
 from its newest committed step.
 
 Under ``torchrun`` the ranks form a device mesh
-(:func:`repro_torch.launch.mesh.build_mesh`): each takes its rows of every
-batch, the attention heads and experts split over ``model``, and the
-gradients are meaned over the data ranks; ``--pod-compressed`` adds a
-``pod`` axis of 2 and reduces across it in int8 through the radix-4 tree
+(:func:`repro_torch.launch.mesh.build_mesh`) and the train state is
+sharded over it as ``train_state_shardings`` lays it out: each rank holds
+its block of every leaf, takes its rows of every batch, gathers a layer's
+params where the layer runs, and the attention heads and experts split
+over ``model``; ``--pod-compressed`` adds a ``pod`` axis of 2 and reduces
+across it in int8 through the radix-4 tree
 (:mod:`repro_torch.optim.compression`)::
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --reduced --device cpu --steps 4 --seq 32 --batch 4 --pod-compressed
 
-Ranks that share a card (more ranks than cards), and CPU ranks, talk
-through gloo; only rank 0 prints.  Without a pod mesh (one process)
-``--pod-compressed`` exits with the JAX CLI's message.  Checkpoints are
-for one process: ``--ckpt-dir`` on a mesh exits.
+With ``--ckpt-dir`` on a mesh each rank writes its blocks into the one
+checkpoint, and a resume reads each rank's blocks, on whatever mesh the
+new run has.  Ranks that share a card (more ranks than cards), and CPU
+ranks, talk through gloo; only rank 0 prints.  Without a pod mesh (one
+process) ``--pod-compressed`` exits with the JAX CLI's message.
 """
 from __future__ import annotations
 
@@ -48,7 +51,8 @@ from repro_torch.launch.mesh import build_mesh, maybe_init_distributed
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.train.loop import LoopConfig, TrainLoop
-from repro_torch.train.state import build_train_step, init_train_state
+from repro_torch.train.state import (build_train_step, init_train_state,
+                                     train_state_shardings)
 
 __all__ = ["main"]
 
@@ -85,9 +89,6 @@ def main(argv=None) -> int:
     mesh = build_mesh(pods=2 if args.pod_compressed else 1, devices=device)
     if args.pod_compressed and (mesh is None or "pod" not in mesh.shape):
         raise SystemExit("--pod-compressed needs a multi-pod device mesh")
-    if mesh is not None and args.ckpt_dir:
-        raise SystemExit("--ckpt-dir is for one process: checkpoints of a "
-                         "device mesh are not ported")
     lead = not dist.is_initialized() or dist.get_rank() == 0
     cfg = get_config(args.arch)
     if args.reduced:
@@ -101,7 +102,10 @@ def main(argv=None) -> int:
                         kind="train")
     state = init_train_state(
         cfg, torch.Generator(device=device).manual_seed(args.seed),
-        pod_compressed=args.pod_compressed)
+        pod_compressed=args.pod_compressed, mesh=mesh)
+    shardings = None if mesh is None else train_state_shardings(
+        cfg, mesh, pod_compressed=args.pod_compressed,
+        n_pods=mesh.shape.get("pod", 1))
     step_fn = build_train_step(
         cfg, AdamWConfig(lr=args.lr, grad_clip=1.0),
         lr_schedule=warmup_cosine(args.lr, args.warmup, args.steps),
@@ -112,9 +116,10 @@ def main(argv=None) -> int:
                           log_every=args.log_every,
                           grad_accum=args.grad_accum, seed=args.seed)
     loop = TrainLoop(cfg, shape, loop_cfg, step_fn, state,
-                     data_cfg=HostDataConfig(args.seed, 1, 0))
+                     data_cfg=HostDataConfig(args.seed, 1, 0),
+                     state_shardings=shardings, mesh=mesh)
     start = loop.maybe_restore()
-    if start:
+    if start and lead:
         print(f"resumed from step {start} in {args.ckpt_dir}")
     t0 = time.monotonic()
     loop.run(start_step=start)

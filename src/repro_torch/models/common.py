@@ -10,11 +10,16 @@ order among ties).  The dry run's pieces: :func:`param_count`,
 sharding rules (:data:`DEFAULT_RULES`, :func:`logical_to_pspec`,
 :func:`make_shardings`), which map a spec onto a mesh given as an ordered
 mapping of axis name to size and return plain tuples where the JAX
-package returns ``PartitionSpec``s.  ``constrain`` and ``shardmap_mesh``
-have no counterpart: on the port's device mesh
-(:class:`repro_torch.launch.mesh.Mesh`) each rank holds its own block and
-the functions that split work (``gqa_train``, ``gqa_decode_splitk``,
-``moe_ffn_ep``) cut it and issue their collectives themselves.
+package returns ``PartitionSpec``s.  On a live device mesh
+(:class:`repro_torch.launch.mesh.Mesh`) those specs place tensors:
+:func:`block_slices` / :func:`shard_block` give the rank's block of a
+leaf (JAX's ``NamedSharding.shard_shape`` and layout), and
+:func:`gather_block` gathers a block back to the whole leaf with the
+gradient of the train step's layout; a :class:`ShardedLayer` holds one
+layer's blocks until the layer runs (:func:`whole`).  ``constrain`` and
+``shardmap_mesh`` have no counterpart: the functions that split work
+(``gqa_train``, ``gqa_decode_splitk``, ``moe_ffn_ep``) cut their operands
+and issue their collectives themselves.
 """
 from __future__ import annotations
 
@@ -24,10 +29,14 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.dist import transport as tx
 from repro_torch.tree import leaves, map_tree
 
 __all__ = ["ParamSpec", "init_params", "shape_structs", "param_count",
            "DEFAULT_RULES", "logical_to_pspec", "make_shardings",
+           "pspec_axes", "split_axes", "block_slices", "shard_block",
+           "block_owner",
+           "gather_block", "ShardedLayer", "whole",
            "rms_norm", "rope_angles", "apply_rope", "cross_entropy_loss",
            "topk_low_index_first"]
 
@@ -189,6 +198,98 @@ def make_shardings(specs: Any, mesh: Mapping[str, int],
     :class:`ParamSpec` tree."""
     return map_tree(lambda s: logical_to_pspec(s.axes, mesh, rules, s.shape),
                     specs)
+
+
+def pspec_axes(pspec: Sequence[Any], dim: int) -> Tuple[str, ...]:
+    """The mesh axes that split dim ``dim`` under ``pspec`` (a
+    :func:`logical_to_pspec` result), outermost first; ``()`` when the dim
+    is whole."""
+    entry = pspec[dim] if dim < len(pspec) else None
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def split_axes(pspec: Sequence[Any], mesh) -> Tuple[str, ...]:
+    """The axes of ``mesh`` with 2 or more ranks that ``pspec`` splits a
+    leaf over (on any dim)."""
+    return tuple(a for i in range(len(pspec)) for a in pspec_axes(pspec, i)
+                 if mesh.shape[a] > 1)
+
+
+def block_slices(shape: Sequence[int], pspec: Sequence[Any], mesh
+                 ) -> Tuple[slice, ...]:
+    """This rank's block of a leaf of ``shape`` under ``pspec`` on the
+    device mesh ``mesh``: a slice a dim.  A dim split over several axes
+    takes the rank's row-major coordinate over them, as JAX lays out a
+    ``NamedSharding``; ``pspec`` comes from :func:`logical_to_pspec`, so
+    the split divides the dim."""
+    out = []
+    for i, n in enumerate(shape):
+        axes = pspec_axes(pspec, i)
+        k = mesh.size(axes)
+        if n % k:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                             f"over {axes} ({k} ranks)")
+        r, b = mesh.flat_index(axes), n // k
+        out.append(slice(r * b, (r + 1) * b))
+    return tuple(out)
+
+
+def shard_block(x: torch.Tensor, pspec: Sequence[Any], mesh
+                ) -> torch.Tensor:
+    """This rank's block of ``x`` under ``pspec`` (a view)."""
+    return x[block_slices(x.shape, pspec, mesh)]
+
+
+def block_owner(pspec: Sequence[Any], mesh) -> bool:
+    """Whether this rank is the first of the ranks that hold its block:
+    coordinate 0 on every mesh axis ``pspec`` does not split over."""
+    used = split_axes(pspec, mesh)
+    return all(mesh.index(a) == 0 for a in mesh.axis_names if a not in used)
+
+
+def gather_block(x: torch.Tensor, pspec: Sequence[Any], mesh,
+                 keep: Sequence[str] = ()) -> torch.Tensor:
+    """The whole leaf from this rank's block ``x``, gathered over every
+    axis ``pspec`` splits it on but those in ``keep`` (an axis of one
+    rank costs nothing).
+
+    The backward is the train step's: over ``model`` every rank's
+    gradient of the whole leaf is already the whole gradient (the tensor
+    parallel code pairs ``copy_to`` with ``reduce_from``), so the rank
+    keeps its block of it and sums nothing
+    (:func:`~repro_torch.dist.transport.gather_from`); over the batch axes
+    (``pod``, ``data``) the ranks' losses differ, so their gradients are
+    reduce-scattered, summed into the rank's block
+    (:func:`~repro_torch.dist.transport.all_gather`)."""
+    for i in range(x.dim()):
+        for ax in reversed(pspec_axes(pspec, i)):
+            if ax in keep or mesh.shape[ax] == 1:
+                continue
+            x = (tx.gather_from(x, mesh, ax, i) if ax == "model"
+                 else tx.all_gather(x, mesh, ax, i))
+    return x
+
+
+class ShardedLayer:
+    """One layer's params as this rank's blocks (``blocks``, a dict tree,
+    and ``pspecs``, their partition specs), gathered whole where the layer
+    runs: the model's layer functions call :func:`whole` inside their
+    ``torch.utils.checkpoint`` region, so the backward gathers again and no
+    rank holds more than one layer's whole params."""
+
+    def __init__(self, blocks: Any, pspecs: Any, mesh):
+        self.blocks, self.pspecs, self.mesh = blocks, pspecs, mesh
+
+    def gather(self) -> Any:
+        return map_tree(lambda b, ps: gather_block(b, ps, self.mesh),
+                        self.blocks, self.pspecs)
+
+
+def whole(p: Any) -> Any:
+    """``p`` gathered if it is a :class:`ShardedLayer`, else ``p``."""
+    return p.gather() if isinstance(p, ShardedLayer) else p
 
 
 # ---------------------------------------------------------------------------

@@ -44,8 +44,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, moe, ssm
-from repro_torch.models.common import (ParamSpec, cross_entropy_loss,
-                                       rms_norm)
+from repro_torch.models.common import (ParamSpec, ShardedLayer,
+                                       cross_entropy_loss, rms_norm, whole)
 from repro_torch.models.lm import _layer, _splitk, embed_inputs, stack_specs
 from repro_torch.tree import index_tree
 
@@ -80,6 +80,7 @@ def ssm_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _ssm_apply(x: torch.Tensor, bp: dict, cfg: ModelConfig) -> torch.Tensor:
+    bp = whole(bp)
     h = rms_norm(x, bp["norm"], cfg.norm_eps)
     train = (ssm.mamba1_train if cfg.ssm_variant == "mamba1"
              else ssm.mamba2_train)
@@ -104,8 +105,9 @@ def ssm_forward(params: dict, batch: Dict[str, torch.Tensor],
                 cfg: ModelConfig, mesh=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) in the compute dtype, a zero aux loss).
-    On a ``mesh`` every rank runs its rows whole (no collective)."""
-    x = embed_inputs(params, batch, cfg)
+    On a ``mesh`` every rank runs its rows whole (no collective but the
+    embedding's and, for params given as blocks, their gathers)."""
+    x = embed_inputs(params, batch, cfg, mesh)
     layer = _maybe_remat(lambda x, bp: _ssm_apply(x, bp, cfg), cfg)
     for i in range(cfg.n_layers):
         x = layer(x, _layer(params["blocks"], i))
@@ -273,34 +275,48 @@ def _shared_block_train(x: torch.Tensor, params: dict, g: int,
 
 def _mamba_layer(params: dict, layer: int, cfg: ModelConfig) -> dict:
     """Mamba layer ``layer``'s params: (group, position) of
-    ``mamba_groups``, or an entry of ``mamba_tail``."""
+    ``mamba_groups``, or an entry of ``mamba_tail`` (each stacked, or a
+    list a group or a layer)."""
     period = cfg.shared_attn_period
     groups, _ = hybrid_layout(cfg)
     if layer < groups * period:
-        return index_tree(index_tree(params["mamba_groups"],
-                                     layer // period), layer % period)
-    return index_tree(params["mamba_tail"], layer - groups * period)
+        return index_tree(_layer(params["mamba_groups"], layer // period),
+                          layer % period)
+    return _layer(params["mamba_tail"], layer - groups * period)
 
 
 def hybrid_forward(params: dict, batch: Dict[str, torch.Tensor],
                    cfg: ModelConfig, mesh=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) in the compute dtype, a zero aux loss).
-    On a ``mesh``, the shared attention's heads split over ``model``."""
+    On a ``mesh``, the shared attention's heads split over ``model``; a
+    group's Mamba layers given as a
+    :class:`~repro_torch.models.common.ShardedLayer` (the train step's
+    blocks) are gathered once inside the group's checkpoint region, a
+    tail layer's inside its own (the train step on a mesh runs under
+    remat; with whole params the tail, as the JAX forward's, runs without
+    it)."""
     groups, tail = hybrid_layout(cfg)
     period = cfg.shared_attn_period
-    x = embed_inputs(params, batch, cfg)
+    x = embed_inputs(params, batch, cfg, mesh)
 
     def group(x, g):
+        gp = whole(_layer(params["mamba_groups"], g))
         for j in range(period):
-            x = _ssm_apply(x, _mamba_layer(params, g * period + j, cfg), cfg)
+            x = _ssm_apply(x, index_tree(gp, j), cfg)
         return _shared_block_train(x, params, g, cfg, mesh)
 
     group = _maybe_remat(group, cfg)
+    sharded_tail = _maybe_remat(lambda x, t: _ssm_apply(
+        x, _layer(params["mamba_tail"], t), cfg), cfg)
     for g in range(groups):
         x = group(x, g)
     for t in range(tail):
-        x = _ssm_apply(x, _mamba_layer(params, groups * period + t, cfg), cfg)
+        bp = _layer(params["mamba_tail"], t)
+        # as the JAX forward, the tail keeps its activations; a layer
+        # given as blocks is gathered inside a checkpoint region of its own
+        x = (sharded_tail(x, t) if isinstance(bp, ShardedLayer)
+             else _ssm_apply(x, bp, cfg))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(x, params, cfg), aux
 

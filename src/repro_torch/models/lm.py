@@ -8,8 +8,10 @@ model and the VLM backbone.
 Parameters are a plain dict of tensors in the JAX tree's layout, with
 ``blocks`` stacked on a leading layers axis (or, as the train step passes
 them, a list of per-layer dicts of views: see
-:func:`repro_torch.train.state.split_layers`); the block stack runs as a
-Python loop over layers (``lax.scan`` in JAX).  For decode, the state
+:func:`repro_torch.train.state.split_layers`; on a device mesh each a
+:class:`~repro_torch.models.common.ShardedLayer` of the rank's blocks,
+gathered where the layer runs); the block stack runs as a Python loop
+over layers (``lax.scan`` in JAX).  For decode, the state
 leaves are a contiguous engine's dense ``(layers, batch, max_seq, ...)``
 slot rows (:func:`decode_state_specs`), or physical page pools ``(layers,
 num_pages, page_size, Hkv, hd)`` for GQA, ``(layers, num_pages, page_size, kv_lora_rank)`` and ``(...,
@@ -40,12 +42,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, mla, moe, paging
+from repro_torch.dist import transport as tx
 from repro_torch.models.common import (ParamSpec, cross_entropy_loss,
-                                       rms_norm, topk_low_index_first)
+                                       rms_norm, topk_low_index_first, whole)
 from repro_torch.tree import index_tree, map_tree
 
 __all__ = ["param_specs", "block_specs", "stack_specs", "forward",
-           "train_loss", "embed_inputs", "decode_state_specs",
+           "train_loss", "embed_inputs", "vocab_parallel_embed",
+           "decode_state_specs",
            "decode_step", "prefill_chunk", "verify_chunk",
            "draft_head_specs", "verify_tree", "hidden_states",
            "fit_draft_heads"]
@@ -121,7 +125,10 @@ def _layer(blocks: Any, i: int) -> dict:
 
 def _block_train(x: torch.Tensor, bp: dict, cfg: ModelConfig, mesh=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One block: (x, the layer's router aux loss; 0 for a dense FFN)."""
+    """One block: (x, the layer's router aux loss; 0 for a dense FFN).
+    ``bp`` may be a :class:`~repro_torch.models.common.ShardedLayer`,
+    gathered here."""
+    bp = whole(bp)
     h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
     if cfg.attn_kind == "mla":
         x = x + mla.mla_train(h, bp["attn"], cfg)
@@ -136,12 +143,39 @@ def _block_train(x: torch.Tensor, bp: dict, cfg: ModelConfig, mesh=None
     return x + h, aux
 
 
+def vocab_parallel_embed(tokens: torch.Tensor, table: torch.Tensor, mesh,
+                         vocab: int, enabled: bool = True) -> torch.Tensor:
+    """Rows ``tokens`` of the (vocab, D) embedding ``table`` (Megatron's
+    VocabParallelEmbedding, the counterpart of
+    ``repro/models/lm.py:vocab_parallel_embed``).
+
+    On a ``mesh`` whose ``model`` axis has ``tp`` > 1 ranks dividing
+    ``vocab``, ``table`` is this rank's block of ``vocab / tp`` rows: each
+    rank takes the tokens that fall in its rows, zeros the others, and the
+    ranks' results are summed over ``model``
+    (:func:`~repro_torch.dist.transport.reduce_from`: every rank's
+    gradient of its block is then its block of the whole gradient).
+    Without one (``enabled`` off, ``tp`` 1, ``vocab % tp``), or given the
+    whole table, a plain take."""
+    tp = mesh.shape.get("model", 1) if mesh is not None else 1
+    if not enabled or tp == 1 or vocab % tp or table.shape[0] == vocab:
+        return table[tokens.long()]
+    v_local = vocab // tp
+    lo = mesh.index("model") * v_local
+    tok = tokens.long()
+    in_range = (tok >= lo) & (tok < lo + v_local)
+    x = table[torch.clamp(tok - lo, 0, v_local - 1)]
+    x = x * in_range[..., None].to(x.dtype)
+    return tx.reduce_from(x, mesh, "model")
+
+
 def embed_inputs(params: dict, batch: Dict[str, torch.Tensor],
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """(B, S, D) inputs of the block stack in the compute dtype: the token
-    embedding, after the projected ``vision_embeds`` (B, n_frontend_tokens,
-    frontend_dim) of a vision stub; for an audio stub, the projected
-    ``frames`` (B, S, frontend_dim) alone."""
+    embedding (:func:`vocab_parallel_embed` on a ``mesh``), after the
+    projected ``vision_embeds`` (B, n_frontend_tokens, frontend_dim) of a
+    vision stub; for an audio stub, the projected ``frames`` (B, S,
+    frontend_dim) alone."""
     parts = []
     if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
         ve = batch["vision_embeds"].to(cfg.dtype)
@@ -149,7 +183,9 @@ def embed_inputs(params: dict, batch: Dict[str, torch.Tensor],
     if cfg.frontend == "audio_stub":
         frames = batch["frames"].to(cfg.dtype)
         return frames @ params["frontend_proj"].to(cfg.dtype)
-    parts.append(params["embed"][batch["tokens"].long()].to(cfg.dtype))
+    parts.append(vocab_parallel_embed(batch["tokens"], params["embed"], mesh,
+                                      cfg.vocab, cfg.use_tp_shardmap
+                                      ).to(cfg.dtype))
     return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
@@ -159,8 +195,12 @@ def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     router losses summed over layers in layer order (0 for dense FFNs).
 
     On a device ``mesh`` (:class:`repro_torch.launch.mesh.Mesh`) ``batch``
-    holds this rank's rows and the params are whole on every rank: GQA
-    splits its heads over ``model`` and the MoE FFN its experts
+    holds this rank's rows.  The params a layer computes with are whole:
+    given whole, or as the train step gives them, each layer a
+    :class:`~repro_torch.models.common.ShardedLayer` of the rank's blocks
+    gathered inside the layer's checkpoint region, and ``embed`` the
+    rank's block of vocab rows (:func:`vocab_parallel_embed`).  GQA splits
+    its heads over ``model`` and the MoE FFN its experts
     (:func:`~repro_torch.models.attention.gqa_train`,
     :func:`~repro_torch.models.moe.moe_ffn`); the rest runs whole on every
     rank.  The logits are those of the rank's rows, and the ranks'
@@ -171,7 +211,7 @@ def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint`` with
     ``nothing_saveable``): only its input is kept, and the backward runs
     the layer's forward again."""
-    x = embed_inputs(params, batch, cfg)
+    x = embed_inputs(params, batch, cfg, mesh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):

@@ -283,7 +283,8 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, mesh=None
     experts not divisible over it, or the sequence not), the dense
     dispatch.  Else expert parallelism: ``x`` here is this rank's batch
     rows (B / dp, S, D), the same on every ``model`` rank, and ``p`` the
-    whole weights, the same on every rank; each rank takes its stretch of
+    whole weights, the same on every rank (the sharded train step gathers
+    the layer's blocks before the layer runs); each rank takes its stretch of
     the sequence and its experts (split over ``model`` only: the weights
     are whole already, so nothing is gathered over the data axes, and the
     train step's mean over them gives the mean gradient), and the outputs

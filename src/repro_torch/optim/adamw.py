@@ -9,6 +9,11 @@ each leaf's update instead of building a clipped copy of the gradient tree:
 the largest temporary is one leaf's.  It returns the same tensors it was
 given.  ``torch.optim`` (and its ``_foreach`` kernels, which hold a
 full-tree temporary) is not used.
+
+On a device mesh the trees hold each rank's blocks (the train step's
+sharded state); :func:`global_norm` then sums each leaf's squares over the
+mesh axes that leaf is split on, and the update itself is elementwise on
+the blocks.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.models.common import split_axes
 from repro_torch.tree import leaves, map_tree, sorted_leaves
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
@@ -47,11 +53,31 @@ def adamw_init(params: Any) -> AdamWState:
                       m=map_tree(zeros, params), v=map_tree(zeros, params))
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, mesh=None, shardings: Any = None
+                ) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares (fp32),
     summed in the JAX package's leaf order (dict keys sorted), so the norm
-    does not depend on the order in which a tree's dicts were built."""
-    parts = [torch.sum(torch.square(g.float())) for g in sorted_leaves(tree)]
+    does not depend on the order in which a tree's dicts were built.
+
+    With ``shardings`` (a tree of partition specs matching ``tree``, whose
+    leaves are this rank's blocks on ``mesh``) each leaf's partial sum is
+    first summed over exactly the mesh axes that leaf is split on (one
+    all-reduce for all the leaves split on the same axes), never over an
+    axis it is replicated on; every rank then adds the same numbers in the
+    same order, so the norm is the same on every rank."""
+    flat = sorted_leaves(tree)
+    parts = [torch.sum(torch.square(g.float())) for g in flat]
+    if shardings is not None:
+        # a frozenset is a leaf of the tree walk (a tuple would not be)
+        split = sorted_leaves(map_tree(
+            lambda g, ps: frozenset(split_axes(ps, mesh)), tree, shardings))
+        for axes in sorted({tuple(sorted(a)) for a in split if a}):
+            idx = [i for i, a in enumerate(split) if tuple(sorted(a)) == axes]
+            summed = torch.stack([parts[i] for i in idx])
+            for ax in axes:
+                summed = mesh.transport.all_reduce(summed, mesh.group(ax))
+            for i, v in zip(idx, summed):
+                parts[i] = v
     return torch.sqrt(torch.sum(torch.stack(parts)))
 
 
@@ -70,14 +96,17 @@ def clip_by_global_norm(grads: Any, max_norm: float
 
 def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
                  state: AdamWState,
-                 lr: Optional[Union[float, torch.Tensor]] = None
+                 lr: Optional[Union[float, torch.Tensor]] = None,
+                 mesh=None, shardings: Any = None
                  ) -> Tuple[Any, AdamWState, dict]:
     """One AdamW step, in place.  ``lr`` overrides cfg.lr (for schedules).
 
     Updates every leaf of ``params``, ``state.m`` and ``state.v`` in place
     and returns ``(params, AdamWState(step + 1, m, v), metrics)`` with the
-    same trees; metrics are ``grad_norm`` (before clipping) and ``lr``."""
-    gnorm = global_norm(grads)
+    same trees; metrics are ``grad_norm`` (before clipping) and ``lr``.
+    ``mesh`` and ``shardings``: the trees hold this rank's blocks under
+    those partition specs (:func:`global_norm`)."""
+    gnorm = global_norm(grads, mesh, shardings)
     scale = _clip_scale(gnorm, cfg.grad_clip) if cfg.grad_clip else None
     step = state.step + 1
     lr_t = cfg.lr if lr is None else lr

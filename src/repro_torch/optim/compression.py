@@ -39,7 +39,8 @@ def init_error_state(params: Any, n_shards: int) -> Any:
 
 
 def compressed_psum_mean(grads: Any, err: Any, sub_axes: Sequence[str],
-                         n_shards: int, *, mesh: Mesh) -> Tuple[Any, Any]:
+                         n_shards: int, *, mesh: Mesh,
+                         shard_axes: Sequence[str] = ()) -> Tuple[Any, Any]:
     """Mean-reduce ``grads`` over the (factored) reduction axis with int8
     payloads, exact integer accumulation, and error feedback.
 
@@ -50,9 +51,12 @@ def compressed_psum_mean(grads: Any, err: Any, sub_axes: Sequence[str],
         :func:`~repro_torch.dist.collectives.make_tree_mesh`.
       n_shards: total shards being reduced (for the exactness check and
         the mean).
+      shard_axes: axes of ``mesh`` that split every leaf into blocks (the
+        leaves are this rank's blocks): the max-abs is taken over them
+        too, so a leaf keeps one scale however it is split.
 
     Returns (mean grads fp32, new err): one shared scale, the max over the
-    stage axes of ``|g + e|`` / 127 (at least 1e-12); the int8 codes summed
+    stage axes (and ``shard_axes``) of ``|g + e|`` / 127 (at least 1e-12); the int8 codes summed
     in int32 through :func:`tree_psum` under
     ``make_reduction_plan(n_shards, payload_bits=8, acc_bits=32)``;
     dequantized and divided by ``n_shards``; the new residual ``g + e -
@@ -65,7 +69,8 @@ def compressed_psum_mean(grads: Any, err: Any, sub_axes: Sequence[str],
 
     def leaf(g, e):
         g32 = g.float() + e
-        amax = tree_pmax(torch.amax(torch.abs(g32)), sub_axes, mesh=mesh)
+        amax = tree_pmax(torch.amax(torch.abs(g32)),
+                         tuple(shard_axes) + tuple(sub_axes), mesh=mesh)
         scale = torch.clamp(amax / 127.0, min=1e-12)
         q = quantize_int8(g32, scale)
         new_e = g32 - dequantize_int8(q, scale)      # residual feedback

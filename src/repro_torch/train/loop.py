@@ -6,6 +6,11 @@ newest committed checkpoint.  Pure Python around the step, so every
 policy here is unit-testable without a card.  Data is keyed by ``(seed,
 step)``, so a run restored at step ``n`` sees the batches the run that
 never stopped saw from step ``n`` on.
+
+On a device mesh (``mesh`` and ``state_shardings``, the partition specs of
+the state's blocks) every rank runs the loop: saves write each rank's
+blocks into one checkpoint, and :meth:`TrainLoop.maybe_restore` reads the
+rank's blocks under ``state_shardings``, whatever mesh saved them.
 """
 from __future__ import annotations
 
@@ -50,14 +55,17 @@ class TrainLoop:
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
                  loop_cfg: LoopConfig, step_fn: Callable,
                  state: Dict[str, Any],
-                 data_cfg: Optional[HostDataConfig] = None):
+                 data_cfg: Optional[HostDataConfig] = None,
+                 state_shardings: Any = None, mesh=None):
         self.cfg = cfg
         self.shape = shape
         self.loop_cfg = loop_cfg
         self.step_fn = step_fn
         self.state = state
+        self.state_shardings, self.mesh = state_shardings, mesh
         self.data_cfg = data_cfg or HostDataConfig(loop_cfg.seed, 1, 0)
-        self.ckpt = (AsyncCheckpointer(loop_cfg.ckpt_dir, loop_cfg.keep_ckpts)
+        self.ckpt = (AsyncCheckpointer(loop_cfg.ckpt_dir, loop_cfg.keep_ckpts,
+                                       mesh, state_shardings)
                      if loop_cfg.ckpt_dir else None)
         self.hb = HeartbeatMonitor(self.data_cfg.num_hosts,
                                    loop_cfg.heartbeat_timeout)
@@ -75,7 +83,9 @@ class TrainLoop:
         if step is None:
             return 0
         self.state = restore_checkpoint(self.loop_cfg.ckpt_dir, step,
-                                        self.state)
+                                        self.state,
+                                        shardings=self.state_shardings,
+                                        mesh=self.mesh)
         return step
 
     def _batch_for(self, step: int) -> Dict[str, np.ndarray]:

@@ -263,8 +263,10 @@ def dist_train_program(rank: int, payload) -> dict:
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.optim.grad_accum import value_and_grad
     from repro_torch.train import state as state_mod
-    from repro_torch.train.state import (build_train_step, init_train_state,
-                                         split_layers)
+    from repro_torch.models.common import gather_block
+    from repro_torch.train.state import (build_train_step, gather_train_state,
+                                         init_train_state, shard_train_state,
+                                         split_layers, train_state_shardings)
     from repro_torch.tree import map_tree
 
     def stack_layers(tree):
@@ -286,25 +288,33 @@ def dist_train_program(rank: int, payload) -> dict:
     def standard_step():
         tr = payload["train"]
         cfg = cfg_of("train")
-        state = train_state_from_numpy(tr["state"], "cpu")
+        whole = train_state_from_numpy(tr["state"], "cpu")
         batch = {k: t(v) for k, v in tr["batch"].items()}
         n, r = rows_of(pod)
         api = get_api(cfg)
         vg = value_and_grad(lambda p, b: api.train_loss(p, b, cfg, pod))
         mine = {k: v.chunk(n)[r] for k, v in batch.items()}
-        loss, grads = vg(state["params"], mine)
+        loss, grads = vg(whole["params"], mine)
         grads = tree_pmean(grads, ("pod", "data"), mesh=pod)
         loss = tree_pmean(loss, ("pod", "data"), mesh=pod)
+        # the step on the rank's blocks of the state
+        shardings = train_state_shardings(cfg, pod)
+        state = shard_train_state(whole, shardings, pod)
         step = build_train_step(cfg, opt, mesh=pod)
         _, metrics = step(state, batch)
-        return _np((loss, grads, metrics, state["params"]))
+        params = gather_train_state(state, shardings, pod)["params"]
+        return _np((loss, grads, metrics, params))
 
     def compressed_step():
         tr = payload["train"]
         cfg = cfg_of("train")
-        state = train_state_from_numpy(tr["state"], "cpu")
-        state["err"] = init_train_state(
-            cfg, torch.Generator().manual_seed(0), pod_compressed=True)["err"]
+        whole = train_state_from_numpy(tr["state"], "cpu")
+        whole["err"] = init_train_state(
+            cfg, torch.Generator().manual_seed(0), pod_compressed=True,
+            n_pods=2)["err"]
+        shardings = train_state_shardings(cfg, pod, pod_compressed=True,
+                                          n_pods=2)
+        state = shard_train_state(whole, shardings, pod)
         step = build_train_step(cfg, opt, mesh=pod, pod_compressed=True)
         batch = {k: t(v) for k, v in tr["batch"].items()}
         # this pod's gradient as the step computes it before compression:
@@ -313,25 +323,35 @@ def dist_train_program(rank: int, payload) -> dict:
         n, r = rows_of(pod)
         _, pod_grads = value_and_grad(
             lambda p, b: api.train_loss(p, b, cfg, pod))(
-                split_layers(state["params"]),
+                split_layers(whole["params"]),
                 {k: v.chunk(n)[r] for k, v in batch.items()})
         pod_grads = tree_pmean(pod_grads, ("data",), mesh=pod)
-        # and the gradient the step hands AdamW
+        # and the gradient the step hands AdamW: the rank's blocks,
+        # gathered whole here
         seen = {}
         real = state_mod.adamw_update
 
-        def spy(opt_cfg, params, grads, *rest):
-            seen["grads"] = map_tree(lambda g: g.detach().clone(), grads)
-            return real(opt_cfg, params, grads, *rest)
+        def spy(opt_cfg, params, grads, *rest, mesh=None, shardings=None):
+            seen["grads"] = map_tree(
+                lambda g, ps: gather_block(g.detach(), ps, mesh), grads,
+                shardings)
+            return real(opt_cfg, params, grads, *rest, mesh=mesh,
+                        shardings=shardings)
         state_mod.adamw_update = spy
         try:
             _, metrics = step(state, batch)
         finally:
             state_mod.adamw_update = real
-        first = _np((metrics, state["params"], state["err"],
-                     stack_layers(pod_grads), stack_layers(seen["grads"])))
+        # whole leaves, each rank's err its pod's block of 1
+        err = map_tree(lambda e, ps: gather_block(e, ps, pod, keep=("pod",)),
+                       state["err"], shardings["err"])
+        params = gather_train_state(state, shardings, pod)["params"]
+        first = _np((metrics, params, err, stack_layers(pod_grads),
+                     stack_layers(seen["grads"])))
         _, metrics = step(state, batch)
-        return first, _np((metrics, state["err"]))
+        err = map_tree(lambda e, ps: gather_block(e, ps, pod, keep=("pod",)),
+                       state["err"], shardings["err"])
+        return first, _np((metrics, err))
 
     def decode(name, api_name):
         dc = payload[name]
@@ -393,3 +413,160 @@ def dist_train_program(rank: int, payload) -> dict:
         "decode": lambda: decode("decode", "decode_step"),
         "hybrid_decode": lambda: decode("hybrid", "decode_step"),
         "head_pad": head_pad, "refusals": refusals})
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_sharded_state.py (8 ranks: pod 2 x data 2 x model 2 and
+# data 2 x model 4; then 4 ranks for the elastic restore, 2 for the CLI)
+# ---------------------------------------------------------------------------
+
+def _sharded_run(cfg, mesh, state_np, batches, opt, ckpt=None):
+    """Steps of ``cfg`` on ``mesh`` from the whole numpy state, sharded:
+    per step the metrics, the gathered params and the transport's bytes,
+    the first step's gradient as AdamW got it (gathered, layers stacked),
+    and with ``ckpt`` (a directory) a save after the first step and the
+    gathered state then."""
+    from repro_torch.checkpoint.ckpt import AsyncCheckpointer
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.models.common import gather_block
+    from repro_torch.train import state as state_mod
+    from repro_torch.train.state import (build_train_step, gather_train_state,
+                                         shard_train_state,
+                                         train_state_shardings)
+    from repro_torch.tree import map_tree
+
+    shardings = train_state_shardings(cfg, mesh)
+    state = shard_train_state(train_state_from_numpy(state_np, "cpu"),
+                              shardings, mesh)
+    blocks = {k: {"/".join(map(str, i)): tuple(t.shape) for i, t in
+                  _paths(state[k])} for k in ("params", "m", "v")}
+    step = build_train_step(cfg, opt, mesh=mesh)
+    out = {"blocks": blocks, "steps": []}
+    real = state_mod.adamw_update
+
+    def spy(opt_cfg, params, grads, *rest, mesh=None, shardings=None):
+        if "grads" not in out:
+            whole = map_tree(lambda g, ps: gather_block(g, ps, mesh), grads,
+                             shardings)
+            out["grads"] = _np({k: map_tree(lambda *xs: torch.stack(xs),
+                                            *v) if isinstance(v, list) else v
+                                for k, v in whole.items()})
+        return real(opt_cfg, params, grads, *rest, mesh=mesh,
+                    shardings=shardings)
+    for i, batch in enumerate(batches):
+        mesh.transport.reset()
+        state_mod.adamw_update = spy
+        try:
+            state, metrics = step(state, {k: torch.from_numpy(v)
+                                          for k, v in batch.items()})
+        finally:
+            state_mod.adamw_update = real
+        out["steps"].append(_np((metrics, gather_train_state(
+            state, shardings, mesh)["params"], dict(mesh.transport.bytes))))
+        if ckpt is not None and i == 0:
+            saver = AsyncCheckpointer(ckpt, mesh=mesh, shardings=shardings)
+            saver.save(1, state)
+            saver.close()
+            out["saved"] = _np(gather_train_state(state, shardings, mesh))
+    return out
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _paths(tree[k],
+                                                        prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def sharded_state_program(rank: int, payload) -> dict:
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.common import shard_block
+    from repro_torch.models.lm import vocab_parallel_embed
+    from repro_torch.optim.adamw import AdamWConfig
+
+    pod = make_test_mesh("cpu", multi_pod=True)
+    flat = make_test_mesh("cpu")
+    opt = AdamWConfig(lr=1e-2, grad_clip=1.0)
+    cfg_of = lambda c: get_config(c["arch"]).reduced(dtype=torch.float32,
+                                                     **c["over"])
+    meshes = {"pod": pod, "flat": flat}
+
+    def embed():
+        out = {}
+        for vocab, e in payload["embed"].items():
+            table = torch.from_numpy(e["table"])
+            if vocab % flat.shape["model"] == 0:
+                table = shard_block(table, ("model",), flat)
+            leaf = table.clone().requires_grad_(True)
+            y = vocab_parallel_embed(torch.from_numpy(e["tokens"]), leaf,
+                                     flat, vocab)
+            grad, = torch.autograd.grad((y * torch.from_numpy(e["c"])).sum(),
+                                        leaf)
+            out[vocab] = _np((y, grad))
+        return out
+
+    def run(name):
+        c = payload[name]
+        return _sharded_run(cfg_of(c), meshes[c["mesh"]], c["state"],
+                            c["batches"], opt, c.get("ckpt"))
+
+    return _run_cases({"embed": embed,
+                       **{name: (lambda n=name: run(n))
+                          for name in ("llama", "moe", "moe_dense",
+                                       "hybrid")}})
+
+
+def elastic_program(rank: int, payload) -> dict:
+    """The llama checkpoint of ``sharded_state_program`` restored onto a
+    (data, model) mesh of ``payload["mesh"]``, then step 2."""
+    from repro_torch.checkpoint.ckpt import restore_checkpoint
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.state import (build_train_step, gather_train_state,
+                                         init_train_state,
+                                         train_state_shardings)
+
+    cfg = get_config(payload["arch"]).reduced(dtype=torch.float32,
+                                              **payload["over"])
+    mesh = device_mesh(payload["mesh"], ("data", "model"), "cpu")
+
+    def restore():
+        shardings = train_state_shardings(cfg, mesh)
+        target = init_train_state(cfg, torch.Generator(), mesh=mesh)
+        state = restore_checkpoint(payload["ckpt"], 1, target,
+                                   shardings=shardings, mesh=mesh)
+        restored = _np(gather_train_state(state, shardings, mesh))
+        step = build_train_step(cfg, AdamWConfig(lr=1e-2, grad_clip=1.0),
+                                mesh=mesh)
+        _, metrics = step(state, {k: torch.from_numpy(v)
+                                  for k, v in payload["batch"].items()})
+        return restored, _np((metrics, gather_train_state(
+            state, shardings, mesh)["params"]))
+
+    return _run_cases({"restore": restore})
+
+
+def train_cli_program(rank: int, payload) -> dict:
+    """``launch/train.py``'s ``main`` on this 2-rank group, twice on one
+    checkpoint directory (``main`` leaves the group, so a new one is
+    joined after each run); each run's printed lines."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as tlaunch
+
+    def run(steps, store):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            tlaunch.main(payload["argv"] + ["--steps", str(steps)])
+        dist.init_process_group(
+            "gloo", init_method=f"file://{os.path.join(payload['dir'], store)}",
+            rank=rank, world_size=2,
+            timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT))
+        return buf.getvalue()
+
+    return _run_cases({"first": lambda: run(payload["steps"][0], "store1"),
+                       "resumed": lambda: run(payload["steps"][1],
+                                              "store2")})
