@@ -155,7 +155,7 @@ Phases:
      goodput is reported
   D. speculative serve, full width on phase 6's weights and geometry: 8
      greedy requests of 128-1024 prompt tokens (a seeded 64-token passage
-     per request, repeated with 2 tokens edited in each copy) x 32 new
+     per request, repeated with 2 tokens edited in each copy) x 16 new
      tokens, served sequentially, then chain (spec_k 4), tree and auto
      (12 nodes, branch 3) and draft heads (4 heads of width 64, fitted on
      the card by fit_draft_heads on the sequential histories' last 256
@@ -210,10 +210,10 @@ Phases:
      (decode tok/s max, pool bytes min, p99 step min) printed
   F. MLA serve: minicpm3-4b at its published width (d 2560, 40 heads,
      q_lora_rank 768, kv_lora_rank 256, nope 64, rope 32, v 64, d_ff
-     6400, vocab 73448) cut to 16 of its 62 layers (1.38 B params, bf16,
+     6400, vocab 73448) cut to 8 of its 62 layers (0.88 B params, bf16,
      random from seed 0), after T with the llama weights freed, on phase
      6's geometry: phase 6's traffic over bf16, int8 and int4 latent pools
-     (9,216 / 4,736 / 2,432 bytes a token asserted: 16/62 of the whole
+     (4,608 / 2,368 / 1,216 bytes a token asserted: 8/62 of the whole
      model's 35,712 / 18,352 / 9,424), phase A's shared-prefix traffic cold
      and warm (tokens equal, 7 hits), chain (spec_k 4) and tree (12 nodes,
      branch 3) on phase D's passages, and E3's sampling over int8 twice
@@ -348,7 +348,7 @@ Phases:
      moe_ffn_ep_psum against the dense dispatch within 2e-4, one
      moa_reduce a call, moa_reduce at the per-rank combine (2, 1024,
      4096) torch.equal to its plain version; X3 one pod-compressed train
-     step of llama3.2-3b cut to 2 of 28 layers (0.99 B params, ~20 B a
+     step of llama3.2-3b cut to 1 of 28 layers (0.89 B params, ~20 B a
      param a rank: its sharded state keeps params, m and v whole over
      ``pod``, as the JAX layout does, and ``err`` the pod's block of 1),
      one sequence of the 2 x 2048 batch a pod, against
@@ -440,9 +440,12 @@ from repro_torch.kernels import bitplane_add as bpa  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moa_reduce as moa  # noqa: E402
 from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
+from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
-from repro_torch.models.common import (init_params, rms_norm,  # noqa: E402
-                                       shape_structs)
+from repro_torch.models.common import (block_owner,  # noqa: E402
+                                       init_params, rms_norm,
+                                       shape_structs, shard_block,
+                                       split_axes)
 from repro_torch.launch.dryrun import _resident_bytes, run_cell  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
@@ -464,8 +467,8 @@ from repro_torch.serve.sampling import (sample_tokens,  # noqa: E402
 from repro_torch.serve.engine import tree_width  # noqa: E402
 from repro_torch.train.loop import LoopConfig, TrainLoop  # noqa: E402
 from repro_torch.train.state import (build_train_step,  # noqa: E402
-                                     init_train_state, split_layers,
-                                     train_state_shardings,
+                                     init_train_state, mesh_params,
+                                     split_layers, train_state_shardings,
                                      train_state_specs)
 from repro_torch.tree import leaves, map_tree  # noqa: E402
 from repro_torch.tune import (Arrival, SweepSpec,  # noqa: E402
@@ -496,10 +499,11 @@ KERNELS = {
 }
 
 #: the second served architecture: Multi-head Latent Attention; phase F
-#: serves it at its published width cut to 16 of its 62 layers (at 62 F
+#: serves it at its published width cut to 8 of its 62 layers (at 62 F
 #: took 165-209 s, the smoke's longest phase; at 31, 104-128 s, and the
-#: smoke took 1331.4 s of phases on a slow host)
-MLA_ARCH, MLA_LAYERS = "minicpm3-4b", 16
+#: smoke took 1331.4 s of phases on a slow host; at 16, 41-106 s, and
+#: with phase X7 the smoke took 1151.4 s on a slow host)
+MLA_ARCH, MLA_LAYERS = "minicpm3-4b", 8
 #: phase M: the routed MoE FFN at its published width, cut to 16 of its 32
 #: layers (the whole model, 83.7 GB in bf16, does not fit the card); and
 #: the other MoE architecture, held at its reduced config
@@ -1762,12 +1766,12 @@ def phase_overload(cfg, params, chunk_s, step_s):
 
 
 #: phase D: prompt lengths (as phase 6's), new tokens (64 until the smoke
-#: took 1331.4 s of phases on a slow host; also F's, M2's and Q's
-#: speculative runs), and the draft-head fit (4 heads of width 64 on the
-#: last FIT_WINDOW tokens of each sequential history, FIT_STEPS
-#: full-batch Adam steps)
+#: took 1331.4 s of phases on a slow host, 32 until it took 1151.4 s with
+#: phase X7; also F's, M2's and Q's speculative runs), and the draft-head
+#: fit (4 heads of width 64 on the last FIT_WINDOW tokens of each
+#: sequential history, FIT_STEPS full-batch Adam steps)
 SPEC_LENS = (1024, 128, 768, 256, 896, 384, 640, 512)
-SPEC_NEW, FIT_WINDOW, FIT_STEPS = 32, 256, 100
+SPEC_NEW, FIT_WINDOW, FIT_STEPS = 16, 256, 100
 
 
 def serve_spec(cfg, params, knobs, prompts, what, new=SPEC_NEW,
@@ -2365,8 +2369,8 @@ def kept_share(cfg, params, tokens, t: int) -> float:
 def phase_moe_serve(cfg, params):
     """Phase M: phi3.5-moe at its published width, 16 layers, on phase 6's
     geometry.  M1: phase 6's traffic (8 greedy requests of 128-1024
-    prompt tokens x 32 new); M2: phase D's repeated passages x 32 new
-    tokens, sequential and chain (spec_k 4), the chain run's agreement
+    prompt tokens x 32 new); M2: phase D's repeated passages x SPEC_NEW
+    new tokens, sequential and chain (spec_k 4), the chain run's agreement
     with the sequential one printed.  Every run: the refcount invariant
     after every step, every request complete, no NaN logit, moa_reduce
     launched 3 * layers a dispatch (2 page combines and the expert
@@ -4296,16 +4300,17 @@ def phase_roofline(measured_ms: dict) -> None:
 #: ranks of one communicator on one device.  gloo takes CUDA tensors for
 #: every op the mesh uses (repro_torch.dist.gloo_probe on the card's torch
 #: 2.11), so no payload is staged through host memory.  X1-X4 run on one
-#: spawn of 2 ranks, X5 on one of 3.
+#: spawn of 2 ranks with X6 and X7, X5 on one of 3.
 X_TRANSPORT = ("gloo, tensors on the ranks' device, no host staging "
                "(gloo takes CUDA tensors for all_reduce sum/max, all_gather, "
                "reduce_scatter and all_to_all: python -m "
                "repro_torch.dist.gloo_probe)")
-X_WORLDS = ((2, ("X1", "X2", "X3", "X4", "X6")), (3, ("X5",)))
-#: X3: llama3.2-3b cut to 2 of 28 layers: 0.99 B params, x 20 B (fp32
-#: params, m, v, grads, err) = ~20 GB a rank, ~40 GB for the 2 ranks (at
-#: 4 layers X3 took 32.6 s, its oracle 20.4, and phase X6 needs the room)
-X_TRAIN_LAYERS = 2
+X_WORLDS = ((2, ("X1", "X2", "X3", "X4", "X6", "X7")), (3, ("X5",)))
+#: X3: llama3.2-3b cut to 1 of 28 layers: 0.89 B params, x 20 B (fp32
+#: params, m, v, grads, err) = ~18 GB a rank (at 4 layers X3 took 32.6 s,
+#: its oracle 20.4; at 2, 26.8-36.2 s, and the smoke with X7 took 1151.4 s
+#: of phases on a slow host)
+X_TRAIN_LAYERS = 1
 #: X4: one split-K decode step of 2 sequences at cache position X_INDEX of
 #: X_CACHE (model rank 1 owns it and writes the new row)
 X_CACHE, X_DECODE_BATCH, X_INDEX = 8192, 2, 6000
@@ -4328,6 +4333,20 @@ X6_LAYERS = 2
 #: compute, a row a rank against both rows at once); a lost moment, a
 #: wrong block of the reduce-scatter or a wrong update is O(1)
 X6_STATE_RTOL = 1e-2
+#: X7: llama3.2-3b at 2 of 28 layers on (model 2, data 1), fp32 (TF32
+#: off), the sequence-parallel step: X6's 2 x TRAIN_SEQ batch, each rank
+#: its TRAIN_SEQ / 2 stretch; a ragged step at X7_RAGGED_SEQ (model 2 does
+#: not divide it: the logits split over the vocab); decode: an
+#: X7_PROMPT-token prompt through prefill_chunk into a split-K cache of
+#: X7_CACHE positions (the chunk straddles the two ranks' stretches), then
+#: X7_DECODE greedy steps.  fp32, not the published bf16, as X5: the head
+#: split rounds each token's bf16 sums otherwise than one device does, and
+#: AdamW's first updates, near sign(g) a parameter, turn that into a 4-6%
+#: gap in the embedding's update (bf16 on an H100: 4.2e-2 for the
+#: sequence-parallel step 2, 6.0e-2 for the ragged step), over
+#: X6_STATE_RTOL, with no fault behind it
+X7_LAYERS, X7_RAGGED_SEQ = 2, TRAIN_SEQ - 1
+X7_PROMPT, X7_CACHE, X7_DECODE = 512, 768, 8
 #: seconds a spawn may run, and one collective may wait
 X_SPAWN_TIMEOUT, X_COLLECTIVE_TIMEOUT = 600, 300
 #: the spawn's scratch directory, in each rank (X6's checkpoint goes there)
@@ -4350,6 +4369,11 @@ def x_configs(reduced: bool = False) -> dict:
             "X3": cut("llama3.2-3b", n_layers=X_TRAIN_LAYERS),
             "X4": cut("llama3.2-3b"),
             "X6": cut("llama3.2-3b", n_layers=X6_LAYERS),
+            # reduced: an even vocab, which the ragged step splits
+            "X7": (get_config("llama3.2-3b").reduced(dtype=torch.float32,
+                                                     vocab=96) if reduced
+                   else cut("llama3.2-3b", n_layers=X7_LAYERS,
+                            dtype=torch.float32)),
             "X5": cut(X_PAD_ARCH, n_layers=X_PAD_LAYERS,
                       dtype=torch.float32)}
 
@@ -4822,12 +4846,266 @@ def x6_restore_one_device(cfg, row, device):
             "one_device_flash_launches": counts}
 
 
+def _x7_split_bytes(params, pspecs, mesh) -> int:
+    """fp32 bytes of this rank's blocks of the leaves split over
+    ``model``."""
+    return sum(leaves(map_tree(
+        lambda t, ps: t.numel() * 4 if "model" in split_axes(ps, mesh)
+        else 0, params, pspecs)))
+
+
+def _x7_reckon(cfg, params, pspecs, mesh, b, s) -> dict:
+    """The bytes one sequence-parallel remat step on (model tp, data 1)
+    hands all_gather and reduce_scatter, from the shapes.  A layer's
+    leaves split over ``model`` are all-gathered (their fp32 blocks) in the
+    forward and again in the recompute, and their whole gradients are
+    reduce-scattered once; ``lm_head``'s block is gathered once for the
+    loss.  A layer all-gathers the normed stretch (B, S / tp, D) into the
+    attention and reduce-scatters its heads' partial outputs (B, S, D),
+    in the forward and the recompute, and the backward reverses each
+    once.  The embedding reduce-scatters its fp32 (B, S, D) partial rows
+    and all-gathers their stretch's cotangent, once each."""
+    tp, d = mesh.shape["model"], cfg.d_model
+    act = torch.empty((), dtype=cfg.dtype).element_size()
+    layers = _x7_split_bytes(params["blocks"], pspecs["blocks"], mesh)
+    stretch, whole = b * (s // tp) * d, b * s * d
+    return {"all_gather": 2 * layers + params["lm_head"].numel() * 4
+            + cfg.n_layers * 3 * stretch * act + stretch * 4,
+            "reduce_scatter": tp * layers + cfg.n_layers * 3 * whole * act
+            + whole * 4}
+
+
+def _x7_one_device(cfg, dev, mesh, shardings, batches, got) -> dict:
+    """The one-device steps of ``batches`` from the seeded whole state,
+    taken on one rank at a time (the whole state and its gradients on the
+    card): each step's (loss, grad norm), and the largest relative L2
+    error of a leaf of ``got`` (this rank's blocks of the mesh's ``m``,
+    ``v`` and last ``update``) from the one-device step's; a leaf whole on
+    every rank counts once."""
+    index, sums, ref = [], None, []
+    for r in range(mesh.shape["model"]):
+        if mesh.index("model") == r:
+            state = init_train_state(
+                cfg, torch.Generator(device=dev).manual_seed(0))
+            step = build_train_step(cfg, AdamWConfig(lr=3e-4, grad_clip=1.0))
+            mine = lambda tree: map_tree(
+                lambda t, ps: shard_block(t, ps, mesh).clone(), tree,
+                shardings["params"])
+            for batch in batches:
+                before = mine(state["params"])
+                state, metrics = step(state, batch)
+                ref.append((float(metrics["loss"]),
+                            float(metrics["grad_norm"])))
+            want = {"m": mine(state["m"]), "v": mine(state["v"]),
+                    "update": map_tree(torch.sub, mine(state["params"]),
+                                       before)}
+            del state, before
+            parts = []
+            for k in ("m", "v", "update"):
+                def sq(a, w, ps):
+                    return float(block_owner(ps, mesh)) * torch.stack(
+                        [(a - w).float().pow(2).sum(), w.float().pow(2).sum()])
+                for path, t in ckpt.flatten_with_paths(
+                        map_tree(sq, got[k], want[k], shardings["params"])):
+                    index.append((k, path))
+                    parts.append(t)
+            sums = torch.stack(parts)
+            del want, parts
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    dist.all_reduce(sums)
+    errs = {}
+    for (name, path), (num, den) in zip(index, sums.tolist()):
+        errs.setdefault(name, []).append(
+            (math.sqrt(num) / max(math.sqrt(den), 1e-30), path))
+    return {"steps": ref, "gaps": {k: sorted(v, reverse=True)[:3]
+                                   for k, v in errs.items()}}
+
+
+def _x7_train(cfg, dev, mesh, batches, reckon_fn) -> dict:
+    """The mesh's steps of ``batches`` from the seeded state's blocks:
+    each timed, its all_gather and reduce_scatter bytes held against
+    ``reckon_fn(state)``, its flash launches against one remat step's, the
+    logits a rank held against half the whole logits; then X6's checks
+    against the same steps on one device (:func:`_x7_one_device`): loss
+    within rtol 1e-3, grad norm within rtol 1e-4, m, v and the last
+    update within ``X6_STATE_RTOL`` (relative L2, every leaf)."""
+    shardings = train_state_shardings(cfg, mesh)
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             mesh=mesh)
+    reckon, nbytes = reckon_fn(state, shardings), _tree_bytes(state)
+    step = build_train_step(cfg, AdamWConfig(lr=3e-4, grad_clip=1.0),
+                            mesh=mesh)
+    seq = batches[0]["tokens"].shape[1]
+    logits_bytes, real_head = set(), lm_mod.head_logits
+
+    def head_spy(*a):
+        out = real_head(*a)
+        logits_bytes.add(out.numel() * out.element_size())
+        return out
+    rows = []
+    for i, batch in enumerate(batches):
+        before = map_tree(torch.clone, state["params"])
+        mesh.transport.reset()
+        _zero_kernel_counts()
+        dist.barrier()
+        lm_mod.head_logits = head_spy
+        t0 = time.perf_counter()
+        try:
+            state, metrics = step(state, batch)
+            _sync_if(dev)
+        finally:
+            lm_mod.head_logits = real_head
+        dt = time.perf_counter() - t0
+        counts = _flash_counts()
+        got = dict(mesh.transport.bytes)
+        rows.append({"step_s": dt, "loss": float(metrics["loss"]),
+                     "grad_norm": float(metrics["grad_norm"]),
+                     "bytes_by_op": got,
+                     "calls_by_op": dict(mesh.transport.calls),
+                     "flash_launches": counts})
+        for op in ("all_gather", "reduce_scatter"):
+            check(got.get(op, 0) == reckon.get(op, 0),
+                  f"X7 S={seq} step {i + 1}: {got.get(op, 0)} B handed to "
+                  f"{op}, the shapes give {reckon.get(op, 0)}")
+        _check_count(dev, counts == _expected_counts(cfg, 1),
+                     f"X7 flash launches {counts}, want "
+                     f"{_expected_counts(cfg, 1)}")
+    whole_logits = (batches[0]["tokens"].shape[0] * seq * cfg.vocab
+                    * torch.empty((), dtype=cfg.dtype).element_size())
+    check(logits_bytes == {whole_logits // mesh.shape["model"]},
+          f"X7 S={seq}: logits of {logits_bytes} B a rank, the whole "
+          f"{whole_logits} B")
+    got = {"m": state["m"], "v": state["v"],
+           "update": map_tree(torch.sub, state["params"], before)}
+    del state, before
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    one = _x7_one_device(cfg, dev, mesh, shardings, batches, got)
+    for i, (row, (loss, norm)) in enumerate(zip(rows, one["steps"])):
+        check(abs(row["loss"] - loss) <= 1e-3 * abs(loss),
+              f"X7 S={seq} step {i + 1} loss {row['loss']} vs the one "
+              f"device's {loss}")
+        check(abs(row["grad_norm"] - norm) <= 1e-4 * abs(norm),
+              f"X7 S={seq} step {i + 1} grad norm {row['grad_norm']} vs "
+              f"the one device's {norm}")
+    gaps = {k: [{"rel_l2": e, "leaf": p} for e, p in v]
+            for k, v in one["gaps"].items()}
+    for k, ((err, path), *_) in one["gaps"].items():
+        check(err <= X6_STATE_RTOL, f"X7 S={seq}: {k} {path} {err:.3e} from "
+              f"the one-device step's (relative L2), over {X6_STATE_RTOL}; "
+              f"the worst leaves {gaps}")
+    return {"state_bytes_a_rank": nbytes, "steps": rows,
+            "reckoned_bytes": reckon,
+            "logits_bytes_a_rank": min(logits_bytes),
+            "logits_bytes_whole": whole_logits,
+            "one_device_steps": one["steps"], "state_gap_rel_l2": gaps}
+
+
+def _x7_decode(cfg, dev, mesh) -> dict:
+    """fp32 (TF32 off): the seeded params as the rank's blocks
+    (``mesh_params``) and a split-K dense cache of X7_CACHE positions (the
+    rank's stretch), an X7_PROMPT-token prompt through ``prefill_chunk``
+    and X7_DECODE greedy ``decode_step`` s; rank 0 repeats them on one
+    device with the whole params and cache: the tokens equal, the logits
+    within 1e-4."""
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    api, tp = get_api(cfg), mesh.shape["model"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab, (X_DECODE_BATCH, X7_PROMPT),
+                           generator=gen, device=dev)
+
+    def run(params, state, mesh=None):
+        out, t0 = [], time.perf_counter()
+        with torch.no_grad():
+            logits, state = api.prefill_chunk(
+                params, state, {"tokens": prompt,
+                                "index": torch.tensor(0, device=dev),
+                                "nvalid": X7_PROMPT}, cfg, mesh)
+            out.append(logits)
+            _sync_if(dev)
+            t1 = time.perf_counter()
+            for i in range(X7_DECODE):
+                logits, state = api.decode_step(
+                    params, state,
+                    {"tokens": out[-1].argmax(-1)[:, None],
+                     "index": torch.tensor(X7_PROMPT + i, device=dev)},
+                    cfg, mesh)
+                out.append(logits)
+            _sync_if(dev)
+        return (torch.stack(out), {"prefill_s": t1 - t0,
+                                   "decode_s": time.perf_counter() - t1})
+
+    def cache(split):
+        return {k: torch.zeros(sp.shape[:2] + (sp.shape[2] // split,)
+                               + sp.shape[3:], dtype=sp.dtype, device=dev)
+                for k, sp in api.decode_state_specs(
+                    cfg, X_DECODE_BATCH, X7_CACHE).items()}
+    blocks = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                              mesh=mesh)["params"]
+    mesh.transport.reset()
+    got, times = run(mesh_params(blocks, cfg, mesh), cache(tp), mesh)
+    out = {**times, "bytes_by_op": dict(mesh.transport.bytes)}
+    del blocks
+    gc.collect()
+    if mesh.index("model") == 0:
+        whole = init_train_state(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0))["params"]
+        want, _ = run(whole, cache(1))
+        del whole
+        err = _x_diff(got, want)
+        check(torch.equal(got.argmax(-1), want.argmax(-1)),
+              "X7 mesh decode tokens != the one-device port's")
+        check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+              f"X7 mesh decode logits {err} from the one-device port's")
+        out.update(max_abs_err_logits=err,
+                   tokens=got.argmax(-1).t().tolist())
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def x7_seq_parallel(cfg, dev, mesh):
+    """X7: the sequence-parallel layout on (model 2, data 1).  Two train
+    steps of X6's 2 x TRAIN_SEQ batch, each rank its stretch of the
+    stream, the logits and the loss (``_x7_train``: bytes against
+    ``_x7_reckon``, logits a rank half the whole, X6's checks against the
+    one-device steps); one step at X7_RAGGED_SEQ, where the stream stays
+    whole and the logits split over the vocab (the vocab-parallel loss;
+    all_gather the layers' blocks, twice, and no reduce_scatter); then
+    fp32 prefill and greedy decode of the rank's sharded params
+    (``_x7_decode``)."""
+    out = {}
+    for name, seq, n, reckon in (
+            ("sp", TRAIN_SEQ, 2, lambda st, sh: _x7_reckon(
+                cfg, st["params"], sh["params"], mesh, TRAIN_BATCH,
+                TRAIN_SEQ)),
+            ("ragged", X7_RAGGED_SEQ, 1, lambda st, sh: {
+                "all_gather": 2 * _x7_split_bytes(
+                    st["params"]["blocks"], sh["params"]["blocks"],
+                    mesh)})):
+        shape = ShapeConfig("train", seq_len=seq, global_batch=TRAIN_BATCH,
+                            kind="train")
+        batches = [host_batch(cfg, shape, HostDataConfig(0, 1, 0), i)
+                   for i in range(n)]
+        out[name] = _x7_train(cfg, dev, mesh, batches, reckon)
+    out["decode"] = _x7_decode(cfg, dev, mesh)
+    out["params"] = sum(math.prod(sp.shape) for sp in
+                        leaves(train_state_specs(cfg)["params"]))
+    return out
+
+
 X_CHECKS = {"X1": (x1_tree_collectives, ("data",)),
             "X2": (x2_moe_ep, ("model",)),
             "X3": (x3_pod_compressed, ("pod",)),
             "X4": (x4_splitk_decode, ("model",)),
             "X5": (x5_head_pad, ("model",)),
-            "X6": (x6_sharded_state, ("data", "model"))}
+            "X6": (x6_sharded_state, ("data", "model")),
+            "X7": (x7_seq_parallel, ("model", "data"))}
 
 
 def _sync_if(dev) -> None:
@@ -4887,7 +5165,7 @@ def _x_rank(rank, world, store, out, names, device, reduced):
 
 def phase_mesh_collectives(device: str = "cuda", reduced: bool = False
                            ) -> dict:
-    """Phase X: X1-X5 (``X_CHECKS``) on ranks spawned as processes on the
+    """Phase X: X1-X7 (``X_CHECKS``) on ranks spawned as processes on the
     one card (``X_WORLDS``), joined by gloo; prints each check's wall
     seconds, peak GB a rank, transport, collective bytes and kernel
     launches.  The collective times here are gloo's through the one card

@@ -22,8 +22,16 @@ the axis:
   over ``model``): :func:`copy_to` (forward identity, backward all-reduce)
   where a replicated value enters rank-local work, :func:`reduce_from`
   (forward all-reduce, backward identity) where partial results are
-  summed, and :func:`gather_from` (forward all-gather, backward this
-  rank's chunk), so every rank's gradients are the whole gradient.
+  summed, :func:`gather_from` (forward all-gather, backward this rank's
+  chunk) and its inverse :func:`split_to` (forward this rank's chunk,
+  backward all-gather), so every rank's gradients are the whole gradient.
+
+The sequence-parallel pair moves the residual stream between a rank's
+stretch of the sequence and the whole sequence over ``model``:
+:func:`all_gather` (backward: reduce-scatter) gathers the stretches
+where a layer needs the whole sequence, and :func:`reduce_scatter`
+(backward: all-gather) sums the ranks' partial outputs and leaves each
+rank its stretch.
 
 ``torch.distributed.nn.functional`` has the first kind only, its
 ``all_to_all_single`` warns that it is deprecated on torch 2.13, and it
@@ -38,8 +46,8 @@ from typing import Sequence, Union
 import torch
 import torch.distributed as dist
 
-__all__ = ["Transport", "copy_to", "reduce_from", "gather_from",
-           "all_gather", "all_to_all", "all_reduce"]
+__all__ = ["Transport", "copy_to", "reduce_from", "gather_from", "split_to",
+           "all_gather", "reduce_scatter", "all_to_all", "all_reduce"]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -140,6 +148,19 @@ class _GatherFrom(torch.autograd.Function):
         return g.chunk(ctx.n, ctx.dim)[ctx.rank], None, None, None
 
 
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return x.chunk(mesh.shape[axis], dim)[mesh.index(axis)].clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.transport.all_gather(
+            g, ctx.mesh.group(ctx.axis), ctx.dim), None, None, None
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
@@ -149,6 +170,18 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.mesh.transport.reduce_scatter(
+            g, ctx.mesh.group(ctx.axis), ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.transport.reduce_scatter(x, mesh.group(axis), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.transport.all_gather(
             g, ctx.mesh.group(ctx.axis), ctx.dim), None, None, None
 
 
@@ -196,6 +229,12 @@ def gather_from(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     return _GatherFrom.apply(x, mesh, axis, dim)
 
 
+def split_to(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of ``x``, the same on every rank of
+    ``axis``; the backward all-gathers the chunks' cotangents."""
+    return _SplitTo.apply(x, mesh, axis, dim)
+
+
 def all_gather(x: torch.Tensor, mesh, axis: Axes, dim: int) -> torch.Tensor:
     """Concatenate the ranks' ``x`` along ``dim`` in the row-major order
     of ``axis`` (JAX's tiled ``all_gather`` over a tuple of axes); the
@@ -203,6 +242,13 @@ def all_gather(x: torch.Tensor, mesh, axis: Axes, dim: int) -> torch.Tensor:
     for ax in reversed(_axes(axis)):
         x = _AllGather.apply(x, mesh, ax, dim)
     return x
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int
+                   ) -> torch.Tensor:
+    """Sum the ranks' ``x`` over ``axis`` and keep this rank's chunk along
+    ``dim``; the backward all-gathers the chunks' cotangents."""
+    return _ReduceScatter.apply(x, mesh, axis, dim)
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -53,7 +53,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import transport as tx
 from repro_torch.kernels import ops as kops
 from repro_torch.models import paging, quant_kv
-from repro_torch.models.common import ParamSpec, apply_rope, rope_angles
+from repro_torch.models.common import (ParamSpec, apply_rope, rope_angles,
+                                       whole_sequence)
 
 __all__ = ["gqa_param_specs", "gqa_train", "chunked_attention",
            "gqa_decode", "gqa_decode_paged", "gqa_decode_pages",
@@ -353,7 +354,8 @@ def _heads_of(w: torch.Tensor, heads: torch.Tensor, hd: int, dim: int
 
 
 def _gqa_train_tp(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                  positions: torch.Tensor, mesh) -> torch.Tensor:
+                  positions: torch.Tensor, mesh, sp: bool = False
+                  ) -> torch.Tensor:
     """:func:`gqa_train` with the padded q heads split over ``model``.
 
     This rank takes padded heads ``[i * n_loc, (i + 1) * n_loc)`` of
@@ -363,7 +365,17 @@ def _gqa_train_tp(x: torch.Tensor, p: dict, cfg: ModelConfig,
     heads' rows of ``wo``; the partial outputs are summed over ``model``.
     ``x`` and the weights are the same on every rank, and so are the
     gradients this returns (:func:`~repro_torch.dist.transport.copy_to` /
-    :func:`~repro_torch.dist.transport.reduce_from`)."""
+    :func:`~repro_torch.dist.transport.reduce_from`).
+
+    With ``sp`` (the sequence-parallel layout) ``x`` is this rank's
+    stretch of the sequence: it is all-gathered over ``model`` first
+    (backward: reduce-scatter), and the partial outputs are
+    reduce-scattered along the sequence (backward: all-gather), so this
+    returns the rank's stretch; the weights' gradients are this rank's
+    heads', which the caller sums over ``model`` (:func:`~repro_torch.
+    models.common.whole`)."""
+    if sp:
+        x = tx.all_gather(x, mesh, "model", 1)
     b, s, _ = x.shape
     hd, hkv = cfg.hd, cfg.n_kv_heads
     tp, i = mesh.shape["model"], mesh.index("model")
@@ -379,8 +391,11 @@ def _gqa_train_tp(x: torch.Tensor, p: dict, cfg: ModelConfig,
     groups = torch.arange(first, int(mine[-1]) // rep_pad + 1,
                           device=x.device)
     head_group = (mine // rep_pad - first).to(x.device)  # slot -> groups[.]
-    x = tx.copy_to(x, mesh, "model")
-    w = {k: tx.copy_to(v, mesh, "model") for k, v in p.items()}
+    if sp:
+        w = p
+    else:
+        x = tx.copy_to(x, mesh, "model")
+        w = {k: tx.copy_to(v, mesh, "model") for k, v in p.items()}
     dt = x.dtype
     q = x @ _heads_of(w["wq"], q_heads, hd, -1).to(dt)
     k = x @ _heads_of(w["wk"], groups, hd, -1).to(dt)
@@ -402,26 +417,14 @@ def _gqa_train_tp(x: torch.Tensor, p: dict, cfg: ModelConfig,
         out = chunked_attention(q, k, v, cfg)
     out = out.index_select(2, slots).reshape(b, s, -1)
     part = out @ _heads_of(w["wo"], q_heads, hd, 0).to(dt)
+    if sp:
+        return tx.reduce_scatter(part, mesh, "model", 1)
     return tx.reduce_from(part, mesh, "model")
 
 
-def gqa_train(x: torch.Tensor, p: dict, cfg: ModelConfig,
-              positions: Optional[torch.Tensor] = None, mesh=None
-              ) -> torch.Tensor:
-    """Full-sequence attention. x: (B, S, D) -> (B, S, D).
-
-    With ``cfg.use_flash_attn`` on a CUDA tensor, the flash attention
-    kernels, at every sequence length (they mask a ragged last tile; the
-    JAX gate's ``S % min(attn_chunk, 128)`` was the TPU tiling's); else
-    :func:`chunked_attention`.  On a ``mesh`` whose ``model`` axis has 2
-    or more ranks and divides the (padded) q heads, the heads are split
-    over it (:func:`_gqa_train_tp`)."""
+def _attend_whole(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                  positions: torch.Tensor) -> torch.Tensor:
     b, s, _ = x.shape
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    tp = _model_size(mesh)
-    if tp > 1 and (cfg.n_heads + tp_head_pad(cfg, mesh)) % tp == 0:
-        return _gqa_train_tp(x, p, cfg, positions, mesh)
     q, k, v = _project_qkv(x, p, cfg)
     sin, cos = rope_angles(positions, cfg.hd, cfg.rope_theta)
     q = apply_rope(q, sin, cos)
@@ -431,6 +434,32 @@ def gqa_train(x: torch.Tensor, p: dict, cfg: ModelConfig,
     else:
         out = chunked_attention(q, k, v, cfg)
     return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+
+
+def gqa_train(x: torch.Tensor, p: dict, cfg: ModelConfig,
+              positions: Optional[torch.Tensor] = None, mesh=None,
+              sp: bool = False) -> torch.Tensor:
+    """Full-sequence attention. x: (B, S, D) -> (B, S, D).
+
+    With ``cfg.use_flash_attn`` on a CUDA tensor, the flash attention
+    kernels, at every sequence length (they mask a ragged last tile; the
+    JAX gate's ``S % min(attn_chunk, 128)`` was the TPU tiling's); else
+    :func:`chunked_attention`.  On a ``mesh`` whose ``model`` axis has 2
+    or more ranks and divides the (padded) q heads, the heads are split
+    over it (:func:`_gqa_train_tp`).  With ``sp`` ``x`` is this rank's
+    stretch (B, S / tp, D) of the sequence-parallel stream and so is the
+    result: the heads split as above, or where they do not, the whole
+    attention on every rank (:func:`~repro_torch.models.common.whole_sequence`)."""
+    s = x.shape[1] * (mesh.shape["model"] if sp else 1)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    tp = _model_size(mesh)
+    if tp > 1 and (cfg.n_heads + tp_head_pad(cfg, mesh)) % tp == 0:
+        return _gqa_train_tp(x, p, cfg, positions, mesh, sp)
+    if sp:
+        return whole_sequence(
+            lambda xw: _attend_whole(xw, p, cfg, positions), x, mesh)
+    return _attend_whole(x, p, cfg, positions)
 
 
 def _decode_qkv_new(x: torch.Tensor, p: dict, cfg: ModelConfig,
@@ -691,36 +720,49 @@ def gqa_decode_splitk(x: torch.Tensor, p: dict, cfg: ModelConfig,
                       cache_k: torch.Tensor, cache_v: torch.Tensor,
                       cur_index: torch.Tensor, mesh
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Split-K decode of one token a sequence on one rank of ``mesh``; the
-    KV cache never moves.
+    """Split-K decode of C new tokens a sequence on one rank of ``mesh``;
+    the KV cache never moves.
 
-    ``x`` (B / dp, 1, D) are this rank's batch rows (split over the data
-    axes, the same on every ``model`` rank); ``cache_k`` / ``cache_v``
-    (B / dp, Smax / tp, Hkv, hd) its block of the cache, positions ``[i *
-    Smax / tp, (i + 1) * Smax / tp)`` on ``model`` rank ``i``;
-    ``cur_index`` a 0-d position shared by every sequence.  The rank that
-    owns ``cur_index`` writes the new K/V row into its block, in place;
-    every rank scores the queries against its block with the grouped heads
-    (no repeat of the KV heads); the partial accumulators combine with a
-    max of the row maxima and sums of the sum-exp and PV partials over
-    ``model`` — the paper's reconfigured multi-operand combine applied to
-    attention.  Returns (out (B / dp, 1, D), cache_k, cache_v)."""
-    b = x.shape[0]
+    ``x`` (B / dp, C, D) are this rank's batch rows (split over the data
+    axes, the same on every ``model`` rank): one token a sequence for a
+    decode step, or a prefill chunk at positions ``cur_index + j``;
+    ``cache_k`` / ``cache_v`` (B / dp, Smax / tp, Hkv, hd) its block of
+    the cache, positions ``[i * Smax / tp, (i + 1) * Smax / tp)`` on
+    ``model`` rank ``i``; ``cur_index`` a 0-d position shared by every
+    sequence.  The rank that owns a row's position writes its new K/V row
+    into its block, in place; every rank scores the queries against its
+    block with the grouped heads (no repeat of the KV heads), each row up
+    to its own position; the partial accumulators combine with a max of
+    the row maxima and sums of the sum-exp and PV partials over ``model``
+    — the paper's reconfigured multi-operand combine applied to
+    attention.  Returns (out (B / dp, C, D), cache_k, cache_v)."""
+    b, c = x.shape[:2]
     s_loc = cache_k.shape[1]
     hkv, rep, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
     lo = mesh.index("model") * s_loc
-    q, k_new, v_new, _ = _decode_qkv_new(x, p, cfg, cur_index)
-    # shard-local conditional write: only the owner updates its block
-    pos = cur_index - lo
-    write = (pos >= 0) & (pos < s_loc)
-    at = torch.clamp(pos, 0, s_loc - 1).reshape(1)
-    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
-        old = cache.index_select(1, at)
-        cache.index_copy_(1, at, torch.where(write, new.to(cache.dtype), old))
-    qg = q.reshape(b, 1, hkv, rep, hd)
+    q, k_new, v_new, pos = _decode_qkv_new(x, p, cfg, cur_index)
+    if c == 1:
+        # shard-local conditional write: only the owner updates its block
+        at_pos = cur_index - lo
+        write = (at_pos >= 0) & (at_pos < s_loc)
+        at = torch.clamp(at_pos, 0, s_loc - 1).reshape(1)
+        for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+            old = cache.index_select(1, at)
+            cache.index_copy_(1, at, torch.where(write, new.to(cache.dtype),
+                                                 old))
+    else:
+        # a chunk's rows j at cur + j: this rank writes rows [j0, j1)
+        first = int(cur_index) - lo
+        j0, j1 = min(max(-first, 0), c), min(max(s_loc - first, 0), c)
+        if j1 > j0:
+            for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+                cache[:, first + j0:first + j1] = new[:, j0:j1].to(
+                    cache.dtype)
+    qg = q.reshape(b, c, hkv, rep, hd)
     scores = torch.einsum("bqgrh,bsgh->bgrqs", qg, cache_k.to(q.dtype))
     scores = scores.float() / math.sqrt(hd)
-    valid = (lo + torch.arange(s_loc, device=x.device)) <= cur_index
+    valid = ((lo + torch.arange(s_loc, device=x.device))[None, :]
+             <= pos[:, None])                              # (C, Smax / tp)
     scores = torch.where(valid, scores, NEG_INF)
     t, group = mesh.transport, mesh.group("model")
     m = t.all_reduce(torch.amax(scores, dim=-1), group, op="max")
@@ -730,6 +772,6 @@ def gqa_decode_splitk(x: torch.Tensor, p: dict, cfg: ModelConfig,
     # the multi-operand combine: partial (l, o) accumulators summed
     l = t.all_reduce(p_.sum(-1), group)
     o = t.all_reduce(o_loc.float(), group)
-    out = (o / l[..., None]).to(q.dtype)                 # (b, g, r, 1, hd)
-    out = out.movedim(3, 1).reshape(b, 1, cfg.n_heads * hd)
+    out = (o / l[..., None]).to(q.dtype)                 # (b, g, r, C, hd)
+    out = out.movedim(3, 1).reshape(b, c, cfg.n_heads * hd)
     return out @ p["wo"].to(x.dtype), cache_k, cache_v

@@ -19,7 +19,11 @@ gradient of the train step's layout; a :class:`ShardedLayer` holds one
 layer's blocks until the layer runs (:func:`whole`).  ``constrain`` and
 ``shardmap_mesh`` have no counterpart: the functions that split work
 (``gqa_train``, ``gqa_decode_splitk``, ``moe_ffn_ep``) cut their operands
-and issue their collectives themselves.
+and issue their collectives themselves.  :func:`model_split_dim` reads
+where the JAX package's constraints put the ``model`` axis on the logits
+(:data:`LOGIT_AXES`: the sequence, the sequence-parallel layout, when
+``model`` divides it, else the vocab), and
+:func:`vocab_parallel_cross_entropy` is the loss of vocab-split logits.
 """
 from __future__ import annotations
 
@@ -37,8 +41,10 @@ __all__ = ["ParamSpec", "init_params", "shape_structs", "param_count",
            "pspec_axes", "split_axes", "block_slices", "shard_block",
            "block_owner",
            "gather_block", "ShardedLayer", "whole",
-           "rms_norm", "rope_angles", "apply_rope", "cross_entropy_loss",
-           "topk_low_index_first"]
+           "LOGIT_AXES", "model_split_dim", "whole_sequence",
+           "rms_norm", "rope_angles", "apply_rope", "token_nll",
+           "cross_entropy_loss",
+           "vocab_parallel_cross_entropy", "topk_low_index_first"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +198,52 @@ def logical_to_pspec(axes: Sequence[Optional[str]], mesh: Mapping[str, int],
     return tuple(out)
 
 
+#: the logical axes the JAX package constrains the logits to
+#: (``repro/models/lm.py:172``, ``hybrid.py:77,245``); the residual stream
+#: takes ``("batch", "seq_sp", None)`` after the embedding and after each
+#: half-block, Mamba layer and shared block (``lm.py:124-151``,
+#: ``hybrid.py:60-66,218-225``), so its sequence splits where the logits'
+#: does
+LOGIT_AXES = ("batch", "seq_sp", "vocab")
+
+
+def model_split_dim(axes: Sequence[Optional[str]], shape: Sequence[int],
+                    mesh) -> Optional[int]:
+    """The dim of a tensor of logical ``axes`` and ``shape`` that the
+    ``model`` axis of ``mesh`` (a device mesh or a mapping of axis sizes)
+    splits under :func:`logical_to_pspec`, or ``None``: no mesh, a
+    ``model`` axis of one rank, or no dim that ``model`` divides.  The
+    first dim that can take ``model`` wins, so for :data:`LOGIT_AXES` the
+    sequence (dim 1) where ``model`` divides it, else the vocab (dim 2)
+    where ``model`` divides that; for the residual stream's axes the
+    sequence or nothing (the stream then whole on every ``model``
+    rank)."""
+    if mesh is None:
+        return None
+    sizes = dict(getattr(mesh, "shape", mesh))
+    if sizes.get("model", 1) < 2:
+        return None
+    spec = logical_to_pspec(axes, sizes, shape=shape)
+    for i in range(len(spec)):
+        if "model" in pspec_axes(spec, i):
+            return i
+    return None
+
+
+def whole_sequence(fn, x: torch.Tensor, mesh) -> torch.Tensor:
+    """``fn`` of the whole sequence from this rank's stretch ``x`` (B, S /
+    tp, ...) of the sequence-parallel stream: the stretches all-gathered
+    over ``model`` (backward: reduce-scatter), ``fn`` run on every rank
+    alike, and the rank's stretch of its output kept (the backward puts
+    the stretch's cotangent in place and zeros elsewhere, so each rank's
+    gradient of ``fn``'s weights is its stretch's part, which
+    :func:`whole` sums over ``model``).  For the layers that split no work
+    over ``model``: a Mamba layer, MLA, attention heads ``model`` does not
+    divide, the dense MoE dispatch."""
+    tp, r = mesh.shape["model"], mesh.index("model")
+    return fn(tx.all_gather(x, mesh, "model", 1)).chunk(tp, 1)[r]
+
+
 def make_shardings(specs: Any, mesh: Mapping[str, int],
                    rules: Optional[Dict[str, Any]] = None) -> Any:
     """A tree of partition specs (:func:`logical_to_pspec`) for a
@@ -250,7 +302,8 @@ def block_owner(pspec: Sequence[Any], mesh) -> bool:
 
 
 def gather_block(x: torch.Tensor, pspec: Sequence[Any], mesh,
-                 keep: Sequence[str] = ()) -> torch.Tensor:
+                 keep: Sequence[str] = (), sum_model: bool = False
+                 ) -> torch.Tensor:
     """The whole leaf from this rank's block ``x``, gathered over every
     axis ``pspec`` splits it on but those in ``keep`` (an axis of one
     rank costs nothing).
@@ -262,13 +315,22 @@ def gather_block(x: torch.Tensor, pspec: Sequence[Any], mesh,
     (:func:`~repro_torch.dist.transport.gather_from`); over the batch axes
     (``pod``, ``data``) the ranks' losses differ, so their gradients are
     reduce-scattered, summed into the rank's block
-    (:func:`~repro_torch.dist.transport.all_gather`)."""
+    (:func:`~repro_torch.dist.transport.all_gather`).  With ``sum_model``
+    (a layer of the sequence-parallel step, where each ``model`` rank's
+    gradient is the part of its stretch of the sequence) the gradient is
+    summed over ``model`` too: reduce-scattered where the leaf is split
+    over it, all-reduced (:func:`~repro_torch.dist.transport.copy_to`)
+    where it is not; a leaf kept split over ``model`` sums nothing."""
     for i in range(x.dim()):
         for ax in reversed(pspec_axes(pspec, i)):
             if ax in keep or mesh.shape[ax] == 1:
                 continue
-            x = (tx.gather_from(x, mesh, ax, i) if ax == "model"
+            x = (tx.gather_from(x, mesh, ax, i)
+                 if ax == "model" and not sum_model
                  else tx.all_gather(x, mesh, ax, i))
+    if (sum_model and mesh.shape.get("model", 1) > 1 and "model" not in keep
+            and "model" not in split_axes(pspec, mesh)):
+        x = tx.copy_to(x, mesh, "model")
     return x
 
 
@@ -277,19 +339,35 @@ class ShardedLayer:
     and ``pspecs``, their partition specs), gathered whole where the layer
     runs: the model's layer functions call :func:`whole` inside their
     ``torch.utils.checkpoint`` region, so the backward gathers again and no
-    rank holds more than one layer's whole params."""
+    rank holds more than one layer's whole params.  ``keep`` (a tree like
+    ``blocks`` of axis tuples, or ``None``) names the axes a leaf stays
+    split over: the experts under expert parallelism arrive as the rank's
+    experts, gathered over the batch axes alone."""
 
-    def __init__(self, blocks: Any, pspecs: Any, mesh):
+    def __init__(self, blocks: Any, pspecs: Any, mesh, keep: Any = None):
         self.blocks, self.pspecs, self.mesh = blocks, pspecs, mesh
+        self.keep = keep if keep is not None else map_tree(lambda _: (),
+                                                           blocks)
 
-    def gather(self) -> Any:
-        return map_tree(lambda b, ps: gather_block(b, ps, self.mesh),
-                        self.blocks, self.pspecs)
+    def gather(self, sum_model: bool = False) -> Any:
+        return map_tree(lambda b, ps, k: gather_block(b, ps, self.mesh, k,
+                                                      sum_model),
+                        self.blocks, self.pspecs, self.keep)
 
 
-def whole(p: Any) -> Any:
-    """``p`` gathered if it is a :class:`ShardedLayer`, else ``p``."""
-    return p.gather() if isinstance(p, ShardedLayer) else p
+def whole(p: Any, sp_mesh=None) -> Any:
+    """``p`` gathered if it is a :class:`ShardedLayer`, else ``p``.  With
+    ``sp_mesh`` (the sequence-parallel layout, where each ``model`` rank
+    computes with ``p`` on its own stretch of the sequence) the backward
+    also sums every leaf's gradient over ``model``: through the gather
+    (``gather_block(sum_model=True)``), or for whole params through
+    :func:`~repro_torch.dist.transport.copy_to`; so every rank's gradient
+    is the whole one, as in the rest of the mesh code."""
+    if isinstance(p, ShardedLayer):
+        return p.gather(sum_model=sp_mesh is not None)
+    if sp_mesh is not None:
+        return map_tree(lambda t: tx.copy_to(t, sp_mesh, "model"), p)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +392,12 @@ def rope_angles(positions: torch.Tensor, dim: int, theta: float = 10000.0
     # the stream) on every layer of every dispatch
     inv = 1.0 / torch.pow(theta, exps)
     ang = positions.float()[..., None] * inv                 # (..., dim/2)
-    return torch.sin(ang), torch.cos(ang)
+    # one elementwise sin and cos a value (torch.polar), not torch.sin /
+    # torch.cos: on the CPU those call MKL's vmsSin / vmsCos over parallel
+    # chunks, and a process's first such call, raced by two threads, can
+    # return one chunk with errors up to 1.5e-4 (the same values each time)
+    rot = torch.polar(torch.ones_like(ang), ang)
+    return rot.imag, rot.real
 
 
 def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
@@ -332,17 +415,50 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
     return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean token NLL; logits (..., V) fp32-promoted, labels (...) int."""
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's NLL; logits (..., V) fp32-promoted, labels (...) int."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    return logz - torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+
+
+def _mean_nll(nll: torch.Tensor, mask: Optional[torch.Tensor]
+              ) -> torch.Tensor:
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     return torch.mean(nll)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL; logits (..., V) fp32-promoted, labels (...) int."""
+    return _mean_nll(token_nll(logits, labels), mask)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 mask: Optional[torch.Tensor], mesh
+                                 ) -> torch.Tensor:
+    """:func:`cross_entropy_loss` of logits split over ``model`` along the
+    vocab: ``logits`` (..., V / tp) are this rank's columns, block
+    ``mesh.index("model")`` of the vocab (Megatron's vocab-parallel
+    cross-entropy).  The row max and the sum of exponentials are reduced
+    over ``model``, and the target logit comes from the rank that holds
+    its column; every rank returns the same loss, and its gradient
+    reaches each rank's columns alone."""
+    logits = logits.float()
+    v_loc = logits.shape[-1]
+    lo = mesh.index("model") * v_loc
+    group = mesh.group("model")
+    top = mesh.transport.all_reduce(torch.amax(logits.detach(), dim=-1),
+                                    group, op="max")
+    z = logits - top[..., None]
+    sum_exp = tx.reduce_from(torch.exp(z).sum(-1), mesh, "model")
+    lab = labels.long() - lo
+    own = (lab >= 0) & (lab < v_loc)
+    gold = torch.gather(z, -1, lab.clamp(0, v_loc - 1)[..., None])[..., 0]
+    gold = tx.reduce_from(gold * own, mesh, "model")
+    return _mean_nll(torch.log(sum_exp) - gold, mask)
 
 
 def topk_low_index_first(x: torch.Tensor, k: int) -> torch.Tensor:

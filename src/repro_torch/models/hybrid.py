@@ -33,7 +33,15 @@ its own batch rows; the Mamba layers run whole on every ``model`` rank
 the shared attention trains with its heads split over ``model``
 (:func:`repro_torch.models.attention.gqa_train`) and decodes with split-K
 for a 0-d index (:func:`repro_torch.models.attention.gqa_decode_splitk`,
-each rank holding its stretch of the ``k`` / ``v`` cache).
+each rank holding its stretch of the ``k`` / ``v`` cache).  Where
+``model`` divides the sequence the residual stream between layers is
+each rank's stretch of it, as the JAX package constrains it: a Mamba
+layer gathers the sequence for its scan and keeps the rank's stretch,
+the shared block's attention gathers it and reduce-scatters its heads'
+outputs, and the logits and loss are the stretch's
+(:func:`repro_torch.models.lm.lm_loss`).  Decode and chunked prefill take
+params laid out as the sharded train step holds them
+(:func:`repro_torch.train.state.mesh_params`).
 """
 from __future__ import annotations
 
@@ -44,9 +52,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, moe, ssm
-from repro_torch.models.common import (ParamSpec, ShardedLayer,
-                                       cross_entropy_loss, rms_norm, whole)
-from repro_torch.models.lm import _layer, _splitk, embed_inputs, stack_specs
+from repro_torch.models.common import (ParamSpec, ShardedLayer, rms_norm,
+                                       whole, whole_sequence)
+from repro_torch.models.lm import (_layer, _splitk, embed_inputs,
+                                   gather_logits, head_logits, lm_loss,
+                                   logits_split, stack_specs,
+                                   vocab_parallel_embed)
 from repro_torch.tree import index_tree
 
 __all__ = [
@@ -79,12 +90,16 @@ def ssm_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def _ssm_apply(x: torch.Tensor, bp: dict, cfg: ModelConfig) -> torch.Tensor:
-    bp = whole(bp)
-    h = rms_norm(x, bp["norm"], cfg.norm_eps)
+def _ssm_apply(x: torch.Tensor, bp: dict, cfg: ModelConfig, mesh=None,
+               sp: bool = False) -> torch.Tensor:
+    """One residual Mamba block with whole params ``bp``; with ``sp`` on
+    this rank's stretch of the stream, the scan run on the gathered
+    sequence (:func:`~repro_torch.models.common.whole_sequence`)."""
     train = (ssm.mamba1_train if cfg.ssm_variant == "mamba1"
              else ssm.mamba2_train)
-    return x + train(h, bp["ssm"], cfg)
+    layer = lambda x: x + train(rms_norm(x, bp["norm"], cfg.norm_eps),
+                                bp["ssm"], cfg)
+    return whole_sequence(layer, x, mesh) if sp else layer(x)
 
 
 def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
@@ -96,9 +111,15 @@ def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
-def _logits(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"].to(x.dtype)
+def _ssm_stack(params: dict, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig, mesh, sp: bool) -> torch.Tensor:
+    x = embed_inputs(params, batch, cfg, mesh, sp)
+    sp_mesh = mesh if sp else None
+    layer = _maybe_remat(lambda x, bp: _ssm_apply(x, whole(bp, sp_mesh), cfg,
+                                                  mesh, sp), cfg)
+    for i in range(cfg.n_layers):
+        x = layer(x, _layer(params["blocks"], i))
+    return x
 
 
 def ssm_forward(params: dict, batch: Dict[str, torch.Tensor],
@@ -106,20 +127,21 @@ def ssm_forward(params: dict, batch: Dict[str, torch.Tensor],
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) in the compute dtype, a zero aux loss).
     On a ``mesh`` every rank runs its rows whole (no collective but the
-    embedding's and, for params given as blocks, their gathers)."""
-    x = embed_inputs(params, batch, cfg, mesh)
-    layer = _maybe_remat(lambda x, bp: _ssm_apply(x, bp, cfg), cfg)
-    for i in range(cfg.n_layers):
-        x = layer(x, _layer(params["blocks"], i))
+    embedding's and, for params given as blocks, their gathers), or where
+    ``model`` divides the sequence, its stretch of them between layers
+    (the logits returned gathered whole)."""
+    split = logits_split(batch, cfg, mesh)
+    x = _ssm_stack(params, batch, cfg, mesh, split == 1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(x, params, cfg), aux
+    return gather_logits(head_logits(x, params, cfg, mesh, split), cfg,
+                         mesh, split), aux
 
 
 def ssm_train_loss(params: dict, batch: Dict[str, torch.Tensor],
                    cfg: ModelConfig, mesh=None) -> torch.Tensor:
-    logits, _ = ssm_forward(params, batch, cfg, mesh)
-    return cross_entropy_loss(logits, batch["labels"],
-                              batch.get("loss_mask"))
+    split = logits_split(batch, cfg, mesh)
+    x = _ssm_stack(params, batch, cfg, mesh, split == 1)
+    return lm_loss(x, params, batch, cfg, mesh, split)
 
 
 def ssm_decode_state_specs(cfg: ModelConfig, batch: int, max_seq: int
@@ -167,24 +189,31 @@ def _mamba_decode_layer(x: torch.Tensor, bp: dict, cfg: ModelConfig,
 
 def _decode_logits(x: torch.Tensor, params: dict, cfg: ModelConfig
                    ) -> torch.Tensor:
-    return _logits(x, params, cfg)[:, 0].float()
+    return head_logits(x, params, cfg)[:, 0].float()
 
 
 def ssm_decode_step(params: dict, state: Dict[str, torch.Tensor],
-                    batch: Dict[str, torch.Tensor], cfg: ModelConfig
+                    batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                    mesh=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token a slot: batch {"tokens": (B, 1), "index": 0-d or (B,)
     (unused: the state carries the position)}.  Returns (logits (B, V)
-    float32, state updated in place)."""
-    x = params["embed"][batch["tokens"]].to(cfg.dtype)
+    float32, state updated in place).  On a ``mesh`` the state and the
+    tokens are this rank's rows, the embedding vocab-parallel and each
+    layer gathered where it runs if given as a
+    :class:`~repro_torch.models.common.ShardedLayer`."""
+    x = vocab_parallel_embed(batch["tokens"], params["embed"], mesh,
+                             cfg.vocab, cfg.use_tp_shardmap).to(cfg.dtype)
     for i in range(cfg.n_layers):
-        x = _mamba_decode_layer(x, _layer(params["blocks"], i), cfg, state, i)
+        x = _mamba_decode_layer(x, whole(_layer(params["blocks"], i)), cfg,
+                                state, i)
     return _decode_logits(x, params, cfg), state
 
 
 def _scan_prefill(decode_step_fn: Callable, params: dict,
                   state: Dict[str, torch.Tensor],
-                  batch: Dict[str, torch.Tensor], cfg: ModelConfig
+                  batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  mesh=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Chunked prefill for recurrent-state families: the single-token
     decode step over the chunk's first ``nvalid`` tokens, so it equals the
@@ -193,7 +222,8 @@ def _scan_prefill(decode_step_fn: Callable, params: dict,
 
     batch: {"tokens": (B, C), "index": 0-d chunk start, "nvalid": count of
     real tokens (<= C)}.  Returns (logits (B, V) float32 at row ``nvalid -
-    1``, zeros when ``nvalid`` is 0; state, updated in place)."""
+    1``, zeros when ``nvalid`` is 0; state, updated in place).  ``mesh`` is
+    handed to every step."""
     tokens = batch["tokens"]
     b, c = tokens.shape
     start = torch.as_tensor(batch["index"], device=tokens.device)
@@ -203,13 +233,14 @@ def _scan_prefill(decode_step_fn: Callable, params: dict,
     for t in range(nvalid):
         logits, state = decode_step_fn(
             params, state, {"tokens": tokens[:, t:t + 1], "index": start + t},
-            cfg)
+            cfg, mesh)
     return logits, state
 
 
 def ssm_prefill_chunk(params: dict, state: Dict[str, torch.Tensor],
-                      batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    return _scan_prefill(ssm_decode_step, params, state, batch, cfg)
+                      batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                      mesh=None):
+    return _scan_prefill(ssm_decode_step, params, state, batch, cfg, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -266,23 +297,46 @@ def _shared_ffn(x: torch.Tensor, sp: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _shared_block_train(x: torch.Tensor, params: dict, g: int,
-                        cfg: ModelConfig, mesh=None) -> torch.Tensor:
-    sp = params["shared"]
-    h = rms_norm(x, sp["attn_norm"], cfg.norm_eps)
-    x = x + attention.gqa_train(h, _lora_attn(params, g), cfg, mesh=mesh)
-    return _shared_ffn(x, sp, cfg)
+                        cfg: ModelConfig, mesh=None, sp: bool = False
+                        ) -> torch.Tensor:
+    shared = params["shared"]
+    h = rms_norm(x, shared["attn_norm"], cfg.norm_eps)
+    x = x + attention.gqa_train(h, _lora_attn(params, g), cfg, mesh=mesh,
+                                sp=sp)
+    return _shared_ffn(x, shared, cfg)
 
 
-def _mamba_layer(params: dict, layer: int, cfg: ModelConfig) -> dict:
-    """Mamba layer ``layer``'s params: (group, position) of
-    ``mamba_groups``, or an entry of ``mamba_tail`` (each stacked, or a
-    list a group or a layer)."""
+def _hybrid_stack(params: dict, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig, mesh, sp: bool) -> torch.Tensor:
+    groups, tail = hybrid_layout(cfg)
     period = cfg.shared_attn_period
-    groups, _ = hybrid_layout(cfg)
-    if layer < groups * period:
-        return index_tree(_layer(params["mamba_groups"], layer // period),
-                          layer % period)
-    return _layer(params["mamba_tail"], layer - groups * period)
+    sp_mesh = mesh if sp else None
+    x = embed_inputs(params, batch, cfg, mesh, sp)
+    if sp:
+        # the shared block and the LoRA factors run on every rank's
+        # stretch: their gradients summed over model, once a step
+        params = {**params, **whole({k: params[k] for k in
+                                     ("shared", "lora_a", "lora_b")}, mesh)}
+
+    def group(x, g):
+        gp = whole(_layer(params["mamba_groups"], g), sp_mesh)
+        for j in range(period):
+            x = _ssm_apply(x, index_tree(gp, j), cfg, mesh, sp)
+        return _shared_block_train(x, params, g, cfg, mesh, sp)
+
+    group = _maybe_remat(group, cfg)
+    sharded_tail = _maybe_remat(lambda x, t: _ssm_apply(
+        x, whole(_layer(params["mamba_tail"], t), sp_mesh), cfg, mesh, sp),
+        cfg)
+    for g in range(groups):
+        x = group(x, g)
+    for t in range(tail):
+        bp = _layer(params["mamba_tail"], t)
+        # as the JAX forward, the tail keeps its activations; a layer
+        # given as blocks is gathered inside a checkpoint region of its own
+        x = (sharded_tail(x, t) if isinstance(bp, ShardedLayer)
+             else _ssm_apply(x, whole(bp, sp_mesh), cfg, mesh, sp))
+    return x
 
 
 def hybrid_forward(params: dict, batch: Dict[str, torch.Tensor],
@@ -295,37 +349,20 @@ def hybrid_forward(params: dict, batch: Dict[str, torch.Tensor],
     blocks) are gathered once inside the group's checkpoint region, a
     tail layer's inside its own (the train step on a mesh runs under
     remat; with whole params the tail, as the JAX forward's, runs without
-    it)."""
-    groups, tail = hybrid_layout(cfg)
-    period = cfg.shared_attn_period
-    x = embed_inputs(params, batch, cfg, mesh)
-
-    def group(x, g):
-        gp = whole(_layer(params["mamba_groups"], g))
-        for j in range(period):
-            x = _ssm_apply(x, index_tree(gp, j), cfg)
-        return _shared_block_train(x, params, g, cfg, mesh)
-
-    group = _maybe_remat(group, cfg)
-    sharded_tail = _maybe_remat(lambda x, t: _ssm_apply(
-        x, _layer(params["mamba_tail"], t), cfg), cfg)
-    for g in range(groups):
-        x = group(x, g)
-    for t in range(tail):
-        bp = _layer(params["mamba_tail"], t)
-        # as the JAX forward, the tail keeps its activations; a layer
-        # given as blocks is gathered inside a checkpoint region of its own
-        x = (sharded_tail(x, t) if isinstance(bp, ShardedLayer)
-             else _ssm_apply(x, bp, cfg))
+    it).  Where ``model`` divides the sequence the stream is each rank's
+    stretch between layers, and the logits returned are gathered whole."""
+    split = logits_split(batch, cfg, mesh)
+    x = _hybrid_stack(params, batch, cfg, mesh, split == 1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(x, params, cfg), aux
+    return gather_logits(head_logits(x, params, cfg, mesh, split), cfg,
+                         mesh, split), aux
 
 
 def hybrid_train_loss(params: dict, batch: Dict[str, torch.Tensor],
                       cfg: ModelConfig, mesh=None) -> torch.Tensor:
-    logits, _ = hybrid_forward(params, batch, cfg, mesh)
-    return cross_entropy_loss(logits, batch["labels"],
-                              batch.get("loss_mask"))
+    split = logits_split(batch, cfg, mesh)
+    x = _hybrid_stack(params, batch, cfg, mesh, split == 1)
+    return lm_loss(x, params, batch, cfg, mesh, split)
 
 
 def hybrid_decode_state_specs(cfg: ModelConfig, batch: int, max_seq: int
@@ -355,7 +392,10 @@ def hybrid_decode_step(params: dict, state: Dict[str, torch.Tensor],
     On a ``mesh`` the state holds this rank's rows, and with a ``model``
     axis of 2 or more ranks its stretch of the ``k`` / ``v`` cache: the
     shared attention takes split-K, which needs a 0-d index (it raises
-    otherwise, as :func:`repro_torch.models.lm.decode_step` does)."""
+    otherwise, as :func:`repro_torch.models.lm.decode_step` does).  The
+    embedding is vocab-parallel, and Mamba groups and tail layers given as
+    :class:`~repro_torch.models.common.ShardedLayer` s are gathered where
+    they run."""
     cur = batch["index"]
     b, smax = state["k"].shape[1], state["k"].shape[2]
     if _splitk(cfg, mesh, False, cur, b, smax):
@@ -366,24 +406,25 @@ def hybrid_decode_step(params: dict, state: Dict[str, torch.Tensor],
             h, ap, cfg, ck, cv, cur)
     groups, tail = hybrid_layout(cfg)
     period = cfg.shared_attn_period
-    sp = params["shared"]
-    x = params["embed"][batch["tokens"]].to(cfg.dtype)
+    shared = params["shared"]
+    x = vocab_parallel_embed(batch["tokens"], params["embed"], mesh,
+                             cfg.vocab, cfg.use_tp_shardmap).to(cfg.dtype)
     for g in range(groups):
+        gp = whole(_layer(params["mamba_groups"], g))
         for j in range(period):
-            layer = g * period + j
-            x = _mamba_decode_layer(x, _mamba_layer(params, layer, cfg), cfg,
-                                    state, layer)
-        hin = rms_norm(x, sp["attn_norm"], cfg.norm_eps)
+            x = _mamba_decode_layer(x, index_tree(gp, j), cfg, state,
+                                    g * period + j)
+        hin = rms_norm(x, shared["attn_norm"], cfg.norm_eps)
         out, _, _ = attend(hin, _lora_attn(params, g), state["k"][g],
                            state["v"][g])
-        x = _shared_ffn(x + out, sp, cfg)
+        x = _shared_ffn(x + out, shared, cfg)
     for t in range(tail):
-        layer = groups * period + t
-        x = _mamba_decode_layer(x, _mamba_layer(params, layer, cfg), cfg,
-                                state, layer)
+        x = _mamba_decode_layer(x, whole(_layer(params["mamba_tail"], t)),
+                                cfg, state, groups * period + t)
     return _decode_logits(x, params, cfg), state
 
 
 def hybrid_prefill_chunk(params: dict, state: Dict[str, torch.Tensor],
-                         batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    return _scan_prefill(hybrid_decode_step, params, state, batch, cfg)
+                         batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                         mesh=None):
+    return _scan_prefill(hybrid_decode_step, params, state, batch, cfg, mesh)

@@ -43,12 +43,17 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, mla, moe, paging
 from repro_torch.dist import transport as tx
-from repro_torch.models.common import (ParamSpec, cross_entropy_loss,
-                                       rms_norm, topk_low_index_first, whole)
+from repro_torch.models.common import (LOGIT_AXES, ParamSpec,
+                                       cross_entropy_loss, model_split_dim,
+                                       rms_norm, token_nll,
+                                       topk_low_index_first,
+                                       vocab_parallel_cross_entropy, whole,
+                                       whole_sequence)
 from repro_torch.tree import index_tree, map_tree
 
 __all__ = ["param_specs", "block_specs", "stack_specs", "forward",
            "train_loss", "embed_inputs", "vocab_parallel_embed",
+           "logits_split", "head_logits", "lm_loss",
            "decode_state_specs",
            "decode_step", "prefill_chunk", "verify_chunk",
            "draft_head_specs", "verify_tree", "hidden_states",
@@ -123,20 +128,25 @@ def _layer(blocks: Any, i: int) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 
-def _block_train(x: torch.Tensor, bp: dict, cfg: ModelConfig, mesh=None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _block_train(x: torch.Tensor, bp: dict, cfg: ModelConfig, mesh=None,
+                 sp: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block: (x, the layer's router aux loss; 0 for a dense FFN).
     ``bp`` may be a :class:`~repro_torch.models.common.ShardedLayer`,
-    gathered here."""
-    bp = whole(bp)
+    gathered here.  With ``sp`` ``x`` is this rank's stretch of the
+    sequence-parallel stream, and so is the result: attention gathers the
+    sequence (:func:`~repro_torch.models.attention.gqa_train`), the norms
+    and the FFN run on the stretch, and the layer's weight gradients are
+    summed over ``model`` (:func:`~repro_torch.models.common.whole`)."""
+    bp = whole(bp, mesh if sp else None)
     h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
     if cfg.attn_kind == "mla":
-        x = x + mla.mla_train(h, bp["attn"], cfg)
+        attend = lambda h: mla.mla_train(h, bp["attn"], cfg)
+        x = x + (whole_sequence(attend, h, mesh) if sp else attend(h))
     else:
-        x = x + attention.gqa_train(h, bp["attn"], cfg, mesh=mesh)
+        x = x + attention.gqa_train(h, bp["attn"], cfg, mesh=mesh, sp=sp)
     h = rms_norm(x, bp["ffn_norm"], cfg.norm_eps)
     if cfg.n_experts:
-        h, aux = moe.moe_ffn(h, bp["ffn"], cfg, mesh)
+        h, aux = moe.moe_ffn(h, bp["ffn"], cfg, mesh, sp)
     else:
         h = moe.dense_ffn(h, bp["ffn"], cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -144,7 +154,8 @@ def _block_train(x: torch.Tensor, bp: dict, cfg: ModelConfig, mesh=None
 
 
 def vocab_parallel_embed(tokens: torch.Tensor, table: torch.Tensor, mesh,
-                         vocab: int, enabled: bool = True) -> torch.Tensor:
+                         vocab: int, enabled: bool = True, sp: bool = False
+                         ) -> torch.Tensor:
     """Rows ``tokens`` of the (vocab, D) embedding ``table`` (Megatron's
     VocabParallelEmbedding, the counterpart of
     ``repro/models/lm.py:vocab_parallel_embed``).
@@ -156,37 +167,170 @@ def vocab_parallel_embed(tokens: torch.Tensor, table: torch.Tensor, mesh,
     (:func:`~repro_torch.dist.transport.reduce_from`: every rank's
     gradient of its block is then its block of the whole gradient).
     Without one (``enabled`` off, ``tp`` 1, ``vocab % tp``), or given the
-    whole table, a plain take."""
+    whole table, a plain take.
+
+    With ``sp`` (the sequence-parallel layout; ``tokens`` (B, S) with
+    ``tp`` dividing S) this returns the rank's stretch (B, S / tp, D): the
+    sum is a reduce-scatter along the sequence
+    (:func:`~repro_torch.dist.transport.reduce_scatter`), and a plain take
+    keeps its stretch (:func:`~repro_torch.dist.transport.split_to`)."""
     tp = mesh.shape.get("model", 1) if mesh is not None else 1
     if not enabled or tp == 1 or vocab % tp or table.shape[0] == vocab:
-        return table[tokens.long()]
+        x = table[tokens.long()]
+        return tx.split_to(x, mesh, "model", 1) if sp and tp > 1 else x
     v_local = vocab // tp
     lo = mesh.index("model") * v_local
     tok = tokens.long()
     in_range = (tok >= lo) & (tok < lo + v_local)
     x = table[torch.clamp(tok - lo, 0, v_local - 1)]
     x = x * in_range[..., None].to(x.dtype)
+    if sp:
+        return tx.reduce_scatter(x, mesh, "model", 1)
     return tx.reduce_from(x, mesh, "model")
 
 
 def embed_inputs(params: dict, batch: Dict[str, torch.Tensor],
-                 cfg: ModelConfig, mesh=None) -> torch.Tensor:
+                 cfg: ModelConfig, mesh=None, sp: bool = False
+                 ) -> torch.Tensor:
     """(B, S, D) inputs of the block stack in the compute dtype: the token
     embedding (:func:`vocab_parallel_embed` on a ``mesh``), after the
     projected ``vision_embeds`` (B, n_frontend_tokens, frontend_dim) of a
     vision stub; for an audio stub, the projected ``frames`` (B, S,
-    frontend_dim) alone."""
+    frontend_dim) alone.  With ``sp`` this rank's stretch (B, S / tp, D)
+    of them."""
     parts = []
     if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
         ve = batch["vision_embeds"].to(cfg.dtype)
         parts.append(ve @ params["frontend_proj"].to(cfg.dtype))
     if cfg.frontend == "audio_stub":
         frames = batch["frames"].to(cfg.dtype)
-        return frames @ params["frontend_proj"].to(cfg.dtype)
-    parts.append(vocab_parallel_embed(batch["tokens"], params["embed"], mesh,
-                                      cfg.vocab, cfg.use_tp_shardmap
-                                      ).to(cfg.dtype))
-    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+        x = frames @ params["frontend_proj"].to(cfg.dtype)
+        return tx.split_to(x, mesh, "model", 1) if sp else x
+    tok = vocab_parallel_embed(batch["tokens"], params["embed"], mesh,
+                               cfg.vocab, cfg.use_tp_shardmap,
+                               sp and not parts).to(cfg.dtype)
+    if not parts:
+        return tok
+    x = torch.cat(parts + [tok], dim=1)
+    return tx.split_to(x, mesh, "model", 1) if sp else x
+
+
+def _seq_len(batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> int:
+    """The length of the block stack's sequence: the frames of an audio
+    stub, the tokens after a vision stub's patches, else the tokens."""
+    if cfg.frontend == "audio_stub":
+        return batch["frames"].shape[1]
+    s = batch["tokens"].shape[1]
+    if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
+        s += batch["vision_embeds"].shape[1]
+    return s
+
+
+def logits_split(batch: Dict[str, torch.Tensor], cfg: ModelConfig, mesh
+                 ) -> Optional[int]:
+    """The dim of the logits (B, S, V) that ``model`` splits, as the JAX
+    package's constraints lay them out (:data:`~repro_torch.models.common.
+    LOGIT_AXES`): 1 where it divides the sequence (then the residual
+    stream is sequence-parallel too, each rank its stretch of S / tp),
+    else 2 where it divides the vocab (the stream whole on every rank, the
+    logits each rank's V / tp columns), else ``None``."""
+    if mesh is None:
+        return None
+    rows = mesh.size([a for a in mesh.axis_names if a != "model"])
+    return model_split_dim(LOGIT_AXES, (rows, _seq_len(batch, cfg),
+                                        cfg.vocab), mesh)
+
+
+def head_logits(x: torch.Tensor, params: dict, cfg: ModelConfig, mesh=None,
+                split: Optional[int] = None) -> torch.Tensor:
+    """The logits of the block stack's output ``x`` under ``split``
+    (:func:`logits_split`): for 1, ``x`` is the rank's stretch and so are
+    the logits (B, S / tp, V), ``final_norm`` and the whole ``lm_head``
+    summing their gradients over ``model``; for 2 with ``lm_head`` given
+    as the rank's (D, V / tp) columns, the rank's columns of the logits
+    of the whole ``x`` (B, S, V / tp); else the whole logits."""
+    head, norm = params["lm_head"], params["final_norm"]
+    if split == 1:
+        norm, head = (tx.copy_to(t, mesh, "model") for t in (norm, head))
+    x = rms_norm(x, norm, cfg.norm_eps)
+    if split == 2 and head.shape[1] != cfg.vocab:
+        # the normed rows feed this rank's columns alone: their cotangents
+        # are summed over model
+        x = tx.copy_to(x, mesh, "model")
+    return x @ head.to(x.dtype)
+
+
+def _text_labels(batch: Dict[str, torch.Tensor], s_total: int, lo: int,
+                 n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The labels and weights (B, n) of stream positions ``[lo, lo + n)``
+    of ``s_total``: the labels are those of the last ``labels.shape[1]``
+    (text) positions; a position before them weighs 0, one in them its
+    ``loss_mask`` entry (1 without one)."""
+    labels, mask = batch["labels"], batch.get("loss_mask")
+    j = torch.arange(lo, lo + n, device=device) - (s_total - labels.shape[1])
+    jc = j.clamp_min(0)
+    w = (j >= 0).float()[None, :].expand(labels.shape[0], n)
+    if mask is not None:
+        w = w * mask[:, jc].float()
+    return labels[:, jc], w
+
+
+def lm_loss(x: torch.Tensor, params: dict, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, mesh=None, split: Optional[int] = None
+            ) -> torch.Tensor:
+    """Mean next-token NLL of ``batch["labels"]`` from the block stack's
+    output ``x`` under ``split`` (:func:`logits_split`); with stub tokens
+    prepended, over the last ``labels.shape[1]`` (text) positions only,
+    weighted by ``loss_mask`` when given.  For 1 each rank sums its
+    stretch's weighted NLL and weights, both summed over ``model``; for 2
+    (``lm_head`` as the rank's columns)
+    :func:`~repro_torch.models.common.vocab_parallel_cross_entropy`.  The
+    loss is the same on every rank."""
+    logits = head_logits(x, params, cfg, mesh, split)
+    labels = batch["labels"]
+    if split == 1:
+        tp, r = mesh.shape["model"], mesh.index("model")
+        n = logits.shape[1]
+        lab, w = _text_labels(batch, n * tp, r * n, n, logits.device)
+        total = tx.reduce_from(torch.sum(token_nll(logits, lab) * w), mesh,
+                               "model")
+        if "loss_mask" not in batch:
+            return total / labels.numel()
+        den = mesh.transport.all_reduce(torch.sum(w), mesh.group("model"))
+        return total / torch.clamp_min(den, 1.0)
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    if split == 2 and logits.shape[-1] != cfg.vocab:
+        return vocab_parallel_cross_entropy(logits, labels,
+                                            batch.get("loss_mask"), mesh)
+    return cross_entropy_loss(logits, labels, batch.get("loss_mask"))
+
+
+def gather_logits(logits: torch.Tensor, cfg: ModelConfig, mesh,
+                  split: Optional[int]) -> torch.Tensor:
+    """The whole logits from :func:`head_logits`' layout (the rank's
+    stretch, or its vocab columns), gathered over ``model``."""
+    if split == 1 or (split == 2 and logits.shape[-1] != cfg.vocab):
+        return tx.gather_from(logits, mesh, "model", split)
+    return logits
+
+
+def _stack(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+           mesh, sp: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block stack's output (the rank's stretch with ``sp``) and the
+    router losses summed over layers."""
+    x = embed_inputs(params, batch, cfg, mesh, sp)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        bp = _layer(params["blocks"], i)
+        if remat:
+            x, aux_l = checkpoint(_block_train, x, bp, cfg, mesh, sp,
+                                  use_reentrant=False)
+        else:
+            x, aux_l = _block_train(x, bp, cfg, mesh, sp)
+        aux = aux + aux_l
+    return x, aux
 
 
 def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -202,41 +346,34 @@ def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     rank's block of vocab rows (:func:`vocab_parallel_embed`).  GQA splits
     its heads over ``model`` and the MoE FFN its experts
     (:func:`~repro_torch.models.attention.gqa_train`,
-    :func:`~repro_torch.models.moe.moe_ffn`); the rest runs whole on every
-    rank.  The logits are those of the rank's rows, and the ranks'
-    gradients meaned over the data axes (as the train step means them) are
-    those of the mean loss over all the rows.
+    :func:`~repro_torch.models.moe.moe_ffn`).  Where ``model`` (2 or more
+    ranks) divides the sequence, the residual stream between half-blocks
+    is each rank's stretch of it (sequence parallelism, :func:`logits_split`
+    1), else whole on every rank.  The logits returned are those of the
+    rank's rows, whole (gathered over ``model``); the ranks' gradients
+    meaned over the data axes (as the train step means them) are those of
+    the mean loss over all the rows.
 
     With ``cfg.remat`` and grad enabled, each layer runs under
     ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint`` with
     ``nothing_saveable``): only its input is kept, and the backward runs
     the layer's forward again."""
-    x = embed_inputs(params, batch, cfg, mesh)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
-        bp = _layer(params["blocks"], i)
-        if remat:
-            x, aux_l = checkpoint(_block_train, x, bp, cfg, mesh,
-                                  use_reentrant=False)
-        else:
-            x, aux_l = _block_train(x, bp, cfg, mesh)
-        aux = aux + aux_l
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ params["lm_head"].to(x.dtype)
-    return logits, aux
+    split = logits_split(batch, cfg, mesh)
+    x, aux = _stack(params, batch, cfg, mesh, split == 1)
+    logits = head_logits(x, params, cfg, mesh, split)
+    return gather_logits(logits, cfg, mesh, split), aux
 
 
 def train_loss(params: dict, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """Mean next-token NLL of ``batch["labels"]`` (+ the aux loss); with
     stub tokens prepended, over the last ``labels.shape[1]`` (text)
-    positions only.  ``mesh`` as in :func:`forward`."""
-    logits, aux = forward(params, batch, cfg, mesh)
-    labels = batch["labels"]
-    if logits.shape[1] != labels.shape[1]:
-        logits = logits[:, logits.shape[1] - labels.shape[1]:]
-    return cross_entropy_loss(logits, labels, batch.get("loss_mask")) + aux
+    positions only.  ``mesh`` as in :func:`forward`; the logits stay in
+    their layout (:func:`lm_loss`): each rank's stretch of the sequence,
+    or its columns of the vocab."""
+    split = logits_split(batch, cfg, mesh)
+    x, aux = _stack(params, batch, cfg, mesh, split == 1)
+    return lm_loss(x, params, batch, cfg, mesh, split) + aux
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +419,12 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
     the data axes and its stretch of ``Smax`` over ``model``
     (:func:`~repro_torch.models.attention.gqa_decode_splitk`).  Anything
     else on such a mesh raises: its cache would have to be whole on every
-    rank.  A mesh of data axes alone runs the rank's rows as above."""
+    rank.  A mesh of data axes alone runs the rank's rows as above.  On a
+    mesh the params may be laid out as the sharded train step holds them
+    (:func:`repro_torch.train.state.mesh_params`): ``embed`` the rank's
+    vocab rows (:func:`vocab_parallel_embed`), each layer a
+    :class:`~repro_torch.models.common.ShardedLayer` gathered where it
+    runs, the rest whole."""
     mla_kind = cfg.attn_kind == "mla"
     names = ("ckv", "kr") if mla_kind else ("k", "v")
     quant = names[0] + "_scale" in state
@@ -296,7 +438,8 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
     if "parents" in batch:
         tree = (batch["parents"], batch["pos_off"], batch["nchain"])
     blocks = params["blocks"]
-    x = params["embed"][batch["tokens"]].to(cfg.dtype)
+    x = vocab_parallel_embed(batch["tokens"], params["embed"], mesh,
+                             cfg.vocab, cfg.use_tp_shardmap).to(cfg.dtype)
     b, c = batch["tokens"].shape
     splitk = _splitk(cfg, mesh, mla_kind or quant or pages is not None
                      or nspec is not None or tree is not None, cur, b,
@@ -332,7 +475,7 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
     plan = (None if nspec is None else attention.masked_write_plan(
         attention.decode_positions(cur, c), nspec, smax, b))
     for i in range(cfg.n_layers):
-        bp = _layer(blocks, i)
+        bp = whole(_layer(blocks, i))
         h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
         caches = [(state[n][i], state[n + "_scale"][i]) if quant
                   else state[n][i] for n in names]
@@ -388,14 +531,17 @@ def decode_step(params: dict, state: Dict[str, torch.Tensor],
 
 
 def prefill_chunk(params: dict, state: Dict[str, torch.Tensor],
-                  batch: Dict[str, torch.Tensor], cfg: ModelConfig
+                  batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  mesh=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Ingest a prompt chunk in one dispatch. batch: {"tokens": (B, C),
     "index": 0-d chunk start, "nvalid": count of real tokens in the chunk
     (trailing bucket padding only writes masked-off positions), optionally
     "pages": (B, n_pages)}.  Returns (logits (B, V) float32 at row
-    ``nvalid - 1``, state)."""
-    x, state = _decode_blocks(params, state, batch, cfg)
+    ``nvalid - 1``, state).  ``mesh``: see :func:`_decode_blocks` (on a
+    ``model`` axis the chunk takes split-K, each rank writing the rows of
+    its stretch of the cache)."""
+    x, state = _decode_blocks(params, state, batch, cfg, mesh)
     c = x.shape[1]
     last = min(max(int(batch.get("nvalid", c)) - 1, 0), c - 1)
     x_last = rms_norm(x[:, last:last + 1], params["final_norm"],
@@ -405,7 +551,8 @@ def prefill_chunk(params: dict, state: Dict[str, torch.Tensor],
 
 
 def verify_chunk(params: dict, state: Dict[str, torch.Tensor],
-                 batch: Dict[str, torch.Tensor], cfg: ModelConfig
+                 batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                 mesh=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Score a (B, K+1) speculative block in one dispatch: each slot feeds
     its last sampled token and up to K drafted tokens, and the logits come
@@ -417,8 +564,9 @@ def verify_chunk(params: dict, state: Dict[str, torch.Tensor],
     nothing (dense rows) or only scratch (pages); the engine rolls back
     pages past what it accepts.  Returns (logits (B, K+1, V) float32,
     state): ``logits[:, j]`` is the next-token distribution after fed
-    token ``j``."""
-    x, state = _decode_blocks(params, state, batch, cfg)
+    token ``j``.  ``mesh``: see :func:`_decode_blocks` (a ``model`` axis
+    of 2 or more ranks raises: no split-K for ``nspec``)."""
+    x, state = _decode_blocks(params, state, batch, cfg, mesh)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ params["lm_head"].to(x.dtype)
     return logits.float(), state
@@ -455,8 +603,8 @@ def _draft_head_top(params: dict, x: torch.Tensor, head_topk: int
 
 
 def verify_tree(params: dict, state: Dict[str, torch.Tensor],
-                batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-                head_topk: int = 4
+                batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                mesh=None, *, head_topk: int = 4
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                            Dict[str, torch.Tensor]]:
     """Score a (B, C) speculative token tree in one dispatch.
@@ -479,8 +627,8 @@ def verify_tree(params: dict, state: Dict[str, torch.Tensor],
     Returns ``(logits (B, C, V) float32, head_top, state)``; ``head_top``
     is (B, C, H, ``head_topk``) draft-head candidates when
     ``params["draft_heads"]`` exists (:func:`draft_head_specs`), else
-    None."""
-    x, state = _decode_blocks(params, state, batch, cfg)
+    None.  ``mesh``: as :func:`verify_chunk`."""
+    x, state = _decode_blocks(params, state, batch, cfg, mesh)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ params["lm_head"].to(x.dtype)
     head_top = (_draft_head_top(params, x, head_topk)

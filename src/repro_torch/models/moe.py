@@ -274,8 +274,8 @@ def moe_ffn_ep_psum(x: torch.Tensor, p: dict, cfg: ModelConfig, mesh,
     return y.reshape(bl, sl, d), aux
 
 
-def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, mesh=None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, mesh=None,
+            sp: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE FFN with the optional shared expert: (y, aux).
 
     Without a mesh, or where the JAX function would not take expert
@@ -290,18 +290,46 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, mesh=None
     train step's mean over them gives the mean gradient), and the outputs
     are gathered back over ``model``.  The model ranks hold one loss
     between them, so every rank's gradients are the whole ones, and aux's
-    is split between them (its forward value is unchanged)."""
+    is split between them (its forward value is unchanged).
+
+    With ``sp`` (the sequence-parallel layout) ``x`` is already this
+    rank's stretch (B / dp, S / tp, D) and so is ``y``: expert parallelism
+    routes it as it stands, its weights whole or, as the sharded train
+    step hands them under EP, this rank's experts already (``router`` (D,
+    E / tp), ``w1`` / ``w3`` / ``w2`` (E / tp, ...)); the dense dispatch
+    gathers the rank's whole sequence first, since its capacity and its
+    token-major drops are those of the whole dispatch, and keeps the
+    rank's stretch.
+    Each rank's weight gradients are then its stretch's part, summed over
+    ``model`` by the caller (:func:`~repro_torch.models.common.whole`)."""
     ep = mesh.shape.get("model", 1) if mesh is not None else 1
+    s = x.shape[1] * (ep if sp else 1)
     if (cfg.use_ep and ep > 1 and cfg.n_experts % ep == 0
-            and x.shape[1] % ep == 0):
+            and s % ep == 0):
         m = mesh.index("model")
-        w = {k: tx.copy_to(p[k], mesh, "model").chunk(ep, 1 if k == "router"
-                                                       else 0)[m]
-             for k in ("router", "w1", "w3", "w2")}
-        x_blk = tx.copy_to(x, mesh, "model").chunk(ep, 1)[m]
+        if sp:
+            w = {k: (p[k] if p[k].shape[1 if k == "router" else 0]
+                     != cfg.n_experts
+                     else p[k].chunk(ep, 1 if k == "router" else 0)[m])
+                 for k in ("router", "w1", "w3", "w2")}
+            x_blk = x
+        else:
+            w = {k: tx.copy_to(p[k], mesh, "model").chunk(
+                ep, 1 if k == "router" else 0)[m]
+                for k in ("router", "w1", "w3", "w2")}
+            x_blk = tx.copy_to(x, mesh, "model").chunk(ep, 1)[m]
         y, aux = _moe_ep_local(x_blk, w["router"], w["w1"], w["w3"],
                                w["w2"], cfg, mesh, "model")
-        y = tx.gather_from(y, mesh, "model", 1)
+        if not sp:
+            y = tx.gather_from(y, mesh, "model", 1)
+        aux = aux.detach() + (aux - aux.detach()) / ep
+    elif sp:
+        # as whole_sequence does: the rank's stretch of the dispatch of the
+        # whole sequence; every rank's aux is the same one, over its rows'
+        # whole sequence, so its gradient is split between the ranks
+        y, aux = moe_ffn_dense_dispatch(tx.all_gather(x, mesh, "model", 1),
+                                        p, cfg)
+        y = y.chunk(ep, 1)[mesh.index("model")]
         aux = aux.detach() + (aux - aux.detach()) / ep
     else:
         y, aux = moe_ffn_dense_dispatch(x, p, cfg)

@@ -29,7 +29,14 @@ the batch ranks the leaf is split across; the step all-reduces it over
 those it is replicated on, then means.  AdamW updates the blocks, the
 grad norm summing each leaf over the axes it is split on.  The model
 splits its attention heads and experts over ``model`` and embeds
-vocab-parallel (:func:`repro_torch.models.lm.forward`).
+vocab-parallel (:func:`repro_torch.models.lm.forward`); where ``model``
+divides the sequence the residual stream is sequence-parallel and the
+logits and loss are each rank's stretch's, else the logits are split
+over the vocab, ``lm_head`` staying the rank's columns
+(:func:`repro_torch.models.lm.logits_split`).  Under expert parallelism
+the experts stay the rank's own, gathered over the batch axes alone.
+:func:`mesh_params` lays the rank's blocks out for the decode and
+prefill entry points.
 
 The pod-compressed step (on ``train_state_shardings(pod_compressed=
 True)``: params replicated over ``pod`` and split over ``data``, ``err``
@@ -53,6 +60,7 @@ from repro_torch.models.common import (DEFAULT_RULES, ParamSpec,
                                        gather_block, init_params,
                                        make_shardings, shard_block,
                                        split_axes)
+from repro_torch.models.lm import logits_split
 from repro_torch.models.registry import get_api
 from repro_torch.optim import compression
 from repro_torch.optim.adamw import AdamWConfig, AdamWState, adamw_update
@@ -62,7 +70,7 @@ from repro_torch.tree import index_tree, leaves, map_tree
 
 __all__ = ["train_state_specs", "train_state_shardings", "init_train_state",
            "shard_train_state", "gather_train_state", "build_train_step",
-           "split_layers", "LAYER_KEYS"]
+           "split_layers", "mesh_params", "LAYER_KEYS"]
 
 #: the stacked entries a param tree splits per layer (or per group): the
 #: decoders' and SSM LMs' ``blocks``, the hybrid's Mamba groups and tail
@@ -188,24 +196,67 @@ def _split_pspecs(pspecs: Dict[str, Any], split: Dict[str, Any]
     return out
 
 
+#: the MoE leaves the expert-parallel FFN splits over ``model``
+#: (``repro/models/moe.py:moe_ffn_ep``'s in_specs)
+EP_LEAVES = ("router", "w1", "w3", "w2")
+
+
+def _ep_keep(layer: Dict[str, Any], cfg: ModelConfig, mesh, split) -> Any:
+    """A layer's ``keep`` tree (:class:`~repro_torch.models.common.
+    ShardedLayer`): under expert parallelism (the sequence-parallel layout,
+    ``use_ep``, ``model`` dividing the experts) the experts and their
+    router columns stay split over ``model``, else nothing stays split."""
+    tp = mesh.shape.get("model", 1)
+    ep = (split == 1 and cfg.use_ep and cfg.n_experts
+          and cfg.n_experts % tp == 0 and isinstance(layer.get("ffn"), dict))
+    keep = {k: (map_tree(lambda _: (), v) if isinstance(v, (dict, list))
+                else ()) for k, v in layer.items()}
+    if ep:
+        keep["ffn"] = {k: (("model",) if k in EP_LEAVES else ())
+                       for k in layer["ffn"]}
+    return keep
+
+
 def _loss_params(params: Dict[str, Any], pspecs: Dict[str, Any], mesh,
-                 cfg: ModelConfig) -> Dict[str, Any]:
+                 cfg: ModelConfig, split=None) -> Dict[str, Any]:
     """What the loss reads on a mesh, from the rank's blocks: each layer a
     :class:`~repro_torch.models.common.ShardedLayer` (gathered where it
-    runs), ``embed`` gathered over the batch axes alone (its vocab rows
-    stay split over ``model`` for the vocab-parallel embedding), every
-    other leaf gathered whole now."""
+    runs; under expert parallelism its experts kept the rank's),
+    ``embed`` gathered over the batch axes alone (its vocab rows stay
+    split over ``model`` for the vocab-parallel embedding), ``lm_head``
+    likewise where the logits are split over the vocab (``split`` 2,
+    :func:`repro_torch.models.lm.logits_split`), every other leaf gathered
+    whole now."""
     out = {}
     for k, v in params.items():
         if k in LAYER_KEYS:
-            out[k] = [ShardedLayer(b, ps, mesh)
+            out[k] = [ShardedLayer(b, ps, mesh,
+                                   _ep_keep(b, cfg, mesh, split)
+                                   if k == "blocks" else None)
                       for b, ps in zip(v, pspecs[k])]
-        elif k == "embed" and cfg.use_tp_shardmap:
+        elif ((k == "embed" and cfg.use_tp_shardmap)
+              or (k == "lm_head" and split == 2)):
             out[k] = gather_block(v, pspecs[k], mesh, keep=("model",))
         else:
             out[k] = map_tree(lambda b, ps: gather_block(b, ps, mesh), v,
                               pspecs[k])
     return out
+
+
+def mesh_params(params: Dict[str, Any], cfg: ModelConfig, mesh
+                ) -> Dict[str, Any]:
+    """The params the decode and prefill entry points read on ``mesh``
+    (``decode_step``, ``prefill_chunk``, ``ssm_decode_step``, ...) from
+    this rank's blocks of them, laid out as the train step holds them
+    (``state["params"]`` under :func:`train_state_shardings`): each layer
+    (a hybrid's Mamba group) a
+    :class:`~repro_torch.models.common.ShardedLayer` gathered where it
+    runs, ``embed`` the rank's vocab rows for the vocab-parallel
+    embedding, the rest (``lm_head``, the norms, the shared block)
+    gathered whole now, once for every step that reuses the result."""
+    shardings = train_state_shardings(cfg, mesh)["params"]
+    split = split_layers(params)
+    return _loss_params(split, _split_pspecs(shardings, split), mesh, cfg)
 
 
 def _rank_rows(batch: Dict[str, Any], mesh, axes, row_dim: int
@@ -252,7 +303,8 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
     def loss_fn(params, batch):
         if shardings is not None:
-            params = _loss_params(params, layout["params"], mesh, cfg)
+            params = _loss_params(params, layout["params"], mesh, cfg,
+                                  logits_split(batch, cfg, mesh))
         return api.train_loss(params, batch, cfg, mesh)
 
     vg = (accumulated_value_and_grad(loss_fn, grad_accum) if grad_accum > 1

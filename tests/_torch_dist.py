@@ -425,9 +425,12 @@ def _sharded_run(cfg, mesh, state_np, batches, opt, ckpt=None):
     per step the metrics, the gathered params and the transport's bytes,
     the first step's gradient as AdamW got it (gathered, layers stacked),
     and with ``ckpt`` (a directory) a save after the first step and the
-    gathered state then."""
+    gathered state then; the shapes of the residual stream a decoder
+    block took (``stream``) and of the logits the vocab-parallel loss took
+    (``vocab_ce``)."""
     from repro_torch.checkpoint.ckpt import AsyncCheckpointer
     from repro_torch.convert import train_state_from_numpy
+    from repro_torch.models import lm
     from repro_torch.models.common import gather_block
     from repro_torch.train import state as state_mod
     from repro_torch.train.state import (build_train_step, gather_train_state,
@@ -441,8 +444,17 @@ def _sharded_run(cfg, mesh, state_np, batches, opt, ckpt=None):
     blocks = {k: {"/".join(map(str, i)): tuple(t.shape) for i, t in
                   _paths(state[k])} for k in ("params", "m", "v")}
     step = build_train_step(cfg, opt, mesh=mesh)
-    out = {"blocks": blocks, "steps": []}
+    out = {"blocks": blocks, "steps": [], "stream": set(), "vocab_ce": set()}
     real = state_mod.adamw_update
+    real_block, real_ce = lm._block_train, lm.vocab_parallel_cross_entropy
+
+    def block_spy(x, *a):
+        out["stream"].add(tuple(x.shape))
+        return real_block(x, *a)
+
+    def ce_spy(logits, *a):
+        out["vocab_ce"].add(tuple(logits.shape))
+        return real_ce(logits, *a)
 
     def spy(opt_cfg, params, grads, *rest, mesh=None, shardings=None):
         if "grads" not in out:
@@ -456,11 +468,14 @@ def _sharded_run(cfg, mesh, state_np, batches, opt, ckpt=None):
     for i, batch in enumerate(batches):
         mesh.transport.reset()
         state_mod.adamw_update = spy
+        lm._block_train, lm.vocab_parallel_cross_entropy = block_spy, ce_spy
         try:
             state, metrics = step(state, {k: torch.from_numpy(v)
                                           for k, v in batch.items()})
         finally:
             state_mod.adamw_update = real
+            lm._block_train, lm.vocab_parallel_cross_entropy = (real_block,
+                                                                real_ce)
         out["steps"].append(_np((metrics, gather_train_state(
             state, shardings, mesh)["params"], dict(mesh.transport.bytes))))
         if ckpt is not None and i == 0:
@@ -514,12 +529,57 @@ def sharded_state_program(rank: int, payload) -> dict:
     return _run_cases({"embed": embed,
                        **{name: (lambda n=name: run(n))
                           for name in ("llama", "moe", "moe_dense",
-                                       "hybrid")}})
+                                       "hybrid", "llama_ragged",
+                                       "moe_drop")}})
+
+
+def _mesh_decode(cfg, mesh, case):
+    """A prompt through ``prefill_chunk`` and greedy ``decode_step`` s on
+    ``mesh`` (data, model): the params the rank's blocks under
+    ``train_state_shardings`` (``mesh_params``), the state its rows over
+    ``data`` and, for ``k`` / ``v``, its stretch of the cache over
+    ``model``.  Returns each call's logits of the rank's rows and the
+    greedy tokens."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.common import shard_block
+    from repro_torch.models.registry import get_api
+    from repro_torch.train.state import mesh_params, train_state_shardings
+    from repro_torch.tree import map_tree
+
+    api = get_api(cfg)
+    whole = params_from_numpy(case["params"], "cpu", torch.float32)
+    shardings = train_state_shardings(cfg, mesh)["params"]
+    params = mesh_params(map_tree(lambda t, ps: shard_block(t, ps, mesh)
+                                  .clone(), whole, shardings), cfg, mesh)
+    dp, tp = mesh.shape["data"], mesh.shape["model"]
+    prompt = torch.from_numpy(case["prompt"]).chunk(dp)[mesh.index("data")]
+    b, p = prompt.shape
+    state = {}
+    for k, sp in api.decode_state_specs(cfg, b * dp, case["smax"]).items():
+        shape = list(sp.shape)
+        shape[1] //= dp
+        if k in ("k", "v"):
+            shape[2] //= tp
+        state[k] = torch.zeros(shape, dtype=sp.dtype)
+    out = []
+    with torch.no_grad():
+        logits, state = api.prefill_chunk(
+            params, state, {"tokens": prompt, "index": torch.tensor(0),
+                            "nvalid": p}, cfg, mesh)
+        out.append(logits)
+        for i in range(case["steps"]):
+            tok = out[-1].argmax(-1)[:, None]
+            logits, state = api.decode_step(
+                params, state, {"tokens": tok,
+                                "index": torch.tensor(p + i)}, cfg, mesh)
+            out.append(logits)
+    return _np((torch.stack(out), torch.stack([o.argmax(-1) for o in out])))
 
 
 def elastic_program(rank: int, payload) -> dict:
     """The llama checkpoint of ``sharded_state_program`` restored onto a
-    (data, model) mesh of ``payload["mesh"]``, then step 2."""
+    (data, model) mesh of ``payload["mesh"]``, then step 2; and prefill
+    and greedy decode on that mesh of sharded params (``_mesh_decode``)."""
     from repro_torch.checkpoint.ckpt import restore_checkpoint
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import device_mesh
@@ -545,7 +605,14 @@ def elastic_program(rank: int, payload) -> dict:
         return restored, _np((metrics, gather_train_state(
             state, shardings, mesh)["params"]))
 
-    return _run_cases({"restore": restore})
+    def decode(name):
+        c = payload["decode"][name]
+        dcfg = get_config(c["arch"]).reduced(dtype=torch.float32, **c["over"])
+        return _mesh_decode(dcfg, mesh, c)
+
+    return _run_cases({"restore": restore,
+                       **{f"decode_{name}": (lambda n=name: decode(n))
+                          for name in payload["decode"]}})
 
 
 def train_cli_program(rank: int, payload) -> dict:

@@ -23,6 +23,20 @@ batch 8 x 16 from a numpy seed.
   ``vocab_parallel_embed`` on the 4 ``model`` ranks, each holding its
   block of the table (vocab 96) or the whole (vocab 98, a plain take),
   equals ``jnp.take`` and its gradient ``jax.grad``'s rows.
+* The sequence-parallel layout (``model`` dividing S = 16): every
+  decoder block takes the rank's stretch (B / 4, S / 2, D) of the
+  stream.  A ragged llama (S = 15, ``model`` 2 does not divide it) keeps
+  the stream whole and takes the vocab-parallel loss over (B / 4, 15,
+  V / 2) logits; a dense-dispatch phi3.5-moe at capacity factor 0.5 on
+  ``model`` 2 drops half its assignments, the ones the JAX dispatch of
+  each data rank's rows drops.  Both against the JAX single-device step
+  within the tolerances above.
+* Prefill of a 20-token prompt (a chunk that straddles the two
+  ``model`` ranks' stretches of a 32-position cache) and 4 greedy decode
+  steps on a (data 2, model 2) mesh of sharded params (``mesh_params``),
+  llama and zamba2, in the elastic spawn: the tokens equal the JAX
+  single-device ``prefill_chunk`` + ``decode_step`` greedy tokens, the
+  logits within 1e-5.
 * Elastic restore: llama's state saved on (2, 2, 2) after step 1 restores
   ``torch.equal`` onto one device here and onto ``plan_elastic_mesh(4, 2,
   8) == (2, 2)`` in a spawn of 4 ranks; step 2 on each equals the
@@ -39,6 +53,7 @@ from jax.sharding import AbstractMesh, NamedSharding
 
 import _torch_dist
 from repro.configs.registry import get_config as jget
+from repro.models.common import init_params as jinit
 from repro.models.registry import get_api as jget_api
 from repro.optim.adamw import AdamWConfig as JAdamW
 from repro.optim.adamw import AdamWState as JAdamWState
@@ -71,10 +86,22 @@ CONFIGS = {
                                            "use_ep": False, "vocab": 96},
                   "flat"),
     "hybrid": ("zamba2-1.2b", {"n_layers": 3, "vocab": 96}, "pod"),
+    # S = 15: model 2 does not divide the sequence, so the stream stays
+    # whole and the logits split over the vocab (SEQ)
+    "llama_ragged": ("llama3.2-3b", {"n_kv_heads": 2, "vocab": 96,
+                                     "d_model": 64, "n_heads": 4}, "pod"),
+    # capacity 0.5: half of every dispatch's assignments dropped, on the
+    # whole sequence of each data rank's rows (ROUTER_BLOCKS)
+    "moe_drop": ("phi3.5-moe-42b-a6.6b", {"n_experts": 4,
+                                          "capacity_factor": 0.5,
+                                          "use_ep": False, "vocab": 96},
+                 "pod"),
 }
 #: the row blocks a config's oracle loss is the mean of: the data ranks
 #: a router loss is computed over (1: the whole batch)
-ROUTER_BLOCKS = {"moe_dense": 2}
+ROUTER_BLOCKS = {"moe_dense": 2, "moe_drop": 4}
+#: the sequence length of a config's batches (S otherwise)
+SEQ = {"llama_ragged": 15}
 MESHES = {"pod": ((2, 2, 2), ("pod", "data", "model")),
           "flat": ((2, 4), ("data", "model"))}
 B, S, LR = 8, 16, 1e-2
@@ -94,18 +121,19 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _batch(cfg, seed):
+def _batch(cfg, seed, seq=S):
     rng = np.random.default_rng(seed)
-    return {k: rng.integers(0, cfg.vocab, (B, S)).astype(np.int64)
+    return {k: rng.integers(0, cfg.vocab, (B, seq)).astype(np.int64)
             for k in ("tokens", "labels")}
 
 
 def _jax_steps(cfg, state, batches, blocks=1):
     """The JAX single-device step from ``state`` over ``batches``: per step
-    (metrics, params, the gradient of that step's loss).  With ``blocks``
-    > 1 the loss is the mean of the losses of that many row blocks of the
-    batch, and the step is AdamW on its gradient, as ``build_train_step``
-    takes it."""
+    (metrics, params, the gradient of that step's loss).  The step is
+    ``build_train_step``'s standard mode (``jax.value_and_grad`` of the
+    loss, then ``adamw_update``), with the loss and its gradient compiled
+    once; with ``blocks`` > 1 the loss is the mean of the losses of that
+    many row blocks of the batch."""
     api = jget_api(cfg)
 
     def loss(p, b):
@@ -115,23 +143,18 @@ def _jax_steps(cfg, state, batches, blocks=1):
                    for i in range(blocks)) / blocks
 
     opt_cfg = JAdamW(lr=LR, grad_clip=1.0)
-    if blocks == 1:
-        step = jstate.build_train_step(cfg, opt_cfg)
-    else:
-        def step(state, b):
-            value, grads = jax.value_and_grad(loss)(state["params"], b)
-            params, opt, metrics = jadamw_update(
-                opt_cfg, state["params"], grads,
-                JAdamWState(step=state["step"], m=state["m"], v=state["v"]))
-            metrics["loss"] = value
-            return {**state, "params": params, "m": opt.m, "v": opt.v,
-                    "step": opt.step}, metrics
-    step, grad = jax.jit(step), jax.jit(jax.grad(loss))
+    vg = jax.jit(jax.value_and_grad(loss))
+    update = jax.jit(lambda st, g: jadamw_update(
+        opt_cfg, st["params"], g,
+        JAdamWState(step=st["step"], m=st["m"], v=st["v"])))
     out = []
     for b in batches:
         jb = {k: jnp.asarray(v, jnp.int32) for k, v in b.items()}
-        grads = grad(state["params"], jb)
-        state, metrics = step(state, jb)
+        value, grads = vg(state["params"], jb)
+        params, opt, metrics = update(state, grads)
+        metrics["loss"] = value
+        state = {**state, "params": params, "m": opt.m, "v": opt.v,
+                 "step": opt.step}
         out.append(_np((metrics, state["params"], grads)))
     return out
 
@@ -144,7 +167,8 @@ def setup(tmp_path_factory):
         cfg = _jcfg(name)
         state = _np(jax.jit(lambda k: jstate.init_train_state(cfg, k))(
             jax.random.key(i)))
-        batches = [_batch(cfg, 10 + i), _batch(cfg, 20 + i)]
+        seq = SEQ.get(name, S)
+        batches = [_batch(cfg, 10 + i, seq), _batch(cfg, 20 + i, seq)]
         if name != "llama":
             batches = batches[:1]
         arch, over, mesh = CONFIGS[name]
@@ -318,16 +342,94 @@ def test_vocab_parallel_embed_and_its_gradient(setup):
             np.testing.assert_allclose(g, grad_r, rtol=1e-6, atol=1e-6)
 
 
+def test_the_stream_is_each_ranks_stretch_where_model_divides_it(setup):
+    d = CONFIGS["llama"][1]["d_model"]
+    for name, want in (("llama", (B // 4, S // 2, d)),
+                       ("moe", (B // 2, S // 4, 64)),
+                       ("llama_ragged", (B // 4, 15, d))):
+        for out in _ok(setup["ranks"], name):
+            assert out["stream"] == {want}, (name, out["stream"])
+            assert out["vocab_ce"] == (
+                {(B // 4, 15, 96 // 2)} if name == "llama_ragged" else set())
+
+
+def test_ragged_sequence_takes_the_vocab_parallel_loss(setup):
+    want = setup["want"]["llama_ragged"]["steps"][0]
+    for out in _ok(setup["ranks"], "llama_ragged"):
+        assert out["vocab_ce"] == {(B // 4, 15, 48)}
+        _check_step(out["steps"][0], out["grads"], want)
+
+
+def test_capacity_dropping_dense_moe_drops_as_jax(setup):
+    from repro.models import moe as jmoe
+    cfg = _jcfg("moe_drop")
+    # 2 rows of 16 a data rank: 64 assignments for 4 x 8 places
+    assert jmoe._capacity(2 * S, cfg) * cfg.n_experts < 2 * S * cfg.top_k
+    want = setup["want"]["moe_drop"]["steps"][0]
+    for out in _ok(setup["ranks"], "moe_drop"):
+        _check_step(out["steps"][0], out["grads"], want)
+
+
+#: prefill + greedy decode on (data 2, model 2): a prompt of PROMPT
+#: tokens, DECODE_STEPS steps, a cache of SMAX positions
+PROMPT, DECODE_STEPS, SMAX = 20, 4, 32
+DECODE = {"llama": CONFIGS["llama"][:2],
+          "hybrid": ("zamba2-1.2b", {"n_layers": 3, "vocab": 96})}
+
+
+def _jax_decode(name):
+    """The JAX single-device prefill and greedy decode of ``DECODE``'s
+    config ``name``: the payload, and each call's logits and tokens."""
+    arch, over = DECODE[name]
+    cfg = jget(arch).reduced(dtype=jnp.float32, **over)
+    api = jget_api(cfg)
+    params = _np(jinit(api.param_specs(cfg), jax.random.key(7)))
+    prompt = np.random.default_rng(7).integers(
+        0, cfg.vocab, (4, PROMPT)).astype(np.int64)
+    state = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
+                         api.decode_state_specs(cfg, 4, SMAX),
+                         is_leaf=lambda x: hasattr(x, "axes"))
+    prefill = jax.jit(lambda p, st, b: api.prefill_chunk(p, st, b, cfg))
+    decode = jax.jit(lambda p, st, b: api.decode_step(p, st, b, cfg))
+    logits, state = prefill(params, state, {
+        "tokens": jnp.asarray(prompt, jnp.int32), "index": jnp.int32(0),
+        "nvalid": jnp.int32(PROMPT)})
+    out = [np.asarray(logits)]
+    for i in range(DECODE_STEPS):
+        tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+        logits, state = decode(params, state, {
+            "tokens": tok, "index": jnp.int32(PROMPT + i)})
+        out.append(np.asarray(logits))
+    out = np.stack(out)
+    case = {"arch": arch, "over": over, "params": params, "prompt": prompt,
+            "smax": SMAX, "steps": DECODE_STEPS}
+    return case, (out, out.argmax(-1))
+
+
 @pytest.fixture(scope="module")
 def elastic(setup, tmp_path_factory):
     mesh = plan_elastic_mesh(4, 2, 8)
     arch, over, _ = CONFIGS["llama"]
+    decode = {name: _jax_decode(name) for name in DECODE}
     ranks = _torch_dist.run_ranks(
         4, "elastic_program",
         {"arch": arch, "over": over, "mesh": mesh, "ckpt": setup["ckpt"],
-         "batch": setup["want"]["llama"]["batches"][1]},
+         "batch": setup["want"]["llama"]["batches"][1],
+         "decode": {k: v[0] for k, v in decode.items()}},
         tmp_path_factory.mktemp("elastic"))
-    return mesh, ranks
+    return mesh, ranks, {k: v[1] for k, v in decode.items()}
+
+
+@pytest.mark.parametrize("name", sorted(DECODE))
+def test_prefill_and_decode_on_a_mesh_of_sharded_params(elastic, name):
+    mesh, ranks, want = elastic
+    logits, tokens = want[name]
+    for r, (got_logits, got_tokens) in enumerate(_ok(ranks,
+                                                     f"decode_{name}")):
+        rows = slice((r // 2) * 2, (r // 2) * 2 + 2)   # the data rank's
+        np.testing.assert_array_equal(got_tokens, tokens[:, rows])
+        np.testing.assert_allclose(got_logits, logits[:, rows], rtol=1e-5,
+                                   atol=1e-5)
 
 
 def _unbroken(setup):
@@ -357,7 +459,7 @@ def test_checkpoint_restores_onto_one_device(setup):
 
 
 def test_checkpoint_restores_onto_the_elastic_mesh(setup, elastic):
-    mesh, ranks = elastic
+    mesh, ranks, _ = elastic
     assert mesh == (2, 2)
     saved, (metrics2, params2, _) = _unbroken(setup)
     grads = setup["want"]["llama"]["steps"][1][2]
