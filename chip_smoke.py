@@ -237,13 +237,13 @@ Phases:
      layers, d 4096, d_inner 8192, state 16, dt_rank 256, vocab 65024;
      7,272,665,088 random bf16 parameters, 14.55 GB), after M with the
      MoE weights freed: 4 contiguous slots x max_seq 2048, chunk 32,
-     warmup() first, 8 greedy requests (4 of 32 prompt tokens, 4 of
-     16-64: their prefill is one host-bound decode step a token) x 16 new
+     warmup() first, 8 greedy requests (4 of 16 prompt tokens, 4 of
+     16-32: their prefill is one host-bound decode step a token) x 16 new
      tokens: every request retires with 16 tokens, no
      decode logit is NaN, the state is 36,700,160 B a slot, no kernel is
      launched, and a second engine repeats the tokens; prefill tok/s,
      decode step p50/p99, decode tok/s, peak memory, and generate on the
-     four 32-token prompts (its tok/s and token agreement with the
+     four 16-token prompts (its tok/s and token agreement with the
      engine) printed
   Z. hybrid serve: zamba2-1.2b at its published width (38 Mamba-2 layers
      in 6 groups of 6 and a tail of 2, d 2048, 64 heads of 64, state 64,
@@ -359,7 +359,10 @@ Phases:
      step of llama3.2-3b at full depth, 2 sequences at a cache of 8192
      split over 2 ranks, against the unsharded decode_step: fp32 logits
      and cache blocks within 1e-4, bf16 split-K no farther from the fp32
-     logits than the bf16 unsharded step (x 1.5, relative L2); X6 the
+     logits than the bf16 unsharded step (x 1.5, relative L2); X4m the
+     same for MLA's latent cache (mla_decode_splitk): minicpm3-4b at
+     published width cut to F's 8 of 62 layers, at X4's batch, cache and
+     index; X6 the
      sharded train state: llama3.2-3b at published width cut to 2 of 28
      layers (989,346,816 params) on a (data 2, model 1) mesh, each rank
      holding its half of params, m and v (the dry run's per-device
@@ -370,7 +373,12 @@ Phases:
      1e-3 of the 2-rank step 2's, its grad norm within rtol 1e-4, and
      its m, v and param update within X6_STATE_RTOL (relative L2, each
      leaf) of the mesh's step 2 read back from the second checkpoint;
-     the bytes handed to each collective beside the shapes' reckoning.  On 3
+     the bytes handed to each collective beside the shapes' reckoning,
+     and equal by op to the dry run's (run_cell on the mesh's shape,
+     traced on meta tensors); X7 holds its steps (the sequence-parallel
+     pair, the ragged one) and its first decode step against the dry
+     run the same way, and the params and cache a rank holds to decode
+     against the dry run's per-device figure, to the byte.  On 3
      ranks: X5 qwen2.5-14b's attention (40 q heads padded to 48, 16 a
      rank, 8 KV, hd 128) at 1 of 48 layers, fp32, one sequence of
      512: logits, loss and every
@@ -446,7 +454,8 @@ from repro_torch.models.common import (block_owner,  # noqa: E402
                                        init_params, rms_norm,
                                        shape_structs, shard_block,
                                        split_axes)
-from repro_torch.launch.dryrun import _resident_bytes, run_cell  # noqa: E402
+from repro_torch.launch.dryrun import (KINDS, held_bytes,  # noqa: E402
+                                       run_cell)
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.mesh import device_mesh  # noqa: E402
@@ -521,12 +530,14 @@ SSM_ARCH, HYBRID_ARCH, HYBRID_REDUCED_LAYERS = ("falcon-mamba-7b",
 SSM_SLOT_BYTES = {SSM_ARCH: 36_700_160, HYBRID_ARCH: 141_472_256}
 #: S and Z traffic: 8 greedy requests x 16 new tokens (32 until the smoke
 #: took 1246.4 s of phases on a slow host) on 4 slots, prompts
-#: of 16-64 tokens and a prefill chunk of 32 (so warmup() prefills 8 + 16
-#: + 32 tokens): these families prefill one decode step a token, ~54 ms
-#: at full width on an H100 80GB HBM3 at 700 W (host-bound), where
-#: 64-256-token prompts took 160 s a phase; the first four prompts share
-#: one length, so generate() can take them as a batch
-SSM_NEW, SSM_GENERATE_LEN, SSM_PROMPTS, SSM_CHUNK = 16, 32, (16, 64), 32
+#: of 16-32 tokens (16-64, and 32 for the first four, until it took
+#: 1025.1 s on another, S and Z 74.6 and 78.4 s) and a prefill chunk of 32
+#: (so warmup() prefills 8 + 16 + 32 tokens): these families prefill one
+#: decode step a token, ~54 ms at full width on an H100 80GB HBM3 at
+#: 700 W (host-bound), where 64-256-token prompts took 160 s a phase; the
+#: first four prompts share one length, so generate() can take them as a
+#: batch
+SSM_NEW, SSM_GENERATE_LEN, SSM_PROMPTS, SSM_CHUNK = 16, 16, (16, 32), 32
 
 #: the training path's attention shape: llama3.2-3b at batch 2 x seq 2048
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
@@ -4305,14 +4316,15 @@ X_TRANSPORT = ("gloo, tensors on the ranks' device, no host staging "
                "(gloo takes CUDA tensors for all_reduce sum/max, all_gather, "
                "reduce_scatter and all_to_all: python -m "
                "repro_torch.dist.gloo_probe)")
-X_WORLDS = ((2, ("X1", "X2", "X3", "X4", "X6", "X7")), (3, ("X5",)))
+X_WORLDS = ((2, ("X1", "X2", "X3", "X4", "X4m", "X6", "X7")), (3, ("X5",)))
 #: X3: llama3.2-3b cut to 1 of 28 layers: 0.89 B params, x 20 B (fp32
 #: params, m, v, grads, err) = ~18 GB a rank (at 4 layers X3 took 32.6 s,
 #: its oracle 20.4; at 2, 26.8-36.2 s, and the smoke with X7 took 1151.4 s
 #: of phases on a slow host)
 X_TRAIN_LAYERS = 1
 #: X4: one split-K decode step of 2 sequences at cache position X_INDEX of
-#: X_CACHE (model rank 1 owns it and writes the new row)
+#: X_CACHE (model rank 1 owns it and writes the new row); X4m the same for
+#: MLA's latent cache (minicpm3-4b at F's MLA_LAYERS of 62)
 X_CACHE, X_DECODE_BATCH, X_INDEX = 8192, 2, 6000
 #: X2: 2 x 1024 tokens; on 2 expert ranks each routes 1024
 X_MOE_TOKENS = (2, 1024)
@@ -4368,6 +4380,7 @@ def x_configs(reduced: bool = False) -> dict:
     return {"X1": cut("llama3.2-3b"), "X2": moe_cfg,
             "X3": cut("llama3.2-3b", n_layers=X_TRAIN_LAYERS),
             "X4": cut("llama3.2-3b"),
+            "X4m": cut(MLA_ARCH, n_layers=MLA_LAYERS),
             "X6": cut("llama3.2-3b", n_layers=X6_LAYERS),
             # reduced: an even vocab, which the ragged step splits
             "X7": (get_config("llama3.2-3b").reduced(dtype=torch.float32,
@@ -4551,13 +4564,15 @@ def x3_pod_compressed(cfg, dev, mesh):
 
 
 def x4_splitk_decode(cfg, dev, mesh):
-    """X4: one decode step of ``cfg`` with the cache split over the model
-    ranks along the sequence, against the unsharded ``decode_step`` on the
-    whole cache: in fp32 (TF32 off) the logits and each rank's cache block
-    within 1e-4; in bf16, as served, the split-K logits no farther
-    (relative L2) from the fp32 unsharded logits than the bf16 unsharded
-    step's are, times 1.5 (the two round the same sums differently:
-    one softmax in bf16 probabilities against fp32 partials)."""
+    """X4 (GQA) and X4m (MLA's latent cache): one decode step of ``cfg``
+    with the cache split over the model ranks along the sequence, against
+    the unsharded ``decode_step`` on the whole cache: in fp32 (TF32 off)
+    the logits and each rank's cache block within 1e-4; in bf16, as
+    served, the split-K logits no farther (relative L2) from the fp32
+    unsharded logits than the bf16 unsharded step's are, times 1.5 (the
+    two round the same sums differently: one softmax in bf16
+    probabilities against fp32 partials)."""
+    what = "X4m" if cfg.attn_kind == "mla" else "X4"
     tp, m = mesh.shape["model"], mesh.index("model")
     api = get_api(cfg)
     specs = api.decode_state_specs(cfg, X_DECODE_BATCH, X_CACHE)
@@ -4587,12 +4602,12 @@ def x4_splitk_decode(cfg, dev, mesh):
         logits[name] = (got.float(), ref.float())
         if dt == torch.float32:
             check(torch.allclose(got, ref, rtol=1e-4, atol=1e-4),
-                  f"X4 fp32 split-K logits != unsharded: "
+                  f"{what} fp32 split-K logits != unsharded: "
                   f"{out['max_abs_err_fp32']}")
             for k, v in blocks.items():
                 check(torch.allclose(v, state[k].chunk(tp, 2)[m],
                                      rtol=1e-4, atol=1e-4),
-                      f"X4 split-K cache block {k} != unsharded")
+                      f"{what} split-K cache block {k} != unsharded")
         del params, state, blocks
         gc.collect()
     exact = logits["fp32"][1]
@@ -4600,7 +4615,7 @@ def x4_splitk_decode(cfg, dev, mesh):
     out.update(bf16_rel_err_splitk=sk, bf16_rel_err_unsharded=one,
                launches=_kernel_counts())
     check(sk <= 1.5 * one,
-          f"X4 bf16 split-K rel err {sk} vs unsharded bf16's {one}")
+          f"{what} bf16 split-K rel err {sk} vs unsharded bf16's {one}")
     return out
 
 
@@ -4690,6 +4705,23 @@ def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in leaves(tree))
 
 
+def _dry_check(what: str, cfg, shape: ShapeConfig, mesh, *counted: dict
+               ) -> tuple:
+    """The dry run of ``shape`` on this mesh's shape (``run_cell``: the
+    first rank's step traced on meta tensors, every rank's the same)
+    against the bytes by op this rank's Transport counted in each step of
+    ``counted``: equal to the byte.  Returns the dry run's bytes by kind
+    and its resident bytes a device."""
+    rec = run_cell(cfg.arch_id, shape, mesh=dict(mesh.shape), cfg=cfg,
+                   verbose=False)
+    dry = {k: v["bytes"] for k, v in rec["collectives"].items()}
+    for i, step in enumerate(counted):
+        got = {KINDS[op]: n for op, n in step.items()}
+        check(got == dry, f"{what} (step {i + 1}): the Transport counted "
+              f"{got} B, the dry run {dry}")
+    return dry, rec["resident_bytes_per_device"]
+
+
 def x6_sharded_state(cfg, dev, mesh):
     """X6: the sharded train state on (data 2, model 1).  Each rank draws
     its blocks of the seeded state (a leaf whole at a time) and holds
@@ -4705,9 +4737,6 @@ def x6_sharded_state(cfg, dev, mesh):
     state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
                              mesh=mesh)
     nbytes = _tree_bytes(state)
-    dry = _resident_bytes(cfg, TRAIN_CELL, mesh.shape, None)
-    check(nbytes == int(dry), f"X6 state {nbytes} B a rank, the dry run's "
-          f"per-device figure {dry}")
     whole = 4 * sum(math.prod(sp.shape)
                     for sp in leaves(train_state_specs(cfg)["params"]))
     reckon = {"all_gather": _tree_bytes(state["params"])
@@ -4762,8 +4791,13 @@ def x6_sharded_state(cfg, dev, mesh):
     t0 = time.perf_counter()
     saver.close()                  # every rank's rows written, committed
     save.update(close_s=time.perf_counter() - t0, saves=saver.timings)
+    dry_coll, dry = _dry_check("X6", cfg, shape, mesh,
+                               *(row["bytes_by_op"] for row in steps))
+    check(nbytes == dry, f"X6 state {nbytes} B a rank, the dry run's "
+          f"per-device figure {dry}")
     return {"params": whole // 4, "state_bytes_a_rank": nbytes,
             "dryrun_bytes_a_device": dry, "reckoned_bytes": reckon,
+            "dryrun_collective_bytes": dry_coll,
             "steps": steps, "save": save, "ckpt_dir": ckpt_dir}
 
 
@@ -4973,6 +5007,11 @@ def _x7_train(cfg, dev, mesh, batches, reckon_fn) -> dict:
         _check_count(dev, counts == _expected_counts(cfg, 1),
                      f"X7 flash launches {counts}, want "
                      f"{_expected_counts(cfg, 1)}")
+    dry_coll, _ = _dry_check(
+        f"X7 S={seq}", cfg, ShapeConfig("train", seq_len=seq, global_batch=
+                                        batches[0]["tokens"].shape[0],
+                                        kind="train"), mesh,
+        *(row["bytes_by_op"] for row in rows))
     whole_logits = (batches[0]["tokens"].shape[0] * seq * cfg.vocab
                     * torch.empty((), dtype=cfg.dtype).element_size())
     check(logits_bytes == {whole_logits // mesh.shape["model"]},
@@ -4999,7 +5038,7 @@ def _x7_train(cfg, dev, mesh, batches, reckon_fn) -> dict:
               f"the one-device step's (relative L2), over {X6_STATE_RTOL}; "
               f"the worst leaves {gaps}")
     return {"state_bytes_a_rank": nbytes, "steps": rows,
-            "reckoned_bytes": reckon,
+            "reckoned_bytes": reckon, "dryrun_collective_bytes": dry_coll,
             "logits_bytes_a_rank": min(logits_bytes),
             "logits_bytes_whole": whole_logits,
             "one_device_steps": one["steps"], "state_gap_rel_l2": gaps}
@@ -5018,6 +5057,8 @@ def _x7_decode(cfg, dev, mesh) -> dict:
     prompt = torch.randint(0, cfg.vocab, (X_DECODE_BATCH, X7_PROMPT),
                            generator=gen, device=dev)
 
+    step_bytes = {}
+
     def run(params, state, mesh=None):
         out, t0 = [], time.perf_counter()
         with torch.no_grad():
@@ -5029,12 +5070,20 @@ def _x7_decode(cfg, dev, mesh) -> dict:
             _sync_if(dev)
             t1 = time.perf_counter()
             for i in range(X7_DECODE):
+                # the first step's bytes alone, for the dry run's
+                first = mesh is not None and i == 0
+                before = dict(mesh.transport.bytes) if first else {}
                 logits, state = api.decode_step(
                     params, state,
                     {"tokens": out[-1].argmax(-1)[:, None],
                      "index": torch.tensor(X7_PROMPT + i, device=dev)},
                     cfg, mesh)
                 out.append(logits)
+                if first:
+                    step_bytes.update(
+                        (op, n - before.get(op, 0))
+                        for op, n in mesh.transport.bytes.items()
+                        if n != before.get(op, 0))
             _sync_if(dev)
         return (torch.stack(out), {"prefill_s": t1 - t0,
                                    "decode_s": time.perf_counter() - t1})
@@ -5047,9 +5096,19 @@ def _x7_decode(cfg, dev, mesh) -> dict:
     blocks = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
                               mesh=mesh)["params"]
     mesh.transport.reset()
-    got, times = run(mesh_params(blocks, cfg, mesh), cache(tp), mesh)
-    out = {**times, "bytes_by_op": dict(mesh.transport.bytes)}
-    del blocks
+    params, state = mesh_params(blocks, cfg, mesh), cache(tp)
+    held = held_bytes((params, state))
+    got, times = run(params, state, mesh)
+    dry, dry_held = _dry_check(
+        "X7 decode step", cfg, ShapeConfig(
+            "decode", seq_len=X7_CACHE, global_batch=X_DECODE_BATCH,
+            kind="decode"), mesh, step_bytes)
+    check(held == dry_held, f"X7 decode: the rank holds {held} B of params "
+          f"and cache, the dry run's per-device figure {dry_held}")
+    out = {**times, "bytes_by_op": dict(mesh.transport.bytes),
+           "step_bytes_by_op": step_bytes, "dryrun_step_bytes": dry,
+           "held_bytes_a_rank": held}
+    del blocks, params, state
     gc.collect()
     if mesh.index("model") == 0:
         whole = init_train_state(cfg, torch.Generator(device=dev)
@@ -5103,6 +5162,7 @@ X_CHECKS = {"X1": (x1_tree_collectives, ("data",)),
             "X2": (x2_moe_ep, ("model",)),
             "X3": (x3_pod_compressed, ("pod",)),
             "X4": (x4_splitk_decode, ("model",)),
+            "X4m": (x4_splitk_decode, ("model",)),
             "X5": (x5_head_pad, ("model",)),
             "X6": (x6_sharded_state, ("data", "model")),
             "X7": (x7_seq_parallel, ("model", "data"))}

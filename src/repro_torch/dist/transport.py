@@ -46,8 +46,9 @@ from typing import Sequence, Union
 import torch
 import torch.distributed as dist
 
-__all__ = ["Transport", "copy_to", "reduce_from", "gather_from", "split_to",
-           "all_gather", "reduce_scatter", "all_to_all", "all_reduce"]
+__all__ = ["Transport", "MetaTransport", "copy_to", "reduce_from",
+           "gather_from", "split_to", "all_gather", "reduce_scatter",
+           "all_to_all", "all_reduce"]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -55,25 +56,49 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 class Transport:
     """Collectives on a process group, with the payload bytes this rank
     hands to each op counted in :attr:`bytes` (by op name) and the calls in
-    :attr:`calls`.  Every op returns a new tensor and leaves its input as
-    it was."""
+    :attr:`calls`, and both again by op and axis in :attr:`axis_bytes` and
+    :attr:`axis_calls` (keyed ``(op, axis)``).  Every op returns a new
+    tensor and leaves its input as it was.
+
+    The payload is the JAX package's operand convention
+    (``repro/roofline/analysis.py:_parse_collective_line``): an all-gather
+    counts its shard, a reduce-scatter its whole input, an all-reduce and
+    an all-to-all their input.  A group's axis is the name a
+    :class:`~repro_torch.launch.mesh.Mesh` gave it (:meth:`name_group`);
+    where two axes share one group (every other axis of one rank), the
+    first named with 2 or more ranks keeps it."""
 
     def __init__(self):
         self.bytes = collections.Counter()
         self.calls = collections.Counter()
+        self.axis_bytes = collections.Counter()
+        self.axis_calls = collections.Counter()
+        self._axes = {}
 
     def reset(self) -> None:
-        self.bytes.clear()
-        self.calls.clear()
+        for c in (self.bytes, self.calls, self.axis_bytes, self.axis_calls):
+            c.clear()
 
-    def _count(self, op: str, x: torch.Tensor) -> None:
-        self.bytes[op] += x.numel() * x.element_size()
+    def name_group(self, group, axis: str) -> None:
+        """Count the ops on ``group`` under ``axis`` (the first name
+        stays)."""
+        self._axes.setdefault(id(group), (group, axis))
+
+    def axis_of(self, group) -> str:
+        return self._axes.get(id(group), (None, "?"))[1]
+
+    def _count(self, op: str, x: torch.Tensor, group) -> None:
+        n = x.numel() * x.element_size()
+        axis = self.axis_of(group)
+        self.bytes[op] += n
         self.calls[op] += 1
+        self.axis_bytes[op, axis] += n
+        self.axis_calls[op, axis] += 1
 
     def all_reduce(self, x: torch.Tensor, group, op: str = "sum"
                    ) -> torch.Tensor:
         out = x.clone(memory_format=torch.contiguous_format)
-        self._count("all_reduce", out)
+        self._count("all_reduce", out, group)
         dist.all_reduce(out, op=_OPS[op], group=group)
         return out
 
@@ -83,7 +108,7 @@ class Transport:
         n = dist.get_world_size(group)
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((n * src.shape[0],) + src.shape[1:])
-        self._count("all_gather", src)
+        self._count("all_gather", src, group)
         dist.all_gather_into_tensor(out, src, group=group)
         return out.movedim(0, dim)
 
@@ -94,7 +119,7 @@ class Transport:
         n = dist.get_world_size(group)
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
-        self._count("reduce_scatter", src)
+        self._count("reduce_scatter", src, group)
         dist.reduce_scatter_tensor(out, src, group=group)
         return out.movedim(0, dim)
 
@@ -103,9 +128,58 @@ class Transport:
         of the result came from rank ``j``."""
         src = x.contiguous()
         out = torch.empty_like(src)
-        self._count("all_to_all", src)
+        self._count("all_to_all", src, group)
         dist.all_to_all_single(out, src, group=group)
         return out
+
+
+def split_len(length: int, n: int, op: str) -> int:
+    """``length`` over ``n`` ranks, the length an ``op`` leaves each rank;
+    raises ``ValueError`` where ``n`` does not divide it, as the live op
+    does."""
+    if length % n:
+        raise ValueError(f"{op}: a length of {length} does not split "
+                         f"over {n} ranks")
+    return length // n
+
+
+class MetaTransport(Transport):
+    """A :class:`Transport` that counts and moves nothing, for one rank's
+    program traced on meta tensors (:class:`~repro_torch.launch.mesh.
+    MeshView`): its groups are axis names, ``sizes`` gives each axis's
+    ranks, and every op counts what the live one would and returns an
+    empty tensor of the live result's shape and dtype, calling nothing in
+    ``torch.distributed``; a ``reduce_scatter`` or ``all_to_all`` of a
+    length the axis's ranks do not divide raises, as the live one does."""
+
+    def __init__(self, sizes):
+        super().__init__()
+        self.sizes = dict(sizes)
+
+    def axis_of(self, group) -> str:
+        return group
+
+    def all_reduce(self, x, group, op="sum"):
+        self._count("all_reduce", x, group)
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+    def all_gather(self, x, group, dim=0):
+        self._count("all_gather", x, group)
+        shape = list(x.shape)
+        shape[dim] *= self.sizes[group]
+        return x.new_empty(shape)
+
+    def reduce_scatter(self, x, group, dim=0):
+        shape = list(x.shape)
+        shape[dim] = split_len(shape[dim], self.sizes[group],
+                               "reduce_scatter")
+        self._count("reduce_scatter", x, group)
+        return x.new_empty(shape)
+
+    def all_to_all(self, x, group):
+        split_len(x.shape[0], self.sizes[group], "all_to_all")
+        self._count("all_to_all", x, group)
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 Axes = Union[str, Sequence[str]]

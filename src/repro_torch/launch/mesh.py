@@ -15,6 +15,12 @@ Counterpart of ``repro/launch/mesh.py`` (and of ``build_mesh`` /
   sees).  :func:`make_test_mesh` gives the JAX tests' 8-rank shapes,
   :func:`build_mesh` the train CLI's mesh over the whole world, and
   :func:`maybe_init_distributed` joins the group that ``torchrun`` set up.
+* A mesh view (:class:`MeshView`) is one rank of a mesh that has no
+  process group: the same surface as :class:`Mesh`, its groups the axis
+  names and its transport a
+  :class:`~repro_torch.dist.transport.MetaTransport`, so the mesh code
+  runs one rank's program on meta tensors and counts what its
+  collectives would move (the dry run's collective term).
 """
 from __future__ import annotations
 
@@ -26,10 +32,10 @@ import torch
 import torch.distributed as dist
 
 from repro_torch._device import resolve_device
-from repro_torch.dist.transport import Transport
+from repro_torch.dist.transport import MetaTransport, Transport
 
 __all__ = ["make_production_mesh", "card_mesh", "mesh_summary", "Mesh",
-           "device_mesh", "make_test_mesh", "build_mesh",
+           "MeshView", "device_mesh", "make_test_mesh", "build_mesh",
            "maybe_init_distributed"]
 
 
@@ -50,32 +56,19 @@ def card_mesh() -> Dict[str, int]:
     return {"data": 1, "model": 1}
 
 
-def mesh_summary(mesh: Union[Mapping[str, int], "Mesh"]) -> str:
-    shape = mesh.shape if isinstance(mesh, Mesh) else mesh
+def mesh_summary(mesh: Union[Mapping[str, int], "_Axes"]) -> str:
+    shape = mesh.shape if isinstance(mesh, _Axes) else mesh
     return "x".join(f"{k}={v}" for k, v in shape.items())
 
 
-class Mesh:
-    """This rank's view of a device mesh: ``shape`` (axis name -> size, in
-    order), its coordinate on each axis (:meth:`index`), an axis's process
-    group (:meth:`group`), the ``device`` its tensors live on and the
-    ``transport`` its collectives go through."""
+class _Axes:
+    """What :class:`Mesh` and :class:`MeshView` share: ``shape`` (axis
+    name -> size, in order) and this rank's coordinates on it."""
 
-    def __init__(self, dmesh, device: torch.device,
-                 transport: Optional[Transport] = None):
-        self.device_mesh = dmesh
-        self.device = device
-        self.transport = transport if transport is not None else Transport()
-        self.axis_names: Tuple[str, ...] = tuple(dmesh.mesh_dim_names)
-        self.shape: Dict[str, int] = dict(zip(self.axis_names,
-                                              dmesh.mesh.shape))
-
-    def group(self, axis: str):
-        return self.device_mesh.get_group(axis)
+    shape: Dict[str, int]
 
     def index(self, axis: str) -> int:
-        """This rank's coordinate on ``axis``."""
-        return self.device_mesh.get_local_rank(axis)
+        raise NotImplementedError
 
     def size(self, axes: Sequence[str]) -> int:
         return math.prod(self.shape[a] for a in axes)
@@ -89,7 +82,64 @@ class Mesh:
         return i
 
     def __repr__(self) -> str:
-        return f"Mesh({mesh_summary(self)}, {self.device})"
+        return f"{type(self).__name__}({mesh_summary(self)}, {self.device})"
+
+
+class Mesh(_Axes):
+    """This rank's view of a device mesh: ``shape`` (axis name -> size, in
+    order), its coordinate on each axis (:meth:`index`), an axis's process
+    group (:meth:`group`), the ``device`` its tensors live on and the
+    ``transport`` its collectives go through, which counts each axis's
+    ops under the axis's name."""
+
+    def __init__(self, dmesh, device: torch.device,
+                 transport: Optional[Transport] = None):
+        self.device_mesh = dmesh
+        self.device = device
+        self.transport = transport if transport is not None else Transport()
+        self.axis_names: Tuple[str, ...] = tuple(dmesh.mesh_dim_names)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names,
+                                              dmesh.mesh.shape))
+        # axes of 2 or more ranks first: a one-rank axis may share their
+        # group
+        for a in sorted(self.axis_names, key=lambda a: self.shape[a] == 1):
+            self.transport.name_group(self.group(a), a)
+
+    def group(self, axis: str):
+        return self.device_mesh.get_group(axis)
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate on ``axis``."""
+        return self.device_mesh.get_local_rank(axis)
+
+
+class MeshView(_Axes):
+    """One rank of a mesh of ``shape`` (axis name -> size, in order) at
+    ``coord`` (one coordinate an axis; default the first rank), with no
+    process group: :meth:`group` is the axis's name, and the ``transport``
+    (a :class:`~repro_torch.dist.transport.MetaTransport`) counts every
+    collective and moves nothing.  The mesh code runs on it as on a
+    :class:`Mesh`, on tensors of ``device`` (default ``meta``)."""
+
+    def __init__(self, shape: Mapping[str, int],
+                 coord: Optional[Sequence[int]] = None,
+                 device: Union[str, torch.device] = "meta"):
+        self.shape = {a: int(n) for a, n in shape.items()}
+        self.axis_names = tuple(self.shape)
+        coord = tuple(coord) if coord is not None else (0,) * len(self.shape)
+        if len(coord) != len(self.shape) or not all(
+                0 <= c < n for c, n in zip(coord, self.shape.values())):
+            raise ValueError(f"coordinate {coord} is not a rank of "
+                             f"{mesh_summary(self.shape)}")
+        self.coord = dict(zip(self.axis_names, coord))
+        self.device = torch.device(device)
+        self.transport = MetaTransport(self.shape)
+
+    def group(self, axis: str):
+        return axis
+
+    def index(self, axis: str) -> int:
+        return self.coord[axis]
 
 
 def device_mesh(shape: Sequence[int], axis_names: Sequence[str],

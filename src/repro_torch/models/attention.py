@@ -61,7 +61,8 @@ __all__ = ["gqa_param_specs", "gqa_train", "chunked_attention",
            "decode_positions", "batched_cache_write",
            "masked_cache_write", "masked_write_plan", "causal_valid",
            "ancestor_matrix", "tree_valid", "attend_mask", "NEG_INF",
-           "tp_head_pad", "gqa_decode_splitk", "splitk_ok"]
+           "tp_head_pad", "splitk_write", "gqa_decode_splitk",
+           "splitk_ok"]
 
 #: Mask value of the scores; finite, so a masked key enters the split-K sum
 #: as ``exp(NEG_INF - m) * v == 0 * v`` (pools must hold finite values).
@@ -716,6 +717,40 @@ def splitk_ok(cfg: ModelConfig, mesh, batch: int, smax: int) -> bool:
     return smax % tp == 0 and batch % _dp_size(mesh) == 0
 
 
+def splitk_write(pairs, cur_index: torch.Tensor, pos: torch.Tensor, mesh
+                 ) -> torch.Tensor:
+    """The split-K cache write, in place, and this rank's mask.  ``pairs``
+    are ``(cache, new)``: a cache block (B / dp, Smax / tp, ...) holding
+    positions ``[i * Smax / tp, (i + 1) * Smax / tp)`` on ``model`` rank
+    ``i``, and its C new rows (B / dp, C, ...) at positions ``pos`` =
+    ``cur_index + j``.  Only the rank that owns a row's position writes
+    it.  Returns ``valid`` (C, Smax / tp): which of the block's positions
+    each row attends to."""
+    c = pos.shape[0]
+    s_loc = pairs[0][0].shape[1]
+    lo = mesh.index("model") * s_loc
+    if c == 1:
+        # shard-local conditional write: only the owner updates its block
+        at_pos = cur_index - lo
+        write = (at_pos >= 0) & (at_pos < s_loc)
+        # int64 for index_copy_: the dry run's and JAX's index is int32
+        at = torch.clamp(at_pos, 0, s_loc - 1).reshape(1).long()
+        for cache, new in pairs:
+            old = cache.index_select(1, at)
+            cache.index_copy_(1, at, torch.where(write, new.to(cache.dtype),
+                                                 old))
+    else:
+        # a chunk's rows j at cur + j: this rank writes rows [j0, j1)
+        first = int(cur_index) - lo
+        j0, j1 = min(max(-first, 0), c), min(max(s_loc - first, 0), c)
+        if j1 > j0:
+            for cache, new in pairs:
+                cache[:, first + j0:first + j1] = new[:, j0:j1].to(
+                    cache.dtype)
+    return ((lo + torch.arange(s_loc, device=pos.device))[None, :]
+            <= pos[:, None])
+
+
 def gqa_decode_splitk(x: torch.Tensor, p: dict, cfg: ModelConfig,
                       cache_k: torch.Tensor, cache_v: torch.Tensor,
                       cur_index: torch.Tensor, mesh
@@ -737,32 +772,13 @@ def gqa_decode_splitk(x: torch.Tensor, p: dict, cfg: ModelConfig,
     — the paper's reconfigured multi-operand combine applied to
     attention.  Returns (out (B / dp, C, D), cache_k, cache_v)."""
     b, c = x.shape[:2]
-    s_loc = cache_k.shape[1]
     hkv, rep, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
-    lo = mesh.index("model") * s_loc
     q, k_new, v_new, pos = _decode_qkv_new(x, p, cfg, cur_index)
-    if c == 1:
-        # shard-local conditional write: only the owner updates its block
-        at_pos = cur_index - lo
-        write = (at_pos >= 0) & (at_pos < s_loc)
-        at = torch.clamp(at_pos, 0, s_loc - 1).reshape(1)
-        for cache, new in ((cache_k, k_new), (cache_v, v_new)):
-            old = cache.index_select(1, at)
-            cache.index_copy_(1, at, torch.where(write, new.to(cache.dtype),
-                                                 old))
-    else:
-        # a chunk's rows j at cur + j: this rank writes rows [j0, j1)
-        first = int(cur_index) - lo
-        j0, j1 = min(max(-first, 0), c), min(max(s_loc - first, 0), c)
-        if j1 > j0:
-            for cache, new in ((cache_k, k_new), (cache_v, v_new)):
-                cache[:, first + j0:first + j1] = new[:, j0:j1].to(
-                    cache.dtype)
+    valid = splitk_write(((cache_k, k_new), (cache_v, v_new)), cur_index,
+                         pos, mesh)
     qg = q.reshape(b, c, hkv, rep, hd)
     scores = torch.einsum("bqgrh,bsgh->bgrqs", qg, cache_k.to(q.dtype))
     scores = scores.float() / math.sqrt(hd)
-    valid = ((lo + torch.arange(s_loc, device=x.device))[None, :]
-             <= pos[:, None])                              # (C, Smax / tp)
     scores = torch.where(valid, scores, NEG_INF)
     t, group = mesh.transport, mesh.group("model")
     m = t.all_reduce(torch.amax(scores, dim=-1), group, op="max")

@@ -412,13 +412,15 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
     :func:`repro_torch.models.mla.mla_decode`.  Returns the final hidden
     states (B, C, D) and the state (the same dict).
 
-    On a device ``mesh`` with a ``model`` axis of 2 or more ranks, GQA
-    decode takes split-K under the JAX package's condition (dense GQA
-    slots, no ``nspec``, a 0-d index, :func:`~repro_torch.models.attention.
+    On a device ``mesh`` with a ``model`` axis of 2 or more ranks, decode
+    takes split-K under the JAX package's condition (dense slots, no
+    ``nspec``, a 0-d index, :func:`~repro_torch.models.attention.
     splitk_ok`): the state holds this rank's block, its batch rows over
     the data axes and its stretch of ``Smax`` over ``model``
-    (:func:`~repro_torch.models.attention.gqa_decode_splitk`).  Anything
-    else on such a mesh raises: its cache would have to be whole on every
+    (:func:`~repro_torch.models.attention.gqa_decode_splitk`, for MLA's
+    latent rows :func:`~repro_torch.models.mla.mla_decode_splitk`).
+    Anything else on such a mesh (a paged, quantized or speculative state,
+    a per-slot index) raises: its cache would have to be whole on every
     rank.  A mesh of data axes alone runs the rank's rows as above.  On a
     mesh the params may be laid out as the sharded train step holds them
     (:func:`repro_torch.train.state.mesh_params`): ``embed`` the rank's
@@ -441,7 +443,7 @@ def _decode_blocks(params: dict, state: Dict[str, torch.Tensor],
     x = vocab_parallel_embed(batch["tokens"], params["embed"], mesh,
                              cfg.vocab, cfg.use_tp_shardmap).to(cfg.dtype)
     b, c = batch["tokens"].shape
-    splitk = _splitk(cfg, mesh, mla_kind or quant or pages is not None
+    splitk = _splitk(cfg, mesh, quant or pages is not None
                      or nspec is not None or tree is not None, cur, b,
                      state[names[0]].shape[2])
     scatter = ()
@@ -495,8 +497,8 @@ def _splitk(cfg: ModelConfig, mesh, other_path: bool, cur: torch.Tensor,
             b: int, smax: int) -> bool:
     """Whether decode on ``mesh`` takes split-K, from this rank's ``b``
     rows and ``smax`` cache positions; raises where a ``model`` axis would
-    need a path that is not split-K (``other_path``: MLA, a quantized,
-    paged or speculative state, or a per-slot index)."""
+    need a path that is not split-K (``other_path``: a quantized, paged
+    or speculative state), or a per-slot index."""
     if mesh is None or mesh.shape.get("model", 1) <= 1:
         return False
     tp = mesh.shape["model"]
@@ -504,16 +506,19 @@ def _splitk(cfg: ModelConfig, mesh, other_path: bool, cur: torch.Tensor,
     if (other_path or cur.dim() != 0
             or not attention.splitk_ok(cfg, mesh, b * dp, smax * tp)):
         raise ValueError(
-            f"decode on a mesh with model={tp} runs split-K GQA only: a "
-            f"dense GQA state split over model, no nspec or tree, a 0-d "
-            f"index (got a {cur.dim()}-d index)")
+            f"decode on a mesh with model={tp} runs split-K only: a dense "
+            f"GQA or MLA state split over model, not paged or quantized, "
+            f"no nspec or tree, a 0-d index (got a {cur.dim()}-d index)")
     return True
 
 
 def _splitk_layer(h, p, cfg, ck, cv, cur, mesh, *_):
-    """:func:`~repro_torch.models.attention.gqa_decode_splitk` in the
+    """:func:`~repro_torch.models.attention.gqa_decode_splitk` or, for
+    MLA, :func:`~repro_torch.models.mla.mla_decode_splitk`, in the
     argument order of the other decode paths."""
-    return attention.gqa_decode_splitk(h, p, cfg, ck, cv, cur, mesh)
+    fn = (mla.mla_decode_splitk if cfg.attn_kind == "mla"
+          else attention.gqa_decode_splitk)
+    return fn(h, p, cfg, ck, cv, cur, mesh)
 
 
 def decode_step(params: dict, state: Dict[str, torch.Tensor],

@@ -3,7 +3,9 @@
 The counterpart of ``repro/models/mla.py``.  Training expands K and V from
 the latent and attends chunked over queries (:func:`mla_train`).  Decode
 uses the *absorbed* formulation (:func:`mla_decode_pages` over page pools,
-:func:`mla_decode` over a contiguous engine's dense slot rows): the caches
+:func:`mla_decode` over a contiguous engine's dense slot rows,
+:func:`mla_decode_splitk` over a rank's stretch of them on a ``model``
+axis): the caches
 hold only the latent ``c_kv`` rows and the one shared rope key, ``wk_b`` is
 folded into the queries and ``wv_b`` into the output, so a decode step
 reads ``S * (kv_lora_rank + qk_rope_dim)`` values a slot instead of ``S *
@@ -31,7 +33,8 @@ from repro_torch.models.attention import NEG_INF, Pool
 from repro_torch.models.common import (ParamSpec, apply_rope, rms_norm,
                                        rope_angles)
 
-__all__ = ["mla_param_specs", "mla_train", "mla_decode", "mla_decode_pages"]
+__all__ = ["mla_param_specs", "mla_train", "mla_decode", "mla_decode_pages",
+           "mla_decode_splitk"]
 
 
 def mla_param_specs(cfg: ModelConfig) -> dict:
@@ -125,6 +128,37 @@ def mla_train(x: torch.Tensor, p: dict, cfg: ModelConfig,
     return out @ p["wo"].to(x.dtype)
 
 
+def _latent_scores(p: dict, cfg: ModelConfig, q_nope: torch.Tensor,
+                   q_rope: torch.Tensor, ckv: torch.Tensor,
+                   kr_view: torch.Tensor, valid: torch.Tensor
+                   ) -> torch.Tensor:
+    """The absorbed fp32 scores (B, H, C, Smax) of q_nope/q_rope (B, C, H,
+    dn/dr) against ckv (B, Smax, rkv) in their dtype and kr_view (B,
+    Smax, dr), divided by ``sqrt(dn + dr)``, ``-inf`` where not
+    ``valid``."""
+    dt = q_nope.dtype
+    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    wk_b = p["wk_b"].to(dt).reshape(cfg.kv_lora_rank, h, dn)
+    q_lat = torch.einsum("bchd,rhd->bchr", q_nope, wk_b)      # (B,C,H,rkv)
+    scores = (torch.einsum("bchr,bsr->bhcs", q_lat, ckv)
+              + torch.einsum("bchd,bsd->bhcs", q_rope, kr_view.to(dt)))
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by
+    # its reciprocal, an ulp off the CPU's (and XLA's) division
+    root = scores.new_full((1,), math.sqrt(float(dn + dr)),
+                           dtype=torch.float32)
+    return torch.where(valid, scores.float() / root, NEG_INF)
+
+
+def _latent_out(p: dict, cfg: ModelConfig, ctx_lat: torch.Tensor
+                ) -> torch.Tensor:
+    """ctx_lat (B, C, H, rkv) through ``wv_b``: (B, C, H * dv)."""
+    b, c, h = ctx_lat.shape[:3]
+    wv_b = p["wv_b"].to(ctx_lat.dtype).reshape(cfg.kv_lora_rank, h,
+                                              cfg.v_head_dim)
+    ctx = torch.einsum("bchr,rhd->bchd", ctx_lat, wv_b)
+    return ctx.reshape(b, c, h * cfg.v_head_dim)
+
+
 def _absorbed_attend(p: dict, cfg: ModelConfig, q_nope: torch.Tensor,
                      q_rope: torch.Tensor, ckv_view: torch.Tensor,
                      kr_view: torch.Tensor, valid: torch.Tensor
@@ -135,25 +169,11 @@ def _absorbed_attend(p: dict, cfg: ModelConfig, q_nope: torch.Tensor,
     latent space; the fp32 scores are divided by ``sqrt(dn + dr)``.
     Returns (B, C, H * dv)."""
     dt = q_nope.dtype
-    b, c = q_nope.shape[0], q_nope.shape[1]
-    h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
-                     cfg.v_head_dim)
-    rkv = cfg.kv_lora_rank
-    wk_b = p["wk_b"].to(dt).reshape(rkv, h, dn)
-    q_lat = torch.einsum("bchd,rhd->bchr", q_nope, wk_b)      # (B,C,H,rkv)
     ckv = ckv_view.to(dt)
-    scores = (torch.einsum("bchr,bsr->bhcs", q_lat, ckv)
-              + torch.einsum("bchd,bsd->bhcs", q_rope, kr_view.to(dt)))
-    # a tensor divisor: CUDA divides by a Python scalar as a multiply by
-    # its reciprocal, an ulp off the CPU's (and XLA's) division
-    root = scores.new_full((1,), math.sqrt(float(dn + dr)),
-                           dtype=torch.float32)
-    scores = torch.where(valid, scores.float() / root, NEG_INF)
+    scores = _latent_scores(p, cfg, q_nope, q_rope, ckv, kr_view, valid)
     probs = torch.softmax(scores, dim=-1).to(dt)
     ctx_lat = torch.einsum("bhcs,bsr->bchr", probs, ckv)       # (B,C,H,rkv)
-    wv_b = p["wv_b"].to(dt).reshape(rkv, h, dv)
-    ctx = torch.einsum("bchr,rhd->bchd", ctx_lat, wv_b)
-    return ctx.reshape(b, c, h * dv)
+    return _latent_out(p, cfg, ctx_lat)
 
 
 def _decode_latent_cache(x: torch.Tensor, p: dict, cfg: ModelConfig,
@@ -254,3 +274,44 @@ def mla_decode_pages(x: torch.Tensor, p: dict, cfg: ModelConfig,
     attention._scatter_rows(pool_ckv, c_new, scatter)
     attention._scatter_rows(pool_kr, kr_new, scatter)
     return out @ p["wo"].to(out.dtype), pool_ckv, pool_kr
+
+
+def mla_decode_splitk(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                      cache_ckv: torch.Tensor, cache_kr: torch.Tensor,
+                      cur_index: torch.Tensor, mesh
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Split-K absorbed decode of C new tokens a sequence on one rank of
+    ``mesh``, the latent-space twin of
+    :func:`repro_torch.models.attention.gqa_decode_splitk`; the latent
+    cache never moves (the JAX package shards it ``(batch, kv_seq)`` with
+    ``kv_seq`` over ``model`` and lets the partitioner split the softmax).
+
+    ``x`` (B / dp, C, D) are this rank's batch rows: one token a sequence
+    for a decode step, or a prefill chunk at positions ``cur_index + j``;
+    ``cache_ckv`` (B / dp, Smax / tp, rkv) and ``cache_kr`` (B / dp, Smax /
+    tp, dr) its block of the latent caches, positions ``[i * Smax / tp,
+    (i + 1) * Smax / tp)`` on ``model`` rank ``i``; ``cur_index`` a 0-d
+    position shared by every sequence.  The rank that owns a row's
+    position writes its new latent rows, in place (a chunk may straddle
+    stretches); every rank scores the absorbed queries against its
+    stretch; one ``max`` all-reduce of the row maxima, then the partial
+    sum-exp ``l`` and latent context summed over ``model`` through the
+    ``Transport``, then ``wv_b`` and ``wo``.  No ``moa_reduce``, as on one
+    device.  Returns (out (B / dp, C, D), cache_ckv, cache_kr)."""
+    dt = x.dtype
+    pos = attention.decode_positions(cur_index, x.shape[1])
+    q_nope, q_rope = _queries(x, p, cfg, pos)
+    c_new, kr_new = _latent_kv(x, p, cfg, pos)
+    valid = attention.splitk_write(((cache_ckv, c_new), (cache_kr, kr_new)),
+                                   cur_index, pos, mesh)
+    ckv = cache_ckv.to(dt)
+    scores = _latent_scores(p, cfg, q_nope, q_rope, ckv, cache_kr, valid)
+    t, group = mesh.transport, mesh.group("model")
+    m = t.all_reduce(torch.amax(scores, dim=-1), group, op="max")
+    p_ = torch.exp(scores - m[..., None])                    # (B, H, C, S)
+    l = t.all_reduce(p_.sum(-1), group)                      # (B, H, C)
+    ctx_lat = torch.einsum("bhcs,bsr->bchr", p_.to(dt), ckv)
+    ctx_lat = t.all_reduce(ctx_lat.float(), group)           # (B, C, H, rkv)
+    ctx_lat = (ctx_lat / l.transpose(1, 2)[..., None]).to(dt)
+    out = _latent_out(p, cfg, ctx_lat)
+    return out @ p["wo"].to(dt), cache_ckv, cache_kr

@@ -9,12 +9,13 @@ The counterpart of ``repro/roofline/analysis.py``.  Three terms per
 
 FLOPs and bytes come from :func:`count_cost`, which runs the step once on
 meta tensors (the JAX package reads them from XLA's ``cost_analysis()``).
-The collective term needs the bytes a step moves between devices, which
-the JAX package reads from a partitioned program; the port's mesh has no
-partitioner, and counting them off the card waits for a counting
-transport (``ROADMAP.md`` step 6c): the dry run passes ``None`` for it off
-the card, and 0 on one card, which moves nothing.  XLA's HLO
-text parsers (``collective_breakdown``, ``collective_bytes``,
+The collective bytes a device moves come from one rank's step traced on
+meta tensors by the port's own mesh code, each collective counted by a
+:class:`~repro_torch.dist.transport.MetaTransport`
+(:func:`repro_torch.launch.dryrun.count_collectives`), where the JAX
+package reads them from the partitioned HLO; 0 on one card, which moves
+nothing, and ``None`` where a cell's mesh path raises.  XLA's HLO text
+parsers (``collective_breakdown``, ``collective_bytes``,
 ``count_hlo_ops``) have no counterpart: there is no HLO text.
 
 Hardware model: one NVIDIA H100 SXM5 (NVIDIA's H100 Tensor Core GPU data

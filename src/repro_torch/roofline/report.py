@@ -5,9 +5,10 @@
 The counterpart of ``repro/roofline/report.py``, with the port's wording:
 a cell is traced on meta tensors (its trace seconds stand where the JAX
 tables print compile seconds), counted bytes are per aten op, and the
-card's HBM is an H100's.  A record with no collective term (``None``, a
-production mesh until ``ROADMAP.md`` step 6c) and no temp size prints
-``n/a`` there.
+card's HBM is an H100's.  The collective columns are the counts and
+bytes of one rank's step on the mesh (``launch/dryrun.py``
+``count_collectives``); a record with no collective term (``None``: its
+mesh path raises) and no temp size prints ``n/a`` there.
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ from typing import Dict, List
 
 from repro_torch.roofline.analysis import H100, fmt_seconds
 
-__all__ = ["load_records", "dryrun_table", "roofline_table", "summarize",
-           "main"]
+__all__ = ["load_records", "dryrun_table", "roofline_table",
+           "collective_table", "summarize", "main"]
 
 
 def load_records(out_dir: str) -> List[Dict]:
@@ -92,6 +93,35 @@ def _bottleneck_note(r: Dict) -> str:
     return "tensor-core-bound"
 
 
+#: the kinds the port's mesh code issues, in the table's order
+_KINDS = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all")
+
+
+def collective_table(recs: List[Dict]) -> str:
+    """The records of 2 or more chips: per device, the GB handed to each
+    kind of collective in one rank's step, their sum, the collective
+    term (the sum over the ``H100`` entry's 50 GB/s a link) and the
+    dominant term; ``n/a`` where the cell's mesh path raises."""
+    lines = [
+        "| arch | shape | mesh | " + " | ".join(f"{k} GB" for k in _KINDS)
+        + " | coll GB/dev | collective | dominant |",
+        "|---|---|---|" + "---|" * (len(_KINDS) + 3),
+    ]
+    for r in recs:
+        if r["chips"] < 2:
+            continue
+        c = r["collectives"]
+        kinds = " | ".join(
+            "n/a" if c is None else _gb(c.get(k, {}).get("bytes", 0))
+            for k in _KINDS)
+        ro = r["roofline"]
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | {kinds} "
+            f"| {_gb(r['collective_bytes_per_device'])} "
+            f"| {fmt_seconds(ro['collective_s'])} | {ro['dominant']} |")
+    return "\n".join(lines)
+
+
 def summarize(recs: List[Dict]) -> str:
     n_card = sum(r["chips"] == 1 for r in recs)
     n_single = sum(not r["multi_pod"] and r["chips"] > 1 for r in recs)
@@ -109,6 +139,9 @@ def main(argv=None) -> int:
     print("## Dry-run summary\n")
     print(summarize(recs) + "\n")
     print(dryrun_table(recs))
+    if any(r["chips"] > 1 for r in recs):
+        print("\n## Collectives (per device, one rank's step)\n")
+        print(collective_table(recs))
     for title, keep in (("one card", lambda r: r["chips"] == 1),
                         ("single-pod 16x16",
                          lambda r: r["chips"] > 1 and not r["multi_pod"])):

@@ -1,4 +1,5 @@
-"""Rank programs of the port's mesh tests, and the runner that starts them.
+"""Rank programs of the port's mesh tests, the runner that starts them, and
+a mesh whose ranks are threads.
 
 :func:`run_ranks` starts ``world`` processes (``spawn``), joins them into
 one gloo group through a ``file://`` rendezvous under the test's
@@ -10,6 +11,12 @@ file.  The join has a deadline of its own: a hung rendezvous or
 collective fails the tests of that file, not the suite.  This module
 imports no JAX: the ranks run the port alone, and the test files hold
 their results against the JAX package in the parent process.
+
+:func:`run_threads` runs a function on every rank of a mesh whose ranks
+are threads of the test's process (:class:`ThreadMesh`, a
+:class:`~repro_torch.launch.mesh.MeshView` whose collectives meet in an
+in-memory :class:`Exchange`): no spawn, no process group, and the byte
+counts, by op and by axis, those of the live ``Transport``.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import dataclasses
 import datetime
 import os
 import pickle
+import threading
 import time
 import traceback
 from typing import Callable, Dict, List
@@ -26,10 +34,128 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.dist.transport import Transport, split_len
+from repro_torch.launch.mesh import MeshView
+
 #: seconds a spawn may take from start to the last rank's exit
 JOIN_TIMEOUT = 240
 #: seconds one collective may wait for its peers before it raises
 COLLECTIVE_TIMEOUT = 60
+
+
+class Exchange:
+    """Where the threads of one fake mesh meet: each collective writes the
+    rank's tensor into its group's slots, waits for the group, reads every
+    slot and waits again before a slot may be written anew.  One thread
+    computes at a time: a rank holds the ``baton`` from its start and lets
+    it go only while it waits in a collective, so the ranks never contend
+    for the interpreter (on a busy host, threads that do contend for it
+    wait a switch interval at every op)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.baton = threading.Lock()
+        self.groups = {}
+
+    def swap(self, key, n: int, i: int, x: torch.Tensor):
+        with self.lock:
+            g = self.groups.setdefault(key, ([None] * n,
+                                             threading.Barrier(n)))
+        slots, bar = g
+        slots[i] = x.detach().clone()
+        self.baton.release()
+        try:
+            bar.wait()
+            out = list(slots)
+            bar.wait()
+        finally:
+            self.baton.acquire()
+        return out
+
+
+class ThreadTransport(Transport):
+    """A :class:`Transport` whose collectives go through an
+    :class:`Exchange`; the byte counts are the real class's, each under
+    the axis its group names, and a length the axis's ranks do not divide
+    raises, as the live ops do."""
+
+    def __init__(self, mesh):
+        super().__init__()
+        self.mesh = mesh
+
+    def axis_of(self, group) -> str:
+        return group[0]
+
+    def _swap(self, x, group):
+        axis, key = group
+        return self.mesh.exchange.swap(key, self.mesh.shape[axis],
+                                       self.mesh.index(axis), x)
+
+    def all_reduce(self, x, group, op="sum"):
+        self._count("all_reduce", x, group)
+        parts = self._swap(x, group)
+        out = parts[0].clone()
+        for p in parts[1:]:
+            out = torch.maximum(out, p) if op == "max" else out + p
+        return out
+
+    def all_gather(self, x, group, dim=0):
+        self._count("all_gather", x, group)
+        return torch.cat(self._swap(x, group), dim=dim)
+
+    def reduce_scatter(self, x, group, dim=0):
+        axis, _ = group
+        n, i = self.mesh.shape[axis], self.mesh.index(axis)
+        b = split_len(x.shape[dim], n, "reduce_scatter")
+        self._count("reduce_scatter", x, group)
+        total = sum(self._swap(x, group))
+        return total.narrow(dim, i * b, b).clone()
+
+    def all_to_all(self, x, group):
+        axis, _ = group
+        n, i = self.mesh.shape[axis], self.mesh.index(axis)
+        b = split_len(x.shape[0], n, "all_to_all")
+        self._count("all_to_all", x, group)
+        return torch.cat([p[i * b:(i + 1) * b] for p in self._swap(x, group)])
+
+
+class ThreadMesh(MeshView):
+    """One rank's view of a mesh whose ranks are threads: a group is
+    ``(axis, key)``, the key naming the ranks that share this rank's
+    coordinates on the other axes."""
+
+    def __init__(self, shape, coord, exchange):
+        super().__init__(shape, coord, "cpu")
+        self.exchange = exchange
+        self.transport = ThreadTransport(self)
+
+    def group(self, axis):
+        rest = tuple((a, c) for a, c in self.coord.items() if a != axis)
+        return axis, (axis, rest)
+
+
+def run_threads(shape, fn):
+    """``fn(mesh)`` on every rank of ``shape`` (a dict), each in a thread;
+    returns the ranks' results in row-major order."""
+    ex = Exchange()
+    coords = list(np.ndindex(*shape.values()))
+    out, errs = [None] * len(coords), []
+
+    def run(i, coord):
+        with ex.baton:
+            try:
+                out[i] = fn(ThreadMesh(shape, coord, ex))
+            except BaseException as e:        # surfaced below
+                errs.append(e)
+    threads = [threading.Thread(target=run, args=(i, c))
+               for i, c in enumerate(coords)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    if errs:
+        raise errs[0]
+    return out
 
 
 def run_ranks(world: int, program: str, payload, tmp_path,

@@ -243,7 +243,7 @@ def test_splitk_decode_equals_the_unsharded_step(setup, case):
 def test_mesh_refusals(setup):
     for compress, vector in _ok(setup["ranks"], "refusals"):
         assert "needs a mesh with a 'pod' axis" in compress
-        assert "runs split-K GQA only" in vector
+        assert "runs split-K only" in vector
 
 
 def test_head_padded_forward_and_gradients(setup):

@@ -6,10 +6,10 @@
   sizes and ``model`` sizes, on (data, model) and (pod, data, model)
   meshes; the stream's sequence splits exactly where the logits' does.
 * ``vocab_parallel_cross_entropy`` on 2 and 3 ranks (threads of one
-  process joined by an in-memory transport, ``_ThreadMesh``), each holding
-  its columns of the logits: the loss equals ``cross_entropy_loss`` of the
-  whole logits, with and without a loss mask, and each rank's gradient is
-  its columns of the whole gradient.
+  process joined by an in-memory transport, ``_torch_dist.ThreadMesh``),
+  each holding its columns of the logits: the loss equals
+  ``cross_entropy_loss`` of the whole logits, with and without a loss
+  mask, and each rank's gradient is its columns of the whole gradient.
 * Under expert parallelism an MoE layer's expert leaves reach the layer
   as the rank's experts: a ``ShardedLayer`` with the train step's ``keep``
   hands ``all_gather`` the blocks' bytes once (over ``data``) where the
@@ -22,8 +22,6 @@
   makes those functions return that fault on every call; the tables stay
   within an ulp of float64's.
 """
-import threading
-
 import numpy as np
 import pytest
 import torch
@@ -32,7 +30,6 @@ from jax.sharding import AbstractMesh
 from repro.configs.registry import get_config as jget
 from repro.models.common import logical_to_pspec as jpspec
 from repro_torch.configs.registry import get_config as tget
-from repro_torch.dist.transport import Transport
 from repro_torch.models import moe
 from repro_torch.models.common import (LOGIT_AXES, ShardedLayer,
                                        cross_entropy_loss, init_params,
@@ -41,110 +38,7 @@ from repro_torch.models.common import (LOGIT_AXES, ShardedLayer,
                                        vocab_parallel_cross_entropy)
 from repro_torch.train.state import _ep_keep
 
-
-class _Exchange:
-    """Where the threads of one fake mesh meet: each collective writes the
-    rank's tensor into its group's slots, waits for the group, reads every
-    slot and waits again before a slot may be written anew."""
-
-    def __init__(self):
-        self.lock = threading.Lock()
-        self.groups = {}
-
-    def swap(self, key, n: int, i: int, x: torch.Tensor):
-        with self.lock:
-            g = self.groups.setdefault(key, ([None] * n,
-                                             threading.Barrier(n)))
-        slots, bar = g
-        slots[i] = x.detach().clone()
-        bar.wait()
-        out = list(slots)
-        bar.wait()
-        return out
-
-
-class _ThreadTransport(Transport):
-    """A :class:`Transport` whose collectives go through an
-    :class:`_Exchange`; the byte counts are the real class's."""
-
-    def __init__(self, mesh):
-        super().__init__()
-        self.mesh = mesh
-
-    def _swap(self, x, group):
-        axis, key = group
-        return self.mesh.exchange.swap(key, self.mesh.shape[axis],
-                                       self.mesh.index(axis), x)
-
-    def all_reduce(self, x, group, op="sum"):
-        self._count("all_reduce", x)
-        parts = self._swap(x, group)
-        out = parts[0].clone()
-        for p in parts[1:]:
-            out = torch.maximum(out, p) if op == "max" else out + p
-        return out
-
-    def all_gather(self, x, group, dim=0):
-        self._count("all_gather", x)
-        return torch.cat(self._swap(x, group), dim=dim)
-
-    def reduce_scatter(self, x, group, dim=0):
-        self._count("reduce_scatter", x)
-        axis, _ = group
-        total = sum(self._swap(x, group))
-        return total.chunk(self.mesh.shape[axis], dim)[
-            self.mesh.index(axis)].clone()
-
-
-class _ThreadMesh:
-    """One rank's view of a mesh whose ranks are threads."""
-
-    def __init__(self, shape, coord, exchange):
-        self.shape = dict(shape)
-        self.axis_names = tuple(self.shape)
-        self.coord = dict(zip(self.axis_names, coord))
-        self.exchange = exchange
-        self.device = torch.device("cpu")
-        self.transport = _ThreadTransport(self)
-
-    def index(self, axis):
-        return self.coord[axis]
-
-    def size(self, axes):
-        return int(np.prod([self.shape[a] for a in axes]))
-
-    def flat_index(self, axes):
-        i = 0
-        for a in axes:
-            i = i * self.shape[a] + self.coord[a]
-        return i
-
-    def group(self, axis):
-        rest = tuple((a, c) for a, c in self.coord.items() if a != axis)
-        return axis, (axis, rest)
-
-
-def _run_threads(shape, fn):
-    """``fn(mesh)`` on every rank of ``shape`` (a dict), each in a thread;
-    returns the ranks' results in row-major order."""
-    ex = _Exchange()
-    coords = list(np.ndindex(*shape.values()))
-    out, errs = [None] * len(coords), []
-
-    def run(i, coord):
-        try:
-            out[i] = fn(_ThreadMesh(shape, coord, ex))
-        except BaseException as e:        # surfaced below
-            errs.append(e)
-    threads = [threading.Thread(target=run, args=(i, c))
-               for i, c in enumerate(coords)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(60)
-    if errs:
-        raise errs[0]
-    return out
+from _torch_dist import run_threads as _run_threads
 
 
 @pytest.mark.parametrize("names", [("data", "model"),
